@@ -1,0 +1,78 @@
+"""A minimal pytree for payloads, flattening in the JAX package's order.
+
+``jax.tree.flatten`` visits dict keys in sorted order; PyTorch's own pytree
+keeps insertion order.  The codec's packed stream and its per-leaf metas
+follow the leaf order, so the port flattens exactly as JAX does: dicts by
+sorted key, lists and tuples in order, ``None`` as an empty subtree, and
+anything else as a leaf.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator, List, Tuple
+
+
+@dataclass(frozen=True)
+class TreeDef:
+    kind: str                           # "leaf" | "none" | "dict" | "list" | "tuple"
+    keys: Tuple[Any, ...] = ()
+    children: Tuple["TreeDef", ...] = ()
+
+    @property
+    def num_leaves(self) -> int:
+        if self.kind == "leaf":
+            return 1
+        return sum(c.num_leaves for c in self.children)
+
+    def unflatten(self, leaves) -> Any:
+        """Rebuild the tree from ``leaves`` (the method name JAX's
+        ``PyTreeDef`` uses, so decoders can take either)."""
+        leaves = list(leaves)
+        if len(leaves) != self.num_leaves:
+            raise ValueError(f"treedef has {self.num_leaves} leaves, "
+                             f"got {len(leaves)}")
+        return self._build(iter(leaves))
+
+    def _build(self, it: Iterator[Any]) -> Any:
+        if self.kind == "leaf":
+            return next(it)
+        if self.kind == "none":
+            return None
+        built = [c._build(it) for c in self.children]
+        if self.kind == "dict":
+            return dict(zip(self.keys, built))
+        return built if self.kind == "list" else tuple(built)
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
+    leaves: List[Any] = []
+
+    def visit(node) -> TreeDef:
+        if node is None:
+            return TreeDef("none")
+        if isinstance(node, dict):
+            keys = tuple(sorted(node))
+            return TreeDef("dict", keys, tuple(visit(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            kind = "list" if isinstance(node, list) else "tuple"
+            return TreeDef(kind, (), tuple(visit(c) for c in node))
+        leaves.append(node)
+        return TreeDef("leaf")
+
+    treedef = visit(tree)
+    return leaves, treedef
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over trees of the same structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r) for r in rest]
+    for _, td in others:
+        if td != treedef:
+            raise ValueError("tree_map over trees of different structure")
+    return treedef.unflatten(
+        [fn(*xs) for xs in zip(leaves, *(o[0] for o in others))])

@@ -1,0 +1,169 @@
+"""The port's kernel modules against the JAX package's TPU kernels.
+
+On the CPU the port's ops run the plain PyTorch versions of its CUDA kernels;
+here they are held against the Pallas kernels run in interpret mode and
+against the JAX package's oracles (``repro.kernels.ref``), on the same numpy
+inputs.  Window attention is float work: both sides are fp32 and sum in
+different orders, so it is held at 2e-5 (the tolerance the JAX package's own
+kernel-vs-oracle tests use).  The codec pair is integer-exact and is held
+bitwise: stream bytes and scale bits.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import codec as jcodec
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.kernels import window_attention as jwa
+from repro.models.swin import pad_region_mask, shift_attn_mask
+from repro_torch.kernels import codec as tcodec
+from repro_torch.kernels import ops
+
+ATOL = RTOL = 2e-5
+
+# the oracle jitted once per geometry: eager dispatch op by op is slower
+# than the interpret-mode kernel
+_oracle = jax.jit(ref.fused_window_attention_ref,
+                  static_argnames=("window", "shift", "n_heads"))
+
+# the shapes of tests/test_kernels.py::FUSED_CASES
+FUSED_CASES = [
+    # B, Hp, Wp, window, shift, nh, hd
+    (1, 14, 14, 7, 0, 3, 16),    # two bands, no shift
+    (2, 14, 14, 7, 3, 3, 16),    # shifted: windows wrap across the map edge
+    (1, 14, 21, 7, 3, 2, 32),    # non-square, w2 = 49
+    (1, 7, 14, 7, 3, 2, 16),     # nwh = 1: the rolled band wraps onto itself
+    (2, 8, 12, 4, 2, 2, 16),     # small window
+    (1, 16, 16, 8, 4, 2, 16),    # w2 = 64
+    (1, 18, 18, 9, 4, 2, 16),    # w2 = 81
+]
+
+
+def _case(B, Hp, Wp, window, shift, nh, hd, seed=10):
+    rng = np.random.default_rng(seed)
+    C = nh * hd
+    w2 = window * window
+    qkv = rng.normal(size=(B, Hp, Wp, 3 * C)).astype(np.float32)
+    bias = rng.normal(size=(nh, w2, w2)).astype(np.float32)
+    mask = shift_attn_mask(Hp, Wp, window, shift) if shift else None
+    return qkv, bias, mask
+
+
+def _jax_kernel(qkv, bias, mask, *, window, shift, nh):
+    Hp, Wp = qkv.shape[1:3]
+    bias_p, mask_p = jops._pad_fused_inputs(
+        jnp.asarray(bias), None if mask is None else jnp.asarray(mask),
+        window=window, nwh=Hp // window, nww=Wp // window)
+    return np.asarray(jwa.fused_window_attention_pallas(
+        jnp.asarray(qkv), bias_p, mask_p, window=window, shift=shift,
+        n_heads=nh, interpret=True))
+
+
+def _port(qkv, bias, mask, *, window, shift, nh):
+    out = ops.fused_window_attention(
+        torch.from_numpy(qkv), torch.from_numpy(bias),
+        None if mask is None else torch.from_numpy(mask),
+        window=window, shift=shift, n_heads=nh)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("B,Hp,Wp,window,shift,nh,hd", FUSED_CASES)
+def test_window_attention_plain_matches_pallas_kernel(B, Hp, Wp, window,
+                                                      shift, nh, hd):
+    qkv, bias, mask = _case(B, Hp, Wp, window, shift, nh, hd)
+    out = _port(qkv, bias, mask, window=window, shift=shift, nh=nh)
+    assert out.shape == (B, Hp, Wp, nh * hd)
+    kern = _jax_kernel(qkv, bias, mask, window=window, shift=shift, nh=nh)
+    np.testing.assert_allclose(out, kern, rtol=RTOL, atol=ATOL)
+    oracle = np.asarray(_oracle(
+        jnp.asarray(qkv), jnp.asarray(bias),
+        None if mask is None else jnp.asarray(mask),
+        window=window, shift=shift, n_heads=nh))
+    np.testing.assert_allclose(out, oracle, rtol=RTOL, atol=ATOL)
+
+
+def test_window_attention_plain_pad_region_mask():
+    """The pad-strip mask of a map that is not a window multiple: the mask is
+    indexed by plain window and padded tokens stay isolated."""
+    H, W, window, nh, hd = 10, 12, 7, 2, 16
+    Hp, Wp = 14, 14
+    qkv, bias, _ = _case(1, Hp, Wp, window, 0, nh, hd, seed=11)
+    qkv[:, H:] = 0.0                      # swin_block zero-pads the strip
+    qkv[:, :, W:] = 0.0
+    mask = pad_region_mask(Hp, Wp, H, W, window)
+    out = _port(qkv, bias, mask, window=window, shift=0, nh=nh)
+    kern = _jax_kernel(qkv, bias, mask, window=window, shift=0, nh=nh)
+    np.testing.assert_allclose(out[:, :H, :W], kern[:, :H, :W],
+                               rtol=RTOL, atol=ATOL)
+    oracle = np.asarray(_oracle(
+        jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(mask), window=window,
+        shift=0, n_heads=nh))
+    np.testing.assert_allclose(out[:, :H, :W], oracle[:, :H, :W],
+                               rtol=RTOL, atol=ATOL)
+
+
+def _codec_input(block, seed=7):
+    """Five blocks: scaled normals, an all-zero block (scale 1.0), a block
+    holding exact half-steps of its own grid (round half to even), and a
+    block with a single nonzero value."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(5, block)) * 9).astype(np.float32)
+    x[1] = 0.0
+    x[2] = (np.arange(block) % 9 - 4).astype(np.float32) * 0.5 + 0.25
+    x[2, 0] = 127.0
+    x[3] = 0.0
+    x[3, block // 2] = -3.0
+    return x.reshape(-1)
+
+
+@pytest.mark.parametrize("block", [256, 1024, 8192])
+@pytest.mark.parametrize("delta", [False, True])
+def test_codec_plain_matches_pallas_bitwise(block, delta):
+    x = _codec_input(block)
+    js, jsc = jcodec.codec_encode_pallas(jnp.asarray(x), block=block,
+                                         delta=delta, interpret=True)
+    ts, tsc = ops.codec_encode(torch.from_numpy(x), block=block, delta=delta)
+    assert ts.dtype == (torch.uint8 if delta else torch.int8)
+    assert ts.numpy().tobytes() == np.asarray(js).tobytes()
+    assert tsc.numpy().tobytes() == np.asarray(jsc).tobytes()
+    jo = jcodec.codec_decode_pallas(js, jsc, block=block, delta=delta,
+                                    interpret=True)
+    to = ops.codec_decode(ts, tsc, block=block, delta=delta)
+    assert to.numpy().tobytes() == np.asarray(jo).tobytes()
+    # and the JAX package's oracles agree with both
+    rs, rsc = ref.codec_encode_ref(jnp.asarray(x), block, delta)
+    assert ts.numpy().tobytes() == np.asarray(rs).tobytes()
+    assert tsc.numpy().tobytes() == np.asarray(rsc).tobytes()
+
+
+def test_codec_plain_rejects_unaligned_streams():
+    with pytest.raises(ValueError, match="128-lane"):
+        ops.codec_encode(torch.zeros(1000), block=1000)
+    with pytest.raises(ValueError, match="block-aligned"):
+        ops.codec_encode(torch.zeros(300), block=256)
+
+
+def test_dispatch_goes_by_device_and_raises_off_cpu_and_cuda():
+    """The wrapper picks the plain version because the tensor lies on the
+    CPU; a tensor elsewhere (here the meta device) is refused, never run on
+    the CPU."""
+    x = torch.zeros(256, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.codec_encode(x, block=256)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.fused_window_attention(torch.zeros((1, 7, 7, 48), device="meta"),
+                                   torch.zeros((1, 49, 49)), window=7,
+                                   shift=0, n_heads=1)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A CUDA wrapper never takes a CPU tensor (and so never runs the plain
+    version in the kernel's place)."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        tcodec.codec_encode_cuda(torch.zeros(256), 256, False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tcodec.codec_decode_cuda(torch.zeros(256, dtype=torch.int8),
+                                 torch.ones(1), 256, False)
