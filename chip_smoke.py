@@ -13,7 +13,9 @@ when it fails:
     main path's shapes: window attention at the four full-width Swin-T stage
     shapes, unshifted with and without the pad-strip mask and shifted by 3,
     within ATTN_TOL; the codec pair on the split-1..4 payload streams, delta
-    on and off, bitwise;
+    on and off, bitwise; the quant pair on each full-width payload leaf, a
+    length that is not a multiple of the block, an empty leaf and a bf16
+    leaf, bitwise;
  4. the main path, once, with every launch counter at 0 before and read
     after: full-width Swin-T (544x800, random weights from a seeded
     generator, random rel_bias) for splits 1-4, four UEs each through
@@ -29,13 +31,32 @@ when it fails:
     attention, one library call over the same windows (scaled dot-product
     attention with a float mask, never called by the port), beside the
     least time the card could take; then the per-split head+encode, decode
-    and batched-tail times.
+    and batched-tail times;
+ 7. the codec's modes at full width: for splits 1-4, one frame's head
+    payload through raw, zlib, int8, int8_zlib and int8_delta_zlib, each
+    int8 mode fused and legacy (per-tensor, the quant pair).  Every payload
+    round-trips (raw and zlib to the input's bits, int8 within half a
+    quantisation step) and the legacy decode is bitwise the fused decode;
+    raw and compressed bytes are printed per mode and split;
+ 8. the paper's adaptive single-UE loop on the card: calibrate (the
+    full-width head and codec measure the payloads into a cache under
+    build/), train the throughput estimator (1500 samples, 250 steps), and
+    run SplitInferencePipeline.run_trace over the 24-frame jammer sweep of
+    examples/adaptive_split_video.py with Objective(w_privacy=3.0), once
+    with the fused codec and once with the legacy one, then one run_frame
+    per fixed split 1-4 with the legacy codec.  Each run starts with every
+    launch counter at 0 and must launch each kernel exactly as often as the
+    options in its logs imply; per frame it prints the option, delay,
+    compressed bytes and the host wall time of run_frame.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+Weights everywhere are random, from a seeded generator: payload sizes and
+compression ratios are those of random weights, not of a trained detector.
+The last three lines are the card's name and power limit, a JSON object
+with one entry per kernel, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -49,6 +70,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
 N_UES = 4
+N_FRAMES = 24                      # the example's jammer sweep
 SPLITS = (1, 2, 3, 4)
 CPU_SPLIT = 2
 MODE = "int8_delta_zlib"
@@ -115,12 +137,20 @@ def main() -> int:
 
     import torch.nn.functional as F
     from repro_torch.configs.swin_t_detection import CONFIG as cfg
+    from repro_torch.core.adaptive import (DEFAULT_PRIVACY_PROFILE,
+                                           AdaptiveController, Objective)
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.core.channel import dupf_path
     from repro_torch.core.compression import ActivationCodec, _to_host
-    from repro_torch.core.splitting import SwinSplitPlan, split_option
+    from repro_torch.core.pipeline import SplitInferencePipeline
+    from repro_torch.core.splitting import (SERVER_ONLY, UE_ONLY,
+                                            SwinSplitPlan, split_option)
+    from repro_torch.core.throughput import train_estimator
     from repro_torch.tree import tree_leaves, tree_map
     from repro_torch.data.video import SyntheticVideo, VideoConfig
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import codec as ck
+    from repro_torch.kernels import quant as qk
     from repro_torch.kernels import window_attention as wa
     from repro_torch.models import swin as SW
 
@@ -197,14 +227,22 @@ def main() -> int:
         raise AssertionError(f"window attention vs host plain: {host_err}")
     log(f"check B1 stage 3 shifted vs plain on the host: {host_err:.3g}")
 
-    streams = {}
+    streams, head_trees = {}, {}
     for split in SPLITS:
         with torch.no_grad():
             tree = plan.head_jitted(split_option(split))(params, frames[:1])
+        head_trees[split] = tree
         segs = [F.pad(x.reshape(-1), (0, (-x.numel()) % block))
                 for x in tree_leaves(tree)]
         streams[split] = torch.cat(segs)
+    def abs_err(a, b):
+        """Largest |a - b| in float64; 0 for empty tensors."""
+        if a.numel() == 0:
+            return 0.0
+        return float((a.double() - b.double()).abs().max())
+
     codec_checks = 0
+    enc_err = dec_err = quant_err = dequant_err = 0.0
     for split, flat in streams.items():
         for delta in (False, True):
             q, sc = ck.codec_encode_cuda(flat, block, delta)
@@ -215,12 +253,40 @@ def main() -> int:
             same = (torch.equal(q.view(torch.uint8), q2.view(torch.uint8))
                     and torch.equal(sc.view(torch.int32), sc2.view(torch.int32))
                     and torch.equal(y.view(torch.int32), y2.view(torch.int32)))
+            enc_err = max(enc_err, abs_err(q, q2), abs_err(sc, sc2))
+            dec_err = max(dec_err, abs_err(y, y2))
             if not same:
                 raise AssertionError(f"codec split {split} delta {delta}: "
                                      "kernel and plain version differ")
             codec_checks += 1
             log(f"check B2/B3 split {split}: {flat.numel()} f32 = "
                 f"{flat.numel() // block} blocks, delta {delta}: bitwise equal")
+
+    def bits(t):
+        return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    # every full-width leaf shape (split 4 ships the four stage outputs), a
+    # ragged length, an empty leaf and a bf16 leaf
+    quant_cases = [x.contiguous() for x in tree_leaves(head_trees[4])]
+    quant_cases += [torch.randn((3 * block + 4321,), generator=g).to(dev) * 3,
+                    torch.zeros((0, 4), device=dev),
+                    quant_cases[1].to(torch.bfloat16)]
+    for x in quant_cases:
+        q, sc, n = qk.quant_cuda(x, block)
+        q2, sc2, n2 = qk.quant_plain(x, block)
+        y = qk.dequant_cuda(q, sc, n, tuple(x.shape), x.dtype)
+        y2 = qk.dequant_plain(q, sc, n, tuple(x.shape), x.dtype)
+        torch.cuda.synchronize()
+        same = (n == n2 and torch.equal(q, q2)
+                and torch.equal(bits(sc), bits(sc2)) and y.dtype == x.dtype
+                and torch.equal(bits(y), bits(y2)))
+        quant_err = max(quant_err, abs_err(q, q2), abs_err(sc, sc2))
+        dequant_err = max(dequant_err, abs_err(y, y2))
+        if not same:
+            raise AssertionError(f"quant {tuple(x.shape)} {x.dtype}: kernel "
+                                 "and plain version differ")
+        log(f"check B4 {tuple(x.shape)} {str(x.dtype).removeprefix('torch.')}: "
+            f"{q.shape[0]} blocks, quant and dequant bitwise equal")
 
     # -- 4. the main path, once, with the launch counters --------------------
     expected = {"fused_window_attention": 0, "codec_encode": 0,
@@ -366,14 +432,14 @@ def main() -> int:
     dec_bytes = total + 4 * nb + 4 * total
     rows["codec_encode"] = dict(
         source="src/repro_torch/kernels/csrc/codec.cu",
-        replaces="src/repro/kernels/codec.py:71", max_abs_err=0.0,
+        replaces="src/repro/kernels/codec.py:71", max_abs_err=enc_err,
         ms=cuda_ms(lambda: ck.codec_encode_cuda(flat, block, False)),
         plain_ms=cuda_ms(lambda: ck.codec_encode_plain(flat, block, False)),
         bound_ms=enc_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None)
     rows["codec_decode"] = dict(
         source="src/repro_torch/kernels/csrc/codec.cu",
-        replaces="src/repro/kernels/codec.py:102", max_abs_err=0.0,
+        replaces="src/repro/kernels/codec.py:102", max_abs_err=dec_err,
         ms=cuda_ms(lambda: ck.codec_decode_cuda(q, sc, block, False)),
         plain_ms=cuda_ms(lambda: ck.codec_decode_plain(q, sc, block, False)),
         bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -385,6 +451,35 @@ def main() -> int:
         log(f"time {name} split-1 stream ({total} f32, {nb} blocks): kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms; launches {per_frame[name]}")
+
+    # the quant pair over the split-1 payload's leaves, one launch per leaf
+    leaves1 = [x.contiguous() for x in tree_leaves(head_trees[1])]
+    quantised = [qk.quant_cuda(x, block) for x in leaves1]
+    n_el = sum(x.numel() for x in leaves1)
+    nb1 = sum(q.shape[0] for q, _, _ in quantised)
+    q_bytes = 4 * n_el + nb1 * block + 4 * nb1        # reads x, writes q + scales
+    rows["quant"] = dict(
+        source="src/repro_torch/kernels/csrc/quant.cu",
+        replaces="src/repro/kernels/quant.py:47", max_abs_err=quant_err,
+        ms=cuda_ms(lambda: [qk.quant_cuda(x, block) for x in leaves1]),
+        plain_ms=cuda_ms(lambda: [qk.quant_plain(x, block) for x in leaves1]),
+        bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None)
+    rows["dequant"] = dict(
+        source="src/repro_torch/kernels/csrc/quant.cu",
+        replaces="src/repro/kernels/quant.py:79", max_abs_err=dequant_err,
+        ms=cuda_ms(lambda: [qk.dequant_cuda(q, sc, n, tuple(x.shape))
+                            for x, (q, sc, n) in zip(leaves1, quantised)]),
+        plain_ms=cuda_ms(lambda: [qk.dequant_plain(q, sc, n, tuple(x.shape))
+                                  for x, (q, sc, n) in zip(leaves1, quantised)]),
+        bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None)
+    for name in ("quant", "dequant"):
+        r = rows[name]
+        log(f"time {name} split-1 leaves ({len(leaves1)} launches, {n_el} f32, "
+            f"{nb1} blocks): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({q_bytes} B); launches 1 per leaf of a legacy split frame")
 
     with torch.no_grad():
         for split in SPLITS:
@@ -422,6 +517,134 @@ def main() -> int:
                 f"per {N_UES}-UE group; upload + device decode {t_dec0:.2f} ms "
                 f"per UE payload")
 
+    # -- 7. the codec's modes at full width --------------------------------
+    log("phase 7: payloads of random weights on synthetic frames; bytes are "
+        "not those of a trained detector")
+    int8_modes = ("int8", "int8_zlib", "int8_delta_zlib")
+    with torch.no_grad():
+        for split in SPLITS:
+            tree = head_trees[split]
+            xs = tree_leaves(tree)
+            sizes = []
+            for mode in ("raw", "zlib") + int8_modes:
+                decoded = {}
+                for fused in ((True, False) if mode in int8_modes else (False,)):
+                    c = ActivationCodec(mode=mode, fused=fused, device=dev)
+                    p = c.compress(tree)
+                    if p.fused != fused or p.raw_bytes != plan.raw_payload_bytes(
+                            split_option(split)):
+                        raise AssertionError(f"split {split} {mode}: payload "
+                                             f"layout or raw bytes wrong")
+                    decoded[fused] = tree_leaves(c.decompress(p))
+                    tag = ("/fused" if fused else "/legacy") if mode in int8_modes else ""
+                    sizes.append(f"{mode}{tag} {p.compressed_bytes}")
+                for y, x in zip(decoded[False], xs):
+                    if mode in ("raw", "zlib"):
+                        ok = torch.equal(bits(y), bits(x))
+                    else:
+                        step = float(x.abs().max()) / 127.0
+                        ok = float((y - x).abs().max()) <= 0.5 * step * (1 + 1e-6)
+                    if not ok:
+                        raise AssertionError(f"split {split} {mode}: the "
+                                             "payload does not round-trip")
+                if mode in int8_modes:
+                    for a, b in zip(decoded[True], decoded[False]):
+                        if not torch.equal(bits(a), bits(b)):
+                            raise AssertionError(f"split {split} {mode}: legacy "
+                                                 "and fused decodes differ")
+            torch.cuda.synchronize()
+            log(f"codec modes split {split}: raw {plan.raw_payload_bytes(split_option(split))} B; "
+                f"compressed B: {', '.join(sizes)}; all round-trip, legacy == "
+                f"fused decode bitwise")
+
+    # -- 8. the adaptive single-UE loop on the card -----------------------
+    t0 = time.perf_counter()
+    cache = ROOT / "build" / "calibration_cache.json"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    system = calibrate(force=True, cache_path=str(cache), device=dev)
+    t_cal = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = train_estimator(system.channel, "kpm+spec", n_train=1500, steps=250,
+                          device=dev)
+    t_est = time.perf_counter() - t0
+    log(f"calibrate on the card ({t_cal:.1f} s): payload bytes "
+        f"{system.compressed_bytes}; estimator trained in {t_est:.1f} s")
+    sweep = -40 + 35 * np.exp(-((np.linspace(0, 1, N_FRAMES) - 0.55) / 0.18) ** 2)
+    loop_frames = torch.from_numpy(video.frames(N_FRAMES)).to(dev)[:, None]
+    n_leaves = {split_option(s): len(tree_leaves(head_trees[s])) for s in SPLITS}
+
+    def loop_pipeline(fused: bool):
+        ctrl = AdaptiveController(
+            system=system, estimator=est, objective=Objective(w_privacy=3.0),
+            path=dupf_path(), privacy_profile=dict(DEFAULT_PRIVACY_PROFILE))
+        pipe = SplitInferencePipeline(
+            plan=plan, system=system, codec=ActivationCodec(fused=fused, device=dev),
+            controller=ctrl, path=dupf_path(), execute_model=True, seed=SEED)
+        walls = []
+        run_frame = pipe.run_frame
+
+        def timed(*a, **kw):                    # host wall time per frame
+            t = time.perf_counter()
+            out = run_frame(*a, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return out
+        pipe.run_frame = timed
+        return pipe, walls
+
+    def expected_launches(logs, fused: bool):
+        exp = {"fused_window_attention": n_blocks * len(logs)}
+        for lg in logs:
+            if lg.option in (UE_ONLY, SERVER_ONLY):
+                continue
+            for name, k in ((("codec_encode", 1), ("codec_decode", 1)) if fused
+                            else (("quant", n_leaves[lg.option]),
+                                  ("dequant", n_leaves[lg.option]))):
+                exp[name] = exp.get(name, 0) + k
+        return exp
+
+    loop_launches = {}
+    for fused in (True, False):
+        name = "fused" if fused else "legacy"
+        pipe, walls = loop_pipeline(fused)
+        ops.LAUNCHES.clear()
+        logs = pipe.run_trace(loop_frames, sweep)
+        if not fused:                           # every payload shape meets B4
+            logs += [pipe.run_frame(loop_frames[0], -20.0, split_option(s))
+                     for s in SPLITS]
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        want = expected_launches(logs, fused)
+        log(f"loop {name}: launches {got} (expected from the logged options "
+            f"{want})")
+        if got != want:
+            raise AssertionError(f"loop {name}: the launches do not match the "
+                                 "options the frames ran")
+        loop_launches[name] = got
+        for i, (lg, wall) in enumerate(zip(logs, walls)):
+            if not (np.isfinite(lg.delay_s) and lg.raw_bytes >= lg.compressed_bytes >= 0):
+                raise AssertionError(f"loop {name} frame {i}: bad log {lg}")
+            fixed = "" if i < N_FRAMES else " (fixed)"
+            log(f"loop {name} frame {i:2d} {lg.interference_db:6.1f} dB "
+                f"{lg.option:11s} delay {lg.delay_s * 1e3:8.2f} ms, compressed "
+                f"{lg.compressed_bytes} B, quant_s {lg.quant_s * 1e3:7.2f} ms, "
+                f"run_frame {wall * 1e3:7.2f} ms{fixed}")
+        opts = [lg.option for lg in logs[:N_FRAMES]]
+        by_opt = collections.defaultdict(list)
+        for opt, wall in zip(opts, walls):
+            by_opt[opt].append(wall)
+        medians = ", ".join(f"{o} {statistics.median(w) * 1e3:.2f} ms "
+                            f"({len(w)} frames)" for o, w in by_opt.items())
+        log(f"loop {name}: options {dict(collections.Counter(opts))}, "
+            f"adaptation events {sum(a != b for a, b in zip(opts, opts[1:]))}, "
+            f"run_frame median by option over the {N_FRAMES} adaptive frames: "
+            f"{medians}")
+    # B1-B3 report their phase-4 counts, the quant pair its legacy-loop run
+    for name in ("quant", "dequant"):
+        launches[name] = loop_launches["legacy"].get(name, 0)
+        if launches[name] == 0:
+            raise AssertionError(f"the legacy loop never launched {name}")
+
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
@@ -430,8 +653,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,14 @@
-"""Weights from the JAX package's parameter tree, as numpy arrays.
+"""Weights from the JAX package's parameter trees, as numpy arrays.
 
-``params_from_numpy`` takes the tree ``repro.models.swin.init`` returns,
-with every leaf converted to numpy (``jax.tree.map(np.asarray, params)``),
-and returns the port's parameters: the same stage/block nesting, dense
-weights kept (in, out), conv weights (the only 4-D leaves) turned from HWIO
-to the OIHW that ``F.conv2d`` takes.  No weight is re-drawn, so a model
-compared with the JAX package runs on exactly its weights.
+``params_from_numpy`` takes a tree of the JAX package's parameters with
+every leaf converted to numpy (``jax.tree.map(np.asarray, params)``) and
+returns the port's: the same nesting, dense weights kept (in, out), conv
+weights (the only 4-D leaves) turned from HWIO to the OIHW that
+``F.conv2d`` takes.  It serves the Swin-T tree of ``repro.models.swin.init``
+and the throughput estimator's parameter list (``[{"w": (a, b), "b":
+(b,)}, ...]``, 2-D and 1-D leaves, taken as they are).  No weight is
+re-drawn, so a model compared with the JAX package runs on exactly its
+weights.
 """
 from __future__ import annotations
 

@@ -1,26 +1,32 @@
-"""Activation compression (paper §IV-C): the fused int8 path.
+"""Activation compression (paper §IV-C).
 
-The counterpart of ``repro/core/compression.py``'s fused path.  Two stages:
+The counterpart of ``repro/core/compression.py``.  Two stages:
 
-  (1) f32 -> int8 per-block absmax quantisation on the device, over every
-      leaf of a payload packed into one block-aligned stream, in one launch
-      of the encode kernel (``kernels/csrc/codec.cu``), then ONE
-      device-to-host copy of the stream and the scales.
+  (1) f32 -> int8 per-block absmax quantisation on the device.
   (2) zlib level 1 of the int8 bytes on the host, as in the paper.
 
-Delta mode (``int8_delta_zlib``) adds a lossless mod-256 delta on the
-quantised grid before zlib, in one of two layouts: ``'spatial'`` (the
-default: one image row along the leaf's recorded ``delta_axis``, applied as
-an integer epilogue after the encode) or ``'block'`` (one 128-lane row
-inside each quant block, done by the encode kernel itself).
+Two encoders give interchangeable results:
 
+  * the FUSED path (default): every leaf of a payload is packed into one
+    block-aligned stream, quantised in one launch of the encode kernel
+    (``kernels/csrc/codec.cu``) and copied to the host once; one zlib call
+    covers the payload.  Delta mode (``int8_delta_zlib``) adds a lossless
+    mod-256 delta on the quantised grid before zlib, in one of two layouts:
+    ``'spatial'`` (the default: one image row along the leaf's recorded
+    ``delta_axis``, applied as an integer epilogue after the encode) or
+    ``'block'`` (one 128-lane row inside each quant block, done by the
+    encode kernel itself).
+  * the LEGACY per-tensor loop (``fused=False``, and the ``raw``/``zlib``
+    modes, which never quantise): one quant launch (``kernels/csrc/
+    quant.cu``), one device-to-host copy and one zlib call per leaf, with
+    the delta filter on the host.  It is also the decoder of every payload
+    that is not fused, including ``mode=None`` payloads.
+
+Every delta layout inverts exactly on the same quantised grid, so the
+decoded tensors are bit-identical whichever encoder wrote the payload.
 Given the same leaves, the blobs, scales and metas are byte-identical to
 the JAX package's, and each side decodes the other's payloads: the wire
 format is the blob bytes, the f32 scales and the per-leaf ``TensorMeta``.
-
-The legacy per-tensor path (``fused=False``) and the ``raw``/``zlib`` modes
-wait for the port of ``repro/kernels/quant.py``; until then they raise
-``NotImplementedError`` rather than encode another way.
 """
 from __future__ import annotations
 
@@ -37,9 +43,6 @@ from repro_torch.kernels import ops
 from repro_torch.tree import tree_flatten
 
 _INT8_MODES = ("int8", "int8_zlib", "int8_delta_zlib")
-_LEGACY_MSG = ("the legacy per-tensor codec (fused=False) and the raw/zlib "
-               "modes are not ported yet: they need the port of "
-               "repro/kernels/quant.py")
 
 
 def spatial_delta_axis(shape: Tuple[int, ...]) -> Optional[int]:
@@ -93,6 +96,25 @@ class CompressedPayload:
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
+
+
+def _host_bytes(x: torch.Tensor) -> bytes:
+    """A leaf's bytes as numpy's ``tobytes`` gives them.  numpy has no
+    bfloat16, so a bf16 leaf goes through an int16 view of the same bits."""
+    x = x.detach().contiguous().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return x.numpy().tobytes()
+
+
+def _from_bytes(buf: bytes, dtype: str, shape, device) -> torch.Tensor:
+    """Inverse of ``_host_bytes`` for a leaf of ``dtype`` (a numpy-style
+    name, as the metas carry it) and ``shape``."""
+    np_dtype = np.int16 if dtype == "bfloat16" else np.dtype(dtype)
+    t = torch.from_numpy(np.frombuffer(buf, dtype=np_dtype).copy())
+    if dtype == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t.reshape(tuple(shape)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -201,13 +223,18 @@ def _segment_metas(leaves: Sequence[torch.Tensor], block: int,
 
 @dataclass
 class ActivationCodec:
-    """int8 + zlib codec with payload accounting, fused path only.
+    """int8 + zlib codec with payload accounting.
 
     quant_block: elements per absmax block (one f32 scale per block).
     level: zlib level (1 = the paper's 'rapid' setting).
     mode: 'int8_zlib' (paper) | 'int8' (quant only) | 'int8_delta_zlib'
-          (lossless mod-256 delta on the quantised grid before zlib).
-    delta_layout: 'spatial' (per-leaf image-row delta) | 'block'.
+          (lossless mod-256 delta on the quantised grid before zlib)
+          | 'zlib' (no quant) | 'raw' (accounting only).
+    fused: encode the int8 modes with the single-launch fused path; False
+          keeps the legacy per-tensor loop.  Decode follows the payload's
+          own layout, so either side may flip the flag.
+    delta_layout: fused delta geometry, 'spatial' (per-leaf image-row
+          delta) | 'block'.
     device: where encode and decode run; "cuda" runs the kernels, "cpu" their
           plain versions.  Raises when "cuda" is asked for and absent.
     """
@@ -257,19 +284,63 @@ class ActivationCodec:
     # -- compress -----------------------------------------------------------
     def compress(self, tree) -> CompressedPayload:
         if not self._use_fused():
-            raise NotImplementedError(_LEGACY_MSG)
+            return self._compress_legacy(tree)
         leaves, treedef = self._leaves(tree)
         stream, scales = _to_host(*self._encode(leaves))
         return self._payload(stream, scales, leaves, treedef)
 
+    def _compress_legacy(self, tree) -> CompressedPayload:
+        """One quant launch, one device-to-host copy and one zlib call per
+        leaf; the ``int8_delta_zlib`` delta runs on the host."""
+        leaves, treedef = self._leaves(tree)
+        blobs, scales, metas = [], [], []
+        raw = 0
+        for x in leaves:
+            raw += x.numel() * x.element_size()
+            if self.mode in ("raw", "zlib"):
+                buf = _host_bytes(x)
+                blobs.append(buf if self.mode == "raw"
+                             else zlib.compress(buf, self.level))
+                scales.append(np.zeros((0,), np.float32))
+                metas.append(TensorMeta(tuple(x.shape), _dtype_name(x.dtype),
+                                        x.numel(), 0, 0))
+                continue
+            q, s, n = ops.quantize(x, block=self.quant_block)
+            q_flat, s_np = _to_host(q.reshape(-1), s)
+            q_np = q_flat.reshape(q.shape)
+            delta_axis = (spatial_delta_axis(tuple(x.shape))
+                          if self.mode == "int8_delta_zlib" else None)
+            if self.mode == "int8":
+                payload = q_np.tobytes()
+            elif delta_axis is not None:
+                img = q_np.reshape(-1)[:n].reshape(tuple(x.shape))
+                # exact mod-256 delta (d[0] = x[0], so the inverse is a
+                # cumsum mod 256)
+                d16 = np.diff(img.astype(np.int16), axis=delta_axis,
+                              prepend=np.zeros_like(
+                                  np.take(img, [0], axis=delta_axis), np.int16))
+                d = (d16 % 256).astype(np.uint8)
+                tail = q_np.reshape(-1)[n:]           # block padding
+                payload = zlib.compress(d.tobytes() + tail.tobytes(), self.level)
+            else:
+                payload = zlib.compress(q_np.tobytes(), self.level)
+            blobs.append(payload)
+            scales.append(s_np)
+            metas.append(TensorMeta(tuple(x.shape), _dtype_name(x.dtype), n,
+                                    int(q.shape[0]), int(q.shape[1]),
+                                    delta_axis=delta_axis))
+        return CompressedPayload(blobs, scales, metas, raw, treedef,
+                                 mode=self.mode)
+
     def compress_head(self, producer, params, inputs):
         """Run ``producer(params, inputs)`` (a stable callable such as
         ``SwinSplitPlan.head_jitted``) and encode its output on the device,
-        with one device-to-host copy.  Returns (CompressedPayload, tree);
-        the payload is byte-identical to ``compress(producer(...))``."""
-        if not self._use_fused():
-            raise NotImplementedError(_LEGACY_MSG)
+        with one device-to-host copy (one per leaf where the codec does not
+        fuse).  Returns (CompressedPayload, tree); the payload is
+        byte-identical to ``compress(producer(...))``."""
         tree = producer(params, inputs)
+        if not self._use_fused():
+            return self.compress(tree), tree
         leaves, treedef = self._leaves(tree)
         stream, scales = _to_host(*self._encode(leaves))
         return self._payload(stream, scales, leaves, treedef), tree
@@ -277,11 +348,9 @@ class ActivationCodec:
     def compress_group(self, trees: Sequence[Any]) -> List[CompressedPayload]:
         """Encode many payloads in ONE launch.  Each payload's byte range is
         zlib'd separately, so the result is byte-identical to per-payload
-        ``compress``."""
-        if not trees or len(trees) == 1:
+        ``compress``.  The legacy path encodes payload by payload."""
+        if not trees or len(trees) == 1 or not self._use_fused():
             return [self.compress(t) for t in trees]
-        if not self._use_fused():
-            raise NotImplementedError(_LEGACY_MSG)
         per_tree, flat = [], []
         for t in trees:
             leaves, treedef = self._leaves(t)
@@ -312,10 +381,10 @@ class ActivationCodec:
             segments, block, mode == "int8_delta_zlib", layout or "block")
 
     def decompress(self, p: CompressedPayload):
-        """Decode a fused payload (the port's or the JAX package's: the tree
+        """Decode a payload (the port's or the JAX package's: the tree
         definition only needs an ``unflatten`` method)."""
         if not p.fused:
-            raise NotImplementedError(_LEGACY_MSG)
+            return self._decompress_legacy(p)
         block = p.meta[0].block if p.meta else self.quant_block
         segments = tuple((tuple(m.shape), m.dtype, m.n, m.block_start,
                           m.delta_axis) for m in p.meta)
@@ -326,10 +395,9 @@ class ActivationCodec:
     def decompress_group(self, ps: Sequence[CompressedPayload]) -> List[Any]:
         """Decode many fused payloads with one upload and one launch (the
         edge side of ``compress_group``); the leaves stay on the device,
-        ready for ``SwinSplitPlan.tail_batched``."""
-        if not all(p.fused for p in ps):
-            raise NotImplementedError(_LEGACY_MSG)
-        if len(ps) <= 1:
+        ready for ``SwinSplitPlan.tail_batched``.  Payloads that are not
+        all fused are decoded one by one."""
+        if len(ps) <= 1 or not all(p.fused for p in ps):
             return [self.decompress(p) for p in ps]
         kinds = {(p.mode, p.delta_layout) for p in ps} \
             | {("block", m.block) for p in ps for m in p.meta}
@@ -352,6 +420,34 @@ class ActivationCodec:
             out.append(p.treedef.unflatten(leaves[off:off + len(p.meta)]))
             off += len(p.meta)
         return out
+
+    def _decompress_legacy(self, p: CompressedPayload):
+        """The per-leaf decoder.  The payload's own mode wins; a payload
+        with ``mode=None`` takes this codec's."""
+        mode = p.mode if p.mode is not None else self.mode
+        leaves = []
+        for blob, s, m in zip(p.blobs, p.scales, p.meta):
+            if mode in ("raw", "zlib"):
+                buf = blob if mode == "raw" else zlib.decompress(blob)
+                leaves.append(_from_bytes(buf, m.dtype, m.shape, self.device))
+                continue
+            raw = blob if mode == "int8" else zlib.decompress(blob)
+            if mode == "int8_delta_zlib" and len(m.shape) >= 3:
+                n_valid = int(np.prod(m.shape))
+                d = np.frombuffer(raw[:n_valid], dtype=np.uint8).reshape(m.shape)
+                # payloads from before delta_axis was recorded: the old rule
+                axis = (m.delta_axis if m.delta_axis is not None
+                        else (1 if m.shape[0] < 4 else 0))
+                img = (np.cumsum(d.astype(np.int64), axis=axis) % 256
+                       ).astype(np.uint8).view(np.int8)
+                tail = np.frombuffer(raw[n_valid:], dtype=np.int8)
+                raw = img.tobytes() + tail.tobytes()
+            q = np.frombuffer(raw, dtype=np.int8).reshape(m.n_blocks, m.block)
+            leaves.append(ops.dequantize(
+                torch.from_numpy(q.copy()).to(self.device),
+                torch.from_numpy(np.asarray(s, np.float32).copy()).to(self.device),
+                m.n, tuple(m.shape), getattr(torch, m.dtype)))
+        return p.treedef.unflatten(leaves)
 
     # -- accounting only ------------------------------------------------------
     # Default entropy-coding ratios per mode when no measured feedback is

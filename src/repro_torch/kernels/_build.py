@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("window_attention", "codec")
+SOURCES = ("window_attention", "codec", "quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -81,6 +81,15 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     build((name,))
     return ctypes.CDLL(str(target(name)))
+
+
+def check_operands(what: str, *tensors) -> None:
+    """Raise unless every operand lies on one CUDA device: a wrapper never
+    takes a host tensor in its kernel's place."""
+    if any(t.device.type != "cuda" or t.device != tensors[0].device
+           for t in tensors):
+        raise ValueError(f"{what}: every operand must lie on the same CUDA "
+                         "device")
 
 
 def check(rc: int, what: str) -> None:

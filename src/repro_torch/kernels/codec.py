@@ -84,17 +84,10 @@ def _fns():
     return enc, dec
 
 
-def _check_cuda(*tensors: torch.Tensor) -> None:
-    if any(t.device.type != "cuda" or t.device != tensors[0].device
-           for t in tensors):
-        raise ValueError("codec kernels: every operand must lie on the same "
-                         "CUDA device")
-
-
 def codec_encode_cuda(flat: torch.Tensor, block: int,
                       delta: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the encode kernel on PyTorch's current stream."""
-    _check_cuda(flat)
+    _build.check_operands("codec_encode_cuda", flat)
     if flat.dtype != torch.float32 or flat.dim() != 1:
         raise TypeError("codec_encode_cuda takes a flat float32 stream")
     if block > MAX_CUDA_BLOCK:
@@ -117,7 +110,7 @@ def codec_encode_cuda(flat: torch.Tensor, block: int,
 def codec_decode_cuda(stream: torch.Tensor, scales: torch.Tensor, block: int,
                       delta: bool) -> torch.Tensor:
     """Launch the decode kernel on PyTorch's current stream."""
-    _check_cuda(stream, scales)
+    _build.check_operands("codec_decode_cuda", stream, scales)
     if stream.dtype not in (torch.int8, torch.uint8) or stream.dim() != 1:
         raise TypeError("codec_decode_cuda takes a flat int8/uint8 stream")
     if scales.dtype != torch.float32:

@@ -4,8 +4,8 @@ A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
 a CUDA device goes to the hand-written CUDA kernel, which either launches or
 raises.  Nothing falls back from a CUDA tensor to the plain version, and the
 choice never depends on whether CUDA is present or a build worked.  The
-signatures follow ``repro/kernels/ops.py`` (``fused_window_attention``,
-``codec_encode``, ``codec_decode``).
+signatures follow ``repro/kernels/ops.py`` (``quantize``, ``dequantize``,
+``fused_window_attention``, ``codec_encode``, ``codec_decode``).
 
 ``LAUNCHES`` counts kernel launches by name (see ``_build``).
 """
@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import codec as _codec
+from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import window_attention as _wa
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401  (re-exported)
 
@@ -24,6 +25,22 @@ def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def quantize(x: torch.Tensor, block: int = 8192
+             ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Per-block absmax int8 quant of one tensor of any shape.  Returns
+    (q (nb, block) int8, scales (nb,) f32, n)."""
+    fn = _quant.quant_cuda if _route(x) == "cuda" else _quant.quant_plain
+    return fn(x, block)
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize``: a tensor of ``shape`` and ``dtype``."""
+    fn = (_quant.dequant_cuda if _route(q) == "cuda"
+          else _quant.dequant_plain)
+    return fn(q, scales, n, shape, dtype)
 
 
 def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,

@@ -83,9 +83,7 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     w2 = window * window
     nW = (Hp // window) * (Wp // window)
     tensors = (qkv, bias) if mask is None else (qkv, bias, mask)
-    if any(t.device.type != "cuda" or t.device != qkv.device for t in tensors):
-        raise ValueError("fused_window_attention_cuda: every operand must lie "
-                         "on the same CUDA device")
+    _build.check_operands("fused_window_attention_cuda", *tensors)
     if qkv.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("fused_window_attention_cuda takes float32 qkv and bias")
     if C % n_heads or C // n_heads not in SUPPORTED_HEAD_DIMS:

@@ -1,12 +1,14 @@
-"""The port's fused activation codec against the JAX package's.
+"""The port's activation codec against the JAX package's.
 
 For identical numpy leaves the two codecs must put the same bytes on the
 wire: the same zlib blobs, the same f32 scale bits and the same per-leaf
-metas, across the int8 modes, both delta layouts and the three encode entry
-points (``compress``, ``compress_group``, ``compress_head``), over leaves
-that need block padding, a scalar, an empty leaf and batches on both sides
-of the delta-axis switch.  Each side decodes the other's payloads to the
-same bits.
+metas, across every mode, the fused and the legacy per-tensor encoders, both
+delta layouts and the three encode entry points (``compress``,
+``compress_group``, ``compress_head``), over float32 and bfloat16 leaves that
+need block padding, a scalar, an empty leaf and batches on both sides of the
+delta-axis switch.  Each side decodes the other's payloads to the same bits,
+and the legacy and fused decodes of one tree are bitwise equal.  The
+tolerance is zero throughout: the work is integer-exact.
 """
 import dataclasses
 
@@ -23,6 +25,8 @@ from repro_torch.tree import tree_flatten
 BLOCK = 256
 MODES = ["int8", "int8_zlib", "int8_delta_zlib"]
 LAYOUTS = ["spatial", "block"]
+DTYPES = {"f32": (torch.float32, jnp.float32),
+          "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
 def _tree(seed=3):
@@ -38,25 +42,34 @@ def _tree(seed=3):
     }
 
 
-def _port(tree):
-    return {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+def _port(tree, dtype="f32"):
+    return {k: torch.from_numpy(v.copy()).to(DTYPES[dtype][0])
+            for k, v in tree.items()}
 
 
-def _jax(tree):
-    return {k: jnp.asarray(v) for k, v in tree.items()}
+def _jax(tree, dtype="f32"):
+    return {k: jnp.asarray(v).astype(DTYPES[dtype][1]) for k, v in tree.items()}
 
 
-def _codecs(mode, layout):
+def _bits(t: torch.Tensor) -> bytes:
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.contiguous().numpy().tobytes()
+
+
+def _codecs(mode, layout, fused=True):
     return (ActivationCodec(mode=mode, quant_block=BLOCK, delta_layout=layout,
-                            device="cpu"),
-            JCodec(mode=mode, quant_block=BLOCK, delta_layout=layout))
+                            fused=fused, device="cpu"),
+            JCodec(mode=mode, quant_block=BLOCK, delta_layout=layout,
+                   fused=fused))
 
 
 def _assert_same_wire(tp, jp):
     assert tp.blobs == jp.blobs
-    assert len(tp.scales) == len(jp.scales) == 1
-    assert tp.scales[0].dtype == np.float32
-    assert tp.scales[0].tobytes() == np.asarray(jp.scales[0]).tobytes()
+    assert len(tp.scales) == len(jp.scales) == (1 if jp.fused else len(jp.meta))
+    for a, b in zip(tp.scales, jp.scales):
+        assert a.dtype == np.float32
+        assert a.tobytes() == np.asarray(b).tobytes()
     assert ([dataclasses.astuple(m) for m in tp.meta]
             == [dataclasses.astuple(m) for m in jp.meta])
     assert tp.raw_bytes == jp.raw_bytes
@@ -70,7 +83,11 @@ def _assert_same_leaves(port_tree, jax_tree):
     assert len(pl) == len(jl)
     for a, b in zip(pl, jl):
         assert tuple(a.shape) == tuple(b.shape)
-        assert a.numpy().tobytes() == np.asarray(b).tobytes()
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and _bits(a) == _bits(b)
+            continue
+        assert str(a.dtype).removeprefix("torch.") == str(b.dtype)
+        assert _bits(a) == np.asarray(b).tobytes()
 
 
 def _cross_decode(tc, jc, tp, jp, tree):
@@ -143,18 +160,97 @@ def test_empty_tree_and_delta_axis():
     assert spatial_delta_axis((0, 8, 8)) is None
 
 
-def test_legacy_paths_raise_instead_of_encoding_another_way():
-    for codec in (ActivationCodec(fused=False, device="cpu"),
-                  ActivationCodec(mode="zlib", device="cpu"),
-                  ActivationCodec(mode="raw", device="cpu")):
-        assert not codec.supports_fused()
-        with pytest.raises(NotImplementedError, match="quant.py"):
-            codec.compress({"x": torch.ones(3)})
-    legacy = JCodec(fused=False).compress({"x": jnp.ones((1, 4, 4, 2))})
-    with pytest.raises(NotImplementedError, match="quant.py"):
-        ActivationCodec(device="cpu").decompress(legacy)
+# every mode x encoder x layout the codec has; raw/zlib never quantise, so
+# their fused flag and layout change nothing and they run once per dtype
+WIRE_CASES = ([(m, False, "spatial") for m in ("raw", "zlib")]
+              + [(m, fused, "spatial") for m in ("int8", "int8_zlib")
+                 for fused in (True, False)]
+              + [("int8_delta_zlib", False, "spatial")]
+              + [("int8_delta_zlib", True, lay) for lay in LAYOUTS])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode,fused,layout", WIRE_CASES)
+def test_every_mode_is_byte_identical_and_cross_decodes(mode, fused, layout,
+                                                        dtype):
+    tree = _tree()
+    tc, jc = _codecs(mode, layout, fused)
+    tp = tc.compress(_port(tree, dtype))
+    jp = jc.compress(_jax(tree, dtype))
+    assert tp.fused == (fused and mode in MODES)
+    _assert_same_wire(tp, jp)
+    _cross_decode(tc, jc, tp, jp, _jax(tree, dtype))
+    if mode in ("raw", "zlib"):                 # lossless: the input bits
+        _assert_same_leaves(tc.decompress(tp), _jax(tree, dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode", MODES)
+def test_legacy_and_fused_decode_to_the_same_bits(mode, dtype):
+    """The reference's claim (core/compression.py, module note): whichever
+    encoder wrote the payload, the decoded tensors are bit-identical."""
+    tree = _port(_tree(), dtype)
+    legacy = ActivationCodec(mode=mode, quant_block=BLOCK, fused=False,
+                             device="cpu")
+    out_l = legacy.decompress(legacy.compress(tree))
+    for layout in LAYOUTS:
+        fused = ActivationCodec(mode=mode, quant_block=BLOCK,
+                                delta_layout=layout, device="cpu")
+        out_f = fused.decompress(fused.compress(tree))
+        # either codec decodes either payload: decode follows the payload
+        out_x = legacy.decompress(fused.compress(tree))
+        for key in tree:
+            assert out_l[key].dtype == out_f[key].dtype == tree[key].dtype
+            assert _bits(out_l[key]) == _bits(out_f[key]) == _bits(out_x[key])
+
+
+@pytest.mark.parametrize("mode", ["raw", "zlib"] + MODES)
+def test_mode_none_payloads_take_the_decoders_mode(mode):
+    """A payload with ``mode=None`` (and, in delta mode, no recorded delta
+    axis: the old rule picks it) decodes with the receiving codec's mode,
+    to the same bits as the JAX package's decoder."""
+    tree = _jax(_tree())
+    jp = JCodec(mode=mode, quant_block=BLOCK, fused=False).compress(tree)
+    old = dataclasses.replace(
+        jp, mode=None,
+        meta=[dataclasses.replace(m, delta_axis=None) for m in jp.meta])
+    tc, jc = _codecs(mode, "spatial", fused=False)
+    _assert_same_leaves(tc.decompress(old), jc.decompress(old))
+    _assert_same_leaves(tc.decompress(old), jc.decompress(jp))
+
+
+@pytest.mark.parametrize("mode", ["zlib", "int8_zlib", "int8_delta_zlib"])
+def test_legacy_entry_points_fall_back_per_payload(mode):
+    """compress_head, compress_group and decompress_group fall back to the
+    per-payload path where the codec does not fuse, byte-identical to the
+    JAX package's fallbacks; decompress_group decodes a group that mixes
+    fused and legacy payloads one by one."""
+    trees = [_tree(seed) for seed in (3, 4)]
+    tc, jc = _codecs(mode, "spatial", fused=False)
+    assert not tc.supports_fused() and not jc.supports_fused()
+    tps = tc.compress_group([_port(t) for t in trees])
+    jps = jc.compress_group([_jax(t) for t in trees])
+    for tp, jp in zip(tps, jps):
+        assert not tp.fused
+        _assert_same_wire(tp, jp)
+
+    img = np.random.default_rng(9).normal(size=(1, 9, 10, 5)).astype(np.float32)
+    tp, ttree = tc.compress_head(lambda p, x: {"x": x * p}, torch.tensor(2.0),
+                                 torch.from_numpy(img))
+    jp, jtree = jc.compress_head(jax.jit(lambda p, x: {"x": x * p}),
+                                 jnp.float32(2.0), jnp.asarray(img))
+    _assert_same_leaves(ttree, jtree)
+    _assert_same_wire(tp, jp)
+
+    mixed = [tps[0], ActivationCodec(quant_block=BLOCK, device="cpu").compress(
+        _port(trees[1])), jps[1]]
+    for out, p in zip(tc.decompress_group(mixed), mixed):
+        _assert_same_leaves(out, tc.decompress(p))
+    for out, jp in zip(tc.decompress_group(jps), jps):
+        _assert_same_leaves(out, jc.decompress(jp))
     with pytest.raises(ValueError, match="multiple of 128"):
-        ActivationCodec(quant_block=1000, device="cpu").compress({"x": torch.ones(3)})
+        ActivationCodec(quant_block=1000, fused=False,
+                        device="cpu").compress({"x": torch.ones(3)})
 
 
 def test_decompress_group_rejects_mixed_settings():

@@ -8,17 +8,23 @@ marked ``cuda`` and skip without one.  On a machine with a card:
 They import no JAX: the plain versions are held against the JAX package by
 the CPU tests, and here the kernels are held against the plain versions on
 the same inputs (window attention within 1e-4, both fp32 with sums in other
-orders; the codec bitwise).
+orders; the codec pair and the quant pair bitwise), and the frame loop on the
+card against the same loop on the CPU.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.swin_t_detection import reduced
+from repro_torch.core.calibration import calibrate
 from repro_torch.core.compression import ActivationCodec
+from repro_torch.core.pipeline import SplitInferencePipeline
 from repro_torch.core.splitting import SwinSplitPlan, split_option
 from repro_torch.kernels import codec as ck
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant as qk
 from repro_torch.kernels import window_attention as wa
 from repro_torch.models import swin as SW
 from repro_torch.tree import tree_flatten, tree_map
@@ -104,3 +110,63 @@ def test_slice_on_the_card_matches_the_cpu_path(cuda):
             assert np.isfinite(a).all()
             scale = max(1.0, float(b.abs().max()))
             assert float(np.abs(a - b.numpy()).max()) <= 2e-3 * scale
+
+
+def _int_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu().view(torch.int16 if t.element_size() == 2 else
+                        torch.int8 if t.element_size() == 1 else torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(1, 136, 200, 96), (311,), (), (0, 4),
+                                   (3, 8192), (2, 13, 7, 24)], ids=str)
+@pytest.mark.parametrize("block", [128, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernels_match_plain_bitwise(cuda, shape, block, dtype):
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(shape, generator=g) * 7).to(dtype)
+    if x.numel() > 300:
+        x.view(-1)[100:300] = 0.0
+    q, s, n = qk.quant_cuda(x.to(cuda), block)
+    q2, s2, n2 = qk.quant_plain(x, block)
+    assert n == n2 and torch.equal(q.cpu(), q2)
+    assert torch.equal(_int_bits(s), _int_bits(s2))
+    y = qk.dequant_cuda(q, s, n, shape, dtype)
+    y2 = qk.dequant_plain(q2, s2, n2, shape, dtype)
+    assert y.dtype == dtype and tuple(y.shape) == shape
+    assert torch.equal(_int_bits(y), _int_bits(y2))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_frame_loop_on_the_card_matches_the_cpu_path(cuda, tmp_path, fused):
+    """run_frame at the reduced size for every option, on the card and on
+    the CPU, with the same weights, frames and seeds: the same accounting,
+    raw bytes equal and compressed bytes within 2 %, through the kernels of
+    the codec configuration."""
+    cfg = reduced()
+    cache = tmp_path / "cache.json"
+    cache.write_text(json.dumps({
+        "ue_only": {"raw": 0, "compressed": 0},
+        "split1": {"raw": 15667200, "compressed": 3352860},
+        "split2": {"raw": 18278400, "compressed": 3814666},
+        "split3": {"raw": 19584000, "compressed": 4073777},
+        "split4": {"raw": 19584000, "compressed": 4065219},
+        "server_only": {"raw": 1305600, "compressed": 1305600}}))
+    params = SW.init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    img = torch.rand((1, cfg.img_h, cfg.img_w, 3),
+                     generator=torch.Generator().manual_seed(6))
+    logs = {}
+    ops.LAUNCHES.clear()
+    for dev in (cuda, torch.device("cpu")):
+        pipe = SplitInferencePipeline(
+            plan=SwinSplitPlan(cfg, tree_map(lambda a: a.to(dev), params),
+                               device=dev),
+            system=calibrate(cache_path=str(cache), device=dev),
+            codec=ActivationCodec(fused=fused, device=dev), seed=1)
+        logs[dev.type] = [pipe.run_frame(img.to(dev), -20.0, opt)
+                          for opt in pipe.plan.options]
+    kernels = {"codec_encode", "codec_decode"} if fused else {"quant", "dequant"}
+    assert set(ops.LAUNCHES) == {"fused_window_attention"} | kernels
+    for a, b in zip(logs["cuda"], logs["cpu"]):
+        assert (a.option, a.raw_bytes, a.rate_bps, a.tx_s > 0) == (
+            b.option, b.raw_bytes, b.rate_bps, b.tx_s > 0)
+        assert abs(a.compressed_bytes - b.compressed_bytes) <= 0.02 * b.compressed_bytes

@@ -149,7 +149,9 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
 
 def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch.bridge, repro_torch.core.splitting, "
-            "repro_torch.core.compression, repro_torch.data.video\n"
+            "repro_torch.core.compression, repro_torch.data.video, "
+            "repro_torch.kernels.quant, repro_torch.core.pipeline, "
+            "repro_torch.core.privacy, repro_torch.core.energy\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
