@@ -15,7 +15,12 @@ when it fails:
     within ATTN_TOL; the codec pair on the split-1..4 payload streams, delta
     on and off, bitwise; the quant pair on each full-width payload leaf, a
     length that is not a multiple of the block, an empty leaf and a bf16
-    leaf, bitwise;
+    leaf, bitwise; flash attention (B5) at the full-width qwen3-1.7b prefill
+    shape in bf16 and f32, and in f32 with Sq < Skv, a ragged length and
+    head dim 64; flash decode (B6) at the full-width decode shape with ragged
+    kv_len (0 and the full cache among them) in bf16 and f32; each output
+    row (one head's hd values at one position) within F32_TOL / BF16_TOL of
+    that row's max |x|;
  4. the main path, once, with every launch counter at 0 before and read
     after: full-width Swin-T (544x800, random weights from a seeded
     generator, random rel_bias) for splits 1-4, four UEs each through
@@ -31,7 +36,8 @@ when it fails:
     attention, one library call over the same windows (scaled dot-product
     attention with a float mask, never called by the port), beside the
     least time the card could take; then the per-split head+encode, decode
-    and batched-tail times;
+    and batched-tail times; B5 and B6 at the full-width serving shapes with
+    scaled dot-product attention as their yardstick;
  7. the codec's modes at full width: for splits 1-4, one frame's head
     payload through raw, zlib, int8, int8_zlib and int8_delta_zlib, each
     int8 mode fused and legacy (per-tensor, the quant pair).  Every payload
@@ -47,7 +53,29 @@ when it fails:
     per fixed split 1-4 with the legacy codec.  Each run starts with every
     launch counter at 0 and must launch each kernel exactly as often as the
     options in its logs imply; per frame it prints the option, delay,
-    compressed bytes and the host wall time of run_frame.
+    compressed bytes and the host wall time of run_frame;
+ 9. LM serving through its entry point, repro_torch.launch.serve.serve, at
+    the full width of qwen3-1.7b (28 layers, bf16, random weights from a
+    seeded generator): batch 4, prompt 2048, 32 greedy decode steps, the
+    split handoff at half depth through the int8 codec.  Every launch
+    counter starts at 0 and must read what the config implies (B5 once per
+    layer in the prefill and once per layer across the split's head and
+    tail, B6 once per layer per decode step, the codec pair once each, no
+    other kernel); no logit may be non-finite; prints prefill ms, decode ms
+    per token and the split's bytes and one-shot ms, then the split's parts.
+    On serve's weights and prompt, prefill to S-1 plus one decode step must
+    give the logits of a prefill to S: in f32 within HANDOFF_F32_TOL of the
+    max |logit|, in bf16 within HANDOFF_BF16_TOL of it (bf16 rounding alone
+    moves full-width logits by more than an absolute 3e-2; the bf16-vs-f32
+    gap is printed);
+10. the serving path on the card against the port's CPU path at full width
+    and cut depth: qwen3-1.7b widths in f32 with 4 layers, batch 2, prompt
+    256, prefill, 2 decode steps and the split at layer 2; every logit within
+    CPU_TOL of the card's max |logit|, and the CPU decode of the card's
+    split payload bitwise equal to the card's.  Then the same weights in
+    bf16: the prefill -> decode gap on the card and on the CPU, each within
+    HANDOFF_BF16_TOL of the max |logit|, at the size tools/lm_handoff_gap.py
+    measures the JAX package's gap.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -79,8 +107,24 @@ ATTN_TOL = 1e-4
 # card vs CPU at full width: fp32 through up to 12 blocks and the FPN, with
 # cuBLAS/cuDNN against oneDNN/MKL sum orders; relative to the map's max |x|
 CPU_TOL = 1e-3
+# attention kernels vs plain versions on the card, relative to each output
+# row's max |x|: f32 differs by sum order only; bf16 by one rounding of the
+# output
+F32_TOL = 1e-5
+BF16_TOL = 1e-2
+# prefill -> decode consistency, relative to the max |logit|.  f32: sum
+# order only (readings 3.6e-6 at full width on the card, 1.9e-6 for the JAX
+# package at 4 layers), so a cache row written or read amiss shows.  bf16:
+# the JAX package's test tolerance (3e-2, tests/test_models_smoke.py) taken
+# relative, since bf16 rounding alone moves the logits of a full-width model
+# by more than an absolute 3e-2 (tools/lm_handoff_gap.py; PERF.md)
+HANDOFF_F32_TOL = 1e-4
+HANDOFF_BF16_TOL = 3e-2
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_SPLIT = 4, 2048, 32, 0.5
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
 
 
 def log(msg: str) -> None:
@@ -127,6 +171,48 @@ def host_ms(fn, runs: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_busy_ms(fn):
+    """Time on the card while ``fn`` runs, from a torch.profiler (CUPTI)
+    trace: the durations of its device events (kernels, copies, fills) summed
+    by name.  Returns (total ms, number of device events, the four largest
+    (name, ms))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            n += 1
+    return sum(by_name.values()), n, by_name.most_common(4)
+
+
+def handoff_logits(cfg, params, tokens):
+    """(logits of a prefill to S, of a prefill to S-1 + decode of token
+    S-1), float32 (B, 1, V), on the tokens' device."""
+    import torch
+    import repro_torch.models.transformer as T
+    S = tokens.shape[1]
+    with torch.no_grad():
+        full, _ = T.prefill(cfg, params, {"tokens": tokens}, S)
+        _, caches = T.prefill(cfg, params, {"tokens": tokens[:, :-1]}, S)
+        dec, _ = T.decode_step(cfg, params, caches, {"tokens": tokens[:, -1:]},
+                               S - 1)
+    return full, dec
+
+
+def handoff_gap(full, dec):
+    """(max |dec - full|, max |full|); raises on a non-finite logit."""
+    import torch
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        raise AssertionError("non-finite logits in the handoff check")
+    return float((dec - full).abs().max()), float(full.abs().max())
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -136,6 +222,8 @@ def main() -> int:
         return 2
 
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
     from repro_torch.configs.swin_t_detection import CONFIG as cfg
     from repro_torch.core.adaptive import (DEFAULT_PRIVACY_PROFILE,
                                            AdaptiveController, Objective)
@@ -143,16 +231,22 @@ def main() -> int:
     from repro_torch.core.channel import dupf_path
     from repro_torch.core.compression import ActivationCodec, _to_host
     from repro_torch.core.pipeline import SplitInferencePipeline
-    from repro_torch.core.splitting import (SERVER_ONLY, UE_ONLY,
-                                            SwinSplitPlan, split_option)
+    from repro_torch.core.splitting import (SERVER_ONLY, UE_ONLY, LMSplitPlan,
+                                            SwinSplitPlan, Workload,
+                                            split_option)
     from repro_torch.core.throughput import train_estimator
     from repro_torch.tree import tree_leaves, tree_map
     from repro_torch.data.video import SyntheticVideo, VideoConfig
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import codec as ck
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant as qk
     from repro_torch.kernels import window_attention as wa
+    from repro_torch.launch import serve as SV
     from repro_torch.models import swin as SW
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -287,6 +381,67 @@ def main() -> int:
                                  "and plain version differ")
         log(f"check B4 {tuple(x.shape)} {str(x.dtype).removeprefix('torch.')}: "
             f"{q.shape[0]} blocks, quant and dequant bitwise equal")
+
+    # the attention kernels at the serving shapes of the LM: full-width
+    # qwen3-1.7b (16 heads over 8 kv heads, hd 128) prefill and decode
+    lm_cfg = get_config(LM_ARCH)
+    lm_H, lm_KV, lm_hd = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g).to(device=dev, dtype=dtype)
+
+    def rel_err(out, ref):
+        """(max |out - ref|, the worst row's max |out - ref| over that row's
+        max |ref|), in float64; a row is one head's hd values at one
+        position, so a row that averages many keys is held to its own size
+        and not to the largest output of the tensor."""
+        d = (out.double() - ref.double()).abs().amax(-1)
+        top = ref.double().abs().amax(-1).clamp_min(1e-30)
+        return float(d.max()), float((d / top).max())
+
+    attn_errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    flash_cases = [  # (B, Sq, Skv, H, KV, hd, dtype): full width, Sq < Skv, ragged, hd 64
+        (LM_BATCH, LM_PROMPT, LM_PROMPT, lm_H, lm_KV, lm_hd, bf16),
+        (LM_BATCH, LM_PROMPT, LM_PROMPT, lm_H, lm_KV, lm_hd, f32),
+        (2, 200, 520, lm_H, lm_KV, lm_hd, f32),
+        (2, 333, 333, lm_H, lm_KV, lm_hd, f32),
+        (2, 300, 300, 15, 5, 64, f32)]
+    for B, Sq, Skv, h_, kv_, hd_, dt in flash_cases:
+        q = rnd((B, Sq, h_, hd_), dt)
+        k, v = rnd((B, Skv, kv_, hd_), dt), rnd((B, Skv, kv_, hd_), dt)
+        ref = fa.flash_attention_plain(q, k, v, True)
+        out = fa.flash_attention_cuda(q, k, v, True)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        if not (torch.isfinite(out).all() and rel <= tol):
+            raise AssertionError(f"B5 {(B, Sq, Skv, h_, kv_, hd_)} {dt}: "
+                                 f"rel err {rel}")
+        attn_errs["flash_attention"] = max(attn_errs["flash_attention"], err)
+        log(f"check B5 q {(B, Sq, h_, hd_)} kv {(B, Skv, kv_, hd_)} "
+            f"{str(dt).removeprefix('torch.')}: max|kernel-plain| {err:.3g}; "
+            f"worst row {rel:.3g} of its max|out| (tol {tol})")
+    cache_len = LM_PROMPT + LM_GEN
+    for dt in (bf16, f32):
+        q = rnd((LM_BATCH, 1, lm_H, lm_hd), dt)
+        ck_, cv_ = (rnd((LM_BATCH, lm_KV, cache_len, lm_hd), dt) for _ in range(2))
+        lens = torch.tensor([0, LM_PROMPT, cache_len, 777][:LM_BATCH],
+                            dtype=torch.int32, device=dev)
+        ref = da.decode_attention_plain(q, ck_, cv_, lens)
+        out = da.decode_attention_cuda(q, ck_, cv_, lens)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        if not (torch.isfinite(out).all() and rel <= tol
+                and not out[0].any()):
+            raise AssertionError(f"B6 {dt}: rel err {rel}, or kv_len 0 is "
+                                 "not zeros")
+        attn_errs["decode_attention"] = max(attn_errs["decode_attention"], err)
+        log(f"check B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
+            f"{lens.tolist()} {str(dt).removeprefix('torch.')}: max|kernel-"
+            f"plain| {err:.3g}; worst row {rel:.3g} of its max|out| (tol "
+            f"{tol}); kv_len 0 gives zeros")
 
     # -- 4. the main path, once, with the launch counters --------------------
     expected = {"fused_window_attention": 0, "codec_encode": 0,
@@ -481,6 +636,56 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({q_bytes} B); launches 1 per leaf of a legacy split frame")
 
+    # B5 at the full-width prefill shape, B6 at the full-width decode shape
+    # (kv_len = the prompt, as in the first decode step), both bf16
+    q = rnd((LM_BATCH, LM_PROMPT, lm_H, lm_hd), bf16)
+    k, v = rnd((LM_BATCH, LM_PROMPT, lm_KV, lm_hd), bf16), rnd((LM_BATCH, LM_PROMPT, lm_KV, lm_hd), bf16)
+    pairs = LM_PROMPT * (LM_PROMPT + 1) // 2               # causal (q, k) pairs
+    flops = LM_BATCH * lm_H * pairs * 4 * lm_hd                 # Q.K^T and P.V
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in; out
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows["flash_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:78",
+        max_abs_err=attn_errs["flash_attention"],
+        ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True), reps=3),
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / BF16_FLOP_PER_S
+                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)))
+    r = rows["flash_attention"]
+    log(f"time B5 q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({flops} flop "
+        f"at {BF16_FLOP_PER_S:.3g}/s, {nbytes} B); launches {lm_cfg.n_layers} "
+        f"per prefill")
+    q = rnd((LM_BATCH, 1, lm_H, lm_hd), bf16)
+    ck_, cv_ = (rnd((LM_BATCH, lm_KV, cache_len, lm_hd), bf16) for _ in range(2))
+    lens = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device=dev)
+    live = torch.arange(cache_len, device=dev)[None, :] < lens[:, None]
+    bool_mask = live[:, None, None, :]                      # (B, 1, 1, S)
+    nbytes = 2 * (2 * LM_BATCH * lm_KV * LM_PROMPT * lm_hd + 2 * q.numel()) + 4 * LM_BATCH
+    flops = 4 * LM_BATCH * lm_H * LM_PROMPT * lm_hd
+    rows["decode_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:64",
+        max_abs_err=attn_errs["decode_attention"],
+        ms=cuda_ms(lambda: da.decode_attention_cuda(q, ck_, cv_, lens)),
+        plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, ck_, cv_, lens)),
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / BF16_FLOP_PER_S
+                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), ck_, cv_, attn_mask=bool_mask, enable_gqa=True)))
+    r = rows["decode_attention"]
+    log(f"time B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
+        f"{LM_PROMPT} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+        f"ms, sdpa with a bool mask {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
+        f"decode step")
+
     with torch.no_grad():
         for split in SPLITS:
             opt = split_option(split)
@@ -644,6 +849,191 @@ def main() -> int:
         launches[name] = loop_launches["legacy"].get(name, 0)
         if launches[name] == 0:
             raise AssertionError(f"the legacy loop never launched {name}")
+
+    # -- 9. LM serving at full width through its entry point -----------------
+    import argparse
+    args = argparse.Namespace(arch=LM_ARCH, reduced=False, prompt_len=LM_PROMPT,
+                              gen=LM_GEN, batch=LM_BATCH, split=LM_SPLIT,
+                              device="cuda", status_out=None)
+    n_layers = lm_cfg.n_layers
+    head_layers = max(1, int(n_layers * LM_SPLIT))
+    want = {"flash_attention": n_layers + head_layers + (n_layers - head_layers),
+            "decode_attention": n_layers * LM_GEN,
+            "codec_encode": 1, "codec_decode": 1}
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    st = SV.serve(args)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    log(f"serve {LM_ARCH} launches: {got} (expected from the config {want})")
+    if got != want:
+        raise AssertionError("serving did not go through B5, B6 and the codec "
+                             "pair as often as its config implies")
+    launches["flash_attention"] = got["flash_attention"]
+    launches["decode_attention"] = got["decode_attention"]
+    snap = json.loads(json.dumps(st))["metrics"]
+    ctr, hist = snap["counters"], snap["histograms"]
+    if (ctr["nonfinite_logits_total"] != 0
+            or ctr["tokens_generated_total"] != LM_BATCH * LM_GEN
+            or hist["decode_step_s"]["count"] != LM_GEN):
+        raise AssertionError(f"serve status: {ctr}")
+    raw_b = int(ctr["boundary_raw_bytes_total"])
+    if raw_b != LM_BATCH * LM_PROMPT * lm_cfg.d_model * 2:
+        raise AssertionError(f"split payload of {raw_b} B")
+    log(f"serve {LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_GEN} decode steps, split at layer {head_layers}/{n_layers} "
+        f"({t_serve:.1f} s with init): prefill "
+        f"{hist['prefill_s']['sum'] * 1e3:.2f} ms; decode "
+        f"{hist['decode_step_s']['sum'] / LM_GEN * 1e3:.3f} ms per token "
+        f"(step of {LM_BATCH} tokens); split one-shot "
+        f"{hist['split_s']['sum'] * 1e3:.2f} ms, boundary {raw_b} B -> "
+        f"{int(ctr['boundary_compressed_bytes_total'])} B; no non-finite "
+        f"logit; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # where the split's one-shot goes: head, encode (device int8 + host
+    # zlib), decode, tail; one run each after serve's own, host clock
+    model = get_model(lm_cfg, dev)
+    gen_ = torch.Generator(device=dev).manual_seed(SV.SEED)
+    lm_params = model.init(gen_)               # serve's weights and prompt
+    tokens = model.concrete(model.prefill_inputs(InputShape(
+        "cli", seq_len=LM_PROMPT, global_batch=LM_BATCH, kind="prefill")),
+        gen_)["tokens"]
+    plan = LMSplitPlan(lm_cfg, lm_params, candidates=(head_layers,),
+                       workload=Workload(n_tokens=LM_PROMPT), device=dev)
+    codec = ActivationCodec(device=dev)
+    opt = split_option(head_layers)
+    with torch.no_grad():
+        t_head = host_ms(lambda: plan.head({"tokens": tokens}, opt), runs=1)
+        payload, _ = plan.head({"tokens": tokens}, opt)
+        t_enc = host_ms(lambda: codec.compress(payload), runs=1)
+        comp = codec.compress(payload)
+        t_dec = host_ms(lambda: codec.decompress(comp), runs=1)
+        dec_payload = codec.decompress(comp)
+        t_tail = host_ms(lambda: plan.tail(dec_payload, opt), runs=1)
+    log(f"split one-shot parts (host clock, one run after a warm-up): head "
+        f"{t_head:.2f} ms ({head_layers} layers), encode {t_enc:.2f} ms "
+        f"(device int8 + copy + host zlib), decode {t_dec:.2f} ms (host "
+        f"unzip + upload + device), tail {t_tail:.2f} ms "
+        f"({n_layers - head_layers} layers + unembed)")
+    del plan, payload, dec_payload
+
+    # prefill to S-1 + one decode step against a prefill to S, at full width:
+    # in bf16, the serving dtype, and in f32 on the same weights upcast
+    full_by = {}
+    for dt_name, c in (("bf16", lm_cfg), ("f32", lm_cfg.replace(dtype="float32"))):
+        p_ = lm_params if c is lm_cfg else tree_map(lambda a: a.float(), lm_params)
+        full, dec = handoff_logits(c, p_, tokens)
+        torch.cuda.synchronize()
+        del p_
+        tol = HANDOFF_BF16_TOL if dt_name == "bf16" else HANDOFF_F32_TOL
+        gap, top = handoff_gap(full, dec)
+        log(f"prefill to {LM_PROMPT - 1} + decode vs prefill to {LM_PROMPT}, "
+            f"{dt_name}, full width: max |diff| {gap:.4g} = {gap / top:.3g} of "
+            f"max |logit| {top:.4g} (tol {tol})")
+        if not gap <= tol * top:
+            raise AssertionError(f"prefill -> decode logits disagree at full "
+                                 f"width in {dt_name}")
+        full_by[dt_name] = full
+    log(f"bf16 rounding noise at full width: max |bf16 - f32| prefill logits "
+        f"on the same weights {float((full_by['bf16'] - full_by['f32']).abs().max()):.4g}")
+    del full_by, full, dec
+
+    # device busy time and idle share: a prefill and three decode steps under
+    # the profiler, against serve's host-clock times for the same work
+    with torch.no_grad():
+        _, caches = T.prefill(lm_cfg, lm_params, {"tokens": tokens},
+                              LM_PROMPT + 4)
+        tok = tokens[:, -1:]
+        T.decode_step(lm_cfg, lm_params, caches, {"tokens": tok}, LM_PROMPT)
+        busy = {"prefill": device_busy_ms(lambda: T.prefill(
+            lm_cfg, lm_params, {"tokens": tokens}, LM_PROMPT)),
+            "decode step": device_busy_ms(lambda: [T.decode_step(
+                lm_cfg, lm_params, caches, {"tokens": tok}, LM_PROMPT + 1 + i)
+                for i in range(3)])}
+    wall = {"prefill": hist["prefill_s"]["sum"] * 1e3,
+            "decode step": hist["decode_step_s"]["sum"] / LM_GEN * 1e3}
+    for what, (ms, n_events, top) in busy.items():
+        per = 3 if what == "decode step" else 1
+        if ms == 0:
+            log(f"trace {what}: the profiler recorded no device time")
+            continue
+        log(f"trace {what}: device busy {ms / per:.2f} ms of serve's "
+            f"{wall[what]:.2f} ms host-clock time, idle share "
+            f"{max(0.0, 1 - ms / per / wall[what]):.3f}, {n_events // per} "
+            f"device events; largest: "
+            + ", ".join(f"{name[:48]} {t / per:.2f} ms" for name, t in top))
+    del lm_params, caches
+
+    # -- 10. the serving path on the card against the CPU, full width --------
+    cut = lm_cfg.replace(n_layers=4, dtype="float32")
+    B10, S10, steps10, split10 = 2, 256, 2, 2
+    cpu = torch.device("cpu")
+    gen_ = torch.Generator(device=dev).manual_seed(SEED)
+    p_gpu = T.init(cut, gen_, dev)
+    p_cpu = tree_map(lambda a: a.to(cpu), p_gpu)
+    tokens = torch.randint(0, cut.vocab_size, (B10, S10), generator=gen_,
+                           device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    logits = {}                                  # name -> (card, cpu)
+    with torch.no_grad():
+        for where, params_, toks in (("card", p_gpu, tokens),
+                                     ("cpu", p_cpu, tokens.cpu())):
+            lg, caches = T.prefill(cut, params_, {"tokens": toks},
+                                   S10 + steps10)
+            logits.setdefault("prefill", []).append(lg)
+            tok = logits["prefill"][0][:, -1:].argmax(-1).to(torch.int32)
+            for i in range(steps10):
+                lg, caches = T.decode_step(cut, params_, caches,
+                                           {"tokens": tok.to(toks.device)},
+                                           S10 + i)
+                logits.setdefault(f"decode {i}", []).append(lg)
+                tok = logits[f"decode {i}"][0].argmax(-1).to(torch.int32)
+        opt = split_option(split10)
+        plan_gpu = LMSplitPlan(cut, p_gpu, candidates=(split10,),
+                               workload=Workload(n_tokens=S10), device=dev)
+        plan_cpu = LMSplitPlan(cut, p_cpu, candidates=(split10,),
+                               workload=Workload(n_tokens=S10), device=cpu)
+        payload, _ = plan_gpu.head({"tokens": tokens}, opt)
+        comp = ActivationCodec(device=dev).compress(payload)
+        dec_gpu = ActivationCodec(device=dev).decompress(comp)
+        dec_cpu = ActivationCodec(device=cpu).decompress(comp)
+        logits["split tail"] = [plan_gpu.tail(dec_gpu, opt),
+                                plan_cpu.tail(dec_cpu, opt)]
+    if not torch.equal(dec_cpu["h"].view(torch.int32),
+                       dec_gpu["h"].cpu().view(torch.int32)):
+        raise AssertionError("CPU decode of the card's split payload differs")
+    worst = 0.0
+    for name, (a, b) in logits.items():
+        a = a.cpu()
+        rel = float((a - b).abs().max()) / float(a.abs().max())
+        worst = max(worst, rel)
+        log(f"card vs CPU, {name} logits {tuple(a.shape)}: max |diff| / max "
+            f"|logit| = {rel:.3g}")
+    if not worst <= CPU_TOL:
+        raise AssertionError(f"card vs CPU at full width: {worst}")
+    log(f"CPU path, {LM_ARCH} widths, f32, {cut.n_layers} layers, batch {B10}, "
+        f"prompt {S10} ({time.perf_counter() - t0:.1f} s): prefill, "
+        f"{steps10} decode steps and the split tail at layer {split10} within "
+        f"{worst:.3g} of the card (rel. tol {CPU_TOL}); the CPU decode of the "
+        f"card's payload ({comp.raw_bytes} B -> {comp.compressed_bytes} B) "
+        f"bitwise equal")
+    # the bf16 handoff at the size of tools/lm_handoff_gap.py, on the card
+    # and on the CPU path, same weights and prompt
+    cut16 = cut.replace(dtype="bfloat16")
+    for where, params_, toks in (("card", p_gpu, tokens),
+                                 ("cpu", p_cpu, tokens.cpu())):
+        params_ = tree_map(lambda a: a.to(torch.bfloat16), params_)
+        gap, top = handoff_gap(*handoff_logits(cut16, params_, toks))
+        log(f"bf16 prefill to {S10 - 1} + decode vs prefill to {S10} on the "
+            f"{where}, {cut.n_layers} layers, batch {B10}: max |diff| "
+            f"{gap:.4g} = {gap / top:.3g} of max |logit| {top:.4g} (tol "
+            f"{HANDOFF_BF16_TOL})")
+        if not gap <= HANDOFF_BF16_TOL * top:
+            raise AssertionError(f"bf16 prefill -> decode on the {where}")
+    del p_gpu, p_cpu
 
     kernels = []
     for name, r in rows.items():

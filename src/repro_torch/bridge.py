@@ -9,6 +9,12 @@ and the throughput estimator's parameter list (``[{"w": (a, b), "b":
 (b,)}, ...]``, 2-D and 1-D leaves, taken as they are).  No weight is
 re-drawn, so a model compared with the JAX package runs on exactly its
 weights.
+
+``lm_params_from_numpy`` takes the LM tree of ``repro.models.transformer.
+init`` and keeps every leaf's layout and dtype: the per-layer weights are
+stacked by ``jax.vmap`` into a leading layer axis, so ``wq`` is (layers, d,
+H, hd), 4-D and no convolution.  bf16 leaves arrive as ``ml_dtypes``
+bfloat16 arrays, which torch cannot take: their bits go through uint16.
 """
 from __future__ import annotations
 
@@ -29,5 +35,18 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         if t.dim() == 4:                       # HWIO -> OIHW
             t = t.permute(3, 2, 0, 1).contiguous()
         return t.to(device)
+
+    return tree_map(convert, tree)
+
+
+def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
+    device = resolve_device(device)
+
+    def convert(leaf):
+        a = np.asarray(leaf)
+        if a.dtype.name == "bfloat16":
+            return (torch.from_numpy(a.view(np.uint16).copy())
+                    .view(torch.bfloat16).to(device))
+        return torch.from_numpy(a.copy()).to(device)
 
     return tree_map(convert, tree)

@@ -1,13 +1,18 @@
-"""Split plans: partition the Swin detector's forward pass at a boundary.
+"""Split plans: partition a model's forward pass at a boundary.
 
-The counterpart of the Swin half of ``repro/core/splitting.py``.  The paper's
-setting: split the Swin detection backbone after patch embedding or after
-stage 1..4; the FPN and detection head always run on the server.  Execution
-options follow paper Fig. 4: UE_ONLY, SPLIT(l), SERVER_ONLY.
+The counterpart of ``repro/core/splitting.py``.  Execution options follow
+paper Fig. 4: UE_ONLY, SPLIT(l), SERVER_ONLY.
 
-``SwinSplitPlan`` here is the port's own class, not a subclass of the JAX
-package's; callers of the JAX package that test ``isinstance`` against its
-plan (calibration, the cell simulator) are not driven by the port yet.
+  * ``SwinSplitPlan``: the paper's setting, the Swin detection backbone
+    split after patch embedding or after stage 1..4; the FPN and detection
+    head always run on the server.
+  * ``LMSplitPlan``: the technique on a dense LM, the residual stream cut
+    at a layer boundary (quartile depths by default); the payload is the
+    (B, S, d) activation after layer l.
+
+Both are the port's own classes, not subclasses of the JAX package's;
+callers of the JAX package that test ``isinstance`` against its plans (the
+cell simulator) are not driven by the port yet.
 """
 from __future__ import annotations
 
@@ -18,8 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, count_active_params
 from repro_torch.configs.swin_t_detection import SwinConfig
 from repro_torch.models import swin as SW
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import rms_norm
 from repro_torch.tree import tree_leaves, tree_map
 
 UE_ONLY = "ue_only"
@@ -37,7 +45,7 @@ def _split_of(option: str) -> int:
 @dataclass(frozen=True)
 class Workload:
     """What one frame of work means for a plan: Swin processes one image per
-    frame (``n_tokens`` stays 1)."""
+    frame (``n_tokens`` stays 1), an LM plan an ``n_tokens`` prefill."""
     n_tokens: int = 1
     include_state: bool = False
 
@@ -74,7 +82,7 @@ class _PlanBase:
     ``payload_specs`` / ``_tail_impl``."""
 
     def raw_payload_bytes(self, option: str, batch: int = 1) -> int:
-        return batch * sum(int(np.prod(s)) * np.dtype(d).itemsize
+        return batch * sum(int(np.prod(s)) * getattr(torch, d).itemsize
                            for s, d in self.payload_specs(option))
 
     def tail(self, payload, option: str):
@@ -165,3 +173,92 @@ class SwinSplitPlan(_PlanBase):
         return [(s, self.cfg.dtype)
                 for s in SW.boundary_shapes(self.cfg, _split_of(option),
                                             ship_merged=self.ship_merged)]
+
+
+# ===========================================================================
+# LM-family archs (technique generalization)
+# ===========================================================================
+
+def default_candidates(cfg: ModelConfig) -> Tuple[int, ...]:
+    n = cfg.n_layers
+    return tuple(sorted({min(max(1, round(n * q)), n - 1)
+                         for q in (0.25, 0.5, 0.75)}))
+
+
+@dataclass
+class LMSplitPlan(_PlanBase):
+    cfg: ModelConfig
+    params: Any
+    candidates: Tuple[int, ...] = ()
+    workload: Workload = field(default_factory=lambda: Workload(n_tokens=128))
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        T.check_supported(self.cfg)
+        self.device = resolve_device(self.device)
+        if not self.candidates:
+            self.candidates = default_candidates(self.cfg)
+
+    @property
+    def options(self) -> List[str]:
+        return ([UE_ONLY] + [split_option(l) for l in self.candidates]
+                + [SERVER_ONLY])
+
+    # -- execution (prefill-style single-shot inference) ---------------------
+    def _embed(self, params, batch) -> torch.Tensor:
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        return T.embed_inputs(self.cfg, params, {"tokens": tokens})
+
+    def head(self, batch, option: str):
+        """UE-side layers.  Returns (payload_or_None, logits_or_None): the
+        payload of a split is ``{"h": (B, S, d)}`` after layer l."""
+        if option == SERVER_ONLY:
+            return dict(batch), None
+        h = self._embed(self.params, batch)
+        hi = self.cfg.n_layers if option == UE_ONLY else _split_of(option)
+        h, _ = T.forward_slice(self.cfg, self.params, h, T.positions_for(h),
+                               0, hi)
+        if option == UE_ONLY:
+            return None, self._finish(self.params, h)
+        return {"h": h}, None
+
+    def _tail_impl(self, params, payload, option: str):
+        if option == SERVER_ONLY:
+            h, lo = self._embed(params, payload), 0
+        else:
+            h, lo = payload["h"], _split_of(option)
+        h, _ = T.forward_slice(self.cfg, params, h, T.positions_for(h), lo,
+                               self.cfg.n_layers)
+        return self._finish(params, h)
+
+    def _finish(self, params, h: torch.Tensor) -> torch.Tensor:
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        return T.unembed(self.cfg, params, h[:, -1:])
+
+    # -- accounting ----------------------------------------------------------
+    def _layer_flops(self) -> float:
+        # 2ND forward flops per token, each layer's share
+        return 2.0 * count_active_params(self.cfg) / self.cfg.n_layers
+
+    def head_flops(self, option: str) -> float:
+        if option == UE_ONLY:
+            return (self._layer_flops() * self.cfg.n_layers
+                    * self.workload.n_tokens)
+        if option == SERVER_ONLY:
+            return 0.0
+        return self._layer_flops() * _split_of(option) * self.workload.n_tokens
+
+    def tail_flops(self, option: str) -> float:
+        total = (self._layer_flops() * self.cfg.n_layers
+                 * self.workload.n_tokens)
+        return total - self.head_flops(option)
+
+    def payload_specs(self, option: str) -> List[Tuple[Tuple[int, ...], str]]:
+        """(shape, dtype) per shipped tensor, batch dim excluded.  The JAX
+        package also ships SSM/hybrid state here; the dense family has none."""
+        seq_len = self.workload.n_tokens
+        if option == UE_ONLY:
+            return []
+        if option == SERVER_ONLY:
+            return [((seq_len,), "int32")]
+        return [((seq_len, self.cfg.d_model), self.cfg.dtype)]

@@ -1,0 +1,94 @@
+"""Flash decode (one new token against a KV cache): the CUDA kernel's wrapper
+and its plain version.
+
+Replaces the TPU kernel ``repro/kernels/decode_attention.py ::
+decode_attention_pallas``.  For each batch row b, query heads
+n G .. n G + G - 1 (G = H // KV) of q (B, 1, H, hd) attend to the first
+``kv_len[b]`` rows of kv head n; f32 softmax, output in q's dtype.  A row
+with ``kv_len = 0`` gives zeros, as the TPU kernel's ``acc / max(l, 1e-30)``
+does.
+
+Both versions here take the cache KV-major, (B, KV, S, hd), the layout the
+LM keeps (``models/transformer.py::block_cache_init``), so the decode path
+never transposes it; ``kernels/ops.py::decode_attention`` keeps the TPU
+wrapper's (B, S, KV, hd) signature and transposes as that wrapper does.
+
+The CUDA kernel (``csrc/decode_attention.cu``) runs one CTA per (kv head,
+batch row) over the live rows only; it is bound by the bytes of the cache it
+reads (the source note gives the numbers).  ``kernels/ops.py`` takes the
+plain version only for tensors on the CPU; ``chip_smoke.py`` holds the kernel
+against it on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (DTYPE_CODES,
+                                                 check_attention_operands)
+
+MAX_GROUP = 16                  # query heads per kv head the kernel takes
+
+
+def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """q (B, 1, H, hd); ck, cv (B, KV, S, hd); kv_len (B,) -> (B, 1, H, hd)
+    in q's dtype: the masked softmax over the live rows, zeros where
+    ``kv_len`` is 0."""
+    B, _, H, hd = q.shape
+    KV, S = ck.shape[1], ck.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, hd)
+    logits = torch.einsum("bngd,bnkd->bngk", qg, ck.float()) / math.sqrt(hd)
+    live = (torch.arange(S, device=q.device)[None, :]
+            < kv_len.to(q.device)[:, None])[:, None, None, :]     # (B, 1, 1, S)
+    logits = logits.masked_fill(~live, -torch.inf)
+    m = logits.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(logits - m)
+    out = torch.einsum("bngk,bnkd->bngd", p, cv.float())
+    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+@functools.cache
+def _fn():
+    fn = _build.library("decode_attention").decode_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                          kv_len: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
+    the plain version; at most ``MAX_GROUP`` query heads per kv head."""
+    _build.check_operands("decode_attention_cuda", q, ck, cv, kv_len)
+    q, ck, cv = q.contiguous(), ck.contiguous(), cv.contiguous()
+    check_attention_operands("decode_attention_cuda", q, ck, cv)
+    B, _, H, hd = q.shape
+    KV, S = ck.shape[1], ck.shape[2]
+    if tuple(q.shape) != (B, 1, H, hd) or tuple(ck.shape) != (B, KV, S, hd) \
+            or cv.shape != ck.shape:
+        raise ValueError("decode_attention_cuda takes q (B, 1, H, hd) and a "
+                         f"KV-major cache (B, KV, S, hd); got {tuple(q.shape)}, "
+                         f"{tuple(ck.shape)}, {tuple(cv.shape)}")
+    if KV == 0 or H % KV or H // KV > MAX_GROUP:
+        raise ValueError(f"{H} query heads over {KV} kv heads: the kernel takes "
+                         f"whole groups of at most {MAX_GROUP}")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,):
+        raise TypeError("kv_len must be (B,) int32")
+    kv_len = kv_len.contiguous()
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    rc = _fn()(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+               kv_len.data_ptr(), out.data_ptr(), B, S, H, KV, hd,
+               DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+               torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "decode_attention")
+    _build.LAUNCHES["decode_attention"] += 1
+    return out

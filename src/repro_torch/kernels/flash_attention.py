@@ -1,0 +1,100 @@
+"""Causal GQA flash attention (prefill): the CUDA kernel's wrapper and its
+plain version.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py ::
+flash_attention_pallas``.  q (B, Sq, H, hd) attends to k, v (B, Skv, KV, hd):
+query head h reads kv head h // (H // KV), query row i sits at position
+i + Skv - Sq (q aligned to the end of kv), scores above the diagonal (with
+``causal``) are masked to -1e30, the softmax runs in f32 and the output is
+cast to q's dtype.
+
+The CUDA kernel (``csrc/flash_attention.cu``) runs one CTA per (q tile,
+head, batch row) that walks the kv tiles up to the diagonal with an f32
+online softmax; its products run on the CUDA cores in f32.  At the full-width
+prefill shape it is bound by operations (the source note gives the numbers).
+
+``flash_attention_plain`` is the same function as a dense masked softmax in
+f32 (``repro/kernels/ref.py::flash_attention_ref``).  ``kernels/ops.py``
+takes it only for tensors on the CPU; ``chip_smoke.py`` holds the kernel
+against it on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, KV, H // KV, hd)
+    logits = torch.einsum("bqngd,bknd->bngqk", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+        k_pos = torch.arange(Skv, device=q.device)
+        logits = logits.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+@functools.cache
+def _fn():
+    fn = _build.library("flash_attention").flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_attention_operands(what: str, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> None:
+    """Raise on what the attention kernels do not take: one dtype of
+    ``DTYPE_CODES``, a head dim of ``SUPPORTED_HEAD_DIMS`` and 16-byte
+    aligned storage."""
+    hd = q.shape[-1]
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what} takes q, k and v of one dtype, float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in SUPPORTED_HEAD_DIMS or k.shape[-1] != hd or v.shape[-1] != hd:
+        raise ValueError(f"{what}: head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what} takes 16-byte aligned operands")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
+    the plain version; with ``causal``, Sq <= Skv."""
+    _build.check_operands("flash_attention_cuda", q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_attention_operands("flash_attention_cuda", q, k, v)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, Skv, KV, hd) = {tuple(k.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not split into {KV} kv heads")
+    if Skv == 0 or (causal and Sq > Skv):
+        raise ValueError(f"attention needs 1 <= Skv and, causal, Sq <= Skv; "
+                         f"got Sq {Sq}, Skv {Skv}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               B, Sq, Skv, H, KV, hd, int(causal), DTYPE_CODES[q.dtype],
+               1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

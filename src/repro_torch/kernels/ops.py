@@ -5,7 +5,10 @@ a CUDA device goes to the hand-written CUDA kernel, which either launches or
 raises.  Nothing falls back from a CUDA tensor to the plain version, and the
 choice never depends on whether CUDA is present or a build worked.  The
 signatures follow ``repro/kernels/ops.py`` (``quantize``, ``dequantize``,
-``fused_window_attention``, ``codec_encode``, ``codec_decode``).
+``flash_attention``, ``decode_attention``, ``fused_window_attention``,
+``codec_encode``, ``codec_decode``); the attention kernels choose their own
+block sizes, so those are not arguments.  ``decode_attention_kv_major`` is
+the LM's decode entry, on the cache layout it keeps.
 
 ``LAUNCHES`` counts kernel launches by name (see ``_build``).
 """
@@ -16,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import codec as _codec
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import window_attention as _wa
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401  (re-exported)
@@ -41,6 +46,34 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
     fn = (_quant.dequant_cuda if _route(q) == "cuda"
           else _quant.dequant_plain)
     return fn(q, scales, n, shape, dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal GQA attention: q (B, Sq, H, hd), k and v (B, Skv, KV, hd), q
+    aligned to the end of kv.  Returns (B, Sq, H, hd) in q's dtype."""
+    fn = (_fa.flash_attention_cuda if _route(q) == "cuda"
+          else _fa.flash_attention_plain)
+    return fn(q, k, v, causal)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """One query token against a cache: q (B, 1, H, hd), k and v
+    (B, S, KV, hd), kv_len (B,) int32 valid rows.  Transposes the cache to
+    KV-major, as the TPU wrapper does; returns (B, 1, H, hd)."""
+    return decode_attention_kv_major(q, k.transpose(1, 2), v.transpose(1, 2),
+                                     kv_len)
+
+
+def decode_attention_kv_major(q: torch.Tensor, ck: torch.Tensor,
+                              cv: torch.Tensor,
+                              kv_len: torch.Tensor) -> torch.Tensor:
+    """``decode_attention`` on a KV-major cache, ck and cv (B, KV, S, hd):
+    no transpose."""
+    fn = (_da.decode_attention_cuda if _route(q) == "cuda"
+          else _da.decode_attention_plain)
+    return fn(q, ck, cv, kv_len)
 
 
 def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,

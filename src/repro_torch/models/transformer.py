@@ -1,0 +1,261 @@
+"""Stage-structured decoder: the dense subset of ``repro/models/transformer.py``.
+
+Layers are grouped into runs of one block kind, and each run's parameters
+are stacked along a leading layer axis, as the JAX package stacks them with
+``jax.vmap``.  Its ``jax.lax.scan`` over a run becomes a Python loop over the
+stacked weights here.  Runs are also the split boundaries of the paper's
+technique on an LM (``core/splitting.py::LMSplitPlan``): ``forward_slice``
+executes layers [lo, hi) of the same parameters.
+
+The port runs the dense family: GQA attention with optional qk-norm,
+SwiGLU FFNs, RMSNorm, RoPE, tied or separate embeddings, no sliding window
+and no logit soft-capping (``qwen3-1.7b``, ``qwen3-4b``, ``smollm-360m``,
+``starcoder2-15b``).  Any other config raises ``NotImplementedError``.
+
+Decode caches are KV-major, (layers, B, KV, max_len, hd) per run, and a
+decode step writes its token into them in place (the JAX package returns a
+new cache).  The training loss (``lm_loss``, ``loss_fn``) is not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+
+# ---------------------------------------------------------------------------
+# layer plan: one LayerKind per layer; runs = maximal uniform groups
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LayerKind:
+    block: str = "attn_ffn"
+    attn: str = "gqa"
+    ffn: str = "dense"
+    sliding_window: int = 0
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside the dense family
+    this port runs."""
+    missing = [what for what, on in (
+        (f"family {cfg.family!r}", cfg.family != "dense"),
+        ("a sliding window", bool(cfg.sliding_window)),
+        ("logit soft-capping", bool(cfg.attn_logit_softcap)),
+        ("experts", bool(cfg.n_experts)),
+        ("MLA", cfg.use_mla),
+        (f"frontend {cfg.frontend!r}", cfg.frontend != "none"),
+        ("codebooks", bool(cfg.n_codebooks)),
+        ("a hybrid block", cfg.hybrid)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's LM runs the dense family only; "
+            f"{', '.join(missing)} wait for ROADMAP A8b")
+
+
+def layer_plan(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
+    check_supported(cfg)
+    return tuple(LayerKind() for _ in range(cfg.n_layers))
+
+
+def layer_runs(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
+    runs: List[Tuple[LayerKind, int]] = []
+    for kind in layer_plan(cfg):
+        if runs and runs[-1][0] == kind:
+            runs[-1] = (kind, runs[-1][1] + 1)
+        else:
+            runs.append((kind, 1))
+    return runs
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# block init / apply / cache
+# ---------------------------------------------------------------------------
+
+def block_init(cfg: ModelConfig, kind: LayerKind,
+               generator: torch.Generator) -> Dict[str, Any]:
+    """One layer's float32 weights, drawn from ``generator`` on its device."""
+    ones = torch.ones((cfg.d_model,), device=generator.device)
+    return {"ln1": ones, "ln2": ones.clone(),
+            "attn": L.attn_init(cfg, generator),
+            "ffn": L.mlp_init(cfg, generator)}
+
+
+def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
+                positions: torch.Tensor, *, cache=None,
+                cache_index: Optional[int] = None,
+                kv_len: Optional[torch.Tensor] = None):
+    """Pre-norm attention and FFN with residuals.  Returns (x, new_cache)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    ay, new_attn = L.attn_apply(cfg, p["attn"], h, positions,
+                                cache=None if cache is None else cache["attn"],
+                                cache_index=cache_index, kv_len=kv_len)
+    x = x + ay
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(p["ffn"], h2), {"attn": new_attn}
+
+
+def block_cache_init(cfg: ModelConfig, kind: LayerKind, B: int, max_len: int,
+                     device) -> Dict[str, Any]:
+    """One layer's decode cache, KV-major (B, KV, max_len, hd), zeroed."""
+    shape = (B, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {"attn": {name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+                     for name in ("k", "v")}}
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+    """Random weights in the JAX package's tree and scales, drawn from
+    ``generator`` on its device and cast to the config's dtype.  The draws
+    are torch's, not ``jax.random``'s: a comparison with the JAX package
+    bridges its weights (``bridge.lm_params_from_numpy``) instead."""
+    device = resolve_device(device)
+    dt = dtype_of(cfg)
+
+    def cast(t):
+        return t.to(device=device, dtype=dt)
+
+    params: Dict[str, Any] = {
+        "embed": cast(L.init_dense(generator, (cfg.vocab_size, cfg.d_model),
+                                   scale=0.02))}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = cast(L.init_dense(generator,
+                                              (cfg.d_model, cfg.vocab_size)))
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    runs = []
+    for kind, count in layer_runs(cfg):
+        per_layer = [tree_map(cast, block_init(cfg, kind, generator))
+                     for _ in range(count)]
+        runs.append(tree_map(lambda *xs: torch.stack(xs), *per_layer))
+    params["runs"] = runs
+    return params
+
+
+def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Token ids (B, S) -> the (B, S, d) residual stream."""
+    return params["embed"][batch["tokens"]].to(dtype_of(cfg))
+
+
+def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
+                positions: torch.Tensor, lo: int, hi: int, caches,
+                cache_index: Optional[int]):
+    """Layers [lo, hi).  With ``caches`` (one stacked tree per run) each
+    layer decodes into its slice in place and the new caches are views of
+    them; without, the new caches stack the layers' (k, v)."""
+    new_caches = []
+    kv_len = None
+    if caches is not None:                       # one (B,) tensor per step
+        B, S = h.shape[:2]
+        kv_len = torch.full((B,), cache_index + S, dtype=torch.int32,
+                            device=h.device)
+    start = 0
+    for ri, (kind, count) in enumerate(layer_runs(cfg)):
+        end = start + count
+        s, e = max(lo, start), min(hi, end)
+        if s < e:
+            rp = params["runs"][ri]
+            rc = None if caches is None else caches[ri]
+            got = []
+            for i in range(s - start, e - start):
+                c_i = None if rc is None else tree_map(lambda a: a[i], rc)
+                h, c = block_apply(cfg, kind, tree_map(lambda a: a[i], rp), h,
+                                   positions, cache=c_i,
+                                   cache_index=cache_index, kv_len=kv_len)
+                got.append(c)
+            if rc is None:
+                new_caches.append(tree_map(lambda *xs: torch.stack(xs), *got))
+            else:
+                new_caches.append(tree_map(
+                    lambda a: a[s - start:e - start], rc))
+        start = end
+    return h, new_caches
+
+
+def forward(cfg: ModelConfig, params, h: torch.Tensor, positions: torch.Tensor,
+            *, caches=None, cache_index: Optional[int] = None):
+    """Every layer, then the final norm.  h: (B, S, d).  Returns (h,
+    new_caches)."""
+    h, new_caches = _run_layers(cfg, params, h, positions, 0, cfg.n_layers,
+                                caches, cache_index)
+    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), new_caches
+
+
+def forward_slice(cfg: ModelConfig, params, h: torch.Tensor,
+                  positions: torch.Tensor, lo: int, hi: int, *, caches=None,
+                  cache_index: Optional[int] = None):
+    """Layers [lo, hi) only, no final norm: the split-inference partial
+    forward on the published weights.  Returns (h, new_caches_for_slice)."""
+    return _run_layers(cfg, params, h, positions, lo, hi, caches, cache_index)
+
+
+def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """h: (B, S, d) -> float32 logits (B, S, V); tied: ``embed.T``."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.dense32(h, w)
+
+
+def positions_for(h: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """(B, S) int32 positions start .. start + S - 1 for the stream h."""
+    B, S = h.shape[:2]
+    return (torch.arange(start, start + S, dtype=torch.int32, device=h.device)
+            .expand(B, S))
+
+
+# ---------------------------------------------------------------------------
+# serving entry points (prefill / decode_step)
+# ---------------------------------------------------------------------------
+
+def cache_init(cfg: ModelConfig, B: int, max_len: int, device="cuda"):
+    """Stacked decode caches, one tree per run."""
+    device = resolve_device(device)
+    caches = []
+    for kind, count in layer_runs(cfg):
+        single = block_cache_init(cfg, kind, B, max_len, device)
+        caches.append(tree_map(
+            lambda a: a.new_zeros((count,) + tuple(a.shape)), single))
+    return caches
+
+
+def prefill(cfg: ModelConfig, params, batch, max_len: int):
+    """Process the prompt and build the decode caches.  Returns
+    (last-position logits (B, 1, V) float32, caches)."""
+    h = embed_inputs(cfg, params, batch)
+    B, Sq = h.shape[:2]
+    if max_len < Sq:
+        raise ValueError(f"max_len {max_len} is shorter than the prompt {Sq}")
+    h, seq_caches = forward(cfg, params, h, positions_for(h))
+    caches = cache_init(cfg, B, max_len, h.device)
+    out = [_merge_prefill_cache(cfg, kind, dec, got, Sq)
+           for (kind, _), dec, got in zip(layer_runs(cfg), caches, seq_caches)]
+    return unembed(cfg, params, h[:, -1:]), out
+
+
+def _merge_prefill_cache(cfg: ModelConfig, kind: LayerKind, dec, got, Sq: int):
+    """Write the prompt's (layers, B, Sq, KV, hd) k and v into the first Sq
+    rows of the KV-major decode cache, in place."""
+    for name in ("k", "v"):
+        dec["attn"][name][:, :, :, :Sq] = got["attn"][name].transpose(2, 3)
+    return dec
+
+
+def decode_step(cfg: ModelConfig, params, caches, batch, cache_index: int):
+    """One-token decode.  batch: tokens (B, 1); cache_index: the new token's
+    position.  Returns (logits (B, 1, V) float32, caches updated in place)."""
+    cache_index = int(cache_index)
+    h = embed_inputs(cfg, params, batch)
+    h, caches = forward(cfg, params, h, positions_for(h, cache_index),
+                        caches=caches, cache_index=cache_index)
+    return unembed(cfg, params, h), caches

@@ -8,9 +8,14 @@ marked ``cuda`` and skip without one.  On a machine with a card:
 They import no JAX: the plain versions are held against the JAX package by
 the CPU tests, and here the kernels are held against the plain versions on
 the same inputs (window attention within 1e-4, both fp32 with sums in other
-orders; the codec pair and the quant pair bitwise), and the frame loop on the
-card against the same loop on the CPU.
+orders; the codec pair and the quant pair bitwise; flash attention and flash
+decode within 1e-5 of the output's max |x| in f32, sums in other orders, and
+1e-2 in bf16, one rounding of the output), the frame loop on the card against
+the same loop on the CPU, and LM serving at the reduced size on the card
+against the CPU path.
 """
+import argparse
+
 import json
 
 import numpy as np
@@ -22,11 +27,18 @@ from repro_torch.core.calibration import calibrate
 from repro_torch.core.compression import ActivationCodec
 from repro_torch.core.pipeline import SplitInferencePipeline
 from repro_torch.core.splitting import SwinSplitPlan, split_option
+from repro_torch.configs import get_reduced_config
+from repro_torch.core.splitting import LMSplitPlan, Workload
 from repro_torch.kernels import codec as ck
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as qk
 from repro_torch.kernels import window_attention as wa
+from repro_torch.launch import serve as SV
+from repro_torch.models import layers as L
 from repro_torch.models import swin as SW
+from repro_torch.models import transformer as T
 from repro_torch.tree import tree_flatten, tree_map
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +182,112 @@ def test_frame_loop_on_the_card_matches_the_cpu_path(cuda, tmp_path, fused):
         assert (a.option, a.raw_bytes, a.rate_bps, a.tx_s > 0) == (
             b.option, b.raw_bytes, b.rate_bps, b.tx_s > 0)
         assert abs(a.compressed_bytes - b.compressed_bytes) <= 0.02 * b.compressed_bytes
+
+
+def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    ref = ref.double().cpu()
+    return float((out.double().cpu() - ref).abs().max()) / float(ref.abs().max())
+
+
+ATTN_KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", [
+    (2, 128, 128, 4, 4, 64, True),
+    (2, 256, 256, 8, 2, 128, True),
+    (2, 96, 96, 4, 1, 32, False),
+    (1, 1, 130, 4, 2, 64, True),
+    (1, 70, 200, 6, 2, 16, True),
+    (2, 333, 333, 15, 5, 64, True),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, KV,
+                                              hd, causal):
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn((B, Sq, H, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    out = fa.flash_attention_cuda(q, k, v, causal)
+    ref = fa.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S,H,KV,hd,lens", [
+    (512, 8, 2, 64, (170, 256, 512)),
+    (300, 4, 4, 64, (0, 1, 300)),
+    (100, 24, 2, 32, (99, 7)),
+    (2080, 16, 8, 128, (0, 2048, 2080, 1000)),
+    (40, 4, 2, 16, (40, 0, 3)),
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, S, H, KV, hd, lens):
+    g = torch.Generator().manual_seed(8)
+    B = len(lens)
+    q = torch.randn((B, 1, H, hd), generator=g).to(cuda, dtype)
+    ck_ = torch.randn((B, KV, S, hd), generator=g).to(cuda, dtype)
+    cv_ = torch.randn((B, KV, S, hd), generator=g).to(cuda, dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = da.decode_attention_cuda(q, ck_, cv_, kv_len)
+    ref = da.decode_attention_plain(q, ck_, cv_, kv_len)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[dtype]
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not out[b].any()
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 256), (3, 5, 256)])
+def test_dense32_bf16_on_the_card_matches_the_upcast(cuda, shape):
+    """The tied unembedding's bf16 GEMM with a float32 output on the card
+    against float32 products of the same bf16 values on the CPU; ``w`` is a
+    transposed view, as ``embed.T`` is."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g).to(torch.bfloat16)
+    w = torch.randn((1000, shape[-1]), generator=g).to(torch.bfloat16).T
+    got = L.dense32(x.to(cuda), w.to(cuda))
+    assert got.dtype == torch.float32 and got.shape == shape[:-1] + (1000,)
+    assert _rel_err(got, L.dense32(x, w)) <= 1e-5
+
+
+def test_lm_serving_on_the_card_matches_the_cpu_path(cuda):
+    """Reduced qwen3-1.7b (f32) on the same weights and tokens: prefill,
+    three decode steps and the split tail through the codec, on the card and
+    on the CPU, logits within 1e-4 of their max |x|; then serve on the card
+    launches B5, B6 and the codec pair as its config implies."""
+    cfg = get_reduced_config("qwen3-1.7b")
+    g = torch.Generator().manual_seed(9)
+    params = T.init(cfg, g, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=g,
+                         dtype=torch.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(dev), params)
+        with torch.no_grad():
+            lg, caches = T.prefill(cfg, p, {"tokens": toks.to(dev)}, 27)
+            got = [lg]
+            tok = toks[:, -1:]
+            for i in range(3):
+                lg, caches = T.decode_step(cfg, p, caches,
+                                           {"tokens": tok.to(dev)}, 24 + i)
+                got.append(lg)
+                tok = (tok + 1) % cfg.vocab_size
+            plan = LMSplitPlan(cfg, p, candidates=(1,),
+                               workload=Workload(n_tokens=24), device=dev)
+            codec = ActivationCodec(device=dev)
+            payload, _ = plan.head({"tokens": toks}, "split1")
+            got.append(plan.tail(codec.decompress(codec.compress(payload)),
+                                 "split1"))
+        out[dev.type] = got
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _rel_err(a, b) <= 1e-4
+    ops.LAUNCHES.clear()
+    st = SV.serve(argparse.Namespace(arch="qwen3-1.7b", reduced=True,
+                                     prompt_len=16, gen=3, batch=2, split=0.5,
+                                     device="cuda"))
+    n = cfg.n_layers
+    assert dict(ops.LAUNCHES) == {"flash_attention": 2 * n,
+                                  "decode_attention": 3 * n,
+                                  "codec_encode": 1, "codec_decode": 1}
+    assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0

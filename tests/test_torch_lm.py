@@ -1,0 +1,263 @@
+"""The port's dense LM serving path against the JAX package, on the CPU.
+
+Reduced configs of the four dense archs run with the JAX package's weights
+(``T.init(cfg, PRNGKey)`` carried across by ``bridge.lm_params_from_numpy``)
+and the same numpy token ids on both sides: prefill logits and caches,
+three greedy decode steps, and the split (head, int8 codec, tail) at every
+default candidate.  The reduced configs are float32; logits and caches must
+agree within LM_TOL of their max |x| (float32 with sums in other orders: the
+largest gap seen is about 3e-6).  Then the port's own prefill -> decode
+consistency, the serving driver on the CPU with and without ``--split``, the
+accounting of ``LMSplitPlan`` and the configs the port does not run.
+"""
+import argparse
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.configs import get_config as jget_config
+from repro.configs import get_reduced_config as jget_reduced
+from repro.core import compression as jcomp
+from repro.core import splitting as jsplit
+from repro.launch import serve as jserve
+from repro.models import transformer as JT
+from repro_torch.bridge import lm_params_from_numpy
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced_config
+from repro_torch.configs.base import InputShape, count_active_params, count_params
+from repro_torch.core.compression import ActivationCodec
+from repro_torch.core.splitting import (SERVER_ONLY, UE_ONLY, LMSplitPlan,
+                                        Workload, default_candidates,
+                                        split_option)
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as T
+from repro_torch.models.registry import get_model
+from repro_torch.tree import tree_leaves
+
+DENSE = ("qwen3-1.7b", "qwen3-4b", "smollm-360m", "starcoder2-15b")
+OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE)
+LM_TOL = 2e-5
+CPU = torch.device("cpu")
+
+
+def _close(port, ref, tol=LM_TOL):
+    port = port.detach().float().numpy() if torch.is_tensor(port) else port
+    ref = np.asarray(ref, np.float32)
+    assert port.shape == ref.shape
+    err = np.abs(port - ref).max() / max(np.abs(ref).max(), 1e-30)
+    assert err <= tol, err
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def lm(request):
+    """(arch, JAX config, port config, JAX params, port params)."""
+    arch = request.param
+    jcfg, tcfg = jget_reduced(arch), get_reduced_config(arch)
+    jp = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(7)))
+    return arch, jcfg, tcfg, jp, lm_params_from_numpy(jp, CPU)
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (B, S)).astype(np.int32)
+
+
+def test_prefill_and_decode_match_the_reference(lm):
+    _, jcfg, tcfg, jp, tp = lm
+    toks = _tokens(jcfg, 2, 12)
+    jl, jc = jax.jit(lambda p, b: JT.prefill(jcfg, p, b, 16))(
+        jp, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        tl, tc = T.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)}, 16)
+    _close(tl, jl)
+    for name in ("k", "v"):          # KV-major (layers, B, KV, max_len, hd)
+        _close(tc[0]["attn"][name], jc[0]["attn"][name])
+    step = jax.jit(lambda p, c, b, i: JT.decode_step(jcfg, p, c, b, i))
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for i in range(3):
+        jl, jc = step(jp, jc, {"tokens": jnp.asarray(tok)},
+                      jnp.asarray(12 + i, jnp.int32))
+        with torch.no_grad():
+            tl, tc = T.decode_step(tcfg, tp, tc, {"tokens": torch.from_numpy(tok)},
+                                   12 + i)
+        _close(tl, jl)
+        _close(tc[0]["attn"]["k"], jc[0]["attn"]["k"])
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+
+
+def test_split_head_codec_tail_match_the_reference(lm):
+    _, jcfg, tcfg, jp, tp = lm
+    toks = _tokens(jcfg, 2, 10, seed=1)
+    assert default_candidates(tcfg) == jsplit.default_candidates(jcfg)
+    jplan = jsplit.LMSplitPlan(jcfg, jp, workload=jsplit.Workload(n_tokens=10))
+    tplan = LMSplitPlan(tcfg, tp, workload=Workload(n_tokens=10), device=CPU)
+    assert tplan.options == jplan.options
+    jcodec, tcodec = jcomp.ActivationCodec(), ActivationCodec(device=CPU)
+    batch_j, batch_t = {"tokens": jnp.asarray(toks)}, {"tokens": toks}
+    with torch.no_grad():
+        _close(tplan.head(batch_t, UE_ONLY)[1], jplan.head(batch_j, UE_ONLY)[1])
+        _close(tplan.tail(batch_t, SERVER_ONLY), jplan.tail(batch_j, SERVER_ONLY))
+        for l in tplan.candidates:
+            opt = split_option(l)
+            jpay, _ = jplan.head(batch_j, opt)
+            tpay, _ = tplan.head(batch_t, opt)
+            _close(tpay["h"], jpay["h"])
+            h, _ = T.forward_slice(tcfg, tp, T.embed_inputs(
+                tcfg, tp, {"tokens": torch.from_numpy(toks)}),
+                T.positions_for(torch.zeros(2, 10)), 0, l)
+            torch.testing.assert_close(h, tpay["h"], rtol=0, atol=0)
+            # the JAX payload decoded by the port is the JAX decode, bitwise;
+            # the tail on it matches the JAX tail
+            jcomp_p = jcodec.compress(jpay)
+            tdec = tcodec.decompress(jcomp_p)
+            np.testing.assert_array_equal(
+                tdec["h"].numpy(), np.asarray(jcodec.decompress(jcomp_p)["h"]))
+            _close(tplan.tail(tdec, opt),
+                   jplan.tail(jcodec.decompress(jcomp_p), opt))
+            # the port end to end through its own codec
+            tcomp = tcodec.compress(tpay)
+            assert tcomp.raw_bytes == tplan.raw_payload_bytes(opt, batch=2)
+            out = tplan.tail(tcodec.decompress(tcomp), opt)
+            assert out.shape == (2, 1, tcfg.vocab_size)
+            assert torch.isfinite(out).all()
+
+
+def test_port_prefill_decode_consistency(lm):
+    """Prefill to S-1 plus one decode step gives the logits of a prefill to
+    S (float32: the two paths differ by sum order only)."""
+    _, _, tcfg, _, tp = lm
+    model = get_model(tcfg, CPU)
+    toks = torch.from_numpy(_tokens(tcfg, 2, 12, seed=2))
+    with torch.no_grad():
+        full, _ = model.prefill(tp, {"tokens": toks}, 12)
+        _, caches = model.prefill(tp, {"tokens": toks[:, :-1]}, 12)
+        dec, caches = model.decode_step(tp, caches, {"tokens": toks[:, -1:]}, 11)
+    _close(dec, full.numpy())
+    assert caches[0]["attn"]["k"][:, :, :, 11].abs().sum() > 0
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_lm_bridge_keeps_layout_and_bf16_bits(arch):
+    cfg = jget_reduced(arch).replace(dtype="bfloat16")
+    jp = jax.tree.map(np.asarray, JT.init(cfg, jax.random.PRNGKey(3)))
+    tp = lm_params_from_numpy(jp, CPU)
+    leaves_j, leaves_t = jax.tree.leaves(jp), tree_leaves(tp)
+    assert len(leaves_j) == len(leaves_t)
+    wq = tp["runs"][0]["attn"]["wq"]
+    assert wq.shape == (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim)
+    for a, b in zip(leaves_j, leaves_t):
+        assert b.dtype == torch.bfloat16 and tuple(b.shape) == a.shape
+        np.testing.assert_array_equal(b.view(torch.int16).numpy(),
+                                      a.view(np.int16))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_bf16_reduced_model_runs_and_agrees(arch):
+    """The bf16 path (the full configs' dtype) at the reduced width, against
+    the JAX package on the same weights: logits within 2e-2 of their max
+    |x|, a few bf16 roundings (2^-8 each) of the stream through two layers
+    taken where the two frameworks' sums differ (the gap seen is 8e-3)."""
+    jcfg = jget_reduced(arch).replace(dtype="bfloat16")
+    tcfg = get_reduced_config(arch).replace(dtype="bfloat16")
+    jp = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(4)))
+    tp = lm_params_from_numpy(jp, CPU)
+    toks = _tokens(jcfg, 2, 9, seed=4)
+    jl, _ = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, 9)
+    with torch.no_grad():
+        tl, tc = T.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)}, 9)
+    assert tl.dtype == torch.float32 and tc[0]["attn"]["k"].dtype == torch.bfloat16
+    _close(tl, jl, tol=2e-2)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_split_accounting_matches_the_reference(arch):
+    jcfg, tcfg = jget_config(arch), get_config(arch)
+    assert count_params(tcfg) == jbase.count_params(jcfg)
+    assert count_active_params(tcfg) == jbase.count_active_params(jcfg)
+    jplan = jsplit.LMSplitPlan(jcfg, None, workload=jsplit.Workload(n_tokens=2048))
+    tplan = LMSplitPlan(tcfg, None, workload=Workload(n_tokens=2048), device=CPU)
+    assert tplan.options == jplan.options
+    for opt in tplan.options:
+        assert tplan.payload_specs(opt) == jplan.payload_specs(opt)
+        assert tplan.raw_payload_bytes(opt, 3) == jplan.raw_payload_bytes(opt, 3)
+        assert tplan.head_flops(opt) == jplan.head_flops(opt)
+        assert tplan.tail_flops(opt) == jplan.tail_flops(opt)
+
+
+def _serve_args(**kw):
+    args = dict(arch="qwen3-1.7b", reduced=True, prompt_len=16, gen=4, batch=2,
+                split=0.0, device="cpu", status_out=None)
+    args.update(kw)
+    return argparse.Namespace(**args)
+
+
+@pytest.mark.parametrize("split", [0.0, 0.5])
+def test_serve_on_the_cpu(split, tmp_path, capsys):
+    """Counters against the JAX package's driver (those that do not depend
+    on the weights) and the status JSON round trip."""
+    st = tserve.serve(_serve_args(split=split))
+    ref = jserve.serve(argparse.Namespace(arch="qwen3-1.7b", reduced=True,
+                                          prompt_len=16, gen=4, batch=2,
+                                          split=split))
+    ctr, rctr = st["metrics"]["counters"], ref["metrics"]["counters"]
+    for name in ("requests_total", "tokens_generated_total",
+                 "boundary_raw_bytes_total"):
+        assert ctr[name] == rctr[name]
+    assert ctr["requests_total"] == 2 and st["tokens_generated"] == 8
+    assert ctr["nonfinite_logits_total"] == 0
+    assert (ctr["boundary_raw_bytes_total"] > 0) == (split > 0)
+    hist = st["metrics"]["histograms"]
+    assert hist["prefill_s"]["count"] == 1 and hist["decode_step_s"]["count"] == 4
+    assert ("split_s" in hist) == (split > 0)
+    out = tmp_path / "status.json"
+    argv = ["--reduced", "--device", "cpu", "--prompt-len", "16", "--gen", "4",
+            "--batch", "2", "--split", str(split), "--status-out", str(out)]
+    assert tserve.main(argv) == 0
+    back = json.loads(out.read_text())
+    assert back["status"] == "ok" and back["tokens_generated"] == 8
+    assert back["metrics"]["counters"] == json.loads(json.dumps(ctr))
+    assert "decode 4 steps" in capsys.readouterr().out
+
+
+def test_serve_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--reduced", "--gen", "1", "--prompt-len", "4"])
+    cfg = get_reduced_config("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init(cfg, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_configs_outside_the_dense_family_raise(arch):
+    cfg = get_reduced_config(arch)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        T.init(cfg, torch.Generator().manual_seed(0), CPU)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        get_model(cfg, CPU)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        LMSplitPlan(cfg, None, device=CPU)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        tserve.serve(_serve_args(arch=arch))
+
+
+def test_registry_input_specs():
+    cfg = get_reduced_config("smollm-360m")
+    model = get_model(cfg, CPU)
+    shape = InputShape("t", seq_len=7, global_batch=3, kind="prefill")
+    spec = model.prefill_inputs(shape)["tokens"]
+    assert spec.shape == (3, 7) and spec.dtype == torch.int32
+    assert model.decode_inputs(shape)["tokens"].shape == (3, 1)
+    toks = model.concrete(model.prefill_inputs(shape),
+                          torch.Generator().manual_seed(0))["tokens"]
+    assert toks.shape == (3, 7) and toks.dtype == torch.int32
+    assert int(toks.max()) < cfg.vocab_size and int(toks.min()) >= 0
+    caches = model.cache_init(3, 11)
+    assert caches[0]["attn"]["k"].shape == (cfg.n_layers, 3, cfg.n_kv_heads, 11,
+                                            cfg.head_dim)

@@ -151,7 +151,12 @@ def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch.bridge, repro_torch.core.splitting, "
             "repro_torch.core.compression, repro_torch.data.video, "
             "repro_torch.kernels.quant, repro_torch.core.pipeline, "
-            "repro_torch.core.privacy, repro_torch.core.energy\n"
+            "repro_torch.core.privacy, repro_torch.core.energy, "
+            "repro_torch.launch.serve, repro_torch.launch.steps, "
+            "repro_torch.models.transformer, repro_torch.models.registry, "
+            "repro_torch.core.telemetry, repro_torch.configs, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -1,0 +1,112 @@
+"""Prefill -> decode handoff gap of the dense LM: the JAX package against the
+port's CPU path, on the same weights and prompt.
+
+    PYTHONPATH=src python tools/lm_handoff_gap.py \
+        [--arch qwen3-1.7b] [--layers 4] [--batch 2] [--prompt 256]
+
+At the arch's full width and a cut depth, the weights are the JAX package's
+``init`` (seeded), carried to the port by ``bridge.lm_params_from_numpy``.
+For bf16 (the config's dtype) and for float32 (the same weights upcast), each
+package computes the logits of a prefill to S and of a prefill to S-1 plus
+one decode step of token S-1; the script prints, per package and dtype, the
+max |diff| of the two, the max |logit|, and the share of logits outside the
+JAX package's own test tolerance (|diff| <= 3e-2 + 3e-2 |logit|), then the
+bf16-vs-float32 gap of the prefill logits.  The last line is one JSON object
+with these numbers.  It runs on the CPU; at 4 layers of qwen3-1.7b it needs
+about 6 GiB.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import transformer as JT
+from repro_torch.bridge import lm_params_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.models import transformer as T
+
+RTOL = ATOL = 3e-2                  # tests/test_models_smoke.py
+
+
+def jax_logits(cfg, params, toks):
+    """(prefill to S, prefill to S-1 + decode S-1) logits, float32 numpy."""
+    S = toks.shape[1]
+    pre = jax.jit(lambda p, b: JT.prefill(cfg, p, b, S))
+    full, _ = pre(params, {"tokens": jnp.asarray(toks)})
+    _, caches = pre(params, {"tokens": jnp.asarray(toks[:, :-1])})
+    dec, _ = jax.jit(lambda p, c, b, i: JT.decode_step(cfg, p, c, b, i))(
+        params, caches, {"tokens": jnp.asarray(toks[:, -1:])},
+        jnp.asarray(S - 1, jnp.int32))
+    return np.asarray(full, np.float32), np.asarray(dec, np.float32)
+
+
+def port_logits(cfg, params, toks):
+    S = toks.shape[1]
+    t = torch.from_numpy(toks)
+    with torch.no_grad():
+        full, _ = T.prefill(cfg, params, {"tokens": t}, S)
+        _, caches = T.prefill(cfg, params, {"tokens": t[:, :-1]}, S)
+        dec, _ = T.decode_step(cfg, params, caches, {"tokens": t[:, -1:]},
+                               S - 1)
+    return full.numpy(), dec.numpy()
+
+
+def gap(full: np.ndarray, dec: np.ndarray) -> dict:
+    d = np.abs(dec.astype(np.float64) - full)
+    return {"max_abs_diff": float(d.max()),
+            "max_abs_logit": float(np.abs(full).max()),
+            "share_outside_ref_tol": float(
+                (d > ATOL + RTOL * np.abs(full)).mean())}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    jcfg = jget_config(args.arch).replace(n_layers=args.layers)
+    tcfg = get_config(args.arch).replace(n_layers=args.layers)
+    toks = np.random.default_rng(args.seed).integers(
+        0, jcfg.vocab_size, (args.batch, args.prompt)).astype(np.int32)
+    jp = JT.init(jcfg, jax.random.PRNGKey(args.seed))
+    out, prefill = {}, {}
+    for dt in ("bfloat16", "float32"):
+        if dt != jcfg.dtype:
+            jcfg, tcfg = jcfg.replace(dtype=dt), tcfg.replace(dtype=dt)
+            jp = jax.tree.map(lambda a: a.astype(dt), jp)
+        tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+        for pkg, fn, p, c in (("jax", jax_logits, jp, jcfg),
+                              ("port_cpu", port_logits, tp, tcfg)):
+            full, dec = fn(c, p, toks)
+            out[f"{pkg} {dt}"] = gap(full, dec)
+            prefill[(pkg, dt)] = full
+            print(f"{pkg:8s} {dt:8s}: prefill->decode max |diff| "
+                  f"{out[f'{pkg} {dt}']['max_abs_diff']:.4g}, max |logit| "
+                  f"{out[f'{pkg} {dt}']['max_abs_logit']:.4g}, share outside "
+                  f"{ATOL} + {RTOL} |logit| "
+                  f"{out[f'{pkg} {dt}']['share_outside_ref_tol']:.3g}",
+                  flush=True)
+        del tp
+    for pkg in ("jax", "port_cpu"):
+        noise = float(np.abs(prefill[(pkg, "bfloat16")]
+                             - prefill[(pkg, "float32")]).max())
+        out[f"{pkg} bf16_vs_f32_prefill"] = noise
+        print(f"{pkg:8s} max |bf16 - f32| prefill logits {noise:.4g}")
+    res = {"arch": args.arch, "layers": args.layers, "batch": args.batch,
+           "prompt": args.prompt, "seed": args.seed, **out}
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()
