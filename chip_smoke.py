@@ -20,7 +20,13 @@ when it fails:
     head dim 64; flash decode (B6) at the full-width decode shape with ragged
     kv_len (0 and the full cache among them) in bf16 and f32; each output
     row (one head's hd values at one position) within F32_TOL / BF16_TOL of
-    that row's max |x|;
+    that row's max |x|; per-window attention (B7) through its entry point,
+    ops.window_attention, at the four Swin-T stage partitions of 4 images
+    with the shifted-region mask and without one (B7's own path: its launch
+    counter at 0 before, read after), then at w2 64 with hd 64, w2 81
+    without a mask, w2 144 with hd 128, on rows whose keys are all masked
+    (each must equal sum(v) / W2P, the TPU op's padded average) within
+    ATTN_TOL, and at stage 0 in bf16 within BF16_TOL of each row's max;
  4. the main path, once, with every launch counter at 0 before and read
     after: full-width Swin-T (544x800, random weights from a seeded
     generator, random rel_bias) for splits 1-4, four UEs each through
@@ -35,9 +41,10 @@ when it fails:
  6. time each kernel (CUDA events), its plain version and, for window
     attention, one library call over the same windows (scaled dot-product
     attention with a float mask, never called by the port), beside the
-    least time the card could take; then the per-split head+encode, decode
-    and batched-tail times; B5 and B6 at the full-width serving shapes with
-    scaled dot-product attention as their yardstick;
+    least time the card could take; B7 likewise at the stage-0 partition;
+    then the per-split head+encode, decode and batched-tail times; B5 and
+    B6 at the full-width serving shapes with scaled dot-product attention as
+    their yardstick;
  7. the codec's modes at full width: for splits 1-4, one frame's head
     payload through raw, zlib, int8, int8_zlib and int8_delta_zlib, each
     int8 mode fused and legacy (per-tensor, the quant pair).  Every payload
@@ -75,7 +82,18 @@ when it fails:
     split payload bitwise equal to the card's.  Then the same weights in
     bf16: the prefill -> decode gap on the card and on the CPU, each within
     HANDOFF_BF16_TOL of the max |logit|, at the size tools/lm_handoff_gap.py
-    measures the JAX package's gap.
+    measures the JAX package's gap;
+11. the multi-UE cell at the full width of Swin-T: 8 UEs on phase 4's
+    weights and phase 8's calibration, the default tail buckets.  (a)
+    CellSimulator.run, lock-step, fixed split2, 3 slots; (b) the same with
+    fused_head=True, whose compressed bytes per UE-frame must equal (a)'s;
+    (c) run_stream on RanCell(edf, tti 5 ms) with the adaptive controllers
+    of examples/cell_video.py (fps 0.5, jitter 0.05 s, inflight 2, 6
+    frames, budget 2.5 s).  Each run starts with every launch counter at 0
+    and must launch B1, B2 and B3 exactly as often as its logs and batches
+    imply, with finite detections of the expected shapes; per slot it
+    prints the host wall time, the encode ms and the bytes, and per run the
+    batched tail ms by bucket size.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -122,6 +140,7 @@ HANDOFF_F32_TOL = 1e-4
 HANDOFF_BF16_TOL = 3e-2
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_GEN, LM_SPLIT = 4, 2048, 32, 0.5
+CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
@@ -211,6 +230,171 @@ def handoff_gap(full, dec):
     if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
         raise AssertionError("non-finite logits in the handoff check")
     return float((dec - full).abs().max()), float(full.abs().max())
+
+
+def cell_expected_launches(logs, tails, head_blocks, n_blocks, fused_head,
+                           lockstep):
+    """B1, B2, B3 launches a cell run implies: the blocks of every executed
+    head (every log but the window drops, whose option is "dropped") and of
+    every batched tail (``tails``: (option, size, padded, ms) per
+    tail_batched call), and one codec pair per split option per capture
+    round (a lock-step slot, or one absolute capture instant of the event
+    engine) on the group path, or one pair per split frame with the fused
+    head."""
+    ran = [lg for lg in logs if lg.option in head_blocks]
+    split = [lg for lg in ran if lg.option.startswith("split")]
+    rounds = {(lg.frame_idx if lockstep else lg.capture_s, lg.option)
+              for lg in split}
+    pairs = len(split) if fused_head else len(rounds)
+    return {"fused_window_attention":
+            sum(head_blocks[lg.option] for lg in ran)
+            + sum(n_blocks - head_blocks[o] for o, _, _, _ in tails),
+            "codec_encode": pairs, "codec_decode": pairs}
+
+
+def phase11(ctx) -> None:
+    """The paper's multi-UE cell on the card at the full width of Swin-T:
+    CELL_UES UEs on random weights, three runs, each with every launch
+    counter at 0 before and read after.  (a) lock-step
+    ``CellSimulator.run`` at a fixed split, (b) the same with the fused
+    head, whose bytes must equal (a)'s, (c) the event engine ``run_stream``
+    on an EDF-scheduled RanCell with adaptive controllers."""
+    import numpy as np
+    import torch
+    from repro_torch.core.adaptive import Objective
+    from repro_torch.core.cell import CellSimulator, cell_interference_traces
+    from repro_torch.core.compression import ActivationCodec
+    from repro_torch.core.pipeline import build_controller
+    from repro_torch.core.ran import RanCell, RanConfig, make_policy
+    from repro_torch.core.splitting import SERVER_ONLY, UE_ONLY, SwinSplitPlan
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    cfg, params, dev = ctx["cfg"], ctx["params"], ctx["dev"]
+    system, n_blocks = ctx["system"], ctx["n_blocks"]
+    t_phase = time.perf_counter()
+    plan = SwinSplitPlan(cfg, params, device=dev)
+    imgs = list(torch.from_numpy(ctx["video"].frames(CELL_UES)).to(dev)[:, None])
+    head_blocks = {o: (n_blocks if o == UE_ONLY else 0 if o == SERVER_ONLY
+                       else sum(cfg.depths[:int(o.removeprefix("split"))]))
+                   for o in plan.options}
+    tails = []                     # (option, size, padded, host ms)
+    tail_batched = plan.tail_batched
+
+    def timed_tail(payloads, option, pad_to=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = tail_batched(payloads, option, pad_to=pad_to)
+        torch.cuda.synchronize()
+        tails.append((option, len(payloads), pad_to,
+                      (time.perf_counter() - t) * 1e3))
+        return out
+    plan.tail_batched = timed_tail
+
+    def check_outputs(res, what):
+        n = 0
+        for slot in res.outputs:
+            for out in slot.values():
+                for lv, s in zip(out, range(cfg.n_stages)):
+                    H, W = cfg.stage_hw(s)
+                    for key, ch in (("cls", cfg.num_classes), ("box", 4),
+                                    ("ctr", 1)):
+                        t = lv[key]
+                        if (tuple(t.shape) != (1, H, W, ch)
+                                or not torch.isfinite(t).all()):
+                            raise AssertionError(f"cell {what}: {key} level "
+                                                 f"{s} {tuple(t.shape)}")
+                n += 1
+        return n
+
+    def run(what, fn, fused_head, lockstep):
+        del tails[:]
+        ops.LAUNCHES.clear()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+        want = cell_expected_launches(res.logs, tails, head_blocks, n_blocks,
+                                      fused_head, lockstep)
+        log(f"cell {what}: launches {got} (expected from its logs and "
+            f"{len(tails)} batches {want}); {wall:.2f} s host wall")
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"cell {what}: launches do not match the "
+                                 "logs and batches")
+        if (res.stats.n_batches != len(tails)
+                or res.stats.n_requests != sum(n for _, n, _, _ in tails)):
+            raise AssertionError(f"cell {what}: batches {res.stats}")
+        n_out = check_outputs(res, what)
+        by_bucket = collections.defaultdict(list)
+        for o, n, padded, ms in tails:
+            by_bucket[padded].append(ms)
+        log(f"cell {what}: {n_out} finite detections; batched tail ms by "
+            f"bucket: " + ", ".join(
+                f"{b}: median {statistics.median(v):.2f} over {len(v)}"
+                for b, v in sorted(by_bucket.items())))
+        return res
+
+    trace = cell_interference_traces(CELL_FRAMES, CELL_UES, seed=SEED)
+    lock = {}
+    for fused_head in (False, True):
+        what = f"({'b' if fused_head else 'a'}) lock-step split2" + (
+            " fused head" if fused_head else "")
+        sim = CellSimulator(plan=plan, system=system, n_ues=CELL_UES,
+                            seed=SEED, execute_model=True,
+                            fused_head=fused_head, device=dev,
+                            codec=ActivationCodec(device=dev))
+        step, walls = sim.step, []
+
+        def timed_step(*a, step=step, walls=walls, **kw):
+            t = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            return out
+        sim.step = timed_step
+        res = run(what, lambda: sim.run(trace, imgs=imgs, option="split2",
+                                        keep_outputs=True), fused_head, True)
+        lock[fused_head] = res
+        for t_ in range(CELL_FRAMES):
+            slot = [lg for lg in res.logs if lg.frame_idx == t_]
+            enc_ms = sum(lg.quant_s for lg in slot) * 1e3
+            log(f"cell {what} slot {t_}: host wall {walls[t_]:.2f} ms, "
+                f"{'head+encode' if fused_head else 'group encode'} "
+                f"{enc_ms:.2f} ms over {len(slot)} UEs, bytes "
+                f"{[lg.compressed_bytes for lg in slot]}")
+    bytes_a = [(lg.frame_idx, lg.ue_id, lg.raw_bytes, lg.compressed_bytes)
+               for lg in lock[False].logs]
+    if bytes_a != [(lg.frame_idx, lg.ue_id, lg.raw_bytes, lg.compressed_bytes)
+                   for lg in lock[True].logs]:
+        raise AssertionError("cell: fused-head bytes differ from the group "
+                             "path's")
+    log(f"cell (a) vs (b): the {len(bytes_a)} UE-frames' raw and compressed "
+        f"bytes are equal")
+
+    ctrl = build_controller(system, objective=Objective(
+        w_delay=1.0, w_energy=0.15, w_privacy=0.05), seed=SEED, device=dev)
+    sim = CellSimulator(plan=plan, system=system, n_ues=CELL_UES, seed=SEED,
+                        execute_model=True, controller=ctrl, device=dev,
+                        ran=RanCell(make_policy("edf"), RanConfig(tti_s=0.005)),
+                        frame_budget_s=2.5, codec=ActivationCodec(device=dev))
+    stream_trace = cell_interference_traces(STREAM_FRAMES, CELL_UES, seed=1)
+    res = run("(c) run_stream, EDF RanCell, adaptive",
+              lambda: sim.run_stream(stream_trace, imgs=imgs, fps=0.5,
+                                     jitter_s=0.05, inflight=2, budget_s=2.5,
+                                     keep_outputs=True), False, False)
+    st = res.stats
+    opts = collections.Counter(lg.option for lg in res.logs)
+    log(f"cell (c): options {dict(opts)}; completed {st.n_completed}, dropped "
+        f"{st.n_dropped}; mean age {st.mean_age_s:.3f} s, deadline miss rate "
+        f"{res.deadline_miss_rate:.3f}, edge utilization "
+        f"{st.edge_utilization:.3f}, mean batch {st.mean_batch_size:.2f} "
+        f"(simulated clock); encode ms per split frame "
+        + ", ".join(f"{lg.quant_s * 1e3:.1f}" for lg in res.logs
+                    if lg.option.startswith("split")))
+    if not np.isfinite([lg.delay_s for lg in res.logs]).all():
+        raise AssertionError("cell (c): non-finite delay")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -443,6 +627,90 @@ def main() -> int:
             f"plain| {err:.3g}; worst row {rel:.3g} of its max|out| (tol "
             f"{tol}); kv_len 0 gives zeros")
 
+    # B7 through its entry point, ops.window_attention, at the four Swin-T
+    # stage partitions of N_UES images, with the shifted-region mask of each
+    # stage broadcast per image and with no mask: that run is B7's path, its
+    # counters set to 0 before and read after.  Then the op's other shapes:
+    # w2 64 with hd 64, w2 81 without a mask, w2 144 with hd 128 (query rows
+    # staged in runs, over 48 KB of shared memory), bf16, and rows whose keys
+    # are all masked, which average v over the TPU op's W2P padded rows
+    w = cfg.window
+    w2 = w * w
+    win_cases = []                       # (label, q, k, v, bias, mask)
+    for s in range(cfg.n_stages):
+        H, W = cfg.stage_hw(s)
+        Hp, Wp = -(-H // w) * w, -(-W // w) * w
+        nh = cfg.num_heads[s]
+        hd = cfg.stage_dim(s) // nh
+        nB = N_UES * (Hp // w) * (Wp // w)
+        shifted = torch.as_tensor(SW.shift_attn_mask(Hp, Wp, w, w // 2),
+                                  device=dev).repeat(N_UES, 1, 1)
+        q, k, v = (rnd((nB, w2, nh, hd), f32) for _ in range(3))
+        bias = rnd((nh, w2, w2), f32)
+        for mask in (shifted, None):
+            win_cases.append((f"stage {s} ({nB},{w2},{nh},{hd}) mask "
+                              f"{'shifted' if mask is not None else 'none'}",
+                              q, k, v, bias, mask))
+    ops.LAUNCHES.clear()
+    win_outs = [ops.window_attention(q, k, v, bias, mask)
+                for _, q, k, v, bias, mask in win_cases]
+    torch.cuda.synchronize()
+    win_launches = dict(ops.LAUNCHES)
+    log(f"B7 path, ops.window_attention at the Swin-T stage partitions: "
+        f"launches {win_launches}")
+    if win_launches != {"window_attention": len(win_cases)}:
+        raise AssertionError("ops.window_attention did not launch B7 once "
+                             "per call")
+
+    def window_mask(nB, w2_, dead_rows=()):
+        m = torch.rand((nB, w2_, w2_), generator=g) < 0.7
+        m |= torch.eye(w2_, dtype=torch.bool)[None]
+        for n, t in dead_rows:
+            m[n, t] = False
+        return m.to(dev)
+
+    dead = ((0, 3), (5, 48), (11, 0), (15, 20))
+    for nB, w2_, nh, hd, dt, mask in (
+            (64, 64, 4, 64, f32, window_mask(64, 64)),
+            (32, 81, 2, 32, f32, None),
+            (8, 144, 2, 128, f32, window_mask(8, 144, ((3, 100),))),
+            (16, w2, 3, 32, f32, window_mask(16, w2, dead))):
+        q, k, v = (rnd((nB, w2_, nh, hd), dt) for _ in range(3))
+        bias = rnd((nh, w2_, w2_), f32)
+        win_cases.append((f"({nB},{w2_},{nh},{hd}) mask "
+                          f"{'none' if mask is None else 'random'}",
+                          q, k, v, bias, mask))
+        win_outs.append(ops.window_attention(q, k, v, bias, mask))
+    _, q, k, v, bias, mask = win_cases[0]                # stage 0 in bf16
+    q16, k16, v16 = (x.to(bf16) for x in (q, k, v))
+    win_cases.append((win_cases[0][0] + " bf16", q16, k16, v16, bias, mask))
+    win_outs.append(ops.window_attention(q16, k16, v16, bias, mask))
+    win_err = 0.0
+    for (label, q, k, v, bias, mask), out in zip(win_cases, win_outs):
+        ref = wa.window_attention_plain(q, k, v, bias, mask)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        ok = torch.isfinite(out).all() and out.dtype == q.dtype
+        if q.dtype == bf16:
+            ok = ok and rel <= BF16_TOL
+            limit = f"worst row {rel:.3g} of its max|out| (tol {BF16_TOL})"
+        else:
+            ok = ok and err <= ATTN_TOL
+            limit = f"tol {ATTN_TOL}"
+        if not ok:
+            raise AssertionError(f"B7 {label}: err {err}, rel {rel}")
+        win_err = max(win_err, err)
+        log(f"check B7 {label} {str(q.dtype).removeprefix('torch.')}: "
+            f"max|kernel-plain| {err:.3g} ({limit})")
+    _, q, k, v, bias, mask = win_cases[2 * cfg.n_stages + 3]
+    w2p = -(-w2 // 64) * 64
+    dead_err = max(float((win_outs[2 * cfg.n_stages + 3][n, t]
+                          - v[n].sum(0) / w2p).abs().max()) for n, t in dead)
+    if not dead_err <= ATTN_TOL:
+        raise AssertionError(f"B7 fully masked rows: {dead_err} from sum(v)/W2P")
+    log(f"check B7 fully masked rows {list(dead)}: within {dead_err:.3g} of "
+        f"sum(v)/{w2p} (tol {ATTN_TOL})")
+
     # -- 4. the main path, once, with the launch counters --------------------
     expected = {"fused_window_attention": 0, "codec_encode": 0,
                 "codec_decode": 0}
@@ -474,6 +742,7 @@ def main() -> int:
     if launches != expected:
         raise AssertionError("the main path did not go through every kernel "
                              "as often as it calls it")
+    launches["window_attention"] = win_launches["window_attention"]
     for split, (payloads, _, outs) in kept.items():
         assert len(outs) == N_UES
         for out in outs:
@@ -578,6 +847,34 @@ def main() -> int:
     log(f"time B1 per frame ({n_blocks} calls, batch 1): kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {b_ms:.4f} ms; "
         f"launches per UE frame {n_blocks}")
+
+    # B7 at the stage-0 partition of N_UES images with the shifted mask;
+    # the yardstick is SDPA over the same windows with bias and mask folded
+    # into one float mask, built outside the timing
+    _, q, k, v, bias, mask = win_cases[0]
+    nB, _, nh, hd = q.shape
+    fmask = bias[None].expand(nB, nh, w2, w2).masked_fill(~mask[:, None], -1e9)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    nbytes = 4 * 4 * q.numel() + 4 * bias.numel() + mask.numel()
+    flops = nB * nh * (4 * w2 * w2 * hd + 4 * w2 * w2 + w2 * hd)
+    rows["window_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/window_attention.cu",
+        replaces="src/repro/kernels/window_attention.py:57",
+        max_abs_err=win_err,
+        ms=cuda_ms(lambda: wa.window_attention_cuda(q, k, v, bias, mask)),
+        plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask)),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
+                  else "operations"),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=fmask)))
+    del fmask, qt, kt, vt, win_outs
+    r = rows["window_attention"]
+    log(f"time B7 q {tuple(q.shape)} f32, shifted mask: kernel {r['ms']:.4f} "
+        f"ms, plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({nbytes} B, {flops} flop); launches "
+        f"0 on the system's paths, {launches['window_attention']} on its own "
+        f"(ops.window_attention, phase 3)")
 
     flat = streams[1]
     total = flat.numel()
@@ -1034,6 +1331,10 @@ def main() -> int:
         if not gap <= HANDOFF_BF16_TOL * top:
             raise AssertionError(f"bf16 prefill -> decode on the {where}")
     del p_gpu, p_cpu
+
+    # -- 11. the multi-UE cell at full width --------------------------------
+    phase11(dict(cfg=cfg, params=params, video=video, system=system, dev=dev,
+                 n_blocks=n_blocks))
 
     kernels = []
     for name, r in rows.items():

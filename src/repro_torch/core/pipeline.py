@@ -10,10 +10,9 @@ The frame is decomposed into reusable stages
     capture -> sense -> decide -> head -> encode -> uplink -> tail -> account
 
 so ``SplitInferencePipeline.run_frame`` is a straight composition.  The
-stage functions are the JAX package's, duck-typed on plan and codec, so the
-multi-UE cell engines can reuse them when they are ported.  The
-continuous-time ``run_stream`` and the telemetry hook are not ported yet:
-they need the cell, timeline and telemetry modules.
+stage functions are the JAX package's, duck-typed on plan and codec; the
+multi-UE ``core/cell.py`` and the event engine ``core/timeline.py`` reuse
+them per UE, and ``run_stream`` runs the one-UE cell on that engine.
 
 Model execution and compression are REAL (the port's Swin forward, the CUDA
 kernels and the codec on the card, or their plain versions on a CPU); time
@@ -244,8 +243,7 @@ def encode_group_stage(plan: Any, system: Calibrated,
                        option: str, execute_model: bool,
                        controllers: Sequence[Optional[AdaptiveController]]
                        ) -> List[EncodeResult]:
-    """Encode many same-option boundary payloads in ONE fused device pass
-    (the multi-UE cell's entry; its caller is not ported yet).
+    """Encode many same-option boundary payloads in ONE fused device pass.
 
     The cell's per-slot entry: ``codec.compress_group`` packs every UE's
     leaves into a single launch/transfer and still emits per-UE blobs
@@ -372,6 +370,12 @@ class SplitInferencePipeline:
     narrowband: bool = False
     seed: int = 0
     execute_model: bool = True      # False = accounting-only (fast sweeps)
+    fused_head: bool = True         # one device pass for head + int8 quant
+                                    # (byte-identical payloads)
+    # telemetry plane (core/telemetry.py): a run-scoped recorder fed by
+    # run_trace / run_stream.  Hooks only read finished FrameLogs, so
+    # attaching one never perturbs the simulation (no rng draws).
+    telemetry: Optional[Any] = None
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
@@ -391,9 +395,16 @@ class SplitInferencePipeline:
             option = pred.option
 
         with torch.no_grad():
-            head, enc = head_encode_stage(self.plan, self.system, self.codec,
-                                          img, option, self.execute_model,
-                                          self.controller)
+            if self.fused_head:
+                head, enc = head_encode_stage(
+                    self.plan, self.system, self.codec, img, option,
+                    self.execute_model, self.controller)
+            else:
+                head = head_stage(self.plan, self.system, img, option,
+                                  self.execute_model)
+                enc = encode_stage(self.plan, self.system, self.codec,
+                                   head.payload, option, self.execute_model,
+                                   self.controller)
             up = uplink_stage(self.system, self.path, enc.compressed_bytes,
                               interference_db, self.narrowband, rng, option)
             tail_s, _ = tail_stage(self.plan, self.system, enc.payload,
@@ -405,12 +416,41 @@ class SplitInferencePipeline:
     def run_trace(self, imgs, interference_trace, option: Optional[str] = None
                   ) -> List[FrameLog]:
         src = FrameSource(imgs if self.execute_model else None)
+        if self.telemetry is not None:
+            self.telemetry.begin_run("single_ue", "slot", 1)
         logs = []
         for i, lvl in enumerate(interference_trace):
             log = self.run_frame(src.frame(i), lvl, option)
             log.frame_idx = i
+            if self.telemetry is not None:
+                self.telemetry.record_frame_log(log)
             logs.append(log)
         return logs
+
+    def run_stream(self, interference_trace, imgs=None,
+                   option: Optional[str] = None, *, fps: float = 2.0,
+                   jitter_s: float = 0.0, inflight: Optional[int] = None,
+                   budget_s: Optional[float] = None):
+        """Run the SAME single-UE system on the continuous-time event
+        engine (core/timeline.py): the frame clock ticks at ``fps`` with
+        capture ``jitter_s``, head/encode of frame N+1 overlaps uplink of
+        frame N inside the ``inflight`` window, and congestion carries
+        over between frames instead of re-anchoring each one.  Returns a
+        ``core.cell.CellResult`` for the one-UE cell.  (The event engine
+        owns its rng discipline -- per-frame draws pair with the
+        multi-UE cell engines, not with ``run_trace``.)"""
+        from repro_torch.core.cell import CellSimulator
+        from repro_torch.core.timeline import run_stream as _run_stream
+        sim = CellSimulator(
+            plan=self.plan, system=self.system, codec=self.codec,
+            controller=self.controller, path=self.path,
+            narrowband=self.narrowband, seed=self.seed, n_ues=1,
+            execute_model=self.execute_model, fused_head=self.fused_head,
+            telemetry=self.telemetry, device=self.codec.device)
+        trace = np.asarray(interference_trace, float).reshape(-1, 1)
+        return _run_stream(sim, trace, imgs=imgs, option=option, fps=fps,
+                           jitter_s=jitter_s, inflight=inflight,
+                           budget_s=budget_s)
 
 
 def build_pipeline(cfg=None, params=None, *, adaptive: bool = True,

@@ -10,9 +10,8 @@ paper Fig. 4: UE_ONLY, SPLIT(l), SERVER_ONLY.
     at a layer boundary (quartile depths by default); the payload is the
     (B, S, d) activation after layer l.
 
-Both are the port's own classes, not subclasses of the JAX package's;
-callers of the JAX package that test ``isinstance`` against its plans (the
-cell simulator) are not driven by the port yet.
+Both are the port's own classes, not subclasses of the JAX package's; the
+port's cell simulator tests ``isinstance`` against its own ``SwinSplitPlan``.
 """
 from __future__ import annotations
 

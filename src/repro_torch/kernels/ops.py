@@ -6,9 +6,10 @@ raises.  Nothing falls back from a CUDA tensor to the plain version, and the
 choice never depends on whether CUDA is present or a build worked.  The
 signatures follow ``repro/kernels/ops.py`` (``quantize``, ``dequantize``,
 ``flash_attention``, ``decode_attention``, ``fused_window_attention``,
-``codec_encode``, ``codec_decode``); the attention kernels choose their own
-block sizes, so those are not arguments.  ``decode_attention_kv_major`` is
-the LM's decode entry, on the cache layout it keeps.
+``window_attention``, ``codec_encode``, ``codec_decode``); the attention
+kernels choose their own block sizes, so those are not arguments.
+``decode_attention_kv_major`` is the LM's decode entry, on the cache layout
+it keeps.
 
 ``LAUNCHES`` counts kernel launches by name (see ``_build``).
 """
@@ -88,6 +89,20 @@ def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     fn = (_wa.fused_window_attention_cuda if _route(qkv) == "cuda"
           else _wa.fused_window_attention_plain)
     return fn(qkv, bias, mask, window=window, shift=shift, n_heads=n_heads)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Swin windowed attention on pre-partitioned windows.
+
+    q, k, v: (nB, w2, nh, hd); bias: (nh, w2, w2); mask: (nB, w2, w2) bool
+    or None.  f32 inside, returns q's dtype.  A row whose keys are all
+    masked averages v over the JAX op's padded W2P = ceil(w2/64)*64 rows,
+    as that op does."""
+    fn = (_wa.window_attention_cuda if _route(q) == "cuda"
+          else _wa.window_attention_plain)
+    return fn(q, k, v, bias, mask)
 
 
 def codec_encode(flat: torch.Tensor, block: int = 8192,

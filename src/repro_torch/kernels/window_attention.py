@@ -1,20 +1,31 @@
-"""Fused Swin window attention: the CUDA kernel's wrapper and its plain version.
+"""Swin window attention: the CUDA kernels' wrappers and their plain versions.
 
-Replaces the TPU kernel ``repro/kernels/window_attention.py ::
-fused_window_attention_pallas``: one launch covers the cyclic shift by
-(-shift, -shift), the partition into ``window`` x ``window`` windows,
-``softmax(q hd^-1/2 k^T + bias, mask -> -1e9) v`` per window and head, the
-un-partition and the roll back.
+Two kernels of ``csrc/window_attention.cu`` share one per-window body: one
+CTA per (window, head[, image]) keeps its key and value rows, a run of query
+rows, the scores, the softmax and P.V in shared memory in fp32.  On the H100
+both are bound by bytes (each input element read once, each output written
+once); the source note gives the numbers.
 
-The CUDA kernel (``csrc/window_attention.cu``) runs one CTA per (window,
-head, image), gathers its rows from the image-layout qkv with modular
-indices and keeps scores, softmax and P.V in shared memory.  On the H100 it
-is bound by bytes: each qkv element is read once and each output element
-written once; the source note gives the numbers.
+``fused_window_attention`` (B1) replaces the TPU kernel
+``repro/kernels/window_attention.py :: fused_window_attention_pallas``: one
+launch covers the cyclic shift by (-shift, -shift), the partition into
+``window`` x ``window`` windows, ``softmax(q hd^-1/2 k^T + bias, mask ->
+-1e9) v`` per window and head, the un-partition and the roll back.  The
+kernel gathers its rows from the image-layout qkv with modular indices.
 
-``fused_window_attention_plain`` is the same function in plain PyTorch, with
-the roll and the partition written out.  ``kernels/ops.py`` takes it only for
-tensors on the CPU; ``chip_smoke.py`` holds the kernel against it on the card.
+``window_attention`` (B7) replaces ``window_attention_pallas`` behind the
+JAX package's ``ops.window_attention``: the same attention on q, k, v
+already partitioned into windows.  That op pads w2 to W2P = ceil(w2/64)*64
+with keys every real query sees masked; on a row whose own keys are all
+masked it therefore averages v over W2P rows, not w2.  The port pads
+nothing: the kernel and its plain version add ``(W2P - w2) exp(-1e9 - max)``
+to each row's softmax denominator, which is zero on every row with an
+allowed key and gives the op's ``sum(v) / W2P`` on a row without one.
+
+The ``*_plain`` functions are the same functions in plain PyTorch, with the
+roll and the partition written out.  ``kernels/ops.py`` takes them only for
+tensors on the CPU; ``chip_smoke.py`` holds the kernels against them on the
+card.
 """
 from __future__ import annotations
 
@@ -29,6 +40,10 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e9
 SUPPORTED_HEAD_DIMS = (16, 32)
+# B7: any w2 up to window 12, these head dims, f32 or bf16 q, k, v
+WINDOW_MAX_W2 = 144
+WINDOW_HEAD_DIMS = (16, 32, 64, 128)
+WINDOW_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -108,4 +123,95 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "fused_window_attention")
     _build.LAUNCHES["fused_window_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B7: attention on pre-partitioned windows
+# ---------------------------------------------------------------------------
+
+def padded_keys(w2: int) -> int:
+    """Keys the TPU op adds to a window: w2 up to the next multiple of 64."""
+    return -(-w2 // 64) * 64 - w2
+
+
+def _check_windows(what: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, bias: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> None:
+    """Raise on what B7 does not take, on either device."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k and v must be (nB, w2, nh, hd) of one "
+                         f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    nB, w2, nh, hd = q.shape
+    if q.dtype not in WINDOW_DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{what} takes q, k and v of one dtype, float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not 1 <= w2 <= WINDOW_MAX_W2 or hd not in WINDOW_HEAD_DIMS:
+        raise ValueError(f"{what}: w2 {w2} not in 1..{WINDOW_MAX_W2} or head "
+                         f"dim {hd} not in {WINDOW_HEAD_DIMS}")
+    if tuple(bias.shape) != (nh, w2, w2):
+        raise ValueError(f"bias must be {(nh, w2, w2)}, got {tuple(bias.shape)}")
+    if mask is not None and (mask.dtype != torch.bool
+                             or tuple(mask.shape) != (nB, w2, w2)):
+        raise ValueError(f"mask must be bool {(nB, w2, w2)}")
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v (nB, w2, nh, hd); bias (nh, w2, w2); mask (nB, w2, w2) bool
+    (True = may attend) or None.  f32 inside; returns (nB, w2, nh, hd) in
+    q's dtype, with the TPU op's padded keys in each denominator."""
+    _check_windows("window_attention_plain", q, k, v, bias, mask)
+    hd = q.shape[-1]
+    qf = q.float().permute(0, 2, 1, 3) * (1.0 / math.sqrt(hd))  # (nB, nh, w2, hd)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) + bias.float()[None]
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    pad = padded_keys(q.shape[1])
+    if pad:
+        denom = denom + pad * torch.exp(NEG_INF - m)
+    o = torch.matmul(e / denom, vf)                      # (nB, nh, w2, hd)
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@functools.cache
+def _windows_fn():
+    fn = _build.library("window_attention").window_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the B7 kernel on PyTorch's current stream.  Same contract as
+    the plain version: w2 up to 144, head dim 16, 32, 64 or 128, f32 or
+    bf16 q, k, v; the bias is read as f32."""
+    tensors = (q, k, v, bias) if mask is None else (q, k, v, bias, mask)
+    _build.check_operands("window_attention_cuda", *tensors)
+    _check_windows("window_attention_cuda", q, k, v, bias, mask)
+    nB, w2, nh, hd = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bias = bias.float().contiguous()
+    mask = None if mask is None else mask.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    rc = _windows_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       bias.data_ptr(), None if mask is None else mask.data_ptr(),
+                       out.data_ptr(), nB, w2, nh, hd, padded_keys(w2),
+                       WINDOW_DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+                       torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "window_attention")
+    _build.LAUNCHES["window_attention"] += 1
     return out

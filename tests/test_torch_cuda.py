@@ -291,3 +291,78 @@ def test_lm_serving_on_the_card_matches_the_cpu_path(cuda):
                                   "decode_attention": 3 * n,
                                   "codec_encode": 1, "codec_decode": 1}
     assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("nB,w2,nh,hd,masked", [
+    (7, 49, 3, 32, True), (5, 49, 6, 32, False), (3, 64, 4, 64, True),
+    (2, 81, 2, 32, False), (2, 144, 2, 128, True), (4, 16, 3, 16, True)])
+def test_windows_kernel_matches_plain(cuda, dtype, nB, w2, nh, hd, masked):
+    """B7 against its plain version on the same inputs, a fully masked row
+    among them, within 1e-5 of each output row's max |x| in f32 (sums in
+    other orders) and 1e-2 in bf16 (one rounding of the output)."""
+    g = torch.Generator().manual_seed(w2 + hd)
+    q, k, v = (torch.randn((nB, w2, nh, hd), generator=g).to(cuda, dtype)
+               for _ in range(3))
+    bias = torch.randn((nh, w2, w2), generator=g).to(cuda)
+    mask = None
+    if masked:
+        mask = (torch.rand((nB, w2, w2), generator=g) < 0.7).to(cuda)
+        mask[0, w2 // 2] = False
+    ref = wa.window_attention_plain(q, k, v, bias, mask)
+    n0 = ops.LAUNCHES["window_attention"]
+    out = ops.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["window_attention"] == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _rel_err(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    if masked and dtype == torch.float32:
+        w2p = -(-w2 // 64) * 64
+        torch.testing.assert_close(out[0, w2 // 2], v[0].sum(0) / w2p,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_cell_on_the_card_matches_the_cpu_path(cuda, tmp_path):
+    """A small executed lock-step cell (3 UEs, 2 slots, split 2, reduced
+    Swin-T) on the card and on the CPU, same weights and frames: the same
+    accounting fields and raw bytes, compressed bytes within 2 %, and one
+    codec pair per slot's option group and the blocks of every head and
+    batched tail launched."""
+    from repro_torch.core.cell import CellSimulator
+    cfg = reduced()
+    cache = tmp_path / "cache.json"
+    cache.write_text(json.dumps({
+        "ue_only": {"raw": 0, "compressed": 0},
+        "split1": {"raw": 15667200, "compressed": 3352860},
+        "split2": {"raw": 18278400, "compressed": 3814666},
+        "split3": {"raw": 19584000, "compressed": 4073777},
+        "split4": {"raw": 19584000, "compressed": 4065219},
+        "server_only": {"raw": 1305600, "compressed": 1305600}}))
+    params = SW.init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    g = torch.Generator().manual_seed(6)
+    imgs = [torch.rand((1, cfg.img_h, cfg.img_w, 3), generator=g)
+            for _ in range(3)]
+    res = {}
+    for dev in (torch.device("cpu"), cuda):
+        sim = CellSimulator(
+            plan=SwinSplitPlan(cfg, tree_map(lambda a: a.to(dev), params),
+                               device=dev),
+            system=calibrate(cache_path=str(cache), device=dev), n_ues=3,
+            seed=2, execute_model=True, device=dev)
+        ops.LAUNCHES.clear()
+        res[dev.type] = sim.run(np.full((2, 3), -20.0),
+                                imgs=[i.to(dev) for i in imgs],
+                                option="split2", keep_outputs=True)
+    torch.cuda.synchronize()
+    head_blocks = sum(cfg.depths[:2])
+    assert dict(ops.LAUNCHES) == {
+        "fused_window_attention": 2 * (3 * head_blocks
+                                       + sum(cfg.depths) - head_blocks),
+        "codec_encode": 2, "codec_decode": 2}
+    for a, b in zip(res["cuda"].logs, res["cpu"].logs):
+        assert (a.option, a.raw_bytes, a.rate_bps, a.head_s, a.tail_s) == (
+            b.option, b.raw_bytes, b.rate_bps, b.head_s, b.tail_s)
+        assert abs(a.compressed_bytes - b.compressed_bytes) <= 0.02 * b.compressed_bytes
+    for slot in res["cuda"].outputs:
+        for out in slot.values():
+            assert all(torch.isfinite(x).all() for x in tree_flatten(out)[0])

@@ -5,7 +5,7 @@ here they are held against the Pallas kernels run in interpret mode and
 against the JAX package's oracles (``repro.kernels.ref``), on the same numpy
 inputs.  Window attention is float work: both sides are fp32 and sum in
 different orders, so it is held at 2e-5 (the tolerance the JAX package's own
-kernel-vs-oracle tests use).  The codec pair is integer-exact and is held
+kernel-vs-oracle tests use); bf16 outputs within one bf16 step of it.  The codec pair is integer-exact and is held
 bitwise: stream bytes and scale bits.
 """
 import jax
@@ -20,6 +20,7 @@ from repro.kernels import ref
 from repro.kernels import window_attention as jwa
 from repro.models.swin import pad_region_mask, shift_attn_mask
 from repro_torch.kernels import codec as tcodec
+from repro_torch.kernels import window_attention as twa
 from repro_torch.kernels import ops
 
 ATOL = RTOL = 2e-5
@@ -167,3 +168,104 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         tcodec.codec_decode_cuda(torch.zeros(256, dtype=torch.int8),
                                  torch.ones(1), 256, False)
+
+
+# -- per-window attention on pre-partitioned windows (B7) ---------------------
+
+def _windows(nB, w2, nh, hd, masked, seed=5):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(nB, w2, nh, hd)).astype(np.float32)
+               for _ in range(3))
+    bias = rng.normal(size=(nh, w2, w2)).astype(np.float32)
+    mask = None
+    if masked:
+        mask = (rng.random((nB, w2, w2)) < 0.7) | np.eye(w2, dtype=bool)[None]
+    return q, k, v, bias, mask
+
+
+def _windows_port(q, k, v, bias, mask, dtype=torch.float32):
+    t = [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
+    return ops.window_attention(*t, torch.from_numpy(bias),
+                                None if mask is None else torch.from_numpy(mask))
+
+
+def _windows_jax(q, k, v, bias, mask, dtype=jnp.float32):
+    """The JAX package's op: pads w2 to a multiple of 64 and runs the Pallas
+    kernel in interpret mode on the CPU."""
+    return np.asarray(jops.window_attention(
+        *(jnp.asarray(x, dtype) for x in (q, k, v)), jnp.asarray(bias),
+        None if mask is None else jnp.asarray(mask)).astype(jnp.float32))
+
+
+# the shapes of tests/test_kernels.py's window-attention cases
+@pytest.mark.parametrize("w2,nh,hd,masked", [
+    (49, 3, 32, True), (49, 6, 32, True), (64, 4, 64, True),
+    (49, 3, 32, False), (81, 2, 32, False)])
+def test_windows_plain_matches_pallas_kernel(w2, nh, hd, masked):
+    q, k, v, bias, mask = _windows(5 if masked else 2, w2, nh, hd, masked)
+    out = _windows_port(q, k, v, bias, mask)
+    assert out.shape == q.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), _windows_jax(q, k, v, bias, mask),
+                               rtol=RTOL, atol=ATOL)
+    # every row may attend to something, so the padded keys weigh nothing
+    # and the unpadded oracle agrees too
+    oracle = ref.window_attention_ref(
+        *(jnp.asarray(x) for x in (q, k, v, bias)),
+        None if mask is None else jnp.asarray(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("w2", [49, 81])
+def test_window_attention_fully_masked_row_averages_over_padded_keys(w2):
+    """A query row with no allowed key: the TPU op scores all W2P padded
+    keys at -1e9 and returns sum(v) / W2P; the port reproduces it without
+    padding.  The unpadded oracle gives sum(v) / w2 there."""
+    q, k, v, bias, mask = _windows(3, w2, 2, 32, True, seed=6)
+    mask[1, 4] = False
+    mask[2, w2 - 1] = False
+    out = _windows_port(q, k, v, bias, mask).numpy()
+    np.testing.assert_allclose(out, _windows_jax(q, k, v, bias, mask),
+                               rtol=RTOL, atol=ATOL)
+    w2p = -(-w2 // 64) * 64
+    for n, row in ((1, 4), (2, w2 - 1)):
+        np.testing.assert_allclose(out[n, row], v[n].sum(0) / w2p,
+                                   rtol=RTOL, atol=ATOL)
+    oracle = np.asarray(ref.window_attention_ref(
+        *(jnp.asarray(x) for x in (q, k, v, bias)), jnp.asarray(mask)))
+    np.testing.assert_allclose(oracle[1, 4], v[1].sum(0) / w2, rtol=RTOL,
+                               atol=ATOL)
+    assert np.abs(out[1, 4] - oracle[1, 4]).max() > 1e-3
+
+
+def test_window_attention_bf16_runs_in_f32_and_rounds_once():
+    """bf16 q, k, v: f32 inside and one rounding of the output, so the bf16
+    result is the f32 result on the upcast inputs, rounded; against the
+    JAX op (the same sums in another order) within one bf16 step, up to
+    2^-7 of the value at the bottom of a binade."""
+    q, k, v, bias, mask = _windows(4, 49, 3, 32, True, seed=7)
+    out = _windows_port(q, k, v, bias, mask, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    up = [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+          for x in (q, k, v)]
+    f32 = _windows_port(*up, bias, mask)
+    assert torch.equal(out, f32.to(torch.bfloat16))
+    np.testing.assert_allclose(out.float().numpy(),
+                               _windows_jax(q, k, v, bias, mask, jnp.bfloat16),
+                               rtol=2.0 ** -7, atol=ATOL)
+
+
+def test_window_attention_refuses_what_the_kernel_does_not_take():
+    q, k, v, bias, _ = _windows(1, 49, 2, 32, False)
+    t = [torch.from_numpy(x) for x in (q, k, v, bias)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        twa.window_attention_cuda(*t)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.window_attention(*(x.to("meta") for x in t[:3]), t[3])
+    for shape in ((1, 145, 2, 32), (1, 49, 2, 48)):
+        x = torch.zeros(shape)
+        with pytest.raises(ValueError, match="w2"):
+            ops.window_attention(x, x, x, torch.zeros(shape[2], shape[1],
+                                                      shape[1]))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.window_attention(t[0].half(), t[1].half(), t[2].half(), t[3])

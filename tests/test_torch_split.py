@@ -156,7 +156,11 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.models.transformer, repro_torch.models.registry, "
             "repro_torch.core.telemetry, repro_torch.configs, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.decode_attention\n"
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.kernels.window_attention, repro_torch.core.cell, "
+            "repro_torch.core.timeline, repro_torch.core.ran, "
+            "repro_torch.core.mobility, repro_torch.core.chaos, "
+            "repro_torch.core.trace_export, repro_torch.runtime.failures\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
