@@ -16,12 +16,15 @@ when it fails:
     on and off, bitwise; the quant pair on each full-width payload leaf, a
     length that is not a multiple of the block, an empty leaf and a bf16
     leaf, bitwise; flash attention (B5) at the full-width qwen3-1.7b prefill
-    shape in bf16 and f32, and in f32 with Sq < Skv, a ragged length and
-    head dim 64; flash decode (B6) at the full-width decode shape with ragged
-    kv_len (0 and the full cache among them) in bf16 and f32; each output
-    row (one head's hd values at one position) within F32_TOL / BF16_TOL of
-    that row's max |x|; per-window attention (B7) through its entry point,
-    ops.window_attention, at the four Swin-T stage partitions of 4 images
+    shape in bf16 and f32, in both dtypes with Sq < Skv (200 / 520), a
+    ragged length (333 / 333) and 15 heads over 5 at head dim 64, and in
+    bf16 at head dims 16 and 32 and without the causal mask; flash decode
+    (B6) at the full-width decode shape in bf16 and f32 with kv_len 0, 1,
+    one chunk of its split, one chunk + 1, the prompt, the full cache and a
+    ragged 777; each output row (one head's hd values at one position)
+    within F32_TOL / BF16_TOL of that row's max |x|, two launches on the
+    same inputs bitwise equal; per-window attention (B7) through its entry
+    point, ops.window_attention, at the four Swin-T stage partitions of 4 images
     with the shifted-region mask and without one (B7's own path: its launch
     counter at 0 before, read after), then at w2 64 with hd 64, w2 81
     without a mask, w2 144 with hd 128, on rows whose keys are all masked
@@ -44,7 +47,8 @@ when it fails:
     least time the card could take; B7 likewise at the stage-0 partition;
     then the per-split head+encode, decode and batched-tail times; B5 and
     B6 at the full-width serving shapes with scaled dot-product attention as
-    their yardstick;
+    their yardstick, B6 and its yardstick also with a cold L2 (L2_FLUSH_BYTES
+    written before each launch);
  7. the codec's modes at full width: for splits 1-4, one frame's head
     payload through raw, zlib, int8, int8_zlib and int8_delta_zlib, each
     int8 mode fused and legacy (per-tensor, the quant pair).  Every payload
@@ -144,6 +148,7 @@ CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
+L2_FLUSH_BYTES = 128 * 2**20       # written before a cold-L2 timing (L2 is 50 MB)
 
 
 def log(msg: str) -> None:
@@ -157,22 +162,31 @@ def gpu_name_and_limit() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10, runs: int = 7) -> float:
+def cuda_ms(fn, reps: int = 10, runs: int = 7, before=None) -> float:
     """Median over ``runs`` of the mean time of ``reps`` back-to-back calls,
-    by CUDA events, after a warm-up."""
+    by CUDA events, after a warm-up.  With ``before``, each call is timed
+    alone, after ``before()`` (untimed) has run on the same stream."""
     import torch
     for _ in range(3):
         fn()
     times = []
     for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(2 * reps if before else 2)]
+        if before is None:
+            events[0].record()
+            for _ in range(reps):
+                fn()
+            events[1].record()
+        else:
+            for i in range(reps):
+                before()
+                events[2 * i].record()
+                fn()
+                events[2 * i + 1].record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
+        times.append(sum(a.elapsed_time(b) for a, b in
+                         zip(events[::2], events[1::2])) / reps)
     return statistics.median(times)
 
 
@@ -585,47 +599,58 @@ def main() -> int:
         return float(d.max()), float((d / top).max())
 
     attn_errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    flash_cases = [  # (B, Sq, Skv, H, KV, hd, dtype): full width, Sq < Skv, ragged, hd 64
-        (LM_BATCH, LM_PROMPT, LM_PROMPT, lm_H, lm_KV, lm_hd, bf16),
-        (LM_BATCH, LM_PROMPT, LM_PROMPT, lm_H, lm_KV, lm_hd, f32),
-        (2, 200, 520, lm_H, lm_KV, lm_hd, f32),
-        (2, 333, 333, lm_H, lm_KV, lm_hd, f32),
-        (2, 300, 300, 15, 5, 64, f32)]
-    for B, Sq, Skv, h_, kv_, hd_, dt in flash_cases:
+    flash_cases = [  # (B, Sq, Skv, H, KV, hd, dtype, causal)
+        (LM_BATCH, LM_PROMPT, LM_PROMPT, lm_H, lm_KV, lm_hd, bf16, True),
+        (LM_BATCH, LM_PROMPT, LM_PROMPT, lm_H, lm_KV, lm_hd, f32, True)]
+    for dt in (bf16, f32):       # Sq < Skv, ragged, G 3 at hd 64
+        flash_cases += [(2, 200, 520, lm_H, lm_KV, lm_hd, dt, True),
+                        (2, 333, 333, lm_H, lm_KV, lm_hd, dt, True),
+                        (2, 300, 300, 15, 5, 64, dt, True)]
+    flash_cases += [(2, 150, 150, 4, 2, 16, bf16, True),   # the small heads
+                    (2, 150, 190, 4, 2, 32, bf16, True),
+                    (2, 200, 130, lm_H, lm_KV, lm_hd, bf16, False)]
+    for B, Sq, Skv, h_, kv_, hd_, dt, causal in flash_cases:
         q = rnd((B, Sq, h_, hd_), dt)
         k, v = rnd((B, Skv, kv_, hd_), dt), rnd((B, Skv, kv_, hd_), dt)
-        ref = fa.flash_attention_plain(q, k, v, True)
-        out = fa.flash_attention_cuda(q, k, v, True)
-        torch.cuda.synchronize()
-        err, rel = rel_err(out, ref)
-        tol = BF16_TOL if dt == bf16 else F32_TOL
-        if not (torch.isfinite(out).all() and rel <= tol):
-            raise AssertionError(f"B5 {(B, Sq, Skv, h_, kv_, hd_)} {dt}: "
-                                 f"rel err {rel}")
-        attn_errs["flash_attention"] = max(attn_errs["flash_attention"], err)
-        log(f"check B5 q {(B, Sq, h_, hd_)} kv {(B, Skv, kv_, hd_)} "
-            f"{str(dt).removeprefix('torch.')}: max|kernel-plain| {err:.3g}; "
-            f"worst row {rel:.3g} of its max|out| (tol {tol})")
-    cache_len = LM_PROMPT + LM_GEN
-    for dt in (bf16, f32):
-        q = rnd((LM_BATCH, 1, lm_H, lm_hd), dt)
-        ck_, cv_ = (rnd((LM_BATCH, lm_KV, cache_len, lm_hd), dt) for _ in range(2))
-        lens = torch.tensor([0, LM_PROMPT, cache_len, 777][:LM_BATCH],
-                            dtype=torch.int32, device=dev)
-        ref = da.decode_attention_plain(q, ck_, cv_, lens)
-        out = da.decode_attention_cuda(q, ck_, cv_, lens)
+        ref = fa.flash_attention_plain(q, k, v, causal)
+        out = fa.flash_attention_cuda(q, k, v, causal)
+        again = fa.flash_attention_cuda(q, k, v, causal)
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         tol = BF16_TOL if dt == bf16 else F32_TOL
         if not (torch.isfinite(out).all() and rel <= tol
-                and not out[0].any()):
+                and torch.equal(out, again)):
+            raise AssertionError(f"B5 {(B, Sq, Skv, h_, kv_, hd_)} {dt} causal "
+                                 f"{causal}: rel err {rel}, or two launches "
+                                 "differ")
+        attn_errs["flash_attention"] = max(attn_errs["flash_attention"], err)
+        log(f"check B5 q {(B, Sq, h_, hd_)} kv {(B, Skv, kv_, hd_)} "
+            f"{str(dt).removeprefix('torch.')} causal {causal}: max|kernel-"
+            f"plain| {err:.3g}; worst row {rel:.3g} of its max|out| (tol "
+            f"{tol}); two launches bitwise equal")
+    cache_len = LM_PROMPT + LM_GEN
+    chunk, n_splits = da.split_plan(cache_len, lm_hd)
+    lens = torch.tensor([0, 1, chunk, chunk + 1, LM_PROMPT, cache_len, 777],
+                        dtype=torch.int32, device=dev)
+    for dt in (bf16, f32):
+        q = rnd((len(lens), 1, lm_H, lm_hd), dt)
+        ck_, cv_ = (rnd((len(lens), lm_KV, cache_len, lm_hd), dt) for _ in range(2))
+        ref = da.decode_attention_plain(q, ck_, cv_, lens)
+        out = da.decode_attention_cuda(q, ck_, cv_, lens)
+        again = da.decode_attention_cuda(q, ck_, cv_, lens)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        if not (torch.isfinite(out).all() and rel <= tol
+                and not out[0].any() and torch.equal(out, again)):
             raise AssertionError(f"B6 {dt}: rel err {rel}, or kv_len 0 is "
-                                 "not zeros")
+                                 "not zeros, or two launches differ")
         attn_errs["decode_attention"] = max(attn_errs["decode_attention"], err)
         log(f"check B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
-            f"{lens.tolist()} {str(dt).removeprefix('torch.')}: max|kernel-"
-            f"plain| {err:.3g}; worst row {rel:.3g} of its max|out| (tol "
-            f"{tol}); kv_len 0 gives zeros")
+            f"{lens.tolist()} (chunks of {chunk}, {n_splits} splits) "
+            f"{str(dt).removeprefix('torch.')}: max|kernel-plain| {err:.3g}; "
+            f"worst row {rel:.3g} of its max|out| (tol {tol}); kv_len 0 "
+            f"gives zeros; two launches bitwise equal")
 
     # B7 through its entry point, ops.window_attention, at the four Swin-T
     # stage partitions of N_UES images, with the shifted-region mask of each
@@ -965,21 +990,35 @@ def main() -> int:
     bool_mask = live[:, None, None, :]                      # (B, 1, 1, S)
     nbytes = 2 * (2 * LM_BATCH * lm_KV * LM_PROMPT * lm_hd + 2 * q.numel()) + 4 * LM_BATCH
     flops = 4 * LM_BATCH * lm_H * LM_PROMPT * lm_hd
+    def b6():
+        return da.decode_attention_cuda(q, ck_, cv_, lens)
+
+    def b6_sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), ck_, cv_, attn_mask=bool_mask, enable_gqa=True)
+
     rows["decode_attention"] = dict(
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:64",
         max_abs_err=attn_errs["decode_attention"],
-        ms=cuda_ms(lambda: da.decode_attention_cuda(q, ck_, cv_, lens)),
+        ms=cuda_ms(b6),
         plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, ck_, cv_, lens)),
         bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by=("operations" if flops / BF16_FLOP_PER_S
                   >= nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), ck_, cv_, attn_mask=bool_mask, enable_gqa=True)))
+        library_ms=cuda_ms(b6_sdpa))
     r = rows["decode_attention"]
+    # K and V (33.5 MB) fit in the 50 MB L2, so back-to-back launches read
+    # them from L2; a decode step reads every layer's cache in turn and
+    # finds it cold: time each launch alone after writing L2_FLUSH_BYTES
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cold, cold_sdpa = (cuda_ms(fn, before=lambda: flush.fill_(1.0))
+                       for fn in (b6, b6_sdpa))
+    del flush
     log(f"time B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
-        f"{LM_PROMPT} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-        f"ms, sdpa with a bool mask {r['library_ms']:.4f} ms, bound "
+        f"{LM_PROMPT} bf16: kernel {r['ms']:.4f} ms warm, {cold:.4f} ms cold "
+        f"L2; plain {r['plain_ms']:.4f} ms; sdpa with a bool mask "
+        f"{r['library_ms']:.4f} ms warm, {cold_sdpa:.4f} ms cold L2; bound "
         f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
         f"decode step")
 

@@ -1,266 +1,352 @@
 // Flash decode: one new query token against a KV-major cache, for Hopper
-// (sm_90a).
+// (sm_90a), as split-KV with a combine pass.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py ::
 // decode_attention_pallas (_decode_kernel).  It computes what that kernel
 // computes: for batch row b and kv head n, the G = H / KV query heads
 // n G .. n G + G - 1 of q (B, 1, H, hd) attend to the first kv_len[b] rows
-// of k and v; q multiplied by hd^-1/2 after its cast to f32, an f32 online
-// softmax, out = acc / max(l, 1e-30) in q's dtype, so kv_len = 0 gives zeros.
-// The cache is read in the layout the LM keeps, KV-major (B, KV, S, hd), so
-// the decode path never transposes it; the TPU wrapper transposed a
+// of k and v; q multiplied by hd^-1/2 after its cast to f32, an f32 softmax,
+// out = acc / max(l, 1e-30) in q's dtype, so kv_len = 0 gives zeros.  The
+// cache is read in the layout the LM keeps, KV-major (B, KV, S, hd), so the
+// decode path never transposes it; the TPU wrapper transposed a
 // (B, S, KV, hd) cache into that layout before its launch.
 //
 // Design.  On the TPU the kv axis is a sequential grid dimension whose
-// blocks past kv_len are skipped and whose state sits in VMEM.  Here one CTA
-// per (kv head, batch row) holds the G query rows in shared memory and walks
-// the live rows only, 256 keys at a time: each thread scores one key against
-// the G rows (one pass over its K row), the G rows' online softmax runs one
-// warp per row, and P.V runs with each warp reading whole V rows (4
-// consecutive values a thread) and keeping G x 4 sums in registers.  The
-// warps' partial sums meet in shared memory at the end.  Every K and V byte
-// of the live rows is read once.  G is at most 16 (kMaxG).
+// blocks past kv_len are skipped and whose state sits in VMEM.  Here the
+// cache rows are cut into chunks and each chunk gets a CTA of its own:
+//   - Pass 1, grid (n_splits, KV, B), n_splits = ceil(S / chunk).  The grid
+//     follows the cache's capacity S, a shape, and never the values of
+//     kv_len, which the CTA reads on the device: the host reads nothing, so
+//     a decode step can be captured in a CUDA graph.  A CTA walks the live
+//     rows of its chunk only, 16 bytes a lane (hd / 8 lanes a bf16 row, hd / 4
+//     a f32 row), scores them against the G query rows (held in registers,
+//     scaled), runs the softmax of each row over the chunk, accumulates P.V
+//     with the same lanes, and writes an f32 partial (m, l, acc[hd]) per
+//     query head into a scratch tensor the wrapper allocated.  A chunk that
+//     starts at or past kv_len[b] writes m = -1e30, l = 0, acc = 0 and exits
+//     (-1e30, not -inf, so the combine never computes exp(-inf + inf)).
+//   - Pass 2, one CTA per (query head, batch row), hd threads: m* = max m_i,
+//     l = sum l_i e^(m_i - m*), out = sum acc_i e^(m_i - m*) / max(l, 1e-30),
+//     the splits taken in a fixed order.  No atomics anywhere: two launches
+//     on the same inputs give the same bits.
+//   Both passes run from the one C entry point on the caller's stream.  G is
+//   at most 16 (kMaxG); the kernel is instantiated for G up to 2, 4, 8, 16.
 //
 // Bound on the H100.  Bytes: at the full-width decode shape (4, 1, 16, 128)
 // q against a (4, 8, 2080, 128) bf16 cache at kv_len 2048, the kernel must
 // read 33.5 MB of K and V, 0.010 ms at 3.35 TB/s; it does 4 flops per cached
-// value.  B x KV = 32 CTAs leave 100 of the 132 SMs idle, and one SM cannot
-// keep enough loads in flight to draw its share of the card's bandwidth.
-// Splitting the kv rows of one (b, n) across CTAs, with a second pass that
-// combines their (m, l, acc), is later work.
+// value.  With chunks of 128 rows there are 17 splits x 32 (b, n) = 544
+// CTAs, 4 a SM, each reading 64 KB.  What still holds it back: two launches
+// and the combine's read of the partials (0.6 MB), a fixed cost of a few
+// microseconds next to a 10 us bound; the scores, the softmax and P.V of a
+// chunk run one after the other inside the CTA, so its loads come in two
+// bursts; a cache of 33.5 MB fits in the 50 MB L2, so back-to-back timings
+// read it from L2 and a decode step, which reads every layer's cache in
+// turn, finds it cold.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = kThreads;            // keys scored per pass, one a thread
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kUnroll = 4;                  // rows a lane loads before it computes
 constexpr int kMaxG = 16;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// 16 bytes of a row as f32
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
 }
 
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Shared memory of pass 1, in floats: the scores (then p) [G][chunk], the
+// warps' P.V sums [kWarps][G][hd], and m, l of each query row.
+int partial_smem_bytes(int G, int hd, int chunk) {
+  return static_cast<int>(sizeof(float)) * (G * chunk + kWarps * G * hd + 2 * kMaxG);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// Shared memory, in floats: the G scaled query rows, then a region that
-// holds the G x kChunk scores during the walk and the warps' partial sums
-// (kParts x G x HD) at the end, then m, l and the correction of each row.
-template <int HD>
-__host__ __device__ constexpr int kParts() { return kThreads / (HD / 4); }
-
-template <int HD>
-int smem_bytes(int G) {
-  const int region = G * kChunk > kParts<HD>() * G * HD ? G * kChunk : kParts<HD>() * G * HD;
-  return static_cast<int>(sizeof(float)) * (G * HD + region + 3 * kMaxG);
-}
-
-template <typename T, int HD>
+// part[((b H + h) n_splits + split) (hd + 2) + {0: m, 1: l, 2 + d: acc[d]}]
+template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ kv_len,
-                        T* __restrict__ o, int H, int KV, int S, float sm_scale) {
-  constexpr int kVec = HD / 4;              // float4 groups per row
-  constexpr int kP = kParts<HD>();          // threads sharing one column group
+decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ kv_len,
+                      float* __restrict__ part, int H, int KV, int S, int chunk,
+                      float sm_scale) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));  // elements a lane loads
+  constexpr int L = HD / E;                 // lanes a cache row
+  constexpr int R = 32 / L;                 // rows a warp takes at once
+  constexpr int kStep = kWarps * R;         // rows the CTA takes at once
   const int G = H / KV;
-  const int n = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = min(kv_len[b], S);       // rows past the cache are never read
+  const int split = blockIdx.x;
+  const int n_splits = gridDim.x;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int len = min(max(kv_len[b], 0), S);  // rows past the cache are never read
+  const int r0 = split * chunk;
+  const int cl = min(chunk, len - r0);      // live rows of this chunk
+  const int pstride = n_splits * (HD + 2);  // from one query head's partial to the next
+  float* pb = part + (static_cast<size_t>(b) * H + static_cast<size_t>(n) * G) * pstride
+              + static_cast<size_t>(split) * (HD + 2);
+
+  if (cl <= 0) {
+    for (int idx = threadIdx.x; idx < G * (HD + 2); idx += kThreads) {
+      const int g = idx / (HD + 2);
+      const int c = idx % (HD + 2);
+      pb[g * pstride + c] = c == 0 ? kNegInf : 0.f;
+    }
+    return;
+  }
 
   extern __shared__ float smem[];
-  float* qs = smem;                         // [G][HD], times sm_scale
-  float* region = qs + G * HD;              // scores [G][kChunk]; partials [kP][G][HD]
-  float* m_run = region + (G * kChunk > kP * G * HD ? G * kChunk : kP * G * HD);
-  float* l_run = m_run + kMaxG;
-  float* corr = l_run + kMaxG;
+  float* sc = smem;                         // [G][chunk]
+  float* red = sc + G * chunk;              // [kWarps][G][HD]
+  float* m_s = red + kWarps * G * HD;       // [kMaxG]
+  float* l_s = m_s + kMaxG;                 // [kMaxG]
 
-  const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(n) * G) * HD;
-  for (int idx = threadIdx.x; idx < G * kVec; idx += kThreads) {
-    float4 x = load4(qb + idx * 4);
-    x.x *= sm_scale; x.y *= sm_scale; x.z *= sm_scale; x.w *= sm_scale;
-    store4(qs + idx * 4, x);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % L;                 // this lane's 16 bytes of a row
+  const int rw = lane / L;                  // this lane's row of the warp's R
+
+  float qr[GM][E];
+  const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(n) * G) * HD + sub * E;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g < G) {
+      load16(qb + g * HD, qr[g]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[g][e] *= sm_scale;
+    }
   }
-  if (threadIdx.x < G) {
-    m_run[threadIdx.x] = kNegInf;
-    l_run[threadIdx.x] = 0.f;
-  }
-  const size_t head = (static_cast<size_t>(b) * KV + n) * S * HD;
+  const size_t head = (static_cast<size_t>(b) * KV + n) * S * HD
+                      + static_cast<size_t>(r0) * HD + sub * E;
   const T* kb = k + head;
   const T* vb = v + head;
 
-  const int c4 = (threadIdx.x % kVec) * 4;  // this thread's columns in P.V
-  const int part = threadIdx.x / kVec;      // and its share of the keys
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float acc[kMaxG][4];
+  // scores of the live rows; the row's L lanes reduce with shuffles
+  for (int j0 = warp * R + rw; j0 - rw < cl; j0 += kUnroll * kStep) {
+    float x[kUnroll][E];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kStep;
+      if (j < cl) {
+        load16(kb + static_cast<size_t>(j) * HD, x[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) x[u][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kStep;
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) s = fmaf(qr[g][e], x[u][e], s);
+#pragma unroll
+          for (int off = L / 2; off > 0; off >>= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+          if (sub == 0 && j < cl) sc[g * chunk + j] = s;
+        }
+      }
+    }
+  }
   __syncthreads();
 
-  for (int j0 = 0; j0 < len; j0 += kChunk) {
-    const int cl = min(kChunk, len - j0);
-    // scores: one key a thread, against every query row of the group
-    {
-      float s[kMaxG];
+  // the softmax of each query row over the chunk, one warp a row
+  for (int g = warp; g < G; g += kWarps) {
+    float* sr = sc + g * chunk;
+    float mx = kNegInf;
+    for (int j = lane; j < cl; j += 32) mx = fmaxf(mx, sr[j]);
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-      if (threadIdx.x < cl) {
-        const T* kr = kb + static_cast<size_t>(j0 + threadIdx.x) * HD;
-#pragma unroll 8
-        for (int d = 0; d < HD; d += 4) {
-          const float4 kk = load4(kr + d);
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int j = lane; j < cl; j += 32) {
+      const float p = expf(sr[j] - mx);
+      sr[j] = p;
+      sum += p;
+    }
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g) {
-            if (g < G) {
-              const float4 qq = load4(qs + g * HD + d);
-              s[g] = fmaf(qq.x, kk.x, s[g]);
-              s[g] = fmaf(qq.y, kk.y, s[g]);
-              s[g] = fmaf(qq.z, kk.z, s[g]);
-              s[g] = fmaf(qq.w, kk.w, s[g]);
-            }
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      m_s[g] = mx;
+      l_s[g] = sum;
+    }
+  }
+  __syncthreads();
+
+  // P.V over the same rows, each lane keeping G x E sums of its columns
+  float acc[GM][E];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  for (int j0 = warp * R + rw; j0 - rw < cl; j0 += kUnroll * kStep) {
+    float x[kUnroll][E];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kStep;
+      if (j < cl) {
+        load16(vb + static_cast<size_t>(j) * HD, x[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) x[u][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kStep;
+      if (j < cl) {
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g < G) {
+            const float p = sc[g * chunk + j];
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, x[u][e], acc[g][e]);
           }
         }
       }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) region[g * kChunk + threadIdx.x] = threadIdx.x < cl ? s[g] : kNegInf;
     }
-    __syncthreads();
-    // online softmax, one warp per query row
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float* sr = region + g * kChunk;
-      float mx = kNegInf;
-      for (int j = lane; j < kChunk; j += 32) mx = fmaxf(mx, sr[j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[g], mx);
-      float sum = 0.f;
-      for (int j = lane; j < kChunk; j += 32) {
-        const float p = expf(sr[j] - m_new);
-        sr[j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float c = expf(m_run[g] - m_new);
-        corr[g] = c;
-        l_run[g] = l_run[g] * c + sum;
-        m_run[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // P.V: each part of the threads takes every kP-th key of the chunk
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float c = corr[g];
-        acc[g][0] *= c; acc[g][1] *= c; acc[g][2] *= c; acc[g][3] *= c;
-      }
-    }
-#pragma unroll 4
-    for (int j = part; j < cl; j += kP) {
-      const float4 vv = load4(vb + static_cast<size_t>(j0 + j) * HD + c4);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float p = region[g * kChunk + j];
-          acc[g][0] = fmaf(p, vv.x, acc[g][0]);
-          acc[g][1] = fmaf(p, vv.y, acc[g][1]);
-          acc[g][2] = fmaf(p, vv.z, acc[g][2]);
-          acc[g][3] = fmaf(p, vv.w, acc[g][3]);
-        }
-      }
-    }
-    __syncthreads();                        // the scores are consumed
   }
-
-  // the parts' sums meet in shared memory; then acc / max(l, 1e-30)
+  // the warp's R rows meet over the lanes that share `sub`, then the warps
+  // meet in shared memory in warp order
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-    if (g < G)
-      store4(region + (part * G + g) * HD + c4,
-             make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]));
+  for (int off = L; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+  if (rw == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G)
+#pragma unroll
+        for (int e = 0; e < E; ++e) red[(warp * G + g) * HD + sub * E + e] = acc[g][e];
+  }
   __syncthreads();
-  T* ob = o + (static_cast<size_t>(b) * H + static_cast<size_t>(n) * G) * HD;
-  for (int idx = threadIdx.x; idx < G * kVec; idx += kThreads) {
-    const int g = idx / kVec;
-    const int c = (idx % kVec) * 4;
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int p = 0; p < kP; ++p) {
-      const float4 x = load4(region + (p * G + g) * HD + c);
-      t.x += x.x; t.y += x.y; t.z += x.z; t.w += x.w;
-    }
-    const float denom = fmaxf(l_run[g], 1e-30f);
-    store4(ob + g * HD + c, make_float4(t.x / denom, t.y / denom, t.z / denom, t.w / denom));
+  for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
+    const int g = idx / HD;
+    const int d = idx % HD;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += red[(w * G + g) * HD + d];
+    pb[g * pstride + 2 + d] = t;
+  }
+  if (threadIdx.x < G) {
+    pb[threadIdx.x * pstride] = m_s[threadIdx.x];
+    pb[threadIdx.x * pstride + 1] = l_s[threadIdx.x];
   }
 }
 
-template <typename T, int HD>
+// one CTA per (query head, batch row), one thread per output column
+template <typename T>
+__global__ void decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
+                                      int n_splits) {
+  const int hd = blockDim.x;
+  const int d = threadIdx.x;
+  const float* pb = part + static_cast<size_t>(blockIdx.x) * n_splits * (hd + 2);
+  float m_star = kNegInf;
+  for (int i = 0; i < n_splits; ++i) m_star = fmaxf(m_star, pb[i * (hd + 2)]);
+  float l = 0.f, acc = 0.f;
+  for (int i = 0; i < n_splits; ++i) {
+    const float* p = pb + i * (hd + 2);
+    const float w = expf(p[0] - m_star);
+    l += p[1] * w;
+    acc += p[2 + d] * w;
+  }
+  store1(o + static_cast<size_t>(blockIdx.x) * hd + d, acc / fmaxf(l, 1e-30f));
+}
+
+template <typename T, int HD, int GM>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-           int B, int S, int H, int KV, float sm_scale, cudaStream_t stream) {
-  const int bytes = smem_bytes<HD>(H / KV);
-  auto kernel = decode_attention_kernel<T, HD>;
+           void* part, int B, int S, int H, int KV, int chunk, int n_splits,
+           float sm_scale, cudaStream_t stream) {
+  const int bytes = partial_smem_bytes(H / KV, HD, chunk);
+  auto kernel = decode_partial_kernel<T, HD, GM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(KV, B), kThreads, bytes, stream>>>(
+  kernel<<<dim3(n_splits, KV, B), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<T*>(o), H, KV, S, sm_scale);
+      static_cast<const int*>(kv_len), static_cast<float*>(part), H, KV, S, chunk,
+      sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_combine_kernel<T><<<B * H, HD, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(o), n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int dispatch_g(const void* q, const void* k, const void* v, const void* kv_len, void* o,
+               void* part, int B, int S, int H, int KV, int chunk, int n_splits,
+               float sm_scale, cudaStream_t stream) {
+  const int G = H / KV;
+  if (G <= 2)
+    return launch<T, HD, 2>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+  if (G <= 4)
+    return launch<T, HD, 4>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+  if (G <= 8)
+    return launch<T, HD, 8>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+  return launch<T, HD, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* kv_len,
-                void* o, int B, int S, int H, int KV, float sm_scale, cudaStream_t stream) {
+                void* o, void* part, int B, int S, int H, int KV, int chunk, int n_splits,
+                float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, kv_len, o, B, S, H, KV, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, kv_len, o, B, S, H, KV, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, kv_len, o, B, S, H, KV, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, kv_len, o, B, S, H, KV, sm_scale, stream);
+    case 16: return dispatch_g<T, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+    case 32: return dispatch_g<T, 32>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+    case 64: return dispatch_g<T, 64>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+    case 128: return dispatch_g<T, 128>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q (B, 1, H, hd), k and v (B, KV, S, hd) KV-major, kv_len (B,) int32
-// (clamped to S; 0 or less gives zeros), o (B, 1, H, hd); contiguous, 16-byte aligned, q, k, v
-// and o of one dtype: 0 = f32, 1 = bf16.  hd is 16, 32, 64 or 128; H is a
-// multiple of KV with H / KV <= 16; B and KV are at least 1.  Returns the
-// cudaError_t of the launch (0 = success).
+// q (B, 1, H, hd), k and v (B, KV, S, hd) KV-major, kv_len (B,) int32 on the
+// device (clamped to [0, S]; 0 gives zeros), o (B, 1, H, hd), part: scratch
+// of B H n_splits (hd + 2) f32; contiguous, 16-byte aligned, q, k, v and o of
+// one dtype: 0 = f32, 1 = bf16.  hd is 16, 32, 64 or 128; H is a multiple of
+// KV with H / KV <= 16; B and KV are at least 1; chunk >= 1 and n_splits =
+// max(1, ceil(S / chunk)).  Launches pass 1 and the combine; returns the
+// first cudaError_t (0 = success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* kv_len, void* o, int B, int S, int H,
-                                    int KV, int hd, int dtype, float sm_scale,
+                                    const void* kv_len, void* o, void* part, int B,
+                                    int S, int H, int KV, int hd, int chunk,
+                                    int n_splits, int dtype, float sm_scale,
                                     void* cuda_stream) {
   cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (H % KV != 0 || H / KV > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
+  if (H % KV != 0 || H / KV > kMaxG || chunk < 1 || n_splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, kv_len, o, B, S, H, KV, sm_scale, stream);
+    return dispatch_hd<float>(hd, q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+                              sm_scale, stream);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_len, o, B, S, H, KV, sm_scale, stream);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+                                      n_splits, sm_scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,17 +13,22 @@ LM keeps (``models/transformer.py::block_cache_init``), so the decode path
 never transposes it; ``kernels/ops.py::decode_attention`` keeps the TPU
 wrapper's (B, S, KV, hd) signature and transposes as that wrapper does.
 
-The CUDA kernel (``csrc/decode_attention.cu``) runs one CTA per (kv head,
-batch row) over the live rows only; it is bound by the bytes of the cache it
-reads (the source note gives the numbers).  ``kernels/ops.py`` takes the
-plain version only for tensors on the CPU; ``chip_smoke.py`` holds the kernel
-against it on the card.
+The CUDA kernel (``csrc/decode_attention.cu``) is split-KV: ``split_plan``
+cuts the cache's capacity S into chunks, one CTA per (chunk, kv head, batch
+row) writes an f32 partial (m, l, acc) over the live rows of its chunk into
+scratch that the wrapper allocates, and a combine pass merges the partials
+in a fixed order.  The grid depends on S and hd only, never on the values of
+``kv_len``, which the wrapper does not read on the host.  It is bound by the
+bytes of the cache it reads (the source note gives the numbers).
+``kernels/ops.py`` takes the plain version only for tensors on the CPU;
+``chip_smoke.py`` holds the kernel against it on the card.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -32,6 +37,16 @@ from repro_torch.kernels.flash_attention import (DTYPE_CODES,
                                                  check_attention_operands)
 
 MAX_GROUP = 16                  # query heads per kv head the kernel takes
+CHUNK_ELEMS = 16384             # cache elements a CTA reads from K (and V)
+CHUNK_MIN, CHUNK_MAX = 128, 512  # its rows: 128 at hd 128, 512 at hd 32
+
+
+def split_plan(S: int, hd: int) -> Tuple[int, int]:
+    """(chunk, n_splits): the cache rows each CTA of the kernel's first pass
+    takes, and the number of such chunks that cover rows [0, S).  A function
+    of the cache's shape only, so the grid never depends on ``kv_len``."""
+    chunk = min(CHUNK_MAX, max(CHUNK_MIN, CHUNK_ELEMS // hd))
+    return chunk, max(1, -(-S // chunk))
 
 
 def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -56,7 +71,7 @@ def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 @functools.cache
 def _fn():
     fn = _build.library("decode_attention").decode_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -85,9 +100,13 @@ def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    chunk, n_splits = split_plan(S, hd)
+    part = torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     rc = _fn()(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-               kv_len.data_ptr(), out.data_ptr(), B, S, H, KV, hd,
-               DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+               kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), B, S, H,
+               KV, hd, chunk, n_splits, DTYPE_CODES[q.dtype],
+               1.0 / math.sqrt(hd),
                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1

@@ -8,10 +8,13 @@ i + Skv - Sq (q aligned to the end of kv), scores above the diagonal (with
 ``causal``) are masked to -1e30, the softmax runs in f32 and the output is
 cast to q's dtype.
 
-The CUDA kernel (``csrc/flash_attention.cu``) runs one CTA per (q tile,
+The CUDA source (``csrc/flash_attention.cu``) runs one CTA per (q tile,
 head, batch row) that walks the kv tiles up to the diagonal with an f32
-online softmax; its products run on the CUDA cores in f32.  At the full-width
-prefill shape it is bound by operations (the source note gives the numbers).
+online softmax.  For bf16 both products run on the tensor cores (mma.sync,
+f32 sums; P split into bf16 hi and lo parts, so P is never rounded to bf16
+once) with K and V tiles copied asynchronously; f32 keeps both products in
+f32 on the CUDA cores.  At the full-width prefill shape it is bound by
+operations (the source note gives the numbers).
 
 ``flash_attention_plain`` is the same function as a dense masked softmax in
 f32 (``repro/kernels/ref.py::flash_attention_ref``).  ``kernels/ops.py``

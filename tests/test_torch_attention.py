@@ -9,7 +9,17 @@ Tolerances: float32 within 2e-5 (the reference's own test tolerance; its
 mirrors miss its kernels by up to 3.9e-7, and sums run in another order
 here); bf16 within 2e-2 (one rounding of the output, as the reference's bf16
 test).
+
+The CUDA kernels cannot run here, so their arithmetic is pinned by mirrors
+written in this file and held against the JAX package: B5's bf16 tensor-core
+numerics (exact bf16 products, scaled f32 scores, a base-2 online softmax
+over 64-row kv tiles, P.V as P_hi.V + P_lo.V) within B5_MIRROR_TOL of each
+output row's max before the output cast, and B6's split-KV partials and
+combine in f32 on the wrapper's own chunks within F32_TOL.
 """
+import math
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +34,11 @@ from repro_torch.kernels import ops
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+# B5's bf16 mirror against the f32 reference on the same bf16 values, per
+# output row: the sums run in another order and P_hi + P_lo keeps P to about
+# 2^-18 of itself (P_lo is rounded to bf16); rows miss by up to 5.4e-6 of
+# their max here, one bf16 rounding of P by 2.8e-3 to 3.5e-3
+B5_MIRROR_TOL = 1e-5
 
 
 def _normal(seed, *shapes):
@@ -143,3 +158,174 @@ def test_cuda_wrappers_refuse_host_tensors(fn, args):
     version on the tensors it was given."""
     with pytest.raises(ValueError, match="CUDA device"):
         fn(*args(lambda s: torch.zeros(s)))
+
+
+def _row_rel(out, ref):
+    """The worst output row's max |out - ref| over that row's max |ref| (a
+    row is one head's hd values at one position)."""
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    top = np.maximum(np.abs(ref).max(-1), 1e-30)
+    return float((np.abs(out - ref).max(-1) / top).max())
+
+
+def _b5_bf16_mirror(q, k, v, causal, split_p=True, tile=64):
+    """B5's bf16 arithmetic on the CPU, in f32: q.k^T of the bf16 values (each
+    product exact in f32), times hd^-1/2 log2(e) rounded to f32, the
+    online softmax in base 2 over kv tiles of ``tile`` rows, and P.V as
+    P_hi.V + P_lo.V with P_hi = bf16(P), P_lo = bf16(P - P_hi) (or bf16(P).V
+    with ``split_p`` off).  Returns (B, Sq, H, hd) f32, before the cast."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B, KV, 1, Skv, hd)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    scale2 = (torch.tensor(1 / math.sqrt(hd), dtype=torch.float32)
+              * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    q_pos = torch.arange(Sq) + (Skv - Sq)
+    m = torch.full(qf.shape[:-1], -1e30)
+    l = torch.zeros(qf.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for j0 in range(0, Skv, tile):
+        s = (qf @ kf[..., j0:j0 + tile, :].transpose(-1, -2)) * scale2
+        if causal:
+            k_pos = torch.arange(j0, min(j0 + tile, Skv))
+            s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        vt = vf[..., j0:j0 + tile, :]
+        pv = hi @ vt
+        if split_p:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", [
+    (2, 128, 128, 4, 2, 64, True),      # GQA, two kv tiles
+    (1, 70, 200, 4, 2, 32, True),       # Sq < Skv, ragged last tile
+    (1, 100, 100, 3, 1, 16, True),      # three query heads per kv head
+    (2, 96, 130, 4, 2, 128, False),     # non-causal, wide head
+])
+def test_b5_bf16_tensor_core_numerics_match_the_reference(B, Sq, Skv, H, KV, hd,
+                                                         causal):
+    """B5's bf16 design (tensor-core products, P split into bf16 hi and lo)
+    against the JAX package on the same bf16 values, before the output cast;
+    one bf16 rounding of P instead misses by more than the tolerance, which
+    is why the kernel pays for the second P.V product."""
+    q, k, v = _normal(Sq * 11 + hd, (B, Sq, H, hd), (B, Skv, KV, hd),
+                      (B, Skv, KV, hd))
+    pairs = [_bf16_pair(x) for x in (q, k, v)]
+    qt, kt, vt = (t for _, t in pairs)
+    qj, kj, vj = (jnp.asarray(t.float().numpy()) for t in (qt, kt, vt))
+    exps = [flash_attention_pallas(qj, kj, vj, causal=causal, block_q=64,
+                                   block_kv=64, interpret=True)]
+    if causal:                  # the oracle is causal only
+        exps.append(ref.flash_attention_ref(qj, kj, vj))
+    split = _b5_bf16_mirror(qt, kt, vt, causal).numpy()
+    single = _b5_bf16_mirror(qt, kt, vt, causal, split_p=False).numpy()
+    for exp in exps:
+        assert _row_rel(split, exp) <= B5_MIRROR_TOL
+        assert _row_rel(single, exp) > B5_MIRROR_TOL
+
+
+@pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
+def test_decode_split_plan_covers_the_cache_once(hd):
+    """Every S from 0 to past the largest chunk: the chunks cover rows
+    [0, S) exactly once, in order, and there is at least one (the combine
+    then sees a split even for an empty cache)."""
+    for S in list(range(0, 1100, 7)) + [127, 128, 129, 255, 256, 257, 511,
+                                          512, 513, 2048, 2080, 4096]:
+        chunk, n = da.split_plan(S, hd)
+        assert chunk >= 1 and n == max(1, -(-S // chunk))
+        rows = [r for i in range(n) for r in range(i * chunk,
+                                                   min((i + 1) * chunk, S))]
+        assert rows == list(range(S))
+
+
+class _NoHostRead(torch.Tensor):
+    """A kv_len that raises when its values are read on the host."""
+    @classmethod
+    def __torch_function__(cls, func, types_, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name in {"item", "tolist", "cpu", "numpy", "to", "__int__",
+                    "__index__", "__bool__", "__getitem__", "__iter__"}:
+            raise AssertionError(f"kv_len read on the host through {name}")
+        return super().__torch_function__(func, types_, args, kwargs or {})
+
+
+def test_decode_wrapper_launch_ignores_kv_len_values(monkeypatch):
+    """The wrapper's launch (grid, chunk, scratch) is a function of the
+    shapes: the same arguments reach the C entry point whatever kv_len
+    holds, and kv_len is never read on the host, so a decode step can be
+    captured in a CUDA graph.  The C function is replaced by a recorder, so
+    this runs on the CPU."""
+    calls = []
+    monkeypatch.setattr(da._build, "check_operands", lambda *a: None)
+    monkeypatch.setattr(da._build, "LAUNCHES", type(da._build.LAUNCHES)())
+    monkeypatch.setattr(da, "_fn", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    B, H, KV, S, hd = 3, 8, 2, 2080, 128
+    q, ck, cv = (torch.zeros(s) for s in ((B, 1, H, hd), (B, KV, S, hd),
+                                          (B, KV, S, hd)))
+    for lens in ((0, 0, 0), (1, 128, 129), (S, S, S), (2048, 7, 0)):
+        kv_len = torch.tensor(lens, dtype=torch.int32).as_subclass(_NoHostRead)
+        da.decode_attention_cuda(q, ck, cv, kv_len)
+    chunk, n = da.split_plan(S, hd)
+    shapes = {a[6:14] for a in calls}       # B, S, H, KV, hd, chunk, n, dtype
+    assert shapes == {(B, S, H, KV, hd, chunk, n, 0)} and len(calls) == 4
+    assert da._build.LAUNCHES["decode_attention"] == 4
+
+
+def _b6_split_mirror(q, ck, cv, kv_len):
+    """B6's split-KV arithmetic in f32 on the wrapper's chunks: per chunk the
+    partial (m, l, acc) of its live rows (m = -1e30, l = 0, acc = 0 when it
+    has none), then the combine over the chunks in order.  q (B, 1, H, hd),
+    ck, cv (B, KV, S, hd), kv_len (B,) -> (B, 1, H, hd) f32."""
+    B, _, H, hd = q.shape
+    KV, S = ck.shape[1], ck.shape[2]
+    chunk, n = da.split_plan(S, hd)
+    qs = q.reshape(B, KV, H // KV, hd) * np.float32(1 / math.sqrt(hd))
+    m = np.full((n, B, KV, H // KV), -1e30, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros((n, B, KV, H // KV, hd), np.float32)
+    for i in range(n):
+        for b in range(B):
+            lo, hi = i * chunk, min((i + 1) * chunk, int(kv_len[b]), S)
+            if hi <= lo:
+                continue
+            s = qs[b] @ ck[b, :, lo:hi].transpose(0, 2, 1)    # (KV, G, rows)
+            m[i, b] = s.max(-1)
+            p = np.exp(s - m[i, b][..., None])
+            l[i, b] = p.sum(-1)
+            acc[i, b] = p @ cv[b, :, lo:hi]
+    w = np.exp(m - m.max(0))
+    out = (acc * w[..., None]).sum(0) / np.maximum((l * w).sum(0), 1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).astype(np.float32)
+
+
+@pytest.mark.parametrize("S,H,KV,hd", [
+    (300, 8, 2, 128),           # chunks of 128: three splits
+    (600, 4, 4, 64),            # chunks of 256, one query head per kv head
+    (1100, 12, 1, 32),          # chunks of 512, twelve query heads
+])
+def test_b6_split_kv_numerics_match_the_reference(S, H, KV, hd):
+    """B6's partials and combine against the TPU kernel in interpret mode, at
+    kv_len 0, 1, one chunk, one chunk + 1 and the full cache."""
+    chunk, n = da.split_plan(S, hd)
+    assert n >= 3
+    lens = np.asarray([0, 1, chunk, chunk + 1, S], np.int32)
+    B = len(lens)
+    q, ck, cv = _normal(S + hd, (B, 1, H, hd), (B, KV, S, hd), (B, KV, S, hd))
+    out = _b6_split_mirror(q, ck, cv, lens)
+    kern = decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(ck.transpose(0, 2, 1, 3)),
+        jnp.asarray(cv.transpose(0, 2, 1, 3)), jnp.asarray(lens), block_kv=256,
+        interpret=True)
+    np.testing.assert_allclose(out, np.asarray(kern), rtol=F32_TOL, atol=F32_TOL)
+    assert not out[0].any()

@@ -200,18 +200,26 @@ ATTN_KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
     (1, 1, 130, 4, 2, 64, True),
     (1, 70, 200, 6, 2, 16, True),
     (2, 333, 333, 15, 5, 64, True),
+    (2, 200, 520, 16, 8, 128, True),    # Sq < Skv at the serving widths
+    (2, 333, 333, 16, 8, 128, True),    # ragged q and kv tiles
+    (2, 150, 190, 4, 2, 32, True),
+    (2, 200, 130, 8, 2, 128, False),    # non-causal, Sq > Skv
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, KV,
                                               hd, causal):
+    """Within tolerance of the plain version, and two launches on the same
+    inputs give the same bits (no order-dependent sums)."""
     g = torch.Generator().manual_seed(7)
     q = torch.randn((B, Sq, H, hd), generator=g).to(cuda, dtype)
     k = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
     v = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
     out = fa.flash_attention_cuda(q, k, v, causal)
+    again = fa.flash_attention_cuda(q, k, v, causal)
     ref = fa.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     assert out.dtype == dtype
     assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[dtype]
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -221,8 +229,17 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, KV,
     (100, 24, 2, 32, (99, 7)),
     (2080, 16, 8, 128, (0, 2048, 2080, 1000)),
     (40, 4, 2, 16, (40, 0, 3)),
+    (2080, 16, 8, 128, "edges"),
+    (600, 8, 2, 64, "edges"),
+    (1100, 48, 3, 32, "edges"),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, S, H, KV, hd, lens):
+    """Within tolerance of the plain version, zeros where kv_len is 0, and
+    two launches give the same bits; "edges" takes kv_len at 0, 1, one
+    chunk of the wrapper's split, one chunk + 1 and the full cache."""
+    if lens == "edges":
+        chunk, _ = da.split_plan(S, hd)
+        lens = (0, 1, chunk, chunk + 1, S)
     g = torch.Generator().manual_seed(8)
     B = len(lens)
     q = torch.randn((B, 1, H, hd), generator=g).to(cuda, dtype)
@@ -230,9 +247,11 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, S, H, KV, hd, lens):
     cv_ = torch.randn((B, KV, S, hd), generator=g).to(cuda, dtype)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
     out = da.decode_attention_cuda(q, ck_, cv_, kv_len)
+    again = da.decode_attention_cuda(q, ck_, cv_, kv_len)
     ref = da.decode_attention_plain(q, ck_, cv_, kv_len)
     torch.cuda.synchronize()
     assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[dtype]
+    assert torch.equal(out, again)
     for b, n in enumerate(lens):
         if n == 0:
             assert not out[b].any()
