@@ -8,11 +8,15 @@ when it fails:
 
  1. print the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels of src/repro_torch/kernels/csrc with nvcc, one
-    process per source, into build/kernels (listed in .gitignore);
+    process per source, into build/kernels (listed in .gitignore); print the
+    window-attention body's name and count the TF32 HMMAs (and FFMAs) in
+    the SASS of each B1/B7 instantiation (cuobjdump), failing on one with
+    none;
  3. hold every kernel against its plain PyTorch version on the card at the
     main path's shapes: window attention at the four full-width Swin-T stage
     shapes, unshifted with and without the pad-strip mask and shifted by 3,
-    within ATTN_TOL; the codec pair on the split-1..4 payload streams, delta
+    within ATTN_TOL, two launches on the same inputs bitwise equal; the
+    codec pair on the split-1..4 payload streams, delta
     on and off, bitwise; the quant pair on each full-width payload leaf, a
     length that is not a multiple of the block, an empty leaf and a bf16
     leaf, bitwise; flash attention (B5) at the full-width qwen3-1.7b prefill
@@ -30,6 +34,8 @@ when it fails:
     without a mask, w2 144 with hd 128, on rows whose keys are all masked
     (each must equal sum(v) / W2P, the TPU op's padded average) within
     ATTN_TOL, and at stage 0 in bf16 within BF16_TOL of each row's max;
+    B7 at stage 0 and on the fully masked rows launched again, bitwise
+    equal;
  4. the main path, once, with every launch counter at 0 before and read
     after: full-width Swin-T (544x800, random weights from a seeded
     generator, random rel_bias) for splits 1-4, four UEs each through
@@ -44,7 +50,9 @@ when it fails:
  6. time each kernel (CUDA events), its plain version and, for window
     attention, one library call over the same windows (scaled dot-product
     attention with a float mask, never called by the port), beside the
-    least time the card could take; B7 likewise at the stage-0 partition;
+    least time the card could take: B1 per frame (its 12 calls) at batch 1
+    and N_UES, back to back and with a cold L2 (kernel and SDPA), and the
+    host time of one wrapper call; B7 at the stage-0 partition;
     then the per-split head+encode, decode and batched-tail times; B5 and
     B6 at the full-width serving shapes with scaled dot-product attention as
     their yardstick, B6 and its yardstick also with a cold L2 (L2_FLUSH_BYTES
@@ -97,7 +105,11 @@ when it fails:
     and must launch B1, B2 and B3 exactly as often as its logs and batches
     imply, with finite detections of the expected shapes; per slot it
     prints the host wall time, the encode ms and the bytes, and per run the
-    batched tail ms by bucket size.
+    batched tail ms by bucket size;
+12. a profiler trace of phase 6's head model and batched tail at each
+    split: the card's busy time and B1's part of it.  It runs last: after a
+    profiler session, host-clock times later in the same process can read
+    higher, and phases 6-9 time on the host clock.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -107,7 +119,9 @@ with one entry per kernel, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -190,6 +204,26 @@ def cuda_ms(fn, reps: int = 10, runs: int = 7, before=None) -> float:
     return statistics.median(times)
 
 
+def sass_ops(lib: Path, ops: tuple) -> dict:
+    """{kernel: {op: count}} over the SASS of a built library (cuobjdump,
+    from the toolkit beside nvcc): how often each kernel's code holds each
+    opcode prefix in ``ops``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = collections.Counter()
+        elif fn is not None:
+            for op in ops:
+                if f" {op} " in line or f" {op}." in line:
+                    counts[fn][op] += 1
+    return counts
+
+
 def host_ms(fn, runs: int = 3) -> float:
     """Median wall time of ``fn`` ending in a synchronize (after a warm-up)."""
     import torch
@@ -207,8 +241,8 @@ def host_ms(fn, runs: int = 3) -> float:
 def device_busy_ms(fn):
     """Time on the card while ``fn`` runs, from a torch.profiler (CUPTI)
     trace: the durations of its device events (kernels, copies, fills) summed
-    by name.  Returns (total ms, number of device events, the four largest
-    (name, ms))."""
+    by name.  Returns (total ms, number of device events, a Counter of ms by
+    name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -221,7 +255,7 @@ def device_busy_ms(fn):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
             n += 1
-    return sum(by_name.values()), n, by_name.most_common(4)
+    return sum(by_name.values()), n, by_name
 
 
 def handoff_logits(cfg, params, tokens):
@@ -463,6 +497,21 @@ def main() -> int:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # both window-attention kernels take their products on the tensor cores:
+    # every instantiation's SASS holds TF32 HMMAs (the FFMAs left are expf's
+    # and the reciprocal's, not product loops)
+    log(f"window attention body: {wa.BODY}")
+    tf32 = "HMMA.1688.F32.TF32"
+    for fn_name, n in sass_ops(_build.target("window_attention"),
+                               (tf32, "FFMA")).items():
+        kernel = "B1" if "fused_window" in fn_name else "B7"
+        args = fn_name.split("kernelI")[-1]
+        args = ",".join(re.findall(r"Li(\d+)E", args)
+                        + (["bf16"] if "bfloat16" in args else
+                           ["f32"] if kernel == "B7" else []))
+        log(f"  SASS {kernel}<{args}>: {n[tf32]} {tf32}, {n['FFMA']} FFMA")
+        if not n[tf32]:
+            raise AssertionError(f"{fn_name}: no {tf32} in its SASS")
 
     # -- set-up: model, frames, plan, codec ----------------------------------
     g = torch.Generator().manual_seed(SEED)
@@ -497,15 +546,19 @@ def main() -> int:
         # plain version first, so the kernel's output cannot reuse its buffer
         ref = wa.fused_window_attention_plain(qkv, bias, mask, **kw)
         out = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+        again = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        if not (torch.isfinite(out).all() and err <= ATTN_TOL):
+        if not (torch.isfinite(out).all() and err <= ATTN_TOL
+                and torch.equal(out, again)):
             raise AssertionError(f"window attention stage {s} shift {shift} "
-                                 f"mask {mask is not None}: err {err}")
+                                 f"mask {mask is not None}: err {err}, or two "
+                                 "launches differ")
         attn_err = max(attn_err, err)
         log(f"check B1 stage {s} ({N_UES},{Hp},{Wp},{C}) nh {nh} shift {shift} "
             f"mask {'none' if mask is None else 'yes'}: max|kernel-plain| "
-            f"{err:.3g} (tol {ATTN_TOL}), max|out| {float(out.abs().max()):.3g}")
+            f"{err:.3g} (tol {ATTN_TOL}), max|out| {float(out.abs().max()):.3g}; "
+            f"two launches bitwise equal")
     # the smallest stage also against the plain version on the host
     s, Hp, Wp, C, nh, shift, mask = attn_cases[-1]
     qkv = torch.randn((1, Hp, Wp, 3 * C), generator=g)
@@ -735,6 +788,12 @@ def main() -> int:
         raise AssertionError(f"B7 fully masked rows: {dead_err} from sum(v)/W2P")
     log(f"check B7 fully masked rows {list(dead)}: within {dead_err:.3g} of "
         f"sum(v)/{w2p} (tol {ATTN_TOL})")
+    for i in (0, 2 * cfg.n_stages + 3):     # stage 0; the fully masked rows
+        label, q, k, v, bias, mask = win_cases[i]
+        if not torch.equal(wa.window_attention_cuda(q, k, v, bias, mask),
+                           win_outs[i]):
+            raise AssertionError(f"B7 {label}: two launches differ")
+        log(f"check B7 {label}: two launches bitwise equal")
 
     # -- 4. the main path, once, with the launch counters --------------------
     expected = {"fused_window_attention": 0, "codec_encode": 0,
@@ -824,54 +883,90 @@ def main() -> int:
     rows = {}
     w = cfg.window
     w2 = w * w
-    k_ms = p_ms = l_ms = b_ms = 0.0
-    flops_total = bytes_total = 0
-    for s, Hp, Wp, C, nh, shift, mask in attn_cases:
-        padded = (Hp, Wp) != cfg.stage_hw(s)
-        if shift == 0 and (mask is None) == padded:
-            continue                       # not the mask this stage's blocks use
-        # blocks of this kind in one forward: even blocks unshifted, odd shifted
-        per_frame = cfg.depths[s] // 2 if shift else cfg.depths[s] - cfg.depths[s] // 2
-        qkv = torch.randn((1, Hp, Wp, 3 * C), generator=g).to(dev)
-        bias = torch.randn((nh, w2, w2), generator=g).to(dev)
-        kw = dict(window=w, shift=shift, n_heads=nh)
-        tk = cuda_ms(lambda: wa.fused_window_attention_cuda(qkv, bias, mask, **kw))
-        tp = cuda_ms(lambda: wa.fused_window_attention_plain(qkv, bias, mask, **kw))
-        # library yardstick: SDPA over the same windows with a float mask
-        hd = C // nh
-        nW = (Hp // w) * (Wp // w)
-        x = torch.roll(qkv, (-shift, -shift), dims=(1, 2)) if shift else qkv
-        x = x.reshape(1, Hp // w, w, Wp // w, w, 3, nh, hd)
-        x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, nW, nh, w2, hd)
-        q, k, v = (x[i].contiguous() for i in range(3))
-        fmask = bias[None].expand(nW, nh, w2, w2).clone()
-        if mask is not None:
-            fmask = fmask.masked_fill(~mask[:, None], -1e9)
-        tl = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                            attn_mask=fmask))
-        nbytes = 4 * Hp * Wp * 3 * C + 4 * nh * w2 * w2 + 4 * Hp * Wp * C
-        nbytes += 0 if mask is None else nW * w2 * w2
-        flops = nW * nh * (4 * w2 * w2 * hd + 4 * w2 * w2 + w2 * hd)
-        tb = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
-        log(f"time B1 stage {s} (1,{Hp},{Wp},{C}) shift {shift}: kernel {tk:.4f} ms, "
-            f"plain {tp:.4f} ms, sdpa {tl:.4f} ms, bound {tb:.4f} ms "
-            f"({nbytes} B, {flops} flop), x{per_frame} per frame")
-        k_ms += per_frame * tk
-        p_ms += per_frame * tp
-        l_ms += per_frame * tl
-        b_ms += per_frame * tb
-        bytes_total += per_frame * nbytes
-        flops_total += per_frame * flops
-    rows["fused_window_attention"] = dict(
-        source="src/repro_torch/kernels/csrc/window_attention.cu",
-        replaces="src/repro/kernels/window_attention.py:156",
-        max_abs_err=attn_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=("bytes" if bytes_total / HBM_BYTES_PER_S
-                  >= flops_total / FP32_FLOP_PER_S else "operations"),
-        library_ms=l_ms)
-    log(f"time B1 per frame ({n_blocks} calls, batch 1): kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound {b_ms:.4f} ms; "
-        f"launches per UE frame {n_blocks}")
+    # B1 per frame: the 12 calls of one forward at batch 1 (a UE's head) and
+    # at N_UES (a batched tail), back to back and each alone after
+    # L2_FLUSH_BYTES written (stage 0's qkv, 32.7 MB a frame, fits in the
+    # 50 MB L2, so back-to-back calls can beat the HBM bound); the JSON line
+    # keeps batch 1 back to back
+    l2_flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cold = dict(before=lambda: l2_flush.fill_(1.0))
+    for B in (1, N_UES):
+        t = collections.Counter()
+        flops_total = bytes_total = 0
+        for s, Hp, Wp, C, nh, shift, mask in attn_cases:
+            padded = (Hp, Wp) != cfg.stage_hw(s)
+            if shift == 0 and (mask is None) == padded:
+                continue                   # not the mask this stage's blocks use
+            # blocks of this kind in one forward: even unshifted, odd shifted
+            per_frame = (cfg.depths[s] // 2 if shift
+                         else cfg.depths[s] - cfg.depths[s] // 2)
+            qkv = torch.randn((B, Hp, Wp, 3 * C), generator=g).to(dev)
+            bias = torch.randn((nh, w2, w2), generator=g).to(dev)
+            kw = dict(window=w, shift=shift, n_heads=nh)
+
+            def b1():
+                return wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+            # library yardstick: SDPA over the same windows with a float mask
+            hd = C // nh
+            nW = (Hp // w) * (Wp // w)
+            x = torch.roll(qkv, (-shift, -shift), dims=(1, 2)) if shift else qkv
+            x = x.reshape(B, Hp // w, w, Wp // w, w, 3, nh, hd)
+            x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B * nW, nh, w2, hd)
+            q, k, v = (x[i].contiguous() for i in range(3))
+            fmask = bias[None].expand(nW, nh, w2, w2).clone()
+            if mask is not None:
+                fmask = fmask.masked_fill(~mask[:, None], -1e9)
+            fmask = fmask.repeat(B, 1, 1, 1)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=fmask)
+            nbytes = 4 * B * Hp * Wp * 4 * C + 4 * nh * w2 * w2
+            nbytes += 0 if mask is None else nW * w2 * w2
+            flops = B * nW * nh * (4 * w2 * w2 * hd + 4 * w2 * w2 + w2 * hd)
+            ts = dict(
+                kernel=cuda_ms(b1), kernel_cold=cuda_ms(b1, **cold),
+                plain=cuda_ms(lambda: wa.fused_window_attention_plain(
+                    qkv, bias, mask, **kw)),
+                sdpa=cuda_ms(sdpa), sdpa_cold=cuda_ms(sdpa, **cold),
+                bound=max(nbytes / HBM_BYTES_PER_S,
+                          flops / FP32_FLOP_PER_S) * 1e3)
+            del fmask, q, k, v, x
+            log(f"time B1 stage {s} ({B},{Hp},{Wp},{C}) shift {shift}: kernel "
+                f"{ts['kernel']:.4f} ms, {ts['kernel_cold']:.4f} cold L2; "
+                f"plain {ts['plain']:.4f} ms; sdpa {ts['sdpa']:.4f} ms, "
+                f"{ts['sdpa_cold']:.4f} cold L2; bound {ts['bound']:.4f} ms "
+                f"({nbytes} B, {flops} flop), x{per_frame} per frame")
+            for key, val in ts.items():
+                t[key] += per_frame * val
+            bytes_total += per_frame * nbytes
+            flops_total += per_frame * flops
+        log(f"time B1 per frame ({n_blocks} calls, batch {B}): kernel "
+            f"{t['kernel']:.4f} ms, {t['kernel_cold']:.4f} cold L2; plain "
+            f"{t['plain']:.4f} ms; sdpa {t['sdpa']:.4f} ms, {t['sdpa_cold']:.4f} "
+            f"cold L2; bound {t['bound']:.4f} ms; launches per UE frame "
+            f"{n_blocks}")
+        if B == 1:
+            rows["fused_window_attention"] = dict(
+                source="src/repro_torch/kernels/csrc/window_attention.cu",
+                replaces="src/repro/kernels/window_attention.py:156",
+                max_abs_err=attn_err, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=t["bound"],
+                bound_by=("bytes" if bytes_total / HBM_BYTES_PER_S
+                          >= flops_total / FP32_FLOP_PER_S else "operations"),
+                library_ms=t["sdpa"])
+    # back to back, a short call is held to the wrapper's host time: the
+    # enqueue time of one call at stage 3 (no synchronize inside)
+    for _ in range(10):
+        b1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        b1()
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    log(f"time B1 wrapper on the host: {host_us:.1f} us a call (stage 3, "
+        f"batch {N_UES}, 100 calls enqueued)")
+    del l2_flush
 
     # B7 at the stage-0 partition of N_UES images with the shifted mask;
     # the yardstick is SDPA over the same windows with bias and mask folded
@@ -1022,6 +1117,7 @@ def main() -> int:
         f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
         f"decode step")
 
+    swin_traces = []                       # traced in phase 12
     with torch.no_grad():
         for split in SPLITS:
             opt = split_option(split)
@@ -1036,6 +1132,12 @@ def main() -> int:
             log(f"time split {split}: head+encode {t_head:.2f} ms per UE frame, "
                 f"decode {t_dec:.2f} ms per {N_UES}-UE group, batched tail "
                 f"{t_tail:.2f} ms per {N_UES}-UE group (host clock)")
+            swin_traces += [
+                (f"split {split} head model",
+                 functools.partial(producer, params, frames[:1])),
+                (f"split {split} batched tail",
+                 functools.partial(plan.tail_batched, trees, opt,
+                                   pad_to=N_UES))]
             # where head+encode and decode go: the model, the device encode
             # with its one copy down, the host zlib (level 1, as the codec);
             # the host unzip, and one payload's upload with the device decode
@@ -1291,7 +1393,7 @@ def main() -> int:
                 for i in range(3)])}
     wall = {"prefill": hist["prefill_s"]["sum"] * 1e3,
             "decode step": hist["decode_step_s"]["sum"] / LM_GEN * 1e3}
-    for what, (ms, n_events, top) in busy.items():
+    for what, (ms, n_events, by_name) in busy.items():
         per = 3 if what == "decode step" else 1
         if ms == 0:
             log(f"trace {what}: the profiler recorded no device time")
@@ -1300,7 +1402,8 @@ def main() -> int:
             f"{wall[what]:.2f} ms host-clock time, idle share "
             f"{max(0.0, 1 - ms / per / wall[what]):.3f}, {n_events // per} "
             f"device events; largest: "
-            + ", ".join(f"{name[:48]} {t / per:.2f} ms" for name, t in top))
+            + ", ".join(f"{name[:48]} {t / per:.2f} ms"
+                        for name, t in by_name.most_common(4)))
     del lm_params, caches
 
     # -- 10. the serving path on the card against the CPU, full width --------
@@ -1374,6 +1477,16 @@ def main() -> int:
     # -- 11. the multi-UE cell at full width --------------------------------
     phase11(dict(cfg=cfg, params=params, video=video, system=system, dev=dev,
                  n_blocks=n_blocks))
+
+    # -- 12. the Swin path's device time, and B1's part of it ---------------
+    with torch.no_grad():
+        for what, fn in swin_traces:
+            busy, n_ev, by_name = device_busy_ms(fn)
+            b1_ms = sum(t for name, t in by_name.items()
+                        if "fused_window_attention" in name)
+            log(f"trace {what}: device busy {busy:.2f} ms, {n_ev} device "
+                f"events, of which B1 {b1_ms:.3f} ms")
+    del swin_traces
 
     kernels = []
     for name, r in rows.items():

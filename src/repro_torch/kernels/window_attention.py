@@ -1,26 +1,37 @@
 """Swin window attention: the CUDA kernels' wrappers and their plain versions.
 
-Two kernels of ``csrc/window_attention.cu`` share one per-window body: one
-CTA per (window, head[, image]) keeps its key and value rows, a run of query
-rows, the scores, the softmax and P.V in shared memory in fp32.  On the H100
-both are bound by bytes (each input element read once, each output written
-once); the source note gives the numbers.
+Two kernels of ``csrc/window_attention.cu`` share one per-window body on the
+H100's tensor cores: one CTA of four warps per (window, head[, image])
+copies its key and value rows and a run of 64 query rows into shared
+memory, and each warp takes 16 query rows through Q.K^T, the biased and
+masked softmax and P.V without the logits leaving its registers.  Both
+products run on ``mma.sync.m16n8k8`` TF32 as 3xTF32: each f32 operand is
+split into a TF32 ``hi`` and the TF32 rounding of ``x - hi``, and a.b is
+taken as lo.hi + hi.lo + hi.hi, which keeps f32 parity where one TF32
+product would not (the source note gives the numbers; the CPU tests hold a
+mirror of this arithmetic against the JAX package).  Query rows are padded
+to 16 and keys to 8 in shared memory and registers only: padded keys score
+-inf and weigh exactly 0, padded value rows are zero, padded query rows are
+never stored.  Bytes bound both kernels on the H100 (each input element read
+once, each output written once).
 
 ``fused_window_attention`` (B1) replaces the TPU kernel
 ``repro/kernels/window_attention.py :: fused_window_attention_pallas``: one
 launch covers the cyclic shift by (-shift, -shift), the partition into
 ``window`` x ``window`` windows, ``softmax(q hd^-1/2 k^T + bias, mask ->
 -1e9) v`` per window and head, the un-partition and the roll back.  The
-kernel gathers its rows from the image-layout qkv with modular indices.
+kernel gathers its rows from the image-layout qkv with modular indices, one
+per token.
 
 ``window_attention`` (B7) replaces ``window_attention_pallas`` behind the
 JAX package's ``ops.window_attention``: the same attention on q, k, v
 already partitioned into windows.  That op pads w2 to W2P = ceil(w2/64)*64
 with keys every real query sees masked; on a row whose own keys are all
 masked it therefore averages v over W2P rows, not w2.  The port pads
-nothing: the kernel and its plain version add ``(W2P - w2) exp(-1e9 - max)``
-to each row's softmax denominator, which is zero on every row with an
-allowed key and gives the op's ``sum(v) / W2P`` on a row without one.
+nothing in memory: the kernel and its plain version add ``(W2P - w2)
+exp(-1e9 - max)`` to each row's softmax denominator, which is zero on every
+row with an allowed key and gives the op's ``sum(v) / W2P`` on a row
+without one.
 
 The ``*_plain`` functions are the same functions in plain PyTorch, with the
 roll and the partition written out.  ``kernels/ops.py`` takes them only for
@@ -39,6 +50,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e9
+# what csrc/window_attention.cu's shared per-window body runs
+BODY = ("attend_warp: mma.sync.m16n8k8 TF32, 3xTF32 (lo.hi + hi.lo + hi.hi, "
+        "cvt.rna splits), f32 sums, softmax in registers")
 SUPPORTED_HEAD_DIMS = (16, 32)
 # B7: any w2 up to window 12, these head dims, f32 or bf16 q, k, v
 WINDOW_MAX_W2 = 144
@@ -92,7 +106,7 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                                 mask: Optional[torch.Tensor], *, window: int,
                                 shift: int, n_heads: int) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
-    the plain version; fp32 only, head dim 16 or 32."""
+    the plain version; fp32 only, head dim 16 or 32, window up to 12."""
     B, Hp, Wp, C3 = qkv.shape
     C = C3 // 3
     w2 = window * window
@@ -105,6 +119,8 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"head dim {C / n_heads} not in {SUPPORTED_HEAD_DIMS}")
     if Hp % window or Wp % window or not 0 <= shift < window:
         raise ValueError("Hp and Wp must be multiples of window, 0 <= shift < window")
+    if w2 > WINDOW_MAX_W2:
+        raise ValueError(f"w2 {w2} over the kernel's {WINDOW_MAX_W2} (window 12)")
     if tuple(bias.shape) != (n_heads, w2, w2):
         raise ValueError(f"bias must be {(n_heads, w2, w2)}, got {tuple(bias.shape)}")
     if mask is not None and (mask.dtype != torch.bool

@@ -76,6 +76,35 @@ def test_window_attention_kernel_matches_plain(cuda, B, Hp, Wp, window, shift,
     assert float((out.cpu() - ref).abs().max()) <= ATTN_TOL
 
 
+@pytest.mark.parametrize("mask_kind", ["none", "pad", "shifted"])
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("window", [4, 7, 8, 9])
+def test_window_attention_tensor_core_tiles(cuda, window, hd, mask_kind):
+    """B1 at w2 16, 49, 64 and 81 (query rows padded to 16, keys to 8 in the
+    kernel) with no mask, the pad-strip mask and the shifted mask: within
+    1e-4 of the plain version, finite, and two launches bitwise equal."""
+    g = torch.Generator().manual_seed(window * 100 + hd)
+    nh, w2 = 2, window * window
+    Hp, Wp = 2 * window, 3 * window
+    qkv = torch.randn((2, Hp, Wp, 3 * nh * hd), generator=g).to(cuda)
+    bias = torch.randn((nh, w2, w2), generator=g).to(cuda)
+    shift, mask = 0, None
+    if mask_kind == "pad":
+        mask = SW.pad_region_mask(Hp, Wp, Hp - 1, Wp - 2, window)
+    elif mask_kind == "shifted":
+        shift = window // 2
+        mask = SW.shift_attn_mask(Hp, Wp, window, shift)
+    mask = None if mask is None else torch.as_tensor(mask, device=cuda)
+    kw = dict(window=window, shift=shift, n_heads=nh)
+    ref = wa.fused_window_attention_plain(qkv, bias, mask, **kw)
+    out = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+    again = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= ATTN_TOL
+    assert torch.equal(out, again)
+
+
 @pytest.mark.parametrize("block", [256, 1024, 8192])
 @pytest.mark.parametrize("delta", [False, True])
 def test_codec_kernels_match_plain_bitwise(cuda, block, delta):
@@ -339,6 +368,42 @@ def test_windows_kernel_matches_plain(cuda, dtype, nB, w2, nh, hd, masked):
         w2p = -(-w2 // 64) * 64
         torch.testing.assert_close(out[0, w2 // 2], v[0].sum(0) / w2p,
                                    rtol=1e-5, atol=1e-5)
+
+
+def test_window_attention_refuses_windows_over_12(cuda):
+    """B1's tiles hold at most 144 keys; window 13 is refused before any
+    launch, and the plain version still takes it."""
+    qkv = torch.zeros((1, 13, 13, 48), device=cuda)
+    bias = torch.zeros((1, 169, 169), device=cuda)
+    kw = dict(window=13, shift=0, n_heads=1)
+    with pytest.raises(ValueError, match="w2 169"):
+        wa.fused_window_attention_cuda(qkv, bias, None, **kw)
+    assert wa.fused_window_attention_plain(qkv, bias, None, **kw).shape == (
+        1, 13, 13, 16)
+
+
+def test_windows_kernel_dead_rows_in_one_window(cuda):
+    """B7 at w2 49 with several rows of one window fully masked: each such
+    row is sum(v) / W2P, the rest within 1e-5 of each row's max of the plain
+    version, every output finite, two launches bitwise equal."""
+    g = torch.Generator().manual_seed(49)
+    nB, w2, nh, hd = 6, 49, 3, 32
+    q, k, v = (torch.randn((nB, w2, nh, hd), generator=g).to(cuda)
+               for _ in range(3))
+    bias = torch.randn((nh, w2, w2), generator=g).to(cuda)
+    mask = (torch.rand((nB, w2, w2), generator=g) < 0.7).to(cuda)
+    dead = (0, 7, 16, 17, 40, 48)
+    mask[2, list(dead)] = False
+    ref = wa.window_attention_plain(q, k, v, bias, mask)
+    out = wa.window_attention_cuda(q, k, v, bias, mask)
+    again = wa.window_attention_cuda(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    assert _rel_err(out, ref) <= 1e-5
+    w2p = -(-w2 // 64) * 64
+    for t in dead:
+        torch.testing.assert_close(out[2, t], v[2].sum(0) / w2p, rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_cell_on_the_card_matches_the_cpu_path(cuda, tmp_path):

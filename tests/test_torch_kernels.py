@@ -22,6 +22,7 @@ from repro.models.swin import pad_region_mask, shift_attn_mask
 from repro_torch.kernels import codec as tcodec
 from repro_torch.kernels import window_attention as twa
 from repro_torch.kernels import ops
+from test_torch_window_tc import _b1_mirror, _b7_mirror, _tf32
 
 ATOL = RTOL = 2e-5
 
@@ -269,3 +270,85 @@ def test_window_attention_refuses_what_the_kernel_does_not_take():
                                                       shape[1]))
     with pytest.raises(TypeError, match="dtype"):
         ops.window_attention(t[0].half(), t[1].half(), t[2].half(), t[3])
+
+
+# -- the tensor-core body of B1 and B7, mirrored on the CPU --------------------
+#
+# tests/test_torch_window_tc.py holds a mirror of csrc/window_attention.cu's
+# body (mma.sync m16n8k8 TF32 as 3xTF32: cvt.rna hi/lo splits, the three
+# products of each k8 step in the kernel's order, the padding rules, B7's
+# pad_keys term).  The mirror documents the arithmetic and checks nothing of
+# the kernel here; its card-only cases hold the kernel against it.  Below it
+# is held against the Pallas kernels at the file's 2e-5, and one TF32 product
+# instead misses by more than 1e-4, which is why the kernel pays for three.
+
+TF32_MISS = 1e-4
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The mirror's cvt.rna: 10 mantissa bits kept, halfway cases away from
+    zero in both signs, and hi + lo within 2^-22 of x."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [one + ulp, -(one + ulp), one, one + ulp, 3.0]
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=4096)
+                         .astype(np.float32))
+    hi = _tf32(r)
+    lo = _tf32(r - hi)
+    assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("B,Hp,Wp,window,shift,nh,hd", FUSED_CASES)
+def test_b1_tensor_core_body_matches_pallas_kernel(B, Hp, Wp, window, shift,
+                                                   nh, hd):
+    qkv, bias, mask = _case(B, Hp, Wp, window, shift, nh, hd)
+    out = _b1_mirror(qkv, bias, mask, window=window, shift=shift, nh=nh)
+    kern = _jax_kernel(qkv, bias, mask, window=window, shift=shift, nh=nh)
+    np.testing.assert_allclose(out, kern, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("w2,nh,hd,masked", [
+    (49, 3, 32, True), (49, 6, 32, True), (64, 4, 64, True),
+    (49, 3, 32, False), (81, 2, 32, False)])
+def test_b7_tensor_core_body_matches_pallas_kernel(w2, nh, hd, masked):
+    q, k, v, bias, mask = _windows(5 if masked else 2, w2, nh, hd, masked)
+    np.testing.assert_allclose(_b7_mirror(q, k, v, bias, mask),
+                               _windows_jax(q, k, v, bias, mask),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("w2", [49, 81])
+def test_b7_tensor_core_body_fully_masked_rows(w2):
+    """Rows with no allowed key: the tile's own padded keys (-inf) add
+    nothing, and the op's padded keys give sum(v) / W2P."""
+    q, k, v, bias, mask = _windows(3, w2, 2, 32, True, seed=6)
+    mask[1, 4] = False
+    mask[2, w2 - 1] = False
+    mask[2, 0] = False
+    out = _b7_mirror(q, k, v, bias, mask)
+    np.testing.assert_allclose(out, _windows_jax(q, k, v, bias, mask),
+                               rtol=RTOL, atol=ATOL)
+    w2p = -(-w2 // 64) * 64
+    for n, row in ((1, 4), (2, w2 - 1), (2, 0)):
+        np.testing.assert_allclose(out[n, row], v[n].sum(0) / w2p, rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B7"])
+def test_one_tf32_product_misses_where_three_do_not(kernel):
+    """The witness for the 3x split: the same body with hi.hi alone misses
+    the Pallas kernel by more than 1e-4."""
+    if kernel == "B1":
+        args = _case(*FUSED_CASES[2])
+        kw = dict(window=7, shift=3, nh=2)
+        exp = _jax_kernel(*args, **kw)
+        three = _b1_mirror(*args, **kw)
+        one = _b1_mirror(*args, **kw, products=1)
+    else:
+        args = _windows(5, 49, 3, 32, True)
+        exp = _windows_jax(*args)
+        three, one = _b7_mirror(*args), _b7_mirror(*args, products=1)
+    np.testing.assert_allclose(three, exp, rtol=RTOL, atol=ATOL)
+    assert np.abs(one - exp).max() > TF32_MISS
