@@ -11,13 +11,16 @@ when it fails:
     process per source, into build/kernels (listed in .gitignore); print the
     window-attention body's name and count the TF32 HMMAs (and FFMAs) in
     the SASS of each B1/B7 instantiation (cuobjdump), failing on one with
-    none;
+    none; count the 128-bit global loads of each B2 instantiation and the
+    128-bit global stores of each B3 one, failing on one with none;
  3. hold every kernel against its plain PyTorch version on the card at the
     main path's shapes: window attention at the four full-width Swin-T stage
     shapes, unshifted with and without the pad-strip mask and shifted by 3,
     within ATTN_TOL, two launches on the same inputs bitwise equal; the
-    codec pair on the split-1..4 payload streams, delta
-    on and off, bitwise; the quant pair on each full-width payload leaf, a
+    codec pair, delta on and off, bitwise, two launches bitwise equal, on
+    the split-1..4 payload streams, on the codec's edge blocks
+    (kernels.codec.codec_edge_blocks) at blocks 128, 256, 1024, 8192, 8320
+    and 49152, and at the LM handoff's length; the quant pair on each full-width payload leaf, a
     length that is not a multiple of the block, an empty leaf and a bf16
     leaf, bitwise; flash attention (B5) at the full-width qwen3-1.7b prefill
     shape in bf16 and f32, in both dtypes with Sq < Skv (200 / 520), a
@@ -52,7 +55,10 @@ when it fails:
     attention with a float mask, never called by the port), beside the
     least time the card could take: B1 per frame (its 12 calls) at batch 1
     and N_UES, back to back and with a cold L2 (kernel and SDPA), and the
-    host time of one wrapper call; B7 at the stage-0 partition;
+    host time of one wrapper call; B7 at the stage-0 partition; B2 and B3
+    at CODEC_LENGTHS (a split-1 stream, the LM handoff, an 8-UE split2
+    group) back to back, each launch alone after a cold L2 and by the
+    wrapper's host time a call; B4 also each launch alone after a cold L2;
     then the per-split head+encode, decode and batched-tail times; B5 and
     B6 at the full-width serving shapes with scaled dot-product attention as
     their yardstick, B6 and its yardstick also with a cold L2 (L2_FLUSH_BYTES
@@ -107,7 +113,10 @@ when it fails:
     prints the host wall time, the encode ms and the bytes, and per run the
     batched tail ms by bucket size;
 12. a profiler trace of phase 6's head model and batched tail at each
-    split: the card's busy time and B1's part of it.  It runs last: after a
+    split: the card's busy time and B1's part of it; then of one
+    compress_head, its device encode and copy alone, and one
+    decompress_group at split 1: B2/B3 beside the copies and the eager
+    kernels around them (pack, delta epilogue).  It runs last: after a
     profiler session, host-clock times later in the same process can read
     higher, and phases 6-9 time on the host clock.
 
@@ -163,6 +172,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
 L2_FLUSH_BYTES = 128 * 2**20       # written before a cold-L2 timing (L2 is 50 MB)
+# B2/B3 are timed at three lengths of f32 stream: one split-1 UE frame
+# (phase 4), the qwen3-1.7b split handoff (4 x 2048 x 2048, phase 9) and an
+# 8-UE split2 group of the cell (phase 11(a))
+CODEC_LENGTHS = {"split-1 stream": 3_923_968, "LM handoff": 16_777_216,
+                 "cell group": 36_634_624}
 
 
 def log(msg: str) -> None:
@@ -202,6 +216,43 @@ def cuda_ms(fn, reps: int = 10, runs: int = 7, before=None) -> float:
         times.append(sum(a.elapsed_time(b) for a, b in
                          zip(events[::2], events[1::2])) / reps)
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call of ``fn`` in us: ``calls`` calls enqueued back
+    to back with no synchronize inside (after a warm-up), the wrapper's own
+    cost when the card keeps up."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def codec_times(ck, flat, block: int, flush) -> dict:
+    """B2 and B3 on one stream, delta off (the default layout's launches):
+    {"encode" | "decode": {"ms": back to back, "cold_ms": each launch alone
+    after ``flush()`` (a cold L2), "host_us": the wrapper's host time a
+    call}}.  ``ck`` is a checkout's ``repro_torch.kernels.codec``.  Both
+    back-to-back figures are read before the first flush."""
+    q, sc = ck.codec_encode_cuda(flat, block, False)
+    fns = {"encode": lambda: ck.codec_encode_cuda(flat, block, False),
+           "decode": lambda: ck.codec_decode_cuda(q, sc, block, False)}
+    t = {name: dict(ms=cuda_ms(fn)) for name, fn in fns.items()}
+    for name, fn in fns.items():
+        t[name].update(cold_ms=cuda_ms(fn, before=flush), host_us=host_us(fn))
+    return t
+
+
+def codec_bytes(total: int, block: int) -> int:
+    """Bytes B2 or B3 must move for a stream of ``total`` f32: 4 B and 1 B
+    an element, 4 B a block's scale."""
+    return 5 * total + 4 * (total // block)
 
 
 def sass_ops(lib: Path, ops: tuple) -> dict:
@@ -256,6 +307,19 @@ def device_busy_ms(fn):
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
             n += 1
     return sum(by_name.values()), n, by_name
+
+
+def traced_busy_ms(what: str, fn):
+    """``device_busy_ms`` of a ``fn`` that launches work on the card and can
+    run twice: a profiler session can come back with no device event at
+    all, so an empty one is taken again once, and a second empty one fails."""
+    busy, n_ev, by_name = device_busy_ms(fn)
+    if n_ev == 0:
+        log(f"trace {what}: the profiler recorded no device event; tracing again")
+        busy, n_ev, by_name = device_busy_ms(fn)
+        if n_ev == 0:
+            raise AssertionError(f"trace {what}: no device event recorded twice")
+    return busy, n_ev, by_name
 
 
 def handoff_logits(cfg, params, tokens):
@@ -512,6 +576,15 @@ def main() -> int:
         log(f"  SASS {kernel}<{args}>: {n[tf32]} {tf32}, {n['FFMA']} FFMA")
         if not n[tf32]:
             raise AssertionError(f"{fn_name}: no {tf32} in its SASS")
+    # the codec kernels move 16 bytes a thread where they move f32: encode's
+    # loads, decode's stores
+    ldg, stg = "LDG.E.128", "STG.E.128"
+    for fn_name, n in sass_ops(_build.target("codec"), (ldg, stg)).items():
+        kernel, op = (("B2", ldg) if "codec_encode" in fn_name else ("B3", stg))
+        log(f"  SASS {kernel}<delta {'true' if 'ILb1' in fn_name else 'false'}>: "
+            f"{n[ldg]} {ldg}, {n[stg]} {stg}")
+        if not n[op]:
+            raise AssertionError(f"{fn_name}: no {op} in its SASS")
 
     # -- set-up: model, frames, plan, codec ----------------------------------
     g = torch.Generator().manual_seed(SEED)
@@ -586,29 +659,47 @@ def main() -> int:
             return 0.0
         return float((a.double() - b.double()).abs().max())
 
-    codec_checks = 0
-    enc_err = dec_err = quant_err = dequant_err = 0.0
-    for split, flat in streams.items():
-        for delta in (False, True):
-            q, sc = ck.codec_encode_cuda(flat, block, delta)
-            q2, sc2 = ck.codec_encode_plain(flat, block, delta)
-            y = ck.codec_decode_cuda(q, sc, block, delta)
-            y2 = ck.codec_decode_plain(q, sc, block, delta)
-            torch.cuda.synchronize()
-            same = (torch.equal(q.view(torch.uint8), q2.view(torch.uint8))
-                    and torch.equal(sc.view(torch.int32), sc2.view(torch.int32))
-                    and torch.equal(y.view(torch.int32), y2.view(torch.int32)))
-            enc_err = max(enc_err, abs_err(q, q2), abs_err(sc, sc2))
-            dec_err = max(dec_err, abs_err(y, y2))
-            if not same:
-                raise AssertionError(f"codec split {split} delta {delta}: "
-                                     "kernel and plain version differ")
-            codec_checks += 1
-            log(f"check B2/B3 split {split}: {flat.numel()} f32 = "
-                f"{flat.numel() // block} blocks, delta {delta}: bitwise equal")
-
     def bits(t):
         return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    def check_codec(flat, blk, delta, what):
+        """B2/B3 against their plain versions on one stream, bitwise, and a
+        second launch of each bitwise equal to the first.  Returns the
+        largest |kernel - plain| of the encode and of the decode."""
+        q, sc = ck.codec_encode_cuda(flat, blk, delta)
+        q_again, sc_again = ck.codec_encode_cuda(flat, blk, delta)
+        q2, sc2 = ck.codec_encode_plain(flat, blk, delta)
+        y = ck.codec_decode_cuda(q, sc, blk, delta)
+        y_again = ck.codec_decode_cuda(q, sc, blk, delta)
+        y2 = ck.codec_decode_plain(q, sc, blk, delta)
+        torch.cuda.synchronize()
+        same = (torch.equal(bits(q), bits(q2)) and torch.equal(bits(sc), bits(sc2))
+                and torch.equal(bits(y), bits(y2)) and torch.equal(q, q_again)
+                and torch.equal(bits(sc), bits(sc_again))
+                and torch.equal(bits(y), bits(y_again)))
+        if not same:
+            raise AssertionError(f"codec {what}, block {blk}, delta {delta}: "
+                                 "kernel and plain version differ, or two "
+                                 "launches do")
+        log(f"check B2/B3 {what}: {flat.numel()} f32 = {flat.numel() // blk} "
+            f"blocks of {blk}, delta {delta}: bitwise equal to plain, two "
+            f"launches bitwise equal")
+        return max(abs_err(q, q2), abs_err(sc, sc2)), abs_err(y, y2)
+
+    codec_cases = [(f"split {split}", flat, block)
+                   for split, flat in streams.items()]
+    codec_cases += [
+        ("edge blocks", torch.from_numpy(ck.codec_edge_blocks(blk)).reshape(-1).to(dev),
+         blk) for blk in (128, 256, 1024, 8192, 8320, ck.MAX_CUDA_BLOCK)]
+    lm_len = CODEC_LENGTHS["LM handoff"]
+    codec_cases.append(("LM handoff length",
+                        (torch.randn((lm_len,), generator=g) * 3).to(dev), block))
+    enc_err = dec_err = quant_err = dequant_err = 0.0
+    for what, flat, blk in codec_cases:
+        for delta in (False, True):
+            e, d = check_codec(flat, blk, delta, what)
+            enc_err, dec_err = max(enc_err, e), max(dec_err, d)
+    del codec_cases
 
     # every full-width leaf shape (split 4 ships the four stage outputs), a
     # ragged length, an empty leaf and a bf16 leaf
@@ -889,7 +980,8 @@ def main() -> int:
     # 50 MB L2, so back-to-back calls can beat the HBM bound); the JSON line
     # keeps batch 1 back to back
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    cold = dict(before=lambda: l2_flush.fill_(1.0))
+    flush = lambda: l2_flush.fill_(1.0)
+    cold = dict(before=flush)
     for B in (1, N_UES):
         t = collections.Counter()
         flops_total = bytes_total = 0
@@ -956,17 +1048,8 @@ def main() -> int:
                 library_ms=t["sdpa"])
     # back to back, a short call is held to the wrapper's host time: the
     # enqueue time of one call at stage 3 (no synchronize inside)
-    for _ in range(10):
-        b1()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        b1()
-    host_us = (time.perf_counter() - t0) * 1e4
-    torch.cuda.synchronize()
-    log(f"time B1 wrapper on the host: {host_us:.1f} us a call (stage 3, "
+    log(f"time B1 wrapper on the host: {host_us(b1):.1f} us a call (stage 3, "
         f"batch {N_UES}, 100 calls enqueued)")
-    del l2_flush
 
     # B7 at the stage-0 partition of N_UES images with the shifted mask;
     # the yardstick is SDPA over the same windows with bias and mask folded
@@ -996,31 +1079,52 @@ def main() -> int:
         f"0 on the system's paths, {launches['window_attention']} on its own "
         f"(ops.window_attention, phase 3)")
 
-    flat = streams[1]
-    total = flat.numel()
-    nb = total // block
-    q, sc = ck.codec_encode_cuda(flat, block, False)
-    enc_bytes = 4 * total + total + 4 * nb
-    dec_bytes = total + 4 * nb + 4 * total
+    # B2/B3's plain versions on the split-1 stream first, under the same
+    # conditions as before the cold-L2 loops below (128 MB written each)
+    flat1 = streams[1]
+    q, sc = ck.codec_encode_cuda(flat1, block, False)
+    plain1 = {"encode": cuda_ms(lambda: ck.codec_encode_plain(flat1, block, False)),
+              "decode": cuda_ms(lambda: ck.codec_decode_plain(q, sc, block, False))}
+    # B2/B3 at the three lengths: the split-1 stream and the cell group
+    # (eight split2 streams) of real head outputs, the LM handoff on normals;
+    # back to back (the JSON line keeps the split-1 figure, as before), each
+    # launch alone after a cold L2, and the wrapper's host time a call
+    codec_streams = {
+        "split-1 stream": streams[1],
+        "LM handoff": (torch.randn((CODEC_LENGTHS["LM handoff"],), generator=g)
+                       * 3).to(dev),
+        "cell group": torch.cat([streams[2]] * CELL_UES)}
+    for what, flat in codec_streams.items():
+        total = flat.numel()
+        if total != CODEC_LENGTHS[what]:
+            raise AssertionError(f"{what}: {total} f32, not {CODEC_LENGTHS[what]}")
+        nbytes = codec_bytes(total, block)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        t = codec_times(ck, flat, block, flush)
+        for name, r in t.items():
+            log(f"time B{2 if name == 'encode' else 3} {what} ({total} f32, "
+                f"{total // block} blocks): {r['ms']:.4f} ms back to back, "
+                f"{r['cold_ms']:.4f} ms cold L2 ({r['cold_ms'] / bound:.2f}x "
+                f"the bound), wrapper {r['host_us']:.1f} us a call on the "
+                f"host; bound {bound:.4f} ms ({nbytes} B)")
+        if what == "split-1 stream":
+            t1, bound1 = t, bound
+    del codec_streams
     rows["codec_encode"] = dict(
         source="src/repro_torch/kernels/csrc/codec.cu",
         replaces="src/repro/kernels/codec.py:71", max_abs_err=enc_err,
-        ms=cuda_ms(lambda: ck.codec_encode_cuda(flat, block, False)),
-        plain_ms=cuda_ms(lambda: ck.codec_encode_plain(flat, block, False)),
-        bound_ms=enc_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None)
+        ms=t1["encode"]["ms"], plain_ms=plain1["encode"],
+        bound_ms=bound1, bound_by="bytes", library_ms=None)
     rows["codec_decode"] = dict(
         source="src/repro_torch/kernels/csrc/codec.cu",
         replaces="src/repro/kernels/codec.py:102", max_abs_err=dec_err,
-        ms=cuda_ms(lambda: ck.codec_decode_cuda(q, sc, block, False)),
-        plain_ms=cuda_ms(lambda: ck.codec_decode_plain(q, sc, block, False)),
-        bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None)
+        ms=t1["decode"]["ms"], plain_ms=plain1["decode"],
+        bound_ms=bound1, bound_by="bytes", library_ms=None)
     per_frame = {"codec_encode": "1 per UE frame",
                  "codec_decode": f"1 per {N_UES}-UE group"}
     for name in ("codec_encode", "codec_decode"):
         r = rows[name]
-        log(f"time {name} split-1 stream ({total} f32, {nb} blocks): kernel "
+        log(f"time {name} split-1 stream ({flat1.numel()} f32): kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms; launches {per_frame[name]}")
 
@@ -1046,10 +1150,17 @@ def main() -> int:
                                   for x, (q, sc, n) in zip(leaves1, quantised)]),
         bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None)
+    b4_cold = {  # each launch alone after a cold L2, as B2/B3
+        "quant": sum(cuda_ms(functools.partial(qk.quant_cuda, x, block),
+                             before=flush) for x in leaves1),
+        "dequant": sum(cuda_ms(functools.partial(qk.dequant_cuda, q, sc, n,
+                                                 tuple(x.shape)), before=flush)
+                       for x, (q, sc, n) in zip(leaves1, quantised))}
     for name in ("quant", "dequant"):
         r = rows[name]
         log(f"time {name} split-1 leaves ({len(leaves1)} launches, {n_el} f32, "
-            f"{nb1} blocks): kernel {r['ms']:.4f} ms, plain "
+            f"{nb1} blocks): kernel {r['ms']:.4f} ms back to back, "
+            f"{b4_cold[name]:.4f} ms cold L2 (each launch alone), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({q_bytes} B); launches 1 per leaf of a legacy split frame")
 
@@ -1106,10 +1217,8 @@ def main() -> int:
     # K and V (33.5 MB) fit in the 50 MB L2, so back-to-back launches read
     # them from L2; a decode step reads every layer's cache in turn and
     # finds it cold: time each launch alone after writing L2_FLUSH_BYTES
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    cold, cold_sdpa = (cuda_ms(fn, before=lambda: flush.fill_(1.0))
-                       for fn in (b6, b6_sdpa))
-    del flush
+    cold, cold_sdpa = (cuda_ms(fn, before=flush) for fn in (b6, b6_sdpa))
+    del l2_flush
     log(f"time B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
         f"{LM_PROMPT} bf16: kernel {r['ms']:.4f} ms warm, {cold:.4f} ms cold "
         f"L2; plain {r['plain_ms']:.4f} ms; sdpa with a bool mask "
@@ -1143,6 +1252,15 @@ def main() -> int:
             # the host unzip, and one payload's upload with the device decode
             tree = producer(params, frames[:1])
             leaves, _ = codec._leaves(tree)
+            if split == 1:                 # the codec's part, traced in phase 12
+                codec_traces = [
+                    ("split 1 compress_head", functools.partial(
+                        codec.compress_head, producer, params, frames[:1])),
+                    ("split 1 device encode + copy down", functools.partial(
+                        lambda enc, ls: _to_host(*enc(ls)), codec._encode,
+                        leaves)),
+                    (f"split 1 decompress_group of {N_UES}", functools.partial(
+                        codec.decompress_group, payloads))]
             p0 = payloads[0]
             stream0 = ActivationCodec._fused_stream(p0)
             segs0 = tuple((tuple(m.shape), m.dtype, m.n, m.block_start,
@@ -1481,12 +1599,38 @@ def main() -> int:
     # -- 12. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():
         for what, fn in swin_traces:
-            busy, n_ev, by_name = device_busy_ms(fn)
+            busy, n_ev, by_name = traced_busy_ms(what, fn)
             b1_ms = sum(t for name, t in by_name.items()
                         if "fused_window_attention" in name)
             log(f"trace {what}: device busy {busy:.2f} ms, {n_ev} device "
                 f"events, of which B1 {b1_ms:.3f} ms")
     del swin_traces
+    # the codec at split 1 (int8_delta_zlib, 'spatial' layout: B2/B3 run with
+    # delta off, the delta is an epilogue of eager ops): B2/B3 beside the
+    # copies between host and card, B1 (in compress_head's head model) and
+    # the other kernels: the pack (F.pad, torch.cat), the delta epilogue
+    # (_spatial_delta_apply / _invert) and, in compress_head, the model
+    with torch.no_grad():
+        for what, fn in codec_traces:
+            busy, n_ev, by_name = traced_busy_ms(what, fn)
+            part = collections.Counter()
+            other = collections.Counter()
+            for name, t in by_name.items():
+                key = ("B2" if "codec_encode" in name else
+                       "B3" if "codec_decode" in name else
+                       "B1" if "fused_window_attention" in name else
+                       "memcpy" if name.startswith("Memcpy") else None)
+                if key:
+                    part[key] += t
+                else:
+                    other[name] += t
+            log(f"trace {what}: device busy {busy:.4f} ms, {n_ev} device "
+                f"events; B2 {part['B2']:.4f} ms, B3 {part['B3']:.4f} ms, "
+                f"copies {part['memcpy']:.4f} ms, B1 {part['B1']:.4f} ms, "
+                f"other kernels {sum(other.values()):.4f} ms, largest: "
+                + ", ".join(f"{name[:60]} {t:.4f} ms"
+                            for name, t in other.most_common(4)))
+    del codec_traces
 
     kernels = []
     for name, r in rows.items():

@@ -15,7 +15,10 @@ Both are integer-exact, so the kernels (``csrc/codec.cu``), the plain
 versions below and the JAX reference agree bitwise: ``torch.round`` rounds
 half to even, ``/`` is IEEE on both devices, and the scale is the same f32
 product.  On the H100 both kernels are bound by bytes: encode reads 4 B and
-writes 1 B per element, decode the reverse (the source note has the design).
+writes 1 B per element, decode the reverse.  Each CTA takes one block in
+register-resident strips of rows with 16-byte loads or stores; the source
+note has the design, and ``tests/test_torch_codec_strips.py`` mirrors its
+decomposition on the CPU.
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ from repro_torch.kernels import _build
 LANES = 128
 INT8_MAX = 127.0
 INV_INT8_MAX = float(np.float32(1.0) / np.float32(INT8_MAX))
-MAX_CUDA_BLOCK = 48 * 1024          # the encode kernel stages one block in shared memory
+# the largest block the kernels are held to their plain versions at (larger
+# blocks would run the same chunked body; none is checked, so none is taken)
+MAX_CUDA_BLOCK = 48 * 1024
 
 
 def _check_geometry(total: int, block: int) -> int:
@@ -74,6 +79,35 @@ def codec_decode_plain(stream: torch.Tensor, scales: torch.Tensor, block: int,
     return (q.to(torch.float32) * scales.float()[:, None, None]).reshape(-1)
 
 
+def codec_edge_blocks(block: int) -> np.ndarray:
+    """(8, block) f32, one quantisation block per row, each probing an edge
+    of the codec: scaled normals; all zero (scale 1.0); exact half-step ties
+    (absmax 127 gives a scale of exactly 1.0, so x / scale is k + 0.5 and
+    rounds half to even); values at +-absmax with uniform ones between;
+    subnormals and -0.0 in a block of normal scale; rows alternating +-127
+    (deltas 254 and 2); a single nonzero value; a block whose scale is
+    subnormal (absmax 1e-38: IEEE in the plain versions and the kernels; the
+    JAX package on the CPU flushes it to 0).  The cases the kernels and their
+    CPU mirror are checked on; made with numpy from a fixed seed."""
+    rng = np.random.default_rng(2)
+    x = (rng.normal(size=(8, block)) * 9).astype(np.float32)
+    x[1] = 0.0
+    x[2] = rng.integers(-127, 127, size=block) + 0.5
+    x[2, 0] = 127.0
+    a = np.float32(3.7)
+    x[3] = rng.uniform(-a, a, size=block)
+    x[3, ::3], x[3, 1::3] = a, -a
+    x[4, ::2] = rng.choice(np.array([1e-39, -2e-40, 1.4e-45, -1e-38, -0.0],
+                                    np.float32), size=block // 2)
+    rows = x[5].reshape(-1, LANES)
+    rows[0::2], rows[1::2] = 127.0, -127.0
+    x[6] = 0.0
+    x[6, block // 2] = -3.0
+    x[7] = rng.uniform(-1e-38, 1e-38, size=block).astype(np.float32)
+    x[7, 1] = 1e-38
+    return x
+
+
 @functools.cache
 def _fns():
     lib = _build.library("codec")
@@ -84,6 +118,12 @@ def _fns():
     return enc, dec
 
 
+def _current_stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def codec_encode_cuda(flat: torch.Tensor, block: int,
                       delta: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the encode kernel on PyTorch's current stream."""
@@ -92,16 +132,19 @@ def codec_encode_cuda(flat: torch.Tensor, block: int,
         raise TypeError("codec_encode_cuda takes a flat float32 stream")
     if block > MAX_CUDA_BLOCK:
         raise ValueError(f"quant block {block} exceeds {MAX_CUDA_BLOCK}")
-    nb = _check_geometry(flat.shape[0], block)
-    flat = flat.contiguous()
-    stream = torch.empty(flat.shape, dtype=torch.uint8 if delta else torch.int8,
+    total = flat.shape[0]
+    nb = _check_geometry(total, block)
+    if flat.data_ptr() % 16 or not flat.is_contiguous():
+        # the kernel reads 16-byte vectors: a view that starts inside one,
+        # or a strided one, is copied
+        flat = flat.clone(memory_format=torch.contiguous_format)
+    stream = torch.empty((total,), dtype=torch.uint8 if delta else torch.int8,
                          device=flat.device)
     scales = torch.empty((nb,), dtype=torch.float32, device=flat.device)
     if nb == 0:
         return stream, scales
     rc = _fns()[0](flat.data_ptr(), stream.data_ptr(), scales.data_ptr(), nb,
-                   block, int(delta),
-                   torch.cuda.current_stream(flat.device).cuda_stream)
+                   block, int(delta), _current_stream(flat.device))
     _build.check(rc, "codec_encode")
     _build.LAUNCHES["codec_encode"] += 1
     return stream, scales
@@ -115,16 +158,21 @@ def codec_decode_cuda(stream: torch.Tensor, scales: torch.Tensor, block: int,
         raise TypeError("codec_decode_cuda takes a flat int8/uint8 stream")
     if scales.dtype != torch.float32:
         raise TypeError("codec_decode_cuda takes float32 scales")
+    if block > MAX_CUDA_BLOCK:
+        raise ValueError(f"quant block {block} exceeds {MAX_CUDA_BLOCK}")
     nb = scales.shape[0]
     if _check_geometry(stream.shape[0], block) != nb:
         raise ValueError(f"{stream.shape[0]} stream bytes do not match {nb} scales")
-    stream, scales = stream.contiguous(), scales.contiguous()
+    if stream.data_ptr() % 4 or not stream.is_contiguous():
+        # the kernel reads the bytes as 32-bit words
+        stream = stream.clone(memory_format=torch.contiguous_format)
+    if not scales.is_contiguous():
+        scales = scales.contiguous()
     out = torch.empty(stream.shape, dtype=torch.float32, device=stream.device)
     if nb == 0:
         return out
     rc = _fns()[1](stream.data_ptr(), scales.data_ptr(), out.data_ptr(), nb,
-                   block, int(delta),
-                   torch.cuda.current_stream(stream.device).cuda_stream)
+                   block, int(delta), _current_stream(stream.device))
     _build.check(rc, "codec_decode")
     _build.LAUNCHES["codec_decode"] += 1
     return out

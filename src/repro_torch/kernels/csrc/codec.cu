@@ -4,103 +4,239 @@
 // Replaces the TPU kernels src/repro/kernels/codec.py :: codec_encode_pallas
 // (_encode_kernel) and codec_decode_pallas (_decode_kernel).  Both must be
 // bitwise equal to the reference: the same stream bytes and the same scale
-// bits.  Hence IEEE division (nvcc's default -prec-div=true; this file is
-// never built with fast math), round half to even with rintf, the scale as a
-// multiply by f32(1/127), and integer arithmetic for the delta.
+// bits.  Hence IEEE division (__fdiv_rn; this file is never built with fast
+// math), round half to even with rintf, the scale as a multiply by f32(1/127),
+// and integer arithmetic for the delta.
 //
-// Design.  One CTA per quantisation block (8192 f32 = 64 rows of 128 lanes
-// by default).  Encode: a strided pass for the absmax (warp shuffles, then
-// one shared word per warp), a second pass that quantises into shared memory
-// (the block is then in L1/L2), and a third that writes the bytes, taking
-// the delta against the row above from shared memory.  Decode: 128 threads,
-// one per lane, each walking its column down the rows with an int32 running
-// sum mod 256, so the prefix sum needs no cross-thread step.
+// Bound on the H100.  Both are bound by bytes, with a handful of operations
+// per element: encode reads 4 B and writes 1 B per element (plus 4 B per
+// block), decode the reverse.  The design keeps the bytes in flight:
 //
-// Bound on the H100.  Both are memory bound with a handful of operations per
-// element: encode reads 4 B and writes 1 B per element (plus 4 B per block),
-// decode the reverse.  Every access is coalesced along the 128-lane rows.
+// Layout.  One CTA of 8 warps per quantisation block; a block is `rows`
+// rows of 128 lanes (8192 f32 = 64 rows by default).  Lane l of every warp
+// owns columns 4l..4l+3, so one warp instruction moves a whole row: 512
+// contiguous bytes of f32 (a float4 a thread) or 128 of int8 (a 32-bit word
+// a thread).  The rows are taken in chunks of up to 64; a chunk's rows are
+// cut into 8 contiguous strips of at most 8 rows, one per warp (strip_of),
+// held in registers.  Blocks of more than 64 rows (up to the wrapper's
+// 49152 = 384 rows) loop over their chunks.
+//
+// Encode.  All of a strip's 16-byte loads are issued before any arithmetic.
+// absmax: fmaxf over the registers, warp shuffles, one shared word per warp,
+// one barrier.  A block of one chunk keeps its values in registers from the
+// absmax to the quantisation, so it is read from device memory once; a
+// longer block reads each chunk again in a second pass (from L1/L2).  The
+// four quantised bytes of a row are packed into one word; the delta is a
+// per-byte subtraction (__vsub4, mod 256) against the row above: inside the
+// strip from registers, across warps through 128 bytes of shared memory per
+// warp (a second barrier), and across chunks by quantising the previous
+// chunk's last row again.  Row 0 of a block stays absolute.
+//
+// Decode.  The same strips.  Without the delta each word of four int8 is
+// converted and scaled in registers and written as one float4.  With it, a
+// per-byte running sum (__vadd4, mod 256) down the strip, each warp's column
+// totals through shared memory (one barrier), and each thread adds the sum
+// of the totals of the warps above it and of the earlier chunks.  Mod-256
+// addition is associative, so this split of the running sum gives the
+// reference's bytes exactly; a byte read as int8 is the value above 127
+// folded back to negative.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kEncodeThreads = 256;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStrip = 8;                        // rows a warp holds at once
+constexpr int kChunkRows = kWarps * kStrip;      // 64 rows = 8192 values
 constexpr float kInt8Max = 127.0f;
 constexpr float kInvInt8Max = 0x1.020408p-7f;   // f32(1) / f32(127), as the reference
 
-__global__ void __launch_bounds__(kEncodeThreads)
+struct Strip {
+  int first;   // the strip's first row in the block
+  int n;       // its rows, 0..kStrip
+};
+
+// Rows [first, first + n) of chunk `chunk` belong to warp `warp`: the
+// chunk's rows in kWarps contiguous strips of ceil(rows_in_chunk / kWarps).
+__device__ __forceinline__ Strip strip_of(int chunk, int rows, int warp) {
+  const int row0 = chunk * kChunkRows;
+  const int rows_c = min(kChunkRows, rows - row0);
+  const int per = (rows_c + kWarps - 1) / kWarps;
+  const int lo = warp * per;
+  return {row0 + lo, max(0, min(per, rows_c - lo))};
+}
+
+__device__ __forceinline__ uint32_t quant1(float x, float scale) {
+  const float r = fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -kInt8Max), kInt8Max);
+  return static_cast<uint32_t>(static_cast<int>(r)) & 0xFFu;
+}
+
+// four f32 -> four int8 in one word, column 4l in the low byte
+__device__ __forceinline__ uint32_t quant4(float4 v, float scale) {
+  return quant1(v.x, scale) | quant1(v.y, scale) << 8
+       | quant1(v.z, scale) << 16 | quant1(v.w, scale) << 24;
+}
+
+// byte k of p as a signed int8, as a float
+__device__ __forceinline__ float sbyte(uint32_t p, int k) {
+  return static_cast<float>(static_cast<int>(p << (24 - 8 * k)) >> 24);
+}
+
+// At most 64 registers a thread without the delta (four CTAs an SM: the
+// 479 blocks of a split-1 stream in one wave); the delta's boundary words
+// take a few more, so three.
+template <bool kDelta>
+__global__ void __launch_bounds__(kThreads, kDelta ? 3 : 4)
 codec_encode_kernel(const float* __restrict__ x, uint8_t* __restrict__ stream,
-                    float* __restrict__ scales, int block, int delta) {
-  extern __shared__ int8_t q_s[];                 // (block,)
-  __shared__ float warp_max[kEncodeThreads / 32];
-  const float* xb = x + static_cast<size_t>(blockIdx.x) * block;
-  uint8_t* ob = stream + static_cast<size_t>(blockIdx.x) * block;
+                    float* __restrict__ scales, int block) {
+  __shared__ float warp_max[kWarps];
+  __shared__ uint32_t last_row[2][kWarps][32];   // by chunk parity
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = block / kLanes;
+  const int chunks = (rows + kChunkRows - 1) / kChunkRows;
+  const size_t base = static_cast<size_t>(blockIdx.x) * block;
+  // row r of this block: xb[r * 32] and ob[r * 32] for this lane
+  const float4* xb = reinterpret_cast<const float4*>(x + base) + lane;
+  uint32_t* ob = reinterpret_cast<uint32_t*>(stream + base) + lane;
+
+  float4 v[kStrip];
+  auto load = [&](const Strip& s) {
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i)
+      if (i < s.n) v[i] = __ldg(xb + static_cast<size_t>(s.first + i) * 32);
+  };
 
   float m = 0.f;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) m = fmaxf(m, fabsf(xb[i]));
+  for (int c = 0; c < chunks; ++c) {
+    const Strip s = strip_of(c, rows, warp);
+    load(s);
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i)
+      if (i < s.n)
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
+                           fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+  }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  if (lane == 0) warp_max[warp] = m;
   __syncthreads();
-  float absmax = 0.f;
+  float absmax = warp_max[0];
 #pragma unroll
-  for (int w = 0; w < kEncodeThreads / 32; ++w) absmax = fmaxf(absmax, warp_max[w]);
+  for (int w = 1; w < kWarps; ++w) absmax = fmaxf(absmax, warp_max[w]);
   const float scale = absmax > 0.f ? absmax * kInvInt8Max : 1.0f;
 
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    const float r = rintf(__fdiv_rn(xb[i], scale));
-    q_s[i] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -kInt8Max), kInt8Max)));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    int v = q_s[i];
-    if (delta) v -= i >= kLanes ? q_s[i - kLanes] : 0;   // row 0 stays absolute
-    ob[i] = static_cast<uint8_t>(v & 0xFF);
+  for (int c = 0; c < chunks; ++c) {
+    const Strip s = strip_of(c, rows, warp);
+    if (chunks > 1) load(s);              // one chunk: still in registers
+    uint32_t q[kStrip];
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i)
+      if (i < s.n) q[i] = quant4(v[i], scale);
+    if (kDelta) {
+      uint32_t last = 0;
+#pragma unroll
+      for (int i = 0; i < kStrip; ++i)
+        if (i == s.n - 1) last = q[i];
+      if (s.n > 0) last_row[c & 1][warp][lane] = last;
+      __syncthreads();
+      uint32_t prev = 0;                  // row 0 stays absolute
+      if (s.n > 0 && s.first > 0)
+        prev = warp > 0 ? last_row[c & 1][warp - 1][lane]
+                        : quant4(__ldg(xb + static_cast<size_t>(s.first - 1) * 32), scale);
+#pragma unroll
+      for (int i = 0; i < kStrip; ++i)
+        if (i < s.n) {
+          const uint32_t d = __vsub4(q[i], prev);   // per byte, mod 256
+          prev = q[i];
+          q[i] = d;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i)
+      if (i < s.n) ob[static_cast<size_t>(s.first + i) * 32] = q[i];
   }
   if (threadIdx.x == 0) scales[blockIdx.x] = scale;
 }
 
-__global__ void __launch_bounds__(kLanes)
+template <bool kDelta>
+__global__ void __launch_bounds__(kThreads)
 codec_decode_kernel(const uint8_t* __restrict__ stream,
                     const float* __restrict__ scales, float* __restrict__ out,
-                    int block, int delta) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * block;
-  const float scale = scales[blockIdx.x];
+                    int block) {
+  __shared__ uint32_t col_total[2][kWarps][32];  // by chunk parity
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rows = block / kLanes;
-  int acc = 0;
-  for (int r = 0; r < rows; ++r) {
-    const size_t i = base + static_cast<size_t>(r) * kLanes + threadIdx.x;
-    int v;
-    if (delta) {
-      acc = (acc + stream[i]) & 0xFF;
-      v = acc > 127 ? acc - 256 : acc;
-    } else {
-      v = static_cast<int8_t>(stream[i]);
+  const int chunks = (rows + kChunkRows - 1) / kChunkRows;
+  const size_t base = static_cast<size_t>(blockIdx.x) * block;
+  const uint32_t* sb = reinterpret_cast<const uint32_t*>(stream + base) + lane;
+  float4* ob = reinterpret_cast<float4*>(out + base) + lane;
+  const float scale = scales[blockIdx.x];
+
+  uint32_t carry = 0;         // column sums of the earlier chunks, per byte
+  for (int c = 0; c < chunks; ++c) {
+    const Strip s = strip_of(c, rows, warp);
+    uint32_t q[kStrip];
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i)
+      if (i < s.n) q[i] = __ldg(sb + static_cast<size_t>(s.first + i) * 32);
+    if (kDelta) {
+      uint32_t run = 0;
+#pragma unroll
+      for (int i = 0; i < kStrip; ++i)
+        if (i < s.n) {
+          run = __vadd4(run, q[i]);       // per byte, mod 256
+          q[i] = run;
+        }
+      col_total[c & 1][warp][lane] = run;   // 0 for an empty strip
+      __syncthreads();
+      uint32_t above = carry;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const uint32_t t = col_total[c & 1][w][lane];
+        if (w < warp) above = __vadd4(above, t);
+        carry = __vadd4(carry, t);
+      }
+#pragma unroll
+      for (int i = 0; i < kStrip; ++i)
+        if (i < s.n) q[i] = __vadd4(q[i], above);
     }
-    out[i] = static_cast<float>(v) * scale;
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i)
+      if (i < s.n)
+        ob[static_cast<size_t>(s.first + i) * 32] = make_float4(
+            sbyte(q[i], 0) * scale, sbyte(q[i], 1) * scale,
+            sbyte(q[i], 2) * scale, sbyte(q[i], 3) * scale);
   }
 }
 
 }  // namespace
 
 // x (nb * block,) f32 -> stream (nb * block,) bytes (int8, or uint8 deltas
-// when delta != 0) and scales (nb,) f32.  block is a multiple of 128 and nb
-// is at least 1.  Returns the cudaError_t of the launch (0 = success).
+// when delta != 0) and scales (nb,) f32.  block is a multiple of 128, nb is
+// at least 1, x is 16-byte aligned and stream 4-byte aligned.  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int codec_encode_f32(const void* x, void* stream, void* scales,
                                 int nb, int block, int delta, void* cuda_stream) {
-  codec_encode_kernel<<<nb, kEncodeThreads, block, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const float*>(x), static_cast<uint8_t*>(stream),
-      static_cast<float*>(scales), block, delta);
+  const auto s = static_cast<cudaStream_t>(cuda_stream);
+  const auto* xp = static_cast<const float*>(x);
+  auto* sp = static_cast<uint8_t*>(stream);
+  auto* cp = static_cast<float*>(scales);
+  if (delta) codec_encode_kernel<true><<<nb, kThreads, 0, s>>>(xp, sp, cp, block);
+  else codec_encode_kernel<false><<<nb, kThreads, 0, s>>>(xp, sp, cp, block);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Inverse of codec_encode_f32: stream (nb * block,) bytes and scales (nb,)
-// -> out (nb * block,) f32.
+// Inverse of codec_encode_f32: stream (nb * block,) bytes (4-byte aligned)
+// and scales (nb,) -> out (nb * block,) f32 (16-byte aligned).
 extern "C" int codec_decode_f32(const void* stream, const void* scales, void* out,
                                 int nb, int block, int delta, void* cuda_stream) {
-  codec_decode_kernel<<<nb, kLanes, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const uint8_t*>(stream), static_cast<const float*>(scales),
-      static_cast<float*>(out), block, delta);
+  const auto s = static_cast<cudaStream_t>(cuda_stream);
+  const auto* sp = static_cast<const uint8_t*>(stream);
+  const auto* cp = static_cast<const float*>(scales);
+  auto* op = static_cast<float*>(out);
+  if (delta) codec_decode_kernel<true><<<nb, kThreads, 0, s>>>(sp, cp, op, block);
+  else codec_decode_kernel<false><<<nb, kThreads, 0, s>>>(sp, cp, op, block);
   return static_cast<int>(cudaGetLastError());
 }

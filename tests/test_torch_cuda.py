@@ -105,21 +105,55 @@ def test_window_attention_tensor_core_tiles(cuda, window, hd, mask_kind):
     assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("block", [256, 1024, 8192])
+@pytest.mark.parametrize("block", [128, 256, 1024, 8192, 8320, 49152])
 @pytest.mark.parametrize("delta", [False, True])
 def test_codec_kernels_match_plain_bitwise(cuda, block, delta):
-    g = torch.Generator().manual_seed(2)
-    x = torch.randn((7, block), generator=g) * 9
-    x[1] = 0.0
-    x[2] = (torch.arange(block) % 9 - 4).float() * 0.5 + 0.25
-    x = x.reshape(-1)
+    """The codec pair against its plain version, bitwise, on the adversarial
+    blocks, at every strip geometry (one row, rows fewer than the warps, one
+    chunk, a ragged second chunk, six chunks); two launches bitwise equal."""
+    x = torch.from_numpy(ck.codec_edge_blocks(block)).reshape(-1)
     q, s = ck.codec_encode_cuda(x.to(cuda), block, delta)
+    q_again, s_again = ck.codec_encode_cuda(x.to(cuda), block, delta)
     q2, s2 = ck.codec_encode_plain(x, block, delta)
-    assert torch.equal(q.cpu(), q2)
+    assert q.dtype == q2.dtype
+    assert torch.equal(q.cpu(), q2) and torch.equal(q, q_again)
     assert torch.equal(s.cpu().view(torch.int32), s2.view(torch.int32))
+    assert torch.equal(s.view(torch.int32), s_again.view(torch.int32))
     y = ck.codec_decode_cuda(q, s, block, delta)
+    y_again = ck.codec_decode_cuda(q, s, block, delta)
     y2 = ck.codec_decode_plain(q2, s2, block, delta)
     assert torch.equal(y.cpu().view(torch.int32), y2.view(torch.int32))
+    assert torch.equal(y.view(torch.int32), y_again.view(torch.int32))
+
+
+def test_codec_kernels_take_unaligned_views(cuda):
+    """A stream that starts inside a 16-byte vector (encode) or a 4-byte
+    word (decode) is copied by the wrapper, not read misaligned."""
+    block = 256
+    x = torch.from_numpy(ck.codec_edge_blocks(block)).reshape(-1)
+    xs = torch.cat([torch.zeros(1), x]).to(cuda)[1:]
+    assert xs.data_ptr() % 16
+    q, s = ck.codec_encode_cuda(xs, block, True)
+    q2, s2 = ck.codec_encode_plain(x, block, True)
+    assert torch.equal(q.cpu(), q2)
+    assert torch.equal(s.cpu().view(torch.int32), s2.view(torch.int32))
+    qs = torch.cat([torch.zeros(1, dtype=q.dtype, device=cuda), q])[1:]
+    assert qs.data_ptr() % 4
+    y = ck.codec_decode_cuda(qs, s, block, True)
+    y2 = ck.codec_decode_plain(q2, s2, block, True)
+    assert torch.equal(y.cpu().view(torch.int32), y2.view(torch.int32))
+
+
+def test_codec_kernels_refuse_blocks_over_the_limit(cuda):
+    """Neither kernel takes a block larger than the largest one it is checked
+    at (MAX_CUDA_BLOCK)."""
+    block = ck.MAX_CUDA_BLOCK + 128
+    x = torch.zeros((block,), device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        ck.codec_encode_cuda(x, block, True)
+    q = torch.zeros((block,), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        ck.codec_decode_cuda(q, torch.ones((1,), device=cuda), block, True)
 
 
 def test_slice_on_the_card_matches_the_cpu_path(cuda):
