@@ -11,8 +11,9 @@ when it fails:
     process per source, into build/kernels (listed in .gitignore); print the
     window-attention body's name and count the TF32 HMMAs (and FFMAs) in
     the SASS of each B1/B7 instantiation (cuobjdump), failing on one with
-    none; count the 128-bit global loads of each B2 instantiation and the
-    128-bit global stores of each B3 one, failing on one with none;
+    none; count the 128-bit global loads of each B2 instantiation and of
+    B4a and the 128-bit global stores of each B3 one and of B4b, failing
+    on one with none, and print each codec-library kernel's registers;
  3. hold every kernel against its plain PyTorch version on the card at the
     main path's shapes: window attention at the four full-width Swin-T stage
     shapes, unshifted with and without the pad-strip mask and shifted by 3,
@@ -20,15 +21,18 @@ when it fails:
     codec pair, delta on and off, bitwise, two launches bitwise equal, on
     the split-1..4 payload streams, on the codec's edge blocks
     (kernels.codec.codec_edge_blocks) at blocks 128, 256, 1024, 8192, 8320
-    and 49152, and at the LM handoff's length; the quant pair on each full-width payload leaf, a
-    length that is not a multiple of the block, an empty leaf and a bf16
-    leaf, bitwise; flash attention (B5) at the full-width qwen3-1.7b prefill
-    shape in bf16 and f32, in both dtypes with Sq < Skv (200 / 520), a
-    ragged length (333 / 333) and 15 heads over 5 at head dim 64, and in
-    bf16 at head dims 16 and 32 and without the causal mask; flash decode
-    (B6) at the full-width decode shape in bf16 and f32 with kv_len 0, 1,
-    one chunk of its split, one chunk + 1, the prompt, the full cache and a
-    ragged 777; each output row (one head's hd values at one position)
+    and 49152, and at the LM handoff's length; the quant pair (B4a/B4b),
+    bitwise, two launches bitwise equal, on each full-width payload leaf, a
+    length that is not a multiple of the block, an empty leaf, a bf16 leaf,
+    and at blocks 8192, 49280 and 65536 the edge blocks cut a third of a
+    block into the last, a view 4 bytes into its storage and one followed
+    by 1e30 in its storage; flash attention (B5) at the full-width
+    qwen3-1.7b prefill shape in bf16 and f32, in both dtypes with Sq < Skv
+    (200 / 520), a ragged length (333 / 333) and 15 heads over 5 at head
+    dim 64, and in bf16 at head dims 16 and 32 and without the causal
+    mask; flash decode (B6) at the full-width decode shape in bf16 and f32
+    with kv_len 0, 1, one chunk of its split, one chunk + 1, the prompt, the
+    full cache and a ragged 777; each output row (one head's hd values at one position)
     within F32_TOL / BF16_TOL of that row's max |x|, two launches on the
     same inputs bitwise equal; per-window attention (B7) through its entry
     point, ops.window_attention, at the four Swin-T stage partitions of 4 images
@@ -58,8 +62,9 @@ when it fails:
     host time of one wrapper call; B7 at the stage-0 partition; B2 and B3
     at CODEC_LENGTHS (a split-1 stream, the LM handoff, an 8-UE split2
     group) back to back, each launch alone after a cold L2 and by the
-    wrapper's host time a call; B4 also each launch alone after a cold L2;
-    then the per-split head+encode, decode and batched-tail times; B5 and
+    wrapper's host time a call; B4a/B4b over the split-1 payload's two
+    leaves the same three ways and cold with the card held (HOLD_CYCLES)
+    after the flush, their plain versions read first; then the per-split head+encode, decode and batched-tail times; B5 and
     B6 at the full-width serving shapes with scaled dot-product attention as
     their yardstick, B6 and its yardstick also with a cold L2 (L2_FLUSH_BYTES
     written before each launch);
@@ -172,11 +177,19 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
 L2_FLUSH_BYTES = 128 * 2**20       # written before a cold-L2 timing (L2 is 50 MB)
+# cycles the card spins (torch.cuda._sleep, no memory traffic) after the
+# flush in a "held" cold timing: about 0.2 ms at the H100's 1.98 GHz, longer
+# than a wrapper's host time, so the launch is queued before the start event
+# fires and the figure is the card's alone
+HOLD_CYCLES = 400_000
 # B2/B3 are timed at three lengths of f32 stream: one split-1 UE frame
 # (phase 4), the qwen3-1.7b split handoff (4 x 2048 x 2048, phase 9) and an
 # 8-UE split2 group of the cell (phase 11(a))
 CODEC_LENGTHS = {"split-1 stream": 3_923_968, "LM handoff": 16_777_216,
                  "cell group": 36_634_624}
+# B4a/B4b are timed on the split-1 payload's two leaves: the stage-1 output
+# and the merged tokens the head ships with it
+SPLIT1_LEAVES = ((1, 136, 200, 96), (1, 68, 100, 192))
 
 
 def log(msg: str) -> None:
@@ -249,6 +262,45 @@ def codec_times(ck, flat, block: int, flush) -> dict:
     return t
 
 
+def quant_times(qk, leaves, block: int, flush) -> dict:
+    """B4a and B4b over a payload's leaves, one launch per leaf as the legacy
+    codec does: {"quant" | "dequant": {"ms": the launches back to back,
+    "cold_ms": the sum of each launch alone after ``flush()``, "held_ms":
+    the same with the card held for HOLD_CYCLES after the flush, "host_us":
+    the wrappers' host time for the leaves}}.  A launch of B4 is shorter
+    than its wrapper's host time, so "cold_ms" can take in host time that
+    the flush did not cover; "held_ms" cannot.  ``qk`` is a checkout's
+    ``repro_torch.kernels.quant``.  Both back-to-back figures are read
+    before the first flush."""
+    import torch
+
+    def held():
+        flush()
+        torch.cuda._sleep(HOLD_CYCLES)
+
+    quantised = [qk.quant_cuda(x, block) for x in leaves]
+    calls = {"quant": [functools.partial(qk.quant_cuda, x, block)
+                       for x in leaves],
+             "dequant": [functools.partial(qk.dequant_cuda, q, sc, n,
+                                           tuple(x.shape))
+                         for x, (q, sc, n) in zip(leaves, quantised)]}
+    t = {name: dict(ms=cuda_ms(lambda fns=fns: [f() for f in fns]))
+         for name, fns in calls.items()}
+    for name, fns in calls.items():
+        t[name].update(cold_ms=sum(cuda_ms(f, before=flush) for f in fns),
+                       held_ms=sum(cuda_ms(f, before=held) for f in fns),
+                       host_us=host_us(lambda fns=fns: [f() for f in fns]))
+    return t
+
+
+def quant_bytes(leaves, block: int) -> int:
+    """Bytes B4a or B4b must move over a payload's leaves: 4 B a value of
+    the leaf, 1 B an element of the padded (nb, block) q and 4 B a block's
+    scale."""
+    nb = sum(-(-x.numel() // block) for x in leaves)
+    return sum(4 * x.numel() for x in leaves) + nb * (block + 4)
+
+
 def codec_bytes(total: int, block: int) -> int:
     """Bytes B2 or B3 must move for a stream of ``total`` f32: 4 B and 1 B
     an element, 4 B a block's scale."""
@@ -273,6 +325,21 @@ def sass_ops(lib: Path, ops: tuple) -> dict:
                 if f" {op} " in line or f" {op}." in line:
                     counts[fn][op] += 1
     return counts
+
+
+def ptxas_registers(report: str) -> dict:
+    """{kernel: "N registers"} from nvcc's ``-Xptxas -v`` report of a build:
+    each "Used N registers" line belongs to the entry function compiled
+    last before it."""
+    regs, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            regs[fn] = f"{m.group(1)} registers"
+    return regs
 
 
 def host_ms(fn, runs: int = 3) -> float:
@@ -576,13 +643,19 @@ def main() -> int:
         log(f"  SASS {kernel}<{args}>: {n[tf32]} {tf32}, {n['FFMA']} FFMA")
         if not n[tf32]:
             raise AssertionError(f"{fn_name}: no {tf32} in its SASS")
-    # the codec kernels move 16 bytes a thread where they move f32: encode's
-    # loads, decode's stores
+    # the codec library's kernels move 16 bytes a thread where they move
+    # f32: the loads of encode (B2) and quant (B4a), the stores of decode
+    # (B3) and dequant (B4b)
     ldg, stg = "LDG.E.128", "STG.E.128"
+    regs = ptxas_registers(reports.get("codec", ""))
     for fn_name, n in sass_ops(_build.target("codec"), (ldg, stg)).items():
-        kernel, op = (("B2", ldg) if "codec_encode" in fn_name else ("B3", stg))
-        log(f"  SASS {kernel}<delta {'true' if 'ILb1' in fn_name else 'false'}>: "
-            f"{n[ldg]} {ldg}, {n[stg]} {stg}")
+        kernel, op = (("B4b", stg) if "dequant_kernel" in fn_name else
+                      ("B4a", ldg) if "quant_kernel" in fn_name else
+                      ("B2", ldg) if "codec_encode" in fn_name else ("B3", stg))
+        if kernel in ("B2", "B3"):
+            kernel += f"<delta {'true' if 'ILb1' in fn_name else 'false'}>"
+        log(f"  SASS {kernel}: {n[ldg]} {ldg}, {n[stg]} {stg}, "
+            f"{regs.get(fn_name, 'registers not reported')}")
         if not n[op]:
             raise AssertionError(f"{fn_name}: no {op} in its SASS")
 
@@ -701,28 +774,54 @@ def main() -> int:
             enc_err, dec_err = max(enc_err, e), max(dec_err, d)
     del codec_cases
 
-    # every full-width leaf shape (split 4 ships the four stage outputs), a
-    # ragged length, an empty leaf and a bf16 leaf
-    quant_cases = [x.contiguous() for x in tree_leaves(head_trees[4])]
-    quant_cases += [torch.randn((3 * block + 4321,), generator=g).to(dev) * 3,
-                    torch.zeros((0, 4), device=dev),
-                    quant_cases[1].to(torch.bfloat16)]
-    for x in quant_cases:
-        q, sc, n = qk.quant_cuda(x, block)
-        q2, sc2, n2 = qk.quant_plain(x, block)
+    # B4a/B4b: every full-width leaf shape (split 4 ships the four stage
+    # outputs), a ragged length, an empty leaf and a bf16 leaf; then, at
+    # the codec's block and at two above MAX_CUDA_BLOCK, the edge blocks cut
+    # a third of a block into the last (the subnormal-scale one), a view 4
+    # bytes into its storage (the wrapper copies it) and a 16-byte-aligned
+    # view followed by 1e30 in its storage (read in place: a value read past
+    # the leaf would raise its last block's scale)
+    quant_cases = [("payload leaf", x.contiguous(), block)
+                   for x in tree_leaves(head_trees[4])]
+    quant_cases += [
+        ("ragged length", torch.randn((3 * block + 4321,), generator=g).to(dev) * 3,
+         block),
+        ("empty leaf", torch.zeros((0, 4), device=dev), block),
+        ("bf16 leaf", quant_cases[1][1].to(torch.bfloat16), block)]
+    for blk in (block, ck.MAX_CUDA_BLOCK + 128, 65536):
+        edge = ck.codec_edge_blocks(blk).reshape(-1)[:7 * blk + blk // 3]
+        n_edge = edge.size
+        buf = torch.zeros((n_edge + 1,), device=dev)
+        buf[1:].copy_(torch.from_numpy(edge))
+        poisoned = torch.full((n_edge + 1024,), 1e30, device=dev)
+        poisoned[:n_edge].copy_(torch.from_numpy(edge))
+        quant_cases += [("edge blocks, ragged", buf[1:].clone(), blk),
+                        ("view 4 B into its storage", buf[1:], blk),
+                        ("view before 1e30", poisoned[:n_edge], blk)]
+    for what, x, blk in quant_cases:
+        q, sc, n = qk.quant_cuda(x, blk)
+        q_again, sc_again, _ = qk.quant_cuda(x, blk)
+        q2, sc2, n2 = qk.quant_plain(x, blk)
         y = qk.dequant_cuda(q, sc, n, tuple(x.shape), x.dtype)
+        y_again = qk.dequant_cuda(q, sc, n, tuple(x.shape), x.dtype)
         y2 = qk.dequant_plain(q, sc, n, tuple(x.shape), x.dtype)
         torch.cuda.synchronize()
         same = (n == n2 and torch.equal(q, q2)
                 and torch.equal(bits(sc), bits(sc2)) and y.dtype == x.dtype
-                and torch.equal(bits(y), bits(y2)))
+                and torch.equal(bits(y), bits(y2)) and torch.equal(q, q_again)
+                and torch.equal(bits(sc), bits(sc_again))
+                and torch.equal(bits(y), bits(y_again)))
         quant_err = max(quant_err, abs_err(q, q2), abs_err(sc, sc2))
         dequant_err = max(dequant_err, abs_err(y, y2))
         if not same:
-            raise AssertionError(f"quant {tuple(x.shape)} {x.dtype}: kernel "
-                                 "and plain version differ")
-        log(f"check B4 {tuple(x.shape)} {str(x.dtype).removeprefix('torch.')}: "
-            f"{q.shape[0]} blocks, quant and dequant bitwise equal")
+            raise AssertionError(f"quant {what} {tuple(x.shape)} {x.dtype}, "
+                                 f"block {blk}: kernel and plain version "
+                                 "differ, or two launches do")
+        log(f"check B4a/B4b {what} {tuple(x.shape)} "
+            f"{str(x.dtype).removeprefix('torch.')}: {q.shape[0]} blocks of "
+            f"{blk}, quant and dequant bitwise equal to plain, two launches "
+            f"bitwise equal")
+    del quant_cases
 
     # the attention kernels at the serving shapes of the LM: full-width
     # qwen3-1.7b (16 heads over 8 kv heads, hd 128) prefill and decode
@@ -1079,12 +1178,23 @@ def main() -> int:
         f"0 on the system's paths, {launches['window_attention']} on its own "
         f"(ops.window_attention, phase 3)")
 
-    # B2/B3's plain versions on the split-1 stream first, under the same
-    # conditions as before the cold-L2 loops below (128 MB written each)
+    # B2/B3's plain versions on the split-1 stream and B4a/B4b's on the
+    # split-1 payload's leaves first, under the same conditions as before
+    # the cold-L2 loops below (128 MB written each)
     flat1 = streams[1]
     q, sc = ck.codec_encode_cuda(flat1, block, False)
     plain1 = {"encode": cuda_ms(lambda: ck.codec_encode_plain(flat1, block, False)),
               "decode": cuda_ms(lambda: ck.codec_decode_plain(q, sc, block, False))}
+    leaves1 = [x.contiguous() for x in tree_leaves(head_trees[1])]
+    if tuple(tuple(x.shape) for x in leaves1) != SPLIT1_LEAVES:
+        raise AssertionError(f"split-1 leaves {[x.shape for x in leaves1]}, "
+                             f"not {SPLIT1_LEAVES}")
+    quantised = [qk.quant_cuda(x, block) for x in leaves1]
+    plain1["quant"] = cuda_ms(lambda: [qk.quant_plain(x, block) for x in leaves1])
+    plain1["dequant"] = cuda_ms(lambda: [
+        qk.dequant_plain(q, sc, n, tuple(x.shape))
+        for x, (q, sc, n) in zip(leaves1, quantised)])
+    del quantised
     # B2/B3 at the three lengths: the split-1 stream and the cell group
     # (eight split2 streams) of real head outputs, the LM handoff on normals;
     # back to back (the JSON line keeps the split-1 figure, as before), each
@@ -1128,39 +1238,27 @@ def main() -> int:
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms; launches {per_frame[name]}")
 
-    # the quant pair over the split-1 payload's leaves, one launch per leaf
-    leaves1 = [x.contiguous() for x in tree_leaves(head_trees[1])]
-    quantised = [qk.quant_cuda(x, block) for x in leaves1]
+    # B4a/B4b over the split-1 payload's leaves, one launch per leaf, the
+    # three ways B2/B3 are timed
     n_el = sum(x.numel() for x in leaves1)
-    nb1 = sum(q.shape[0] for q, _, _ in quantised)
-    q_bytes = 4 * n_el + nb1 * block + 4 * nb1        # reads x, writes q + scales
-    rows["quant"] = dict(
-        source="src/repro_torch/kernels/csrc/quant.cu",
-        replaces="src/repro/kernels/quant.py:47", max_abs_err=quant_err,
-        ms=cuda_ms(lambda: [qk.quant_cuda(x, block) for x in leaves1]),
-        plain_ms=cuda_ms(lambda: [qk.quant_plain(x, block) for x in leaves1]),
-        bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None)
-    rows["dequant"] = dict(
-        source="src/repro_torch/kernels/csrc/quant.cu",
-        replaces="src/repro/kernels/quant.py:79", max_abs_err=dequant_err,
-        ms=cuda_ms(lambda: [qk.dequant_cuda(q, sc, n, tuple(x.shape))
-                            for x, (q, sc, n) in zip(leaves1, quantised)]),
-        plain_ms=cuda_ms(lambda: [qk.dequant_plain(q, sc, n, tuple(x.shape))
-                                  for x, (q, sc, n) in zip(leaves1, quantised)]),
-        bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None)
-    b4_cold = {  # each launch alone after a cold L2, as B2/B3
-        "quant": sum(cuda_ms(functools.partial(qk.quant_cuda, x, block),
-                             before=flush) for x in leaves1),
-        "dequant": sum(cuda_ms(functools.partial(qk.dequant_cuda, q, sc, n,
-                                                 tuple(x.shape)), before=flush)
-                       for x, (q, sc, n) in zip(leaves1, quantised))}
-    for name in ("quant", "dequant"):
+    nb1 = sum(-(-x.numel() // block) for x in leaves1)
+    q_bytes = quant_bytes(leaves1, block)
+    t4 = quant_times(qk, leaves1, block, flush)
+    for name, replaces in (("quant", 47), ("dequant", 79)):
+        rows[name] = dict(
+            source="src/repro_torch/kernels/csrc/codec.cu",
+            replaces=f"src/repro/kernels/quant.py:{replaces}",
+            max_abs_err=quant_err if name == "quant" else dequant_err,
+            ms=t4[name]["ms"], plain_ms=plain1[name],
+            bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None)
         r = rows[name]
         log(f"time {name} split-1 leaves ({len(leaves1)} launches, {n_el} f32, "
             f"{nb1} blocks): kernel {r['ms']:.4f} ms back to back, "
-            f"{b4_cold[name]:.4f} ms cold L2 (each launch alone), plain "
+            f"{t4[name]['cold_ms']:.4f} ms cold L2 (each launch alone), "
+            f"{t4[name]['held_ms']:.4f} ms cold and held "
+            f"({t4[name]['held_ms'] / r['bound_ms']:.2f}x the bound), wrapper "
+            f"{t4[name]['host_us']:.1f} us on the host for the leaves, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({q_bytes} B); launches 1 per leaf of a legacy split frame")
 

@@ -18,9 +18,10 @@ Two encoders give interchangeable results:
     encode kernel itself).
   * the LEGACY per-tensor loop (``fused=False``, and the ``raw``/``zlib``
     modes, which never quantise): one quant launch (``kernels/csrc/
-    quant.cu``), one device-to-host copy and one zlib call per leaf, with
-    the delta filter on the host.  It is also the decoder of every payload
-    that is not fused, including ``mode=None`` payloads.
+    codec.cu``, the encode's body with a ragged last block), one
+    device-to-host copy and one zlib call per leaf, with the delta filter
+    on the host.  It is also the decoder of every payload that is not
+    fused, including ``mode=None`` payloads.
 
 Every delta layout inverts exactly on the same quantised grid, so the
 decoded tensors are bit-identical whichever encoder wrote the payload.

@@ -1,14 +1,17 @@
-// Fused activation codec for Hopper (sm_90a): per-block int8 quantisation
-// with an optional mod-256 row delta (encode), and its inverse (decode).
+// Per-block int8 quantisation for Hopper (sm_90a): the fused activation
+// codec (encode with an optional mod-256 row delta, and its inverse) and the
+// legacy per-tensor quant pair, on one register-resident body.
 //
 // Replaces the TPU kernels src/repro/kernels/codec.py :: codec_encode_pallas
-// (_encode_kernel) and codec_decode_pallas (_decode_kernel).  Both must be
-// bitwise equal to the reference: the same stream bytes and the same scale
-// bits.  Hence IEEE division (__fdiv_rn; this file is never built with fast
-// math), round half to even with rintf, the scale as a multiply by f32(1/127),
-// and integer arithmetic for the delta.
+// (_encode_kernel) and codec_decode_pallas (_decode_kernel), B2 and B3, and
+// src/repro/kernels/quant.py :: quant_pallas (_quant_kernel) and
+// dequant_pallas (_dequant_kernel), B4a and B4b.  All must be bitwise equal
+// to the reference: the same stream bytes and the same scale bits.  Hence
+// IEEE division (__fdiv_rn; this file is never built with fast math), round
+// half to even with rintf, the scale as a multiply by f32(1/127), and
+// integer arithmetic for the delta.
 //
-// Bound on the H100.  Both are bound by bytes, with a handful of operations
+// Bound on the H100.  All are bound by bytes, with a handful of operations
 // per element: encode reads 4 B and writes 1 B per element (plus 4 B per
 // block), decode the reverse.  The design keeps the bytes in flight:
 //
@@ -18,8 +21,7 @@
 // contiguous bytes of f32 (a float4 a thread) or 128 of int8 (a 32-bit word
 // a thread).  The rows are taken in chunks of up to 64; a chunk's rows are
 // cut into 8 contiguous strips of at most 8 rows, one per warp (strip_of),
-// held in registers.  Blocks of more than 64 rows (up to the wrapper's
-// 49152 = 384 rows) loop over their chunks.
+// held in registers.  Longer blocks loop over their chunks.
 //
 // Encode.  All of a strip's 16-byte loads are issued before any arithmetic.
 // absmax: fmaxf over the registers, warp shuffles, one shared word per warp,
@@ -40,6 +42,18 @@
 // addition is associative, so this split of the running sum gives the
 // reference's bytes exactly; a byte read as int8 is the value above 127
 // folded back to negative.
+//
+// Ragged (kRagged, the quant pair).  A leaf of n values is cut into
+// ceil(n / block) blocks and only the last may end early; the reference pads
+// it with zeros in device memory, here nothing is padded.  The strips cover
+// the rows that hold values (Extent::rows); the one row that straddles n is
+// read (quant) or written (dequant) lane by lane with scalar accesses masked
+// at n, and nothing past n is read or written.  Quant writes the rows past n
+// as zero words, the bytes the reference's zero padding quantises to, so q
+// is whole (nb, block); a zero read in the straddling row counts in the
+// absmax as the padding does.  Dequant writes the (n,) values only, so the
+// reference's [:n] slice is fused into it.  Without kRagged the extent is
+// the whole block and B2/B3 compile as before.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +71,24 @@ struct Strip {
   int first;   // the strip's first row in the block
   int n;       // its rows, 0..kStrip
 };
+
+// The values of block blockIdx.x that lie before n, and the rows they fill.
+struct Extent {
+  int valid;   // values: block, or fewer in a ragged leaf's last block
+  int rows;    // rows that hold any value: ceil(valid / kLanes)
+  int full;    // rows that hold only values: valid / kLanes
+};
+
+template <bool kRagged>
+__device__ __forceinline__ Extent extent_of(int block, long long n) {
+  if constexpr (!kRagged) {
+    return {block, block / kLanes, block / kLanes};
+  } else {
+    const long long left = n - static_cast<long long>(blockIdx.x) * block;
+    const int valid = left < block ? static_cast<int>(left) : block;
+    return {valid, (valid + kLanes - 1) / kLanes, valid / kLanes};
+  }
+}
 
 // Rows [first, first + n) of chunk `chunk` belong to warp `warp`: the
 // chunk's rows in kWarps contiguous strips of ceil(rows_in_chunk / kWarps).
@@ -84,17 +116,36 @@ __device__ __forceinline__ float sbyte(uint32_t p, int k) {
   return static_cast<float>(static_cast<int>(p << (24 - 8 * k)) >> 24);
 }
 
-// At most 64 registers a thread without the delta (four CTAs an SM: the
-// 479 blocks of a split-1 stream in one wave); the delta's boundary words
-// take a few more, so three.
-template <bool kDelta>
-__global__ void __launch_bounds__(kThreads, kDelta ? 3 : 4)
-codec_encode_kernel(const float* __restrict__ x, uint8_t* __restrict__ stream,
-                    float* __restrict__ scales, int block) {
+// Columns 4l..4l+3 of a row of which the first `left` (1..127) values lie
+// before n: scalar loads of those, zero past them.
+__device__ __forceinline__ float4 load_masked(const float* row, int left, int lane) {
+  const int c = 4 * lane;
+  return make_float4(c + 0 < left ? __ldg(row + c + 0) : 0.f,
+                     c + 1 < left ? __ldg(row + c + 1) : 0.f,
+                     c + 2 < left ? __ldg(row + c + 2) : 0.f,
+                     c + 3 < left ? __ldg(row + c + 3) : 0.f);
+}
+
+// The store of load_masked's columns: nothing at or past `left`.
+__device__ __forceinline__ void store_masked(float* row, int left, int lane, float4 f) {
+  const int c = 4 * lane;
+  if (c + 0 < left) row[c + 0] = f.x;
+  if (c + 1 < left) row[c + 1] = f.y;
+  if (c + 2 < left) row[c + 2] = f.z;
+  if (c + 3 < left) row[c + 3] = f.w;
+}
+
+// One block: x (block,) f32 at x + blockIdx.x * block -> its bytes and scale.
+template <bool kDelta, bool kRagged>
+__device__ __forceinline__ void encode_block(const float* __restrict__ x,
+                                             uint8_t* __restrict__ stream,
+                                             float* __restrict__ scales,
+                                             int block, long long n) {
   __shared__ float warp_max[kWarps];
   __shared__ uint32_t last_row[2][kWarps][32];   // by chunk parity
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = block / kLanes;
+  const Extent e = extent_of<kRagged>(block, n);
+  const int rows = e.rows;
   const int chunks = (rows + kChunkRows - 1) / kChunkRows;
   const size_t base = static_cast<size_t>(blockIdx.x) * block;
   // row r of this block: xb[r * 32] and ob[r * 32] for this lane
@@ -105,7 +156,14 @@ codec_encode_kernel(const float* __restrict__ x, uint8_t* __restrict__ stream,
   auto load = [&](const Strip& s) {
 #pragma unroll
     for (int i = 0; i < kStrip; ++i)
-      if (i < s.n) v[i] = __ldg(xb + static_cast<size_t>(s.first + i) * 32);
+      if (i < s.n) {
+        const int r = s.first + i;
+        if (!kRagged || r < e.full)
+          v[i] = __ldg(xb + static_cast<size_t>(r) * 32);
+        else
+          v[i] = load_masked(x + base + static_cast<size_t>(r) * kLanes,
+                             e.valid - r * kLanes, lane);
+      }
   };
 
   float m = 0.f;
@@ -157,17 +215,24 @@ codec_encode_kernel(const float* __restrict__ x, uint8_t* __restrict__ stream,
     for (int i = 0; i < kStrip; ++i)
       if (i < s.n) ob[static_cast<size_t>(s.first + i) * 32] = q[i];
   }
+  if constexpr (kRagged) {                // past n: the padding's zero bytes
+    for (int r = rows + warp; r < block / kLanes; r += kWarps)
+      ob[static_cast<size_t>(r) * 32] = 0u;
+  }
   if (threadIdx.x == 0) scales[blockIdx.x] = scale;
 }
 
-template <bool kDelta>
-__global__ void __launch_bounds__(kThreads)
-codec_decode_kernel(const uint8_t* __restrict__ stream,
-                    const float* __restrict__ scales, float* __restrict__ out,
-                    int block) {
+// One block: its bytes and scale -> out (block,) f32, or with kRagged the
+// values before n.
+template <bool kDelta, bool kRagged>
+__device__ __forceinline__ void decode_block(const uint8_t* __restrict__ stream,
+                                             const float* __restrict__ scales,
+                                             float* __restrict__ out,
+                                             int block, long long n) {
   __shared__ uint32_t col_total[2][kWarps][32];  // by chunk parity
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = block / kLanes;
+  const Extent e = extent_of<kRagged>(block, n);
+  const int rows = e.rows;
   const int chunks = (rows + kChunkRows - 1) / kChunkRows;
   const size_t base = static_cast<size_t>(blockIdx.x) * block;
   const uint32_t* sb = reinterpret_cast<const uint32_t*>(stream + base) + lane;
@@ -204,11 +269,49 @@ codec_decode_kernel(const uint8_t* __restrict__ stream,
     }
 #pragma unroll
     for (int i = 0; i < kStrip; ++i)
-      if (i < s.n)
-        ob[static_cast<size_t>(s.first + i) * 32] = make_float4(
+      if (i < s.n) {
+        const int r = s.first + i;
+        const float4 f = make_float4(
             sbyte(q[i], 0) * scale, sbyte(q[i], 1) * scale,
             sbyte(q[i], 2) * scale, sbyte(q[i], 3) * scale);
+        if (!kRagged || r < e.full)
+          ob[static_cast<size_t>(r) * 32] = f;
+        else
+          store_masked(out + base + static_cast<size_t>(r) * kLanes,
+                       e.valid - r * kLanes, lane, f);
+      }
   }
+}
+
+// At most 64 registers a thread without the delta (four CTAs an SM: the
+// 479 blocks of a split-1 stream in one wave); the delta's boundary words
+// take a few more, so three.
+template <bool kDelta>
+__global__ void __launch_bounds__(kThreads, kDelta ? 3 : 4)
+codec_encode_kernel(const float* __restrict__ x, uint8_t* __restrict__ stream,
+                    float* __restrict__ scales, int block) {
+  encode_block<kDelta, false>(x, stream, scales, block, 0);
+}
+
+template <bool kDelta>
+__global__ void __launch_bounds__(kThreads)
+codec_decode_kernel(const uint8_t* __restrict__ stream,
+                    const float* __restrict__ scales, float* __restrict__ out,
+                    int block) {
+  decode_block<kDelta, false>(stream, scales, out, block, 0);
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+             float* __restrict__ scales, long long n, int block) {
+  encode_block<false, true>(x, reinterpret_cast<uint8_t*>(q), scales, block, n);
+}
+
+__global__ void __launch_bounds__(kThreads)
+dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
+               float* __restrict__ out, long long n, int block) {
+  decode_block<false, true>(reinterpret_cast<const uint8_t*>(q), scales, out,
+                            block, n);
 }
 
 }  // namespace
@@ -238,5 +341,26 @@ extern "C" int codec_decode_f32(const void* stream, const void* scales, void* ou
   auto* op = static_cast<float*>(out);
   if (delta) codec_decode_kernel<true><<<nb, kThreads, 0, s>>>(sp, cp, op, block);
   else codec_decode_kernel<false><<<nb, kThreads, 0, s>>>(sp, cp, op, block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n,) f32 (16-byte aligned, not padded) -> q (nb * block,) int8 and
+// scales (nb,) f32, nb = ceil(n / block) >= 1, block a multiple of 128.
+extern "C" int quant_f32(const void* x, void* q, void* scales, long long n,
+                         int nb, int block, void* cuda_stream) {
+  quant_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const float*>(x), static_cast<int8_t*>(q),
+      static_cast<float*>(scales), n, block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (at least ceil(n / block) * block,) int8 (4-byte aligned) and its scales
+// -> out (n,) f32 (16-byte aligned), n >= 1.
+extern "C" int dequant_f32(const void* q, const void* scales, void* out,
+                           long long n, int block, void* cuda_stream) {
+  const auto nb = static_cast<unsigned>((n + block - 1) / block);
+  dequant_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(out), n, block);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,9 +15,12 @@ cut into ``nb = ceil(n / block)`` blocks (the last one zero-padded):
 The arithmetic is that of the fused codec's encode (``kernels/codec.py``),
 so the plain quant below runs ``codec_encode_plain`` on the padded stream:
 kernels, plain versions and the JAX reference agree bitwise.  The CUDA
-kernels (``csrc/quant.cu``) read the leaf without padding it and write the
-dequantised values without the ``[:n]`` copy; the source note has the
-design.  An empty leaf gives ``nb = 0`` and launches nothing.
+kernels are the codec's register-resident strip body (``csrc/codec.cu``,
+without the delta) with a ragged last block: they read the leaf without
+padding it and write the dequantised values without the ``[:n]`` copy; the
+source note has the design, and ``tests/test_torch_codec_strips.py``
+mirrors it on the CPU.  They take any block of whole 128-lane rows.  An
+empty leaf gives ``nb = 0`` and launches nothing.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.codec import LANES, codec_encode_plain
+from repro_torch.kernels.codec import LANES, _current_stream, codec_encode_plain
 
 
 def _check_block(block: int) -> None:
@@ -56,7 +59,7 @@ def dequant_plain(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
 
 @functools.cache
 def _fns():
-    lib = _build.library("quant")
+    lib = _build.library("codec")
     q, dq = lib.quant_f32, lib.dequant_f32
     q.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p])
@@ -72,6 +75,9 @@ def quant_cuda(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor,
     _build.check_operands("quant_cuda", x)
     _check_block(block)
     flat = x.to(torch.float32).contiguous().reshape(-1)
+    if flat.data_ptr() % 16:
+        # an f32 view may start inside a 16-byte vector the kernel reads
+        flat = flat.clone()
     n = flat.shape[0]
     nb = -(-n // block)
     q = torch.empty((nb, block), dtype=torch.int8, device=x.device)
@@ -79,7 +85,7 @@ def quant_cuda(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor,
     if nb == 0:
         return q, scales, n
     rc = _fns()[0](flat.data_ptr(), q.data_ptr(), scales.data_ptr(), n, nb,
-                   block, torch.cuda.current_stream(x.device).cuda_stream)
+                   block, _current_stream(x.device))
     _build.check(rc, "quant")
     _build.LAUNCHES["quant"] += 1
     return q, scales, n
@@ -100,11 +106,14 @@ def dequant_cuda(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
         raise ValueError(f"{n} values do not fit {nb} blocks of {block}")
     if nb == 0:
         return torch.zeros(shape, dtype=dtype, device=q.device)
-    q, scales = q.contiguous(), scales.contiguous()
+    if q.data_ptr() % 4 or not q.is_contiguous():
+        # the kernel reads the bytes as 32-bit words
+        q = q.clone(memory_format=torch.contiguous_format)
+    scales = scales.contiguous()
     out = torch.empty((n,), dtype=torch.float32, device=q.device)
     if n:
         rc = _fns()[1](q.data_ptr(), scales.data_ptr(), out.data_ptr(), n,
-                       block, torch.cuda.current_stream(q.device).cuda_stream)
+                       block, _current_stream(q.device))
         _build.check(rc, "dequant")
         _build.LAUNCHES["dequant"] += 1
     return out.reshape(shape).to(dtype)

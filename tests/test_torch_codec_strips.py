@@ -17,6 +17,12 @@ subtraction on the words.
           through shared memory, and the sum of the totals of the warps
           above and of the earlier chunks added to every row.
 
+The quant pair (B4a/B4b) runs the same bodies without the delta on a leaf
+of n values that is not padded: blocks wholly inside the leaf are the
+encode's and decode's; the last block's strips cover only the rows that
+hold values, the row that straddles n is read and written lane by lane
+(zero past n), and quant writes the rows past n as zero words.
+
 The mirror, the port's plain versions and the Pallas kernels (interpret
 mode, as ``tests/test_torch_kernels.py`` runs them) must give the same
 stream bytes, scale bits and decoded floats.  Inputs are the adversarial
@@ -31,7 +37,9 @@ import pytest
 import torch
 
 from repro.kernels import codec as jcodec
+from repro.kernels import quant as jquant
 from repro_torch.kernels import codec as tcodec
+from repro_torch.kernels import quant as tquant
 
 LANES = 128
 WARPS = 8               # warps of a CTA
@@ -42,6 +50,14 @@ LOW = 0x7F7F7F7F
 WORD = 0xFFFFFFFF
 BLOCKS = [128, 256, 1024, 8192, 49152]
 RAGGED = [8320, 128 * 193]     # a last chunk of one row, of 1 of 64
+QUANT_BLOCKS = [128, 8192, 8320, 65536]
+# leaf lengths of the quant pair; "split-1 leaf" is a narrow leaf of the
+# split-1 payload's layout (1, H, W, 96)
+QUANT_LENGTHS = {"1": lambda b: 1, "127": lambda b: 127, "128": lambda b: 128,
+                 "129": lambda b: 129, "block-1": lambda b: b - 1,
+                 "block+1": lambda b: b + 1,
+                 "3block+4321": lambda b: 3 * b + 4321}
+SPLIT1_LEAF = (1, 17, 25, 96)
 
 
 def strip_of(chunk: int, rows: int, warp: int):
@@ -162,6 +178,52 @@ def decode_mirror(stream: torch.Tensor, scales: torch.Tensor, block: int,
     return (signed.to(torch.float32) * scales[:, None, None]).reshape(-1)
 
 
+def quant_mirror(leaf: torch.Tensor, block: int):
+    """leaf (n,) f32, not padded -> (q (nb, block) int8, scales (nb,)), as
+    the quant kernel computes them.  The blocks wholly inside the leaf are
+    the encode's without the delta.  The last block's strips cover only its
+    ceil(valid / 128) rows: the row that straddles n is read lane by lane,
+    zero past n, and the rows past it are not read but written as zero
+    words."""
+    n = leaf.shape[0]
+    whole, valid = divmod(n, block)
+    q, sc = encode_mirror(leaf[:whole * block], block, False)
+    if valid:
+        rows = -(-valid // LANES)
+        last = torch.zeros(rows * LANES)       # the masked lanes read 0
+        last[:valid] = leaf[whole * block:]
+        lq, lsc = encode_mirror(last, rows * LANES, False)
+        q = torch.cat([q, lq, torch.zeros(block - rows * LANES, dtype=torch.int8)])
+        sc = torch.cat([sc, lsc])
+    return q.reshape(-1, block), sc
+
+
+def dequant_mirror(q: torch.Tensor, scales: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of ``quant_mirror``: (n,) f32, as the dequant kernel computes
+    it.  The last block's strips cover only the rows that hold values, and
+    the straddling row is stored lane by lane, nothing at or past n."""
+    block = q.shape[1]
+    whole, valid = divmod(n, block)
+    out = decode_mirror(q[:whole].reshape(-1), scales[:whole], block, False)
+    if valid:
+        rows = -(-valid // LANES)
+        last = decode_mirror(q[whole, :rows * LANES], scales[whole:whole + 1],
+                             rows * LANES, False)
+        out = torch.cat([out, last[:valid]])
+    return out
+
+
+def quant_leaf(length: str, block: int) -> np.ndarray:
+    """A leaf for the quant pair: the codec's edge blocks of normal scale,
+    repeated to the length's n (so each whole block is one of them and the
+    last one is cut), or the split-1-shaped leaf of scaled normals."""
+    if length == "split-1 leaf":
+        rng = np.random.default_rng(5)
+        return (rng.normal(size=SPLIT1_LEAF) * 3).astype(np.float32)
+    edge = tcodec.codec_edge_blocks(block)[:-1]          # normal scales only
+    return np.resize(edge, QUANT_LENGTHS[length](block))
+
+
 def _same(a: torch.Tensor, b) -> bool:
     return a.numpy().tobytes() == np.asarray(b).tobytes()
 
@@ -239,3 +301,24 @@ def test_subnormal_scale_matches_plain_bitwise(block, delta):
     assert _same(y, tcodec.codec_decode_plain(ps, psc, block, delta))
     # half a step, plus the rounding of the subnormal product q * scale
     assert float((y - x).abs().max()) <= 0.5 * float(msc[0]) * (1 + 1e-6) + 1.5e-45
+
+
+@pytest.mark.parametrize("block", QUANT_BLOCKS)
+@pytest.mark.parametrize("length", [*QUANT_LENGTHS, "split-1 leaf"])
+def test_ragged_mirror_matches_pallas_and_plain_bitwise(length, block):
+    """The quant pair's ragged strips against quant_pallas / dequant_pallas
+    (which pad the leaf in memory and slice the output) and the plain
+    versions: the same int8 bytes, scale bits and decoded floats."""
+    x = quant_leaf(length, block)
+    t = torch.from_numpy(x)
+    mq, msc = quant_mirror(t.reshape(-1), block)
+    jq, jsc, jn = jquant.quant_pallas(jnp.asarray(x), block=block,
+                                      interpret=True)
+    pq, psc, pn = tquant.quant_plain(t, block)
+    assert jn == pn == x.size and mq.shape == pq.shape == jq.shape
+    assert _same(mq, jq) and _same(msc, jsc)
+    assert torch.equal(mq, pq) and _same(msc, psc)
+    my = dequant_mirror(mq, msc, x.size)
+    jy = jquant.dequant_pallas(jq, jsc, jn, x.shape, interpret=True)
+    assert _same(my, jy)
+    assert _same(my, tquant.dequant_plain(pq, psc, pn, (pn,)))

@@ -192,23 +192,62 @@ def _int_bits(t: torch.Tensor) -> torch.Tensor:
                         torch.int8 if t.element_size() == 1 else torch.int32)
 
 
-@pytest.mark.parametrize("shape", [(1, 136, 200, 96), (311,), (), (0, 4),
-                                   (3, 8192), (2, 13, 7, 24)], ids=str)
-@pytest.mark.parametrize("block", [128, 8192])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quant_kernels_match_plain_bitwise(cuda, shape, block, dtype):
+def _quant_leaf(case, block: int, dtype, device):
+    """(the leaf on the card, its values on the host).  A shape gives scaled
+    normals with a run of zeros; "edge" the codec's edge blocks flattened
+    and cut a third of a block into the last (the subnormal-scale one);
+    "view +4 B" a leaf starting one element (4 bytes in f32) into its
+    storage, which the f32 wrapper copies; "poisoned tail" a 16-byte-aligned view followed in its storage
+    by 1e30, which the kernel reads in place: a value read past n would
+    raise that block's scale."""
     g = torch.Generator().manual_seed(4)
-    x = (torch.randn(shape, generator=g) * 7).to(dtype)
-    if x.numel() > 300:
-        x.view(-1)[100:300] = 0.0
-    q, s, n = qk.quant_cuda(x.to(cuda), block)
+    if case == "edge":
+        x = torch.from_numpy(ck.codec_edge_blocks(block).reshape(-1)
+                             [:7 * block + block // 3])
+    elif isinstance(case, tuple):
+        x = torch.randn(case, generator=g) * 7
+        if x.numel() > 300:
+            x.view(-1)[100:300] = 0.0
+    else:
+        x = torch.randn((3 * block + 4321,), generator=g) * 7
+    x = x.to(dtype)
+    if case == "view +4 B":
+        buf = torch.zeros((x.numel() + 4,), dtype=dtype, device=device)
+        leaf = buf[1:1 + x.numel()]
+    elif case == "poisoned tail":
+        buf = torch.full((x.numel() + 1024,), 1e30, dtype=dtype, device=device)
+        leaf = buf[:x.numel()]
+    else:
+        return x.to(device), x
+    leaf.copy_(x)
+    return leaf, x
+
+
+@pytest.mark.parametrize("case", [(1, 136, 200, 96), (311,), (), (0, 4),
+                                  (3, 8192), (2, 13, 7, 24), "edge",
+                                  "view +4 B", "poisoned tail"], ids=str)
+@pytest.mark.parametrize("block", [128, 8192, ck.MAX_CUDA_BLOCK + 128, 65536])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernels_match_plain_bitwise(cuda, case, block, dtype):
+    """B4a/B4b against their plain versions, bitwise, with a ragged last
+    block, on unaligned and in-place views, at blocks above the codec's
+    MAX_CUDA_BLOCK; two launches on the same input bitwise equal."""
+    leaf, x = _quant_leaf(case, block, dtype, cuda)
+    shape = tuple(x.shape)
+    if case == "view +4 B":
+        assert leaf.data_ptr() % 16 == leaf.element_size()
+    q, s, n = qk.quant_cuda(leaf, block)
+    q_again, s_again, _ = qk.quant_cuda(leaf, block)
     q2, s2, n2 = qk.quant_plain(x, block)
-    assert n == n2 and torch.equal(q.cpu(), q2)
+    assert n == n2 and torch.equal(q.cpu(), q2) and torch.equal(q, q_again)
     assert torch.equal(_int_bits(s), _int_bits(s2))
+    assert torch.equal(_int_bits(s), _int_bits(s_again))
     y = qk.dequant_cuda(q, s, n, shape, dtype)
+    y_again = qk.dequant_cuda(q, s, n, shape, dtype)
     y2 = qk.dequant_plain(q2, s2, n2, shape, dtype)
     assert y.dtype == dtype and tuple(y.shape) == shape
     assert torch.equal(_int_bits(y), _int_bits(y2))
+    assert torch.equal(_int_bits(y), _int_bits(y_again))
 
 
 @pytest.mark.parametrize("fused", [True, False])

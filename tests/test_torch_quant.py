@@ -1,7 +1,7 @@
 """The port's per-tensor int8 quant pair against the JAX package's TPU kernel.
 
 On the CPU ``repro_torch.kernels.ops.quantize`` / ``dequantize`` run the
-plain PyTorch versions of the CUDA kernels in ``csrc/quant.cu``.  Here they
+plain PyTorch versions of the CUDA kernels in ``csrc/codec.cu``.  Here they
 are held against ``repro.kernels.quant.quant_pallas`` / ``dequant_pallas``
 in interpret mode and against ``repro.kernels.ops.quantize`` /
 ``dequantize``, on the same numpy inputs, over the leaves of
