@@ -117,13 +117,31 @@ when it fails:
     imply, with finite detections of the expected shapes; per slot it
     prints the host wall time, the encode ms and the bytes, and per run the
     batched tail ms by bucket size;
-12. a profiler trace of phase 6's head model and batched tail at each
+12. the vectorized MAC (core/ran_vec.py, core/engine_vec.py) on the card
+    at the sizes benchmarks/bench_scale.py calls city scale, every field
+    bitwise equal to the port's CPU path or its oracle (core/ran.py):
+    (a) a drain of MAC_FLOWS synthetic flows (fixed offered load,
+    RanConfig(tti_s=1e-3)) per policy, against the CPU path at that size
+    and the oracle at MAC_ORACLE_FLOWS (and at MAC_FLOWS for edf); it
+    prints the TTIs executed, the steps run and the card's drain ms
+    (median of 3 after a warm-up) beside the CPU path's and the oracle's;
+    (b) MultiCellVecMac over synthetic_city(CITY_UES, CITY_CELLS), two
+    slots per policy, against the oracle cell by cell, ms per slot; (c)
+    phase 11(a)'s lock-step cell with a PF RanCell (tti 5 ms) and (d)
+    phase 11(c)'s run_stream, both with engine="vectorized": executed,
+    with phase 11's launch and detection checks, and as accounting runs,
+    whose FrameLogs and CellStats must equal the python engine's.  It
+    prints the wall time of the phase and of each of (a)-(d);
+13. a profiler trace of phase 6's head model and batched tail at each
     split: the card's busy time and B1's part of it; then of one
     compress_head, its device encode and copy alone, and one
     decompress_group at split 1: B2/B3 beside the copies and the eager
-    kernels around them (pack, delta epilogue).  It runs last: after a
-    profiler session, host-clock times later in the same process can read
-    higher, and phases 6-9 time on the host clock.
+    kernels around them (pack, delta epilogue); then of one MAC drain of
+    phase 12 (a) under edf: device busy ms (and the sorts' part), idle
+    share, kernels, memsets and copies per executed TTI and the host time
+    of the stop-code reads.  It runs last: after a profiler session,
+    host-clock times later in the same process can read higher, and phases
+    6-9 time on the host clock.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -133,8 +151,11 @@ with one entry per kernel, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import copy
+import dataclasses
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -173,6 +194,14 @@ HANDOFF_BF16_TOL = 3e-2
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_GEN, LM_SPLIT = 4, 2048, 32, 0.5
 CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
+# the vectorized MAC at the sizes benchmarks/bench_scale.py calls city scale:
+# its 10,240-flow headline drain at TOTAL_BYTES of offered load (the oracle
+# beside it at 1,024 flows, and at 10,240 for edf), and 4,096 UEs over 8
+# cells; RanConfig(tti_s=1e-3)
+MAC_FLOWS, MAC_ORACLE_FLOWS, MAC_TOTAL_BYTES = 10_240, 1_024, 2_625_000
+MAC_POLICIES = ("rr", "pf", "edf")
+MAC_WARM_S = 0.05                  # a warm-up advance: the first 50 TTIs
+CITY_UES, CITY_CELLS, CITY_SLOTS = 4096, 8, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
@@ -431,13 +460,15 @@ def cell_expected_launches(logs, tails, head_blocks, n_blocks, fused_head,
             "codec_encode": pairs, "codec_decode": pairs}
 
 
-def phase11(ctx) -> None:
+def phase11(ctx) -> dict:
     """The paper's multi-UE cell on the card at the full width of Swin-T:
     CELL_UES UEs on random weights, three runs, each with every launch
     counter at 0 before and read after.  (a) lock-step
     ``CellSimulator.run`` at a fixed split, (b) the same with the fused
     head, whose bytes must equal (a)'s, (c) the event engine ``run_stream``
-    on an EDF-scheduled RanCell with adaptive controllers."""
+    on an EDF-scheduled RanCell with adaptive controllers.  Returns what
+    phase 12 reruns on the vectorized MAC: the plan, frames, traces,
+    controller and the run checker."""
     import numpy as np
     import torch
     from repro_torch.core.adaptive import Objective
@@ -574,6 +605,283 @@ def phase11(ctx) -> None:
     if not np.isfinite([lg.delay_s for lg in res.logs]).all():
         raise AssertionError("cell (c): non-finite delay")
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return dict(plan=plan, imgs=imgs, system=system, dev=dev, run=run,
+                ctrl=ctrl, trace=trace, stream_trace=stream_trace)
+
+
+def hexed(v):
+    """``v`` with dataclasses as dicts, numpy scalars as Python ones and
+    every float as its hex form, so that == is bitwise (NaN equals NaN)."""
+    import numpy as np
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        v = dataclasses.asdict(v)
+    if isinstance(v, dict):
+        return {k: hexed(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [hexed(x) for x in v]
+    if isinstance(v, (float, np.floating)):
+        return float(v).hex()
+    if isinstance(v, (bool, np.bool_)):
+        return bool(v)
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    return v
+
+
+def mac_stream(n: int, pol: str, device):
+    """``benchmarks/bench_scale.py``'s ``_build`` on the port: ``n``
+    synthetic flows (seed 5) at a fixed offered load in a VecRanStream on
+    ``device``, or with ``device=None`` in the port's oracle RanStream."""
+    from repro_torch.core.engine_vec import synthetic_flows
+    from repro_torch.core.ran import (RanCell, RanConfig, RanStream,
+                                      UplinkRequest, make_policy)
+    from repro_torch.core.ran_vec import VecRanStream
+    cell = RanCell(policy=make_policy(pol), cfg=RanConfig(tti_s=1e-3))
+    s = RanStream(cell) if device is None else VecRanStream(cell, n,
+                                                           device=device)
+    w = synthetic_flows(n, 5, mean_bytes=max(64, MAC_TOTAL_BYTES // n))
+    for i in range(n):
+        s.enqueue(UplinkRequest(
+            ue_id=int(w["ue"][i]), n_bytes=int(w["n_bytes"][i]),
+            enqueue_s=float(w["enq"][i]), deadline_s=float(w["dead"][i]),
+            link_rate_bps=float(w["link_rate_bps"][i])), int(w["cohort"][i]))
+    return s
+
+
+def mac_drain(s):
+    """Drain ``s`` with a fresh Generator(5): (stream, finished flows,
+    generator, host wall ms ending in a synchronize)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = s.advance(math.inf, rng)
+    torch.cuda.synchronize()
+    return s, done, rng, (time.perf_counter() - t0) * 1e3
+
+
+def mac_same(a, b, what: str) -> None:
+    """Two drains (``mac_drain``'s tuples) agree bit for bit: every
+    StreamFlow field and GrantReport of the finished flows, in order, and
+    the HARQ stream's next draws (a vectorized stream's unconsumed tape,
+    then its Generator's next value)."""
+    import numpy as np
+    for s, done, _, _ in (a, b):
+        if len(done) != len(a[1]):
+            raise AssertionError(f"{what}: {len(a[1])} vs {len(done)} flows")
+    rec = [hexed([[f, s.report(f)] for f in done]) for s, done, _, _ in (a, b)]
+    if rec[0] != rec[1]:
+        bad = next(i for i, (x, y) in enumerate(zip(*rec)) if x != y)
+        raise AssertionError(f"{what}: flow {bad} differs: {rec[0][bad]} vs "
+                             f"{rec[1][bad]}")
+    tapes = [getattr(getattr(s, "cell", None), "_tape", None)
+             for s, _, _, _ in (a, b)]
+    k = 1 + max(t.buf.size for t in tapes if t is not None)
+    # copies of the Generators: a drain can be compared more than once
+    draws = [np.concatenate([t.buf, copy.deepcopy(rng).random(k - t.buf.size)])
+             if t is not None else copy.deepcopy(rng).random(k)
+             for t, (_, _, rng, _) in zip(tapes, (a, b))]
+    if draws[0].tobytes() != draws[1].tobytes():
+        raise AssertionError(f"{what}: the HARQ streams are not paired")
+
+
+def mac_trace(fn):
+    """``fn`` under torch.profiler: a Counter of the card's busy ms
+    (``busy``), of it the sorts' (``sort``), the kernel launches
+    (``kernels``), copies (``copies``: host to card, card to host and on
+    the card) and memsets (``memsets``), and the host ms spent reading a
+    device value (``reads``: the stop code after each step, which waits for
+    the card); and ``fn``'s own result."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    c = collections.Counter()
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.device_type == DeviceType.CUDA:
+            c["busy"] += ms
+            kind = ("copies" if e.name.startswith("Memcpy") else
+                    "memsets" if e.name.startswith("Memset") else "kernels")
+            c[kind] += 1
+            if "Sort" in e.name or "sort" in e.name:
+                c["sort"] += ms
+        elif e.name == "aten::_local_scalar_dense":
+            c["reads"] += ms
+    return c, out
+
+
+def phase12(cell) -> tuple:
+    """The vectorized MAC (core/ran_vec.py, core/engine_vec.py) on the card
+    at the sizes ``benchmarks/bench_scale.py`` calls city scale, held bit
+    for bit to the port's CPU path and its oracle (core/ran.py): (a)
+    ``mac_streams``, (b) ``mac_city``, (c) ``mac_lockstep``, (d)
+    ``mac_event``, each with its wall time.  Returns the profiler phase's
+    MAC drain (what, fn): edf at MAC_FLOWS flows."""
+    t_phase = time.perf_counter()
+    dev = cell["dev"]
+    secs = {}
+    for part, fn in (("a", lambda: mac_streams(dev)),
+                     ("b", lambda: mac_city(dev)),
+                     ("c", lambda: mac_lockstep(cell)),
+                     ("d", lambda: mac_event(cell))):
+        t0 = time.perf_counter()
+        fn()
+        secs[part] = time.perf_counter() - t0
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
+    streams = iter([mac_stream(MAC_FLOWS, "edf", dev) for _ in range(2)])
+    return (f"MAC drain, edf, {MAC_FLOWS} flows",
+            lambda: mac_drain(next(streams)))
+
+
+def mac_streams(dev) -> None:
+    """Phase 12 (a): per policy, a warm-up (the first MAC_WARM_S of a
+    drain: every shape and kernel of the full drain) and three timed drains
+    of MAC_FLOWS flows on the card; the port's CPU path at the same size;
+    the oracle at MAC_ORACLE_FLOWS (and at MAC_FLOWS for edf)."""
+    import numpy as np
+    for pol in MAC_POLICIES:
+        mac_stream(MAC_FLOWS, pol, dev).advance(MAC_WARM_S,
+                                                np.random.default_rng(5))
+        runs = [mac_drain(mac_stream(MAC_FLOWS, pol, dev)) for _ in range(3)]
+        card = runs[0]
+        cpu = mac_drain(mac_stream(MAC_FLOWS, pol, "cpu"))
+        mac_same(card, cpu, f"MAC (a) {pol}: card vs CPU at {MAC_FLOWS}")
+        small = mac_drain(mac_stream(MAC_ORACLE_FLOWS, pol, dev))
+        oracle_small = mac_drain(mac_stream(MAC_ORACLE_FLOWS, pol, None))
+        mac_same(small, oracle_small, f"MAC (a) {pol}: card vs oracle at "
+                 f"{MAC_ORACLE_FLOWS}")
+        line = (f"MAC (a) {pol}: {MAC_FLOWS} flows, {card[0].n_ttis} TTIs "
+                f"executed in {card[0].n_steps} steps; card drain "
+                f"{statistics.median(r[3] for r in runs):.1f} ms (median of "
+                f"3: {', '.join(f'{r[3]:.1f}' for r in runs)}), CPU path "
+                f"{cpu[3]:.1f} ms; at {MAC_ORACLE_FLOWS} flows card "
+                f"{small[3]:.1f} ms ({small[0].n_ttis} TTIs, "
+                f"{small[0].n_steps} steps), oracle {oracle_small[3]:.1f} ms")
+        if pol == "edf":
+            oracle = mac_drain(mac_stream(MAC_FLOWS, pol, None))
+            mac_same(card, oracle, f"MAC (a) {pol}: card vs oracle at "
+                     f"{MAC_FLOWS}")
+            line += f"; oracle at {MAC_FLOWS} flows {oracle[3]:.1f} ms"
+        log(line + "; every flow and report bitwise equal, HARQ streams "
+            "paired")
+
+
+def mac_city(dev) -> None:
+    """Phase 12 (b): ``MultiCellVecMac`` over one synthetic city, CITY_SLOTS
+    slots per policy, against the oracle cell by cell."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine_vec import MultiCellVecMac, synthetic_city
+    from repro_torch.core.ran import (RanCell, RanConfig, UplinkRequest,
+                                      make_policy)
+    batches = synthetic_city(CITY_UES, CITY_CELLS, seed=0)
+    reqs = [[UplinkRequest(ue_id=int(b["ue"][i]), n_bytes=int(b["n_bytes"][i]),
+                           enqueue_s=float(b["enq"][i]),
+                           deadline_s=float(b["dead"][i]),
+                           link_rate_bps=float(b["link_rate_bps"][i]))
+             for i in range(len(b["ue"]))] for b in batches]
+    for pol in MAC_POLICIES:
+        mk = lambda: [RanCell(policy=make_policy(pol),
+                              cfg=RanConfig(tti_s=1e-3))
+                      for _ in range(CITY_CELLS)]
+        oracle, mac = mk(), MultiCellVecMac(mk(), device=dev)
+        kids = np.random.SeedSequence(SEED).spawn(CITY_CELLS)
+        r_card, r_py = ([np.random.default_rng(k) for k in kids]
+                        for _ in range(2))
+        ms, oracle_ms = [], []
+        for slot in range(CITY_SLOTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = mac.serve_slot(reqs, r_card)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            want = [c.serve_slot(r, g) for c, r, g in zip(oracle, reqs, r_py)]
+            oracle_ms.append((time.perf_counter() - t0) * 1e3)
+            if hexed(got) != hexed(want):
+                raise AssertionError(f"MAC (b) {pol}: slot {slot} reports "
+                                     "differ from the oracle's")
+        last = max(max(r.finish_s for r in w.values()) for w in want)
+        log(f"MAC (b) {pol}: {CITY_UES} UEs over {CITY_CELLS} cells, "
+            f"{CITY_SLOTS} slots; card ms per slot "
+            f"{', '.join(f'{t:.1f}' for t in ms)}, oracle ({CITY_CELLS} cells "
+            f"in turn) "
+            f"{', '.join(f'{t:.1f}' for t in oracle_ms)}; the last slot "
+            f"drains at {last:.3f} s (simulated); every report bitwise "
+            "equal")
+
+
+def mac_sim(cell, policy, **kw):
+    """Phase 11's cell (``cell`` is ``phase11``'s context) on a RanCell of
+    ``policy`` (tti 5 ms)."""
+    from repro_torch.core.cell import CellSimulator
+    from repro_torch.core.compression import ActivationCodec
+    from repro_torch.core.ran import RanCell, RanConfig, make_policy
+    dev = cell["dev"]
+    return CellSimulator(plan=cell["plan"], system=cell["system"],
+                         n_ues=CELL_UES, seed=SEED, device=dev,
+                         codec=ActivationCodec(device=dev),
+                         ran=RanCell(make_policy(policy),
+                                     RanConfig(tti_s=0.005)), **kw)
+
+
+def mac_same_run(a, b, what) -> int:
+    """Two CellResults agree bit for bit in every FrameLog and CellStats
+    field; returns the number of logs."""
+    if hexed(a.logs) != hexed(b.logs) or hexed(a.stats) != hexed(b.stats):
+        raise AssertionError(f"MAC {what}: the engines' logs or stats differ")
+    return len(a.logs)
+
+
+# Phase 12 (c), (d): executed runs time the codec on the host clock, which
+# moves every later enqueue instant of the MAC, so the engines are held
+# field-exact on accounting runs (execute_model=False) of the same
+# configurations; the executed runs get phase 11's launch and detection
+# checks.
+
+def mac_lockstep(cell) -> None:
+    """Phase 12 (c): phase 11(a)'s lock-step cell with a PF RanCell and
+    ``engine="vectorized"``."""
+    import numpy as np
+    res = cell["run"]("(c) lock-step split2, PF RanCell, vectorized MAC",
+                      lambda: mac_sim(cell, "pf", execute_model=True,
+                                      engine="vectorized").run(
+                          cell["trace"], imgs=cell["imgs"], option="split2",
+                          keep_outputs=True), False, True)
+    acc = {e: mac_sim(cell, "pf", execute_model=False, engine=e).run(
+        cell["trace"], option="split2") for e in ("python", "vectorized")}
+    n = mac_same_run(acc["python"], acc["vectorized"], "(c)")
+    log(f"MAC (c): executed, mean prb share "
+        f"{np.mean([lg.prb_share for lg in res.logs]):.3f}, HARQ retx "
+        f"{sum(lg.harq_retx for lg in res.logs)}; accounting, {n} FrameLogs "
+        "and CellStats of the two engines bitwise equal")
+
+
+def mac_event(cell) -> None:
+    """Phase 12 (d): phase 11(c)'s event engine (``run_stream``) with
+    ``engine="vectorized"``."""
+    stream_kw = dict(controller=cell["ctrl"], frame_budget_s=2.5)
+    run_kw = dict(fps=0.5, jitter_s=0.05, inflight=2, budget_s=2.5)
+    res = cell["run"]("(d) run_stream, EDF RanCell, adaptive, vectorized MAC",
+                      lambda: mac_sim(cell, "edf", execute_model=True,
+                                      engine="vectorized", **stream_kw
+                                      ).run_stream(cell["stream_trace"],
+                                                   imgs=cell["imgs"],
+                                                   keep_outputs=True,
+                                                   **run_kw), False, False)
+    acc = {e: mac_sim(cell, "edf", execute_model=False, engine=e, **stream_kw
+                      ).run_stream(cell["stream_trace"], **run_kw)
+           for e in ("python", "vectorized")}
+    n = mac_same_run(acc["python"], acc["vectorized"], "(d)")
+    log(f"MAC (d): executed, completed {res.stats.n_completed}, dropped "
+        f"{res.stats.n_dropped}; accounting, {n} FrameLogs and CellStats of "
+        "the two engines bitwise equal")
 
 
 def main() -> int:
@@ -1324,7 +1632,7 @@ def main() -> int:
         f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
         f"decode step")
 
-    swin_traces = []                       # traced in phase 12
+    swin_traces = []                       # traced in phase 13
     with torch.no_grad():
         for split in SPLITS:
             opt = split_option(split)
@@ -1350,7 +1658,7 @@ def main() -> int:
             # the host unzip, and one payload's upload with the device decode
             tree = producer(params, frames[:1])
             leaves, _ = codec._leaves(tree)
-            if split == 1:                 # the codec's part, traced in phase 12
+            if split == 1:                 # the codec's part, traced in phase 13
                 codec_traces = [
                     ("split 1 compress_head", functools.partial(
                         codec.compress_head, producer, params, frames[:1])),
@@ -1691,10 +1999,14 @@ def main() -> int:
     del p_gpu, p_cpu
 
     # -- 11. the multi-UE cell at full width --------------------------------
-    phase11(dict(cfg=cfg, params=params, video=video, system=system, dev=dev,
-                 n_blocks=n_blocks))
+    cell = phase11(dict(cfg=cfg, params=params, video=video, system=system,
+                        dev=dev, n_blocks=n_blocks))
 
-    # -- 12. the Swin path's device time, and B1's part of it ---------------
+    # -- 12. the vectorized MAC ---------------------------------------------
+    mac_what, mac_fn = phase12(cell)
+    del cell
+
+    # -- 13. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():
         for what, fn in swin_traces:
             busy, n_ev, by_name = traced_busy_ms(what, fn)
@@ -1729,6 +2041,22 @@ def main() -> int:
                 + ", ".join(f"{name[:60]} {t:.4f} ms"
                             for name, t in other.most_common(4)))
     del codec_traces
+    # a stream drain of phase 12 (a): the card's busy time beside the
+    # drain's host wall time, and what a TTI launches
+    c, (strm, _, _, wall) = mac_trace(mac_fn)
+    if c["kernels"] == 0:
+        log(f"trace {mac_what}: the profiler recorded no kernel; tracing again")
+        c, (strm, _, _, wall) = mac_trace(mac_fn)
+        if c["kernels"] == 0:
+            raise AssertionError(f"trace {mac_what}: no kernel recorded twice")
+    per = lambda k: c[k] / strm.n_ttis
+    log(f"trace {mac_what}: device busy {c['busy']:.2f} ms (sorts "
+        f"{c['sort']:.2f}) in a {wall:.1f} ms drain (host clock, under the "
+        f"profiler): idle share {1.0 - c['busy'] / wall:.3f}; per executed "
+        f"TTI ({strm.n_ttis} in {strm.n_steps} steps) "
+        f"{per('kernels'):.1f} kernels, {per('memsets'):.1f} memsets, "
+        f"{per('copies'):.1f} copies; reads of the stop code and other "
+        f"device values {c['reads']:.1f} ms of host time")
 
     kernels = []
     for name, r in rows.items():

@@ -5,8 +5,8 @@ codec: every rng draw and every float expression in the same order, so an
 accounting run (``execute_model=False``) gives the JAX package's logs
 field for field.  An executed run runs the heads, the group encode (B2)
 and decode (B3) and the batched tails (B1 in every Swin block) on
-``device``; ``engine="vectorized"`` raises, as the vectorized MAC is not
-ported (ROADMAP A7).
+``device``; ``engine="vectorized"`` runs the MAC's TTI loop as tensors on
+``device`` too (core/ran_vec.py).
 
 The paper validates one UE against one edge server; this module scales the
 same mechanism to a cell.  Per frame-slot every UE runs the familiar
@@ -72,6 +72,7 @@ from repro_torch.core.channel import INTERFERENCE_LEVELS, PathModel, dupf_path
 from repro_torch.core.compression import ActivationCodec
 from repro_torch.core.mobility import MobilityModel
 from repro_torch.core.ran import GrantReport, MultiCell, RanCell, UplinkRequest
+from repro_torch.core.ran_vec import VecRanCell
 from repro_torch.core.pipeline import (EncodeResult, FrameLog, FrameSource,
                                        HeadResult, UplinkResult, account_stage,
                                        decide_stage, encode_group_stage,
@@ -392,9 +393,10 @@ class CellSimulator:
     # bitwise -- the schedule draws from a dedicated SeedSequence child
     # appended at the END of the layout below.
     chaos: Optional[Any] = None
-    # MAC engine: "python" runs core/ran.py as-is; "vectorized" is the JAX
-    # package's batched TTI loop (repro/core/ran_vec.py), not ported yet
-    # (ROADMAP A7): it raises once a RanCell or MultiCell would use it.
+    # MAC engine: "python" runs core/ran.py as-is; "vectorized" swaps the
+    # TTI loops for the step functions of core/ran_vec.py on ``device``,
+    # which replay the Python engine's grant traces, HARQ outcomes and
+    # reports field-exactly (the Python engine stays the bitwise oracle).
     # Ignored when ran is None (the legacy radio has no TTI loop).
     engine: str = "python"
     # telemetry plane (core/telemetry.py Telemetry).  None = no tracing.
@@ -484,12 +486,13 @@ class CellSimulator:
         self._last_reports: Dict[int, GrantReport] = {}
         if self.ran is not None:
             self.ran.reset(self.n_ues)
-        # the MAC the lock-step engine drives: the RanCell itself (the
-        # JAX package's vectorized twin is not ported)
+        # the MAC the lock-step engine actually drives: the RanCell
+        # itself, or its vectorized twin (policy state freshly adopted
+        # post-reset, so both engines start from the same zeros)
         self._mac = self.ran
         if self.engine == "vectorized" and self.ran is not None \
                 and not isinstance(self.ran, MultiCell):
-            raise_vectorized_mac()
+            self._mac = VecRanCell.from_cell(self.ran, device=self.device)
         self._controllers = (self.controller.spawn(self.n_ues)
                              if self.controller is not None else None)
         if self._controllers and not isinstance(self.plan, SwinSplitPlan):
@@ -720,13 +723,6 @@ class CellSimulator:
         return _run_stream(self, interference, imgs=imgs, option=option,
                            fps=fps, jitter_s=jitter_s, inflight=inflight,
                            budget_s=budget_s, keep_outputs=keep_outputs)
-
-
-def raise_vectorized_mac():
-    raise NotImplementedError(
-        "engine='vectorized': the vectorized MAC (the JAX package's "
-        "core/ran_vec.py) is not ported yet (ROADMAP A7); use "
-        "engine='python', which gives the same grants")
 
 
 def cell_interference_traces(n_frames: int, n_ues: int, seed: int = 0,

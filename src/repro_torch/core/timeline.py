@@ -2,7 +2,8 @@
 
 The counterpart of ``repro/core/timeline.py``, on the port's cell,
 stages and MAC, with every rng draw and float expression in the same
-order.  The vectorized MAC engine is not ported (ROADMAP A7) and raises.
+order.  ``engine="vectorized"`` drives the port's vectorized MAC
+(core/ran_vec.py) on the simulator's device.
 
 The lock-step engines (``SplitInferencePipeline.run_trace``,
 ``CellSimulator.run``) restart the clock at zero every frame-slot: all
@@ -72,8 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cell import (BatchRecord, CellResult, CellSimulator,
-                                   ServedTail, TailBatcher, TailRequest,
-                                   raise_vectorized_mac)
+                                   ServedTail, TailBatcher, TailRequest)
 from repro_torch.core.chaos import EDGE_WORKER, UPF_WORKER
 from repro_torch.core.channel import sample_path_latencies
 from repro_torch.core.energy import interval_energy_j
@@ -82,6 +82,7 @@ from repro_torch.core.pipeline import (EncodeResult, FrameLog, FrameSource,
                                        decide_stage, encode_group_stage,
                                        head_encode_stage, sense_stage)
 from repro_torch.core.ran import MultiCell, RanStream, UplinkRequest
+from repro_torch.core.ran_vec import VecRanStream, _merge_parked
 from repro_torch.core.splitting import UE_ONLY
 
 
@@ -269,11 +270,6 @@ def _by_cell(ues: Sequence[int], mob) -> List[Tuple[int, List[int]]]:
     return sorted(groups.items())
 
 
-def _pcat(parts: List[List[Any]]) -> List[Any]:
-    """Merge parked-lane parts (``StreamFlow`` lists) into one list."""
-    return [f for p in parts for f in p]
-
-
 @torch.no_grad()
 def run_stream(sim: CellSimulator, interference, imgs=None,
                option: Optional[str] = None, *, fps=2.0, jitter_s=0.0,
@@ -342,8 +338,13 @@ def run_stream(sim: CellSimulator, interference, imgs=None,
         ran_cells = sim.ran.cells if isinstance(sim.ran, MultiCell) \
             else [sim.ran]
         if sim.engine == "vectorized":
-            raise_vectorized_mac()
-        streams = [RanStream(c) for c in ran_cells]
+            # the vectorized MAC (core/ran_vec.py): same API, same
+            # draw-for-draw HARQ stream, field-exact flow reports -- the
+            # event loop above this line cannot tell the engines apart
+            streams = [VecRanStream(c, n, device=sim.device)
+                       for c in ran_cells]
+        else:
+            streams = [RanStream(c) for c in ran_cells]
         # cell 0 keeps the simulator's original HARQ stream; extra cells
         # draw from their own dedicated children (cell.py reset)
         harq_rngs = sim._harq_rngs
@@ -559,7 +560,8 @@ def run_stream(sim: CellSimulator, interference, imgs=None,
                     # one batched adopt per current serving cell (the
                     # serving cell may have changed while parked)
                     for c, ues in _by_cell(payload, mob):
-                        batch = _pcat([p for u in ues for p in parked[u]])
+                        batch = _merge_parked(
+                            [p for u in ues for p in parked[u]])
                         if len(batch):
                             streams[c].adopt_batch(batch, t, cohort)
                         for u in ues:
@@ -601,7 +603,8 @@ def run_stream(sim: CellSimulator, interference, imgs=None,
                 c_ues = cell_parked.pop(w, [])
                 if streams is not None:
                     for c, ues in _by_cell(c_ues, mob):
-                        batch = _pcat([p for u in ues for p in parked[u]])
+                        batch = _merge_parked(
+                            [p for u in ues for p in parked[u]])
                         if len(batch):
                             streams[c].adopt_batch(batch, t, cohort)
                         for u in ues:

@@ -51,6 +51,7 @@ from repro_torch.core import chaos as CHAOS
 from repro_torch.core import channel as CH
 from repro_torch.core import mobility as MOB
 from repro_torch.core import ran as RAN
+from repro_torch.core.ran_vec import VecRanCell
 from repro_torch.core import telemetry as TEL
 from repro_torch.core import trace_export as EXP
 from repro_torch.core.compression import ActivationCodec
@@ -377,19 +378,36 @@ def test_heartbeat_and_straggler_monitors_are_exact():
 
 
 def test_vectorized_engine_raises_naming_a7(systems):
+    """A7, the vectorized MAC, is ported, so ``engine="vectorized"`` no
+    longer raises: the lock-step engine drives a ``VecRanCell`` on the
+    simulator's device, ``run_stream`` one ``VecRanStream`` per cell, with
+    the python engine's results.  What still raises is a scheduler the
+    vectorized MAC cannot replicate (tests/test_torch_engine_vec.py holds
+    the engines against the JAX package's).  The name dates from when the
+    engine raised naming ROADMAP item A7; it is kept so that the test's
+    history stays one line across runs."""
     sysm = systems[0]
     plan = PORT.plan(CONFIG)
-    with pytest.raises(NotImplementedError, match="A7"):
-        CELL.CellSimulator(plan=plan, system=sysm, n_ues=2, ran=_edf(PORT),
-                           engine="vectorized", device="cpu")
-    sim = CELL.CellSimulator(plan=plan, system=sysm, n_ues=2,
-                             ran=RAN.MultiCell([_edf(PORT), _edf(PORT)]),
-                             mobility=MOB.MobilityModel(
-                                 MOB.two_cell_sites(),
-                                 [MOB.StaticTrajectory(50.0, 0.0)]),
+    sim = CELL.CellSimulator(plan=plan, system=sysm, n_ues=2, ran=_edf(PORT),
                              engine="vectorized", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        sim.run_stream(_trace()[:, :2], option="split2")
+    assert isinstance(sim._mac, VecRanCell) and sim._mac.device.type == "cpu"
+
+    def run(engine):
+        sim = CELL.CellSimulator(
+            plan=plan, system=sysm, n_ues=2,
+            ran=RAN.MultiCell([_edf(PORT), _edf(PORT)]),
+            mobility=MOB.MobilityModel(MOB.two_cell_sites(),
+                                       [MOB.StaticTrajectory(50.0, 0.0)]),
+            engine=engine, device="cpu")
+        return sim.run_stream(_trace()[:, :2], option="split2")
+    _assert_results_equal(run("vectorized"), run("python"))
+
+    class Mine(RAN.DeadlineEDFScheduler):
+        pass
+    with pytest.raises(ValueError, match="stock rr/pf/edf"):
+        CELL.CellSimulator(plan=plan, system=sysm, n_ues=2,
+                           ran=RAN.RanCell(policy=Mine()),
+                           engine="vectorized", device="cpu")
 
 
 def test_cell_defaults_to_the_card(systems, monkeypatch):

@@ -12,7 +12,9 @@ orders; the codec pair and the quant pair bitwise; flash attention and flash
 decode within 1e-5 of the output's max |x| in f32, sums in other orders, and
 1e-2 in bf16, one rounding of the output), the frame loop on the card against
 the same loop on the CPU, and LM serving at the reduced size on the card
-against the CPU path.
+against the CPU path.  The vectorized MAC has no kernel of its own: its
+step's PyTorch ops on the card are held bit for bit to the CPU path (and
+its lexsort to numpy's), with no host sync inside a step.
 """
 import argparse
 
@@ -523,3 +525,152 @@ def test_cell_on_the_card_matches_the_cpu_path(cuda, tmp_path):
     for slot in res["cuda"].outputs:
         for out in slot.values():
             assert all(torch.isfinite(x).all() for x in tree_flatten(out)[0])
+
+
+# -- the vectorized MAC: its step's ops on the card, no kernel of its own ----------
+
+def _mac_keys(seed, n):
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(0, 4, n)
+    floats = rng.choice([0.0, -0.0, 1.5, -2.0, np.inf, -np.inf, 3.25], n)
+    fine = rng.random(n)
+    fine[rng.random(n) < 0.3] = np.inf
+    return [(ints,), (floats,), (fine, floats), (ints, floats, ints[::-1]),
+            (np.arange(n)[::-1], ints, floats)]
+
+
+@pytest.mark.parametrize("n", [7, 1000, 20000])
+def test_mac_lexsort_on_the_card_matches_numpy(cuda, n):
+    """The card sorts by radix: ties, inf and both zero signs must still
+    give numpy's lexsort permutation."""
+    from repro_torch.core.ran_vec import _lexsort
+    for keys in _mac_keys(n, n):
+        got = _lexsort([torch.as_tensor(np.array(k), device=cuda)
+                        for k in keys])
+        assert np.array_equal(got.cpu().numpy(), np.lexsort(keys))
+
+
+def _mac_flow_bits(stream, flows):
+    import dataclasses
+    return [(dataclasses.asdict(f.req), f.cohort,
+             [float(getattr(f, k)).hex() for k in (
+                 "rem_bits", "bpp", "granted", "act_slots", "n_tx", "n_retx",
+                 "finish_s", "granted_at_admit")],
+             [float(v).hex() for v in dataclasses.astuple(stream.report(f))])
+            for f in flows]
+
+
+def _mac_steps_without_sync(monkeypatch):
+    """Make every slot and stream step on the card raise if it syncs with
+    the host (the loops read the stop code between steps, outside)."""
+    from repro_torch.core import ran_vec as V
+    for name in ("_slot_step", "_stream_step"):
+        step = getattr(V, name)
+
+        def no_sync_step(*a, step=step, **kw):
+            if a[0].rem.is_cuda:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        monkeypatch.setattr(V, name, no_sync_step)
+
+
+@pytest.mark.parametrize("pol", ["rr", "pf", "edf"])
+def test_mac_stream_on_the_card_matches_the_cpu(cuda, pol, monkeypatch):
+    """A chaos drain with mass blackouts on the card equals the CPU path
+    field for field, with the generators paired after it; no step syncs
+    with the host."""
+    from repro_torch.core import ran_vec as V
+    from repro_torch.core.engine_vec import chaos_drain, synthetic_flows
+    from repro_torch.core.ran import RanCell, RanConfig, make_policy
+    _mac_steps_without_sync(monkeypatch)
+    flows = synthetic_flows(300, seed=3, n_ues=40)
+    blk = [(0.05, 0.25, list(range(0, 40, 2))), (0.12, 0.30, [1, 3, 5])]
+    out = []
+    for dev in ("cpu", cuda):
+        s = V.VecRanStream(RanCell(policy=make_policy(pol),
+                                   cfg=RanConfig(tti_s=0.002)), 40,
+                           device=dev)
+        rng = np.random.default_rng(7)
+        done = chaos_drain(s, flows, rng, blackouts=blk)
+        out.append((_mac_flow_bits(s, done), s.cell._tape.buf.tobytes(),
+                    rng.random(), s.n_steps, s.n_ttis))
+    assert len(out[0][0]) == 300
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("pol", ["rr", "pf", "edf"])
+def test_mac_cells_on_the_card_match_the_cpu(cuda, pol, monkeypatch):
+    """``MultiCellVecMac`` and a lone ``VecRanCell`` on the card: every
+    report array equal to the CPU path's over two slots, no step syncing
+    with the host."""
+    from repro_torch.core.engine_vec import MultiCellVecMac, synthetic_city
+    from repro_torch.core.ran import RanCell, RanConfig, make_policy
+    from repro_torch.core.ran_vec import VecRanCell
+    _mac_steps_without_sync(monkeypatch)
+    batches = synthetic_city(300, 3, seed=4, mean_bytes=8000)
+    got = []
+    for dev in ("cpu", cuda):
+        mac = MultiCellVecMac([RanCell(policy=make_policy(pol),
+                                       cfg=RanConfig(n_prbs=50))
+                               for _ in range(3)], device=dev)
+        one = VecRanCell.from_cell(RanCell(policy=make_policy(pol),
+                                           cfg=RanConfig(n_prbs=50),
+                                           record_trace=True), device=dev)
+        rngs = [np.random.default_rng(c) for c in range(4)]
+        rows = []
+        for _ in range(2):
+            for out in mac.serve_slot_arrays(batches, rngs[:3]):
+                rows.append({k: v.tobytes() for k, v in out.items()})
+            b = batches[0]
+            out = one.serve_slot_arrays(b["ue"], b["n_bytes"], b["enq"],
+                                        b["dead"], b["link_rate_bps"],
+                                        rngs[3])
+            rows.append({k: v.tobytes() for k, v in out.items()})
+            rows.append(one.grant_trace)
+        got.append((rows, [r.random() for r in rngs]))
+    assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("tti", [1e-3, 2e-3, 5e-3, 0.0125])
+def test_mac_step_arithmetic_on_the_card_matches_the_cpu(cuda, tti):
+    """The step's float arithmetic on random operands: PF's observe (dense
+    and sparse), PF's grant and the idle jump's ceil(t / tti), bit for bit
+    against the CPU.  On the card ``t / python_float`` multiplies by the
+    reciprocal, so the step divides by ``_divisor``'s 0-d tensor."""
+    from repro_torch.core import ran_vec as V
+    g = torch.Generator().manual_seed(int(tti * 1e4))
+    C, n, P = 4, 512, 512
+    pfa = torch.rand((C, P), generator=g, dtype=torch.float64) * 3e7
+    pfa[:, ::7] = 0.0
+    ue = torch.stack([torch.randperm(P, generator=g)[:n] for _ in range(C)])
+    active = torch.rand((C, n), generator=g) < 0.7
+    delivered = (torch.rand((C, n), generator=g, dtype=torch.float64)
+                 * 4e5).floor() + torch.rand((C, n), generator=g,
+                                             dtype=torch.float64)
+    bpp = torch.rand((C, n), generator=g, dtype=torch.float64) * 3e3 + 50.0
+    rem = (torch.rand((C, n), generator=g, dtype=torch.float64) * 3e5).floor()
+    z = torch.zeros((C, 1), dtype=torch.int64)
+    t_end = torch.rand(4096, generator=g, dtype=torch.float64) * 0.3
+    gidx = torch.randperm(n, generator=g)[:128]
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        d = V._divisor(tti, dev)
+        a = [x.to(dev) for x in (pfa, ue, active, delivered, bpp, rem, z)]
+        pfa_, ue_, act_, dlv_, bpp_, rem_, z_ = a
+        need = V._need_prbs(act_, rem_, bpp_)
+        outs.append([
+            V._pf_observe(pfa_, act_, dlv_, ue_, d, z_),
+            V._pf_observe_sparse(pfa_[0], gidx.to(dev), act_[0][gidx.to(dev)],
+                                 ue_[0], dlv_[0][gidx.to(dev)], d, z_[0, 0]),
+            V._grant_kernel(V._PF, 100, act_, need, bpp_, ue_, bpp_, d,
+                            torch.zeros(C, dtype=torch.int64, device=dev),
+                            pfa_),
+            torch.ceil(t_end.to(dev) / d)])
+    for x, y in zip(*outs):
+        y = y.cpu()
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        assert torch.equal(x, y)
