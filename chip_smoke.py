@@ -29,10 +29,11 @@ when it fails:
     by 1e30 in its storage; flash attention (B5) at the full-width
     qwen3-1.7b prefill shape in bf16 and f32, in both dtypes with Sq < Skv
     (200 / 520), a ragged length (333 / 333) and 15 heads over 5 at head
-    dim 64, and in bf16 at head dims 16 and 32 and without the causal
-    mask; flash decode (B6) at the full-width decode shape in bf16 and f32
-    with kv_len 0, 1, one chunk of its split, one chunk + 1, the prompt, the
-    full cache and a ragged 777; each output row (one head's hd values at one position)
+    dim 64, at granite-moe-3b-a800m's prefill shape (24 heads over 8 at head
+    dim 64), and in bf16 at head dims 16 and 32 and without the causal
+    mask; flash decode (B6) at the full-width decode shapes of qwen3-1.7b
+    and of granite in bf16 and f32 with kv_len 0, 1, one chunk of its split,
+    one chunk + 1, the prompt, the full cache and a ragged 777; each output row (one head's hd values at one position)
     within F32_TOL / BF16_TOL of that row's max |x|, two launches on the
     same inputs bitwise equal; per-window attention (B7) through its entry
     point, ops.window_attention, at the four Swin-T stage partitions of 4 images
@@ -132,16 +133,39 @@ when it fails:
     with phase 11's launch and detection checks, and as accounting runs,
     whose FrameLogs and CellStats must equal the python engine's.  It
     prints the wall time of the phase and of each of (a)-(d);
-13. a profiler trace of phase 6's head model and batched tail at each
+13. the MoE family at full width (models/layers.py: moe_apply, mla_apply),
+    each part timed: (a) granite-moe-3b-a800m (32 layers, d 1536, 40
+    experts top-8, GQA 24 over 8 heads, bf16) served as phase 9 serves
+    qwen3-1.7b, split at layer 16: every launch counter starts at 0 and
+    must read B5 32 in the prefill and 32 across the split, B6 32 x 32, the
+    codec pair once each and no other kernel; no non-finite logit; prints
+    prefill ms, decode ms per step, the split's bytes and one-shot ms and
+    the share of routed assignments the prefill dropped at capacity factor
+    1.25; (b) prefill to S-1 plus one decode step against a prefill to S on
+    drop-free copies (capacity factor MOE_DROP_FREE): granite at full depth
+    and deepseek at 4 layers in bf16 with every expert chosen (k = E, so a
+    near-tied expert cannot swap between the two paths) within
+    HANDOFF_BF16_TOL, and each at 4 layers in f32 with its own top-k within
+    HANDOFF_F32_TOL; (c) phase 10's check for both models (f32, 4 layers,
+    batch 2, prompt 256, prefill, 2 decode steps, the split tail at layer
+    2): every MoE layer routes every token to the same experts on the card
+    and the CPU, logits within CPU_TOL, the CPU decode of the card's payload
+    bitwise equal; (d) deepseek-v2-lite-16b (27 layers, d 2048, MLA rank
+    512, 64 experts top-6 and 2 shared, a dense layer 0, bf16) served the
+    same way, split at layer 13: the codec pair once each and no other
+    kernel (MLA runs none);
+14. a profiler trace of phase 6's head model and batched tail at each
     split: the card's busy time and B1's part of it; then of one
     compress_head, its device encode and copy alone, and one
     decompress_group at split 1: B2/B3 beside the copies and the eager
     kernels around them (pack, delta epilogue); then of one MAC drain of
     phase 12 (a) under edf: device busy ms (and the sorts' part), idle
     share, kernels, memsets and copies per executed TTI and the host time
-    of the stop-code reads.  It runs last: after a profiler session,
+    of the stop-code reads; then a decode step of each MoE model of phase
+    13 (batch 4, cache of 2048): device busy ms, device events and the idle
+    share against its host-clock time.  It runs last: after a profiler session,
     host-clock times later in the same process can read higher, and phases
-    6-9 time on the host clock.
+    6-13 time on the host clock.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -193,6 +217,12 @@ HANDOFF_F32_TOL = 1e-4
 HANDOFF_BF16_TOL = 3e-2
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_GEN, LM_SPLIT = 4, 2048, 32, 0.5
+# phase 13: the MoE family, each model served as phase 9 serves LM_ARCH
+# (granite: GQA through B5/B6, split at layer 16; deepseek: MLA, which runs
+# no kernel, split at layer 13); the consistency checks take a drop-free
+# copy of each config (capacity dropping depends on the sequence length)
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+MOE_DROP_FREE = 16.0
 CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
 # the vectorized MAC at the sizes benchmarks/bench_scale.py calls city scale:
 # its 10,240-flow headline drain at TOTAL_BYTES of offered load (the oracle
@@ -884,6 +914,291 @@ def mac_event(cell) -> None:
         "the two engines bitwise equal")
 
 
+def moe_serve(arch: str) -> None:
+    """Phase 13 (a), (d): ``serve`` at the full width of ``arch`` as phase 9
+    serves LM_ARCH, every launch counter at 0 before and read after, the
+    routing of every MoE layer recorded.  A GQA model launches B5 once per
+    layer in the prefill and once across the split's head and tail, B6 once
+    per layer and decode step; MLA launches neither; the codec pair once
+    each."""
+    import argparse
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import layers as L
+
+    cfg = get_config(arch)
+    n = cfg.n_layers
+    n_moe = n - cfg.first_dense_layers
+    want = {"codec_encode": 1, "codec_decode": 1}
+    if not cfg.use_mla:
+        want.update(flash_attention=2 * n, decode_attention=n * LM_GEN)
+    args = argparse.Namespace(arch=arch, reduced=False,
+                              prompt_len=LM_PROMPT, gen=LM_GEN,
+                              batch=LM_BATCH, split=LM_SPLIT, device="cuda",
+                              status_out=None)
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with L.record_routing() as routing:
+        st = SV.serve(args)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    log(f"serve {cfg.name} launches: {got} (expected from the config {want})")
+    if got != want:
+        raise AssertionError(f"serving {cfg.name} did not launch the kernels "
+                             "as often as its config implies")
+    snap = json.loads(json.dumps(st))["metrics"]
+    ctr, hist = snap["counters"], snap["histograms"]
+    if (ctr["nonfinite_logits_total"] != 0
+            or ctr["tokens_generated_total"] != LM_BATCH * LM_GEN
+            or hist["decode_step_s"]["count"] != LM_GEN):
+        raise AssertionError(f"serve {cfg.name} status: {ctr}")
+    raw_b = int(ctr["boundary_raw_bytes_total"])
+    if raw_b != (LM_BATCH * LM_PROMPT * cfg.d_model
+                 * getattr(torch, cfg.dtype).itemsize):
+        raise AssertionError(f"split payload of {raw_b} B")
+    # the split's head and tail, the prefill, then the decode steps: each a
+    # pass over every MoE layer
+    if len(routing) != n_moe * (2 + LM_GEN):
+        raise AssertionError(f"{len(routing)} MoE layer calls recorded")
+    prefill = routing[n_moe:2 * n_moe]
+    kept = sum(int(r["keep"].sum()) for r in prefill)
+    total = sum(r["keep"].numel() for r in prefill)
+    # the busiest expert's load over its fair share (S k / E) per layer
+    fair = total / len(prefill) / cfg.n_experts / LM_BATCH
+    busiest = sorted(float(torch.stack([torch.bincount(
+        row.flatten(), minlength=cfg.n_experts) for row in r["idx"]]).max())
+        / fair for r in prefill)
+    if not all(bool(r["keep"].all()) for r in routing[2 * n_moe:]):
+        raise AssertionError("a decode step dropped an assignment")
+    log(f"serve {cfg.name} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_GEN} decode steps, split at layer {max(1, int(n * LM_SPLIT))}/"
+        f"{n} ({t_serve:.1f} s with init): prefill "
+        f"{hist['prefill_s']['sum'] * 1e3:.2f} ms; decode "
+        f"{hist['decode_step_s']['sum'] / LM_GEN * 1e3:.3f} ms per step of "
+        f"{LM_BATCH} tokens; split one-shot {hist['split_s']['sum'] * 1e3:.2f} "
+        f"ms, boundary {raw_b} B -> "
+        f"{int(ctr['boundary_compressed_bytes_total'])} B; the prefill "
+        f"dropped {total - kept} of {total} routed assignments "
+        f"({(total - kept) / total:.4%}) at capacity factor "
+        f"{cfg.moe_capacity_factor} ({L.moe_capacity(cfg, LM_PROMPT)} rows "
+        f"per expert and batch row; the busiest expert of a batch row takes "
+        f"{busiest[len(busiest) // 2]:.2f}x its fair share in the median "
+        f"layer, {busiest[-1]:.2f}x at most); no non-finite logit; peak "
+        f"device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def moe_handoffs(dev) -> None:
+    """Phase 13 (b): prefill to S-1 plus one decode step against a prefill
+    to S, on drop-free copies of the configs (MOE_DROP_FREE): granite at
+    full depth in bf16 on serve's weights and prompt, deepseek at 4 layers
+    (the dense layer and three MoE layers) in bf16, then each at 4 layers in
+    f32 on the same weights upcast.  In bf16 the last token's router input
+    differs between the two paths by bf16 rounding, enough to swap a
+    near-tied expert (a change of O(gate), no fault), so the bf16 runs route
+    every token to every expert (k = E: no discrete choice left) and differ
+    by rounding only; f32 keeps the config's top-k."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_map
+
+    def cases():
+        granite = get_config(MOE_ARCHS[0]).replace(
+            moe_capacity_factor=MOE_DROP_FREE)
+        model = get_model(granite, dev)
+        gen = torch.Generator(device=dev).manual_seed(SV.SEED)
+        params = model.init(gen)
+        tokens = model.concrete(model.prefill_inputs(InputShape(
+            "cli", seq_len=LM_PROMPT, global_batch=LM_BATCH, kind="prefill")),
+            gen)["tokens"]
+        yield (granite.replace(moe_top_k=granite.n_experts), params, tokens,
+               HANDOFF_BF16_TOL)
+        del params
+        for arch in MOE_ARCHS:
+            cut = get_config(arch).replace(n_layers=4,
+                                           moe_capacity_factor=MOE_DROP_FREE)
+            p16 = T.init(cut, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+            toks = tokens % cut.vocab_size
+            if arch != MOE_ARCHS[0]:
+                yield (cut.replace(moe_top_k=cut.n_experts), p16, toks,
+                       HANDOFF_BF16_TOL)
+            yield (cut.replace(dtype="float32"),
+                   tree_map(lambda a: a.float(), p16), toks, HANDOFF_F32_TOL)
+
+    for cfg, params, toks, tol in cases():
+        gap, top = handoff_gap(*handoff_logits(cfg, params, toks))
+        del params
+        log(f"{cfg.name} drop-free (capacity factor {MOE_DROP_FREE}), top-"
+            f"{cfg.moe_top_k} of {cfg.n_experts}, {cfg.n_layers} layers, "
+            f"{cfg.dtype}: prefill to {LM_PROMPT - 1} + decode vs prefill to "
+            f"{LM_PROMPT}: max |diff| {gap:.4g} = {gap / top:.3g} of max "
+            f"|logit| {top:.4g} (tol {tol})")
+        if not gap <= tol * top:
+            raise AssertionError(f"{cfg.name} {cfg.dtype}: prefill -> decode "
+                                 "logits disagree")
+
+
+def moe_against_cpu(cfg, dev) -> None:
+    """Phase 13 (c): phase 10's check on ``cfg``: f32, 4 layers, batch 2,
+    prompt 256, prefill, two greedy decode steps and the split tail at
+    layer 2 on the card and on the port's CPU path.  Every MoE layer must
+    route every token to the same experts on both; logits within CPU_TOL of
+    the card's max |logit|; the CPU decode of the card's split payload
+    bitwise equal to the card's."""
+    import torch
+    from repro_torch.core.compression import ActivationCodec
+    from repro_torch.core.splitting import LMSplitPlan, Workload, split_option
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cut = cfg.replace(n_layers=4, dtype="float32")
+    B, S, steps, split = 2, 256, 2, 2
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p_gpu = T.init(cut, gen, dev)
+    p_cpu = tree_map(lambda a: a.to(cpu), p_gpu)
+    tokens = torch.randint(0, cut.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    logits, routes = {}, {}
+    opt = split_option(split)
+    with torch.no_grad():
+        payload, _ = LMSplitPlan(cut, p_gpu, candidates=(split,),
+                                 workload=Workload(n_tokens=S),
+                                 device=dev).head({"tokens": tokens}, opt)
+        comp = ActivationCodec(device=dev).compress(payload)
+        dec = {}
+        for where, params_, d in (("card", p_gpu, dev), ("cpu", p_cpu, cpu)):
+            with L.record_routing() as rec:
+                lg, caches = T.prefill(cut, params_, {"tokens": tokens.to(d)},
+                                       S + steps)
+                logits.setdefault("prefill", []).append(lg)
+                tok = logits["prefill"][0][:, -1:].argmax(-1).to(torch.int32)
+                for i in range(steps):
+                    lg, caches = T.decode_step(cut, params_, caches,
+                                               {"tokens": tok.to(d)}, S + i)
+                    logits.setdefault(f"decode {i}", []).append(lg)
+                    tok = logits[f"decode {i}"][0].argmax(-1).to(torch.int32)
+                dec[where] = ActivationCodec(device=d).decompress(comp)
+                plan = LMSplitPlan(cut, params_, candidates=(split,),
+                                   workload=Workload(n_tokens=S), device=d)
+                logits.setdefault("split tail", []).append(
+                    plan.tail(dec[where], opt))
+            routes[where] = rec
+    if not torch.equal(dec["cpu"]["h"].view(torch.int32),
+                       dec["card"]["h"].cpu().view(torch.int32)):
+        raise AssertionError("CPU decode of the card's split payload differs")
+    n_moe = cut.n_layers - cut.first_dense_layers
+    want_calls = n_moe * (1 + steps) + (cut.n_layers - split)
+    card, host = routes["card"], routes["cpu"]
+    if not len(card) == len(host) == want_calls:
+        raise AssertionError(f"{len(card)} / {len(host)} MoE layer calls "
+                             f"recorded, {want_calls} expected")
+    # a token's k experts are a set: their order (by probability) decides
+    # only the order of the k-sum, so two probabilities a few ulps apart may
+    # come in either order; the set, and each (token, expert)'s keep and
+    # slot, must be equal
+    n_assign = n_swapped = 0
+    for a, b in zip(card, host):
+        a = {k: v.cpu() for k, v in a.items()}
+        (ea, oa), (eb, ob) = a["idx"].sort(-1), b["idx"].sort(-1)
+        if not (torch.equal(ea, eb)
+                and all(torch.equal(a[n].gather(-1, oa), b[n].gather(-1, ob))
+                        for n in ("keep", "slot"))):
+            raise AssertionError(f"{cut.name}: the card and the CPU route a "
+                                 "token to different experts")
+        n_assign += b["idx"].numel()
+        n_swapped += int((a["idx"] != b["idx"]).any(-1).sum())
+    worst = 0.0
+    for name, (a, b) in logits.items():
+        a = a.cpu()
+        rel = float((a - b).abs().max()) / float(a.abs().max())
+        worst = max(worst, rel)
+        log(f"card vs CPU, {cut.name} {name} logits {tuple(a.shape)}: max "
+            f"|diff| / max |logit| = {rel:.3g}")
+    if not worst <= CPU_TOL:
+        raise AssertionError(f"{cut.name} card vs CPU: {worst}")
+    log(f"CPU path, {cfg.name} widths, f32, {cut.n_layers} layers, batch {B}, "
+        f"prompt {S} ({time.perf_counter() - t0:.1f} s): prefill, {steps} "
+        f"decode steps and the split tail at layer {split} within {worst:.3g} "
+        f"of the card (rel. tol {CPU_TOL}); {len(card)} MoE layer calls, "
+        f"{n_assign} routed assignments, the same experts, slots and drops "
+        f"on both ({n_swapped} tokens with two experts in the other order); "
+        f"the CPU decode of the card's payload ({comp.raw_bytes} B -> "
+        f"{comp.compressed_bytes} B) bitwise equal")
+
+
+def moe_decode_trace(arch: str, dev) -> None:
+    """Phase 14: one MoE model's decode step on serve's weights and prompt
+    (batch 4, the cache after a 2048-token prefill): the host-clock ms of
+    three steps before the trace, then the card's busy ms and device events
+    of three steps under the profiler, and the idle share between them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import serve as SV
+    from repro_torch.models.registry import get_model
+
+    model = get_model(get_config(arch), dev)
+    gen = torch.Generator(device=dev).manual_seed(SV.SEED)
+    params = model.init(gen)
+    tokens = model.concrete(model.prefill_inputs(InputShape(
+        "cli", seq_len=LM_PROMPT, global_batch=LM_BATCH, kind="prefill")),
+        gen)["tokens"]
+    at = [LM_PROMPT]
+
+    def steps():
+        for _ in range(3):
+            model.decode_step(params, caches, {"tokens": tokens[:, -1:]},
+                              at[0])
+            at[0] += 1
+
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": tokens}, LM_PROMPT + 32)
+        wall = host_ms(steps, runs=1) / 3               # after a warm-up
+        busy, n_ev, by_name = traced_busy_ms(f"{arch} decode", steps)
+    log(f"trace {arch} decode step (batch {LM_BATCH}, cache of {LM_PROMPT}): "
+        f"device busy {busy / 3:.2f} ms of {wall:.2f} ms host-clock time, "
+        f"idle share {max(0.0, 1 - busy / 3 / wall):.3f}, {n_ev // 3} device "
+        f"events a step; largest: "
+        + ", ".join(f"{name[:48]} {t / 3:.3f} ms"
+                    for name, t in by_name.most_common(4)))
+    del params, caches
+    torch.cuda.empty_cache()
+
+
+def phase13(dev) -> None:
+    """The MoE family at full width (module docstring, phase 13), each part
+    timed."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    granite, deepseek = MOE_ARCHS
+    secs = {}
+    for part, fn in (("a", lambda: moe_serve(granite)),
+                     ("b", lambda: moe_handoffs(dev)),
+                     ("c", lambda: [moe_against_cpu(get_config(a), dev)
+                                    for a in MOE_ARCHS]),
+                     ("d", lambda: moe_serve(deepseek))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t0
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1157,6 +1472,10 @@ def main() -> int:
         flash_cases += [(2, 200, 520, lm_H, lm_KV, lm_hd, dt, True),
                         (2, 333, 333, lm_H, lm_KV, lm_hd, dt, True),
                         (2, 300, 300, 15, 5, 64, dt, True)]
+    moe_cfg = get_config(MOE_ARCHS[0])          # granite: G 3 at hd 64
+    moe_H, moe_KV, moe_hd = moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim
+    flash_cases += [(LM_BATCH, LM_PROMPT, LM_PROMPT, moe_H, moe_KV, moe_hd, dt,
+                     True) for dt in (bf16, f32)]
     flash_cases += [(2, 150, 150, 4, 2, 16, bf16, True),   # the small heads
                     (2, 150, 190, 4, 2, 32, bf16, True),
                     (2, 200, 130, lm_H, lm_KV, lm_hd, bf16, False)]
@@ -1180,28 +1499,32 @@ def main() -> int:
             f"plain| {err:.3g}; worst row {rel:.3g} of its max|out| (tol "
             f"{tol}); two launches bitwise equal")
     cache_len = LM_PROMPT + LM_GEN
-    chunk, n_splits = da.split_plan(cache_len, lm_hd)
-    lens = torch.tensor([0, 1, chunk, chunk + 1, LM_PROMPT, cache_len, 777],
-                        dtype=torch.int32, device=dev)
-    for dt in (bf16, f32):
-        q = rnd((len(lens), 1, lm_H, lm_hd), dt)
-        ck_, cv_ = (rnd((len(lens), lm_KV, cache_len, lm_hd), dt) for _ in range(2))
-        ref = da.decode_attention_plain(q, ck_, cv_, lens)
-        out = da.decode_attention_cuda(q, ck_, cv_, lens)
-        again = da.decode_attention_cuda(q, ck_, cv_, lens)
-        torch.cuda.synchronize()
-        err, rel = rel_err(out, ref)
-        tol = BF16_TOL if dt == bf16 else F32_TOL
-        if not (torch.isfinite(out).all() and rel <= tol
-                and not out[0].any() and torch.equal(out, again)):
-            raise AssertionError(f"B6 {dt}: rel err {rel}, or kv_len 0 is "
-                                 "not zeros, or two launches differ")
-        attn_errs["decode_attention"] = max(attn_errs["decode_attention"], err)
-        log(f"check B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
-            f"{lens.tolist()} (chunks of {chunk}, {n_splits} splits) "
-            f"{str(dt).removeprefix('torch.')}: max|kernel-plain| {err:.3g}; "
-            f"worst row {rel:.3g} of its max|out| (tol {tol}); kv_len 0 "
-            f"gives zeros; two launches bitwise equal")
+    for H_, KV_, hd_ in ((lm_H, lm_KV, lm_hd), (moe_H, moe_KV, moe_hd)):
+        chunk, n_splits = da.split_plan(cache_len, hd_)
+        lens = torch.tensor([0, 1, chunk, chunk + 1, LM_PROMPT, cache_len, 777],
+                            dtype=torch.int32, device=dev)
+        for dt in (bf16, f32):
+            q = rnd((len(lens), 1, H_, hd_), dt)
+            ck_, cv_ = (rnd((len(lens), KV_, cache_len, hd_), dt)
+                        for _ in range(2))
+            ref = da.decode_attention_plain(q, ck_, cv_, lens)
+            out = da.decode_attention_cuda(q, ck_, cv_, lens)
+            again = da.decode_attention_cuda(q, ck_, cv_, lens)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, ref)
+            tol = BF16_TOL if dt == bf16 else F32_TOL
+            if not (torch.isfinite(out).all() and rel <= tol
+                    and not out[0].any() and torch.equal(out, again)):
+                raise AssertionError(f"B6 {tuple(q.shape)} {dt}: rel err {rel}, "
+                                     "or kv_len 0 is not zeros, or two "
+                                     "launches differ")
+            attn_errs["decode_attention"] = max(attn_errs["decode_attention"],
+                                                err)
+            log(f"check B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
+                f"{lens.tolist()} (chunks of {chunk}, {n_splits} splits) "
+                f"{str(dt).removeprefix('torch.')}: max|kernel-plain| "
+                f"{err:.3g}; worst row {rel:.3g} of its max|out| (tol {tol}); "
+                f"kv_len 0 gives zeros; two launches bitwise equal")
 
     # B7 through its entry point, ops.window_attention, at the four Swin-T
     # stage partitions of N_UES images, with the shifted-region mask of each
@@ -1632,7 +1955,7 @@ def main() -> int:
         f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
         f"decode step")
 
-    swin_traces = []                       # traced in phase 13
+    swin_traces = []                       # traced in phase 14
     with torch.no_grad():
         for split in SPLITS:
             opt = split_option(split)
@@ -1658,7 +1981,7 @@ def main() -> int:
             # the host unzip, and one payload's upload with the device decode
             tree = producer(params, frames[:1])
             leaves, _ = codec._leaves(tree)
-            if split == 1:                 # the codec's part, traced in phase 13
+            if split == 1:                 # the codec's part, traced in phase 14
                 codec_traces = [
                     ("split 1 compress_head", functools.partial(
                         codec.compress_head, producer, params, frames[:1])),
@@ -2006,7 +2329,10 @@ def main() -> int:
     mac_what, mac_fn = phase12(cell)
     del cell
 
-    # -- 13. the Swin path's device time, and B1's part of it ---------------
+    # -- 13. the MoE family at full width ------------------------------------
+    phase13(dev)
+
+    # -- 14. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():
         for what, fn in swin_traces:
             busy, n_ev, by_name = traced_busy_ms(what, fn)
@@ -2057,6 +2383,10 @@ def main() -> int:
         f"{per('kernels'):.1f} kernels, {per('memsets'):.1f} memsets, "
         f"{per('copies'):.1f} copies; reads of the stop code and other "
         f"device values {c['reads']:.1f} ms of host time")
+
+    # the MoE family's decode step (phase 13's models, serve's weights)
+    for arch in MOE_ARCHS:
+        moe_decode_trace(arch, dev)
 
     kernels = []
     for name, r in rows.items():

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 A copy of ``repro/configs/__init__.py`` and its config files, as data.  The
-port's LM (``models/transformer.py``) runs the dense family; the other
-configs are here so that ``--arch`` names every architecture and the model
-raises on the ones it does not run yet.
+port's LM (``models/transformer.py``) runs the dense and MoE families;
+the other configs are here so that ``--arch`` names every architecture and
+the model raises on the ones it does not run yet.
 """
 from __future__ import annotations
 

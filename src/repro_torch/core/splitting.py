@@ -6,8 +6,9 @@ paper Fig. 4: UE_ONLY, SPLIT(l), SERVER_ONLY.
   * ``SwinSplitPlan``: the paper's setting, the Swin detection backbone
     split after patch embedding or after stage 1..4; the FPN and detection
     head always run on the server.
-  * ``LMSplitPlan``: the technique on a dense LM, the residual stream cut
-    at a layer boundary (quartile depths by default); the payload is the
+  * ``LMSplitPlan``: the technique on an LM of the dense or MoE family,
+    the residual stream cut at a layer boundary (quartile depths by
+    default), across runs of different block kinds; the payload is the
     (B, S, d) activation after layer l.
 
 Both are the port's own classes, not subclasses of the JAX package's; the
@@ -215,8 +216,8 @@ class LMSplitPlan(_PlanBase):
             return dict(batch), None
         h = self._embed(self.params, batch)
         hi = self.cfg.n_layers if option == UE_ONLY else _split_of(option)
-        h, _ = T.forward_slice(self.cfg, self.params, h, T.positions_for(h),
-                               0, hi)
+        h, _, _ = T.forward_slice(self.cfg, self.params, h,
+                                  T.positions_for(h), 0, hi)
         if option == UE_ONLY:
             return None, self._finish(self.params, h)
         return {"h": h}, None
@@ -226,8 +227,8 @@ class LMSplitPlan(_PlanBase):
             h, lo = self._embed(params, payload), 0
         else:
             h, lo = payload["h"], _split_of(option)
-        h, _ = T.forward_slice(self.cfg, params, h, T.positions_for(h), lo,
-                               self.cfg.n_layers)
+        h, _, _ = T.forward_slice(self.cfg, params, h, T.positions_for(h),
+                                  lo, self.cfg.n_layers)
         return self._finish(params, h)
 
     def _finish(self, params, h: torch.Tensor) -> torch.Tensor:
@@ -254,7 +255,8 @@ class LMSplitPlan(_PlanBase):
 
     def payload_specs(self, option: str) -> List[Tuple[Tuple[int, ...], str]]:
         """(shape, dtype) per shipped tensor, batch dim excluded.  The JAX
-        package also ships SSM/hybrid state here; the dense family has none."""
+        package also ships SSM/hybrid state here; the dense and MoE families
+        have none."""
         seq_len = self.workload.n_tokens
         if option == UE_ONLY:
             return []

@@ -1,5 +1,4 @@
-"""Shared layers (``repro/models/layers.py``): the Swin slice's and the dense
-LM's.
+"""Shared layers (``repro/models/layers.py``): the Swin slice's and the LM's.
 
 Conventions, as the JAX package's: activations flow in the model's dtype
 (float32 for Swin-T, bf16 for the full-width LMs); norm statistics, RoPE
@@ -8,22 +7,34 @@ angles and softmax run in float32; every product accumulates in float32
 counterpart: with ``out_dtype`` equal to the operands' dtype it runs that
 dtype's GEMM, which accumulates in float32 (the package keeps bf16 reduced-
 precision reductions off) and rounds once at the end; otherwise it runs on
-float32 copies of the operands.  Logits stay float32 (``dense32``).  The
-package's fp32 policy keeps float32 products off TF32.
+float32 copies of the operands, and without ``out_dtype`` the result stays
+float32.  Logits stay float32 (``dense32``).  The package's fp32 policy
+keeps float32 products off TF32.  Weights are drawn in float32 and cast to
+the config's dtype (``dtype_of``), as ``init_dense`` does there; the MoE
+router stays float32.
 
-Attention runs through the kernels: prefill through ``ops.flash_attention``
-(B5), decode through ``ops.decode_attention_kv_major`` (B6) on the KV-major
-cache.  The JAX package's ``plain_attention`` and its XLA blockwise path
+GQA attention runs through the kernels: prefill through
+``ops.flash_attention`` (B5), decode through
+``ops.decode_attention_kv_major`` (B6) on the KV-major cache.  The JAX
+package's ``plain_attention`` and its XLA blockwise path
 (``models/attention_flash.py``), between which it switches at
-``attn_block_q``, have no port: every prefill takes B5, whose CPU path is the
-dense masked softmax.  MLA, MoE, sliding windows and logit soft-capping are
-not ported (ROADMAP A8b).
+``attn_block_q``, have no port for GQA: every GQA prefill takes B5, whose
+CPU path is the dense masked softmax.
+
+MLA (DeepSeek's latent attention) runs no kernel, as in the JAX package:
+its prefill attention (q and k at head dim dn + dr against v at dv) is
+``mla_prefill_attention``, the dense masked softmax of ``plain_attention``
+in plain PyTorch ops, and its decode is the absorbed form against the
+latent cache, einsums.  The MoE FFN (``moe_apply``) is capacity-routed
+top-k with a cumsum-position dispatch, einsums and a scatter, as there.
+Sliding windows and logit soft-capping are not ported (ROADMAP A8b).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,13 +42,32 @@ import torch
 from repro_torch.kernels import ops
 
 
+NEG_INF = -1e30
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
 def einsum32(subs: str, *args: torch.Tensor,
-             out_dtype: torch.dtype) -> torch.Tensor:
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``torch.einsum`` with products accumulated in float32 and the result
-    rounded once to ``out_dtype``."""
-    if all(a.dtype == out_dtype for a in args):
+    rounded once to ``out_dtype``, float32 without it."""
+    if out_dtype is not None and all(a.dtype == out_dtype for a in args):
         return torch.einsum(subs, *args)
-    return torch.einsum(subs, *(a.float() for a in args)).to(out_dtype)
+    out = torch.einsum(subs, *(a.float() for a in args))
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with products accumulated in float32 and a float32
+    result.  On the card, half-precision operands go through cuBLAS's half
+    GEMM with a float32 output (no float32 copy of the expert weights);
+    elsewhere the operands are upcast (``aten::bmm.dtype`` has no CPU
+    kernel)."""
+    if a.is_cuda and a.dtype == b.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 def dense32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -61,14 +91,15 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def init_dense(generator: torch.Generator, shape: Sequence[int],
-               scale: Optional[float] = None) -> torch.Tensor:
-    """Normal(0, scale^2) float32 weights, ``scale`` = fan_in^-1/2 by
-    default, drawn from ``generator`` on its device."""
+               scale: Optional[float] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Normal(0, scale^2) weights drawn in float32 and cast to ``dtype``,
+    ``scale`` = fan_in^-1/2 by default, from ``generator`` on its device."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
-                       device=generator.device) * scale
+    return (torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                        device=generator.device) * scale).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -122,18 +153,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def attn_init(cfg, generator: torch.Generator) -> dict:
-    """float32 weights; ``models/transformer.py::init`` casts them to the
-    config's dtype."""
+    """Weights in the config's dtype, drawn from ``generator`` on its
+    device."""
+    dt = dtype_of(cfg)
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": init_dense(generator, (d, H, hd)),
-        "wk": init_dense(generator, (d, KV, hd)),
-        "wv": init_dense(generator, (d, KV, hd)),
-        "wo": init_dense(generator, (H, hd, d), scale=1.0 / math.sqrt(H * hd)),
+        "wq": init_dense(generator, (d, H, hd), dtype=dt),
+        "wk": init_dense(generator, (d, KV, hd), dtype=dt),
+        "wv": init_dense(generator, (d, KV, hd), dtype=dt),
+        "wo": init_dense(generator, (H, hd, d), scale=1.0 / math.sqrt(H * hd),
+                         dtype=dt),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((hd,), device=generator.device)
-        p["k_norm"] = torch.ones((hd,), device=generator.device)
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=generator.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=generator.device)
     return p
 
 
@@ -180,11 +213,95 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     return y, new_kv
 
 
-def mlp_init(cfg, generator: torch.Generator) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": init_dense(generator, (d, f)),
-            "w_up": init_dense(generator, (d, f)),
-            "w_down": init_dense(generator, (f, d))}
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(cfg, generator: torch.Generator) -> dict:
+    dt = dtype_of(cfg)
+    d, H = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return {
+        "wq": init_dense(generator, (d, H, dn + dr), dtype=dt),
+        "w_dkv": init_dense(generator, (d, r + dr), dtype=dt),
+        "w_uk": init_dense(generator, (r, H, dn), dtype=dt),
+        "w_uv": init_dense(generator, (r, H, dv), dtype=dt),
+        "wo": init_dense(generator, (H, dv, d), scale=1.0 / math.sqrt(H * dv),
+                         dtype=dt),
+        "kv_norm": torch.ones((r,), dtype=dt, device=generator.device),
+    }
+
+
+def mla_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Causal attention with one kv head per query head: q, k (B, S, H, dqk),
+    v (B, S, H, dv) -> (B, S, H, dv) in q's dtype.  The JAX package's
+    ``plain_attention`` at this shape: float32 logits over sqrt(dqk), the
+    causal mask at NEG_INF, a float32 softmax, the context rounded once.  Its
+    blockwise XLA path, taken above ``attn_block_q``, is the same function."""
+    S = q.shape[1]
+    logits = einsum32("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    pos = torch.arange(S, device=q.device)
+    logits = logits.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return einsum32("bhqk,bkhd->bqhd", p, v, out_dtype=q.dtype)
+
+
+def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+              cache: Optional[dict] = None,
+              cache_index: Optional[int] = None):
+    """MLA.  The cache holds only the normed latent (B, S_cache, r) and the
+    shared rope key (B, S_cache, dr).  Prefill (``cache`` None) materialises
+    per-head K and V from the latent; decode takes the absorbed form: q_nope
+    through ``w_uk`` against the latent cache, plus q_rope . k_rope, the
+    context back through ``w_uv``.  The new rows are written into the cache
+    at ``cache_index`` in place.  Returns (out, new_cache): the (latent,
+    k_rope) for cache construction, or the updated cache."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    dkv = einsum32("bsd,dr->bsr", x, p["w_dkv"], out_dtype=x.dtype)
+    latent = rms_norm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
+    if cache is not None:
+        cl, cr = cache["latent"], cache["k_rope"]
+        cl[:, cache_index:cache_index + S] = latent.to(cl.dtype)
+        cr[:, cache_index:cache_index + S] = k_rope.to(cr.dtype)
+        q_abs = einsum32("bshk,rhk->bshr", q_nope, p["w_uk"])
+        logits = einsum32("bshr,btr->bhst", q_abs.to(x.dtype), cl)
+        logits = logits + einsum32("bshk,btk->bhst", q_rope, cr)
+        logits = logits * (1.0 / math.sqrt(q.shape[-1]))
+        dead = torch.arange(cl.shape[1], device=x.device) >= cache_index + S
+        pr = torch.softmax(logits.masked_fill(dead, NEG_INF), dim=-1)
+        ctx = einsum32("bhst,btr->bshr", pr, cl)
+        out = einsum32("bshr,rhv->bshv", ctx, p["w_uv"], out_dtype=x.dtype)
+        new_cache = cache
+    else:
+        k_nope = einsum32("bsr,rhk->bshk", latent, p["w_uk"], out_dtype=x.dtype)
+        v = einsum32("bsr,rhv->bshv", latent, p["w_uv"], out_dtype=x.dtype)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, k_rope.shape[-1])], dim=-1)
+        out = mla_prefill_attention(torch.cat([q_nope, q_rope], dim=-1), k, v)
+        new_cache = {"latent": latent, "k_rope": k_rope}
+    y = einsum32("bshv,hvd->bsd", out, p["wo"], out_dtype=x.dtype)
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# FFN: dense (SwiGLU) and MoE
+# ---------------------------------------------------------------------------
+
+def mlp_init(cfg, generator: torch.Generator,
+             d_ff: Optional[int] = None) -> dict:
+    dt = dtype_of(cfg)
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {"w_gate": init_dense(generator, (d, f), dtype=dt),
+            "w_up": init_dense(generator, (d, f), dtype=dt),
+            "w_down": init_dense(generator, (f, d), dtype=dt)}
 
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -192,3 +309,107 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(dense(x, p["w_gate"]).float()).to(x.dtype)
     h = h * dense(x, p["w_up"])
     return dense(h, p["w_down"])
+
+
+def moe_init(cfg, generator: torch.Generator) -> dict:
+    """The router (d, E) in float32 in every config; the experts (E, d, f)
+    and (E, f, d) and the shared experts' SwiGLU in the config's dtype."""
+    dt = dtype_of(cfg)
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    p = {
+        "router": init_dense(generator, (d, E)),
+        "w_gate": init_dense(generator, (E, d, f), scale=1.0 / math.sqrt(d),
+                             dtype=dt),
+        "w_up": init_dense(generator, (E, d, f), scale=1.0 / math.sqrt(d),
+                           dtype=dt),
+        "w_down": init_dense(generator, (E, f, d), scale=1.0 / math.sqrt(f),
+                             dtype=dt),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(cfg, generator, d_ff=cfg.n_shared_experts * f)
+    return p
+
+
+_ROUTING: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def record_routing():
+    """While open, every ``moe_apply`` appends its routing to the yielded
+    list: ``idx`` (B, S, k), the chosen experts best first; ``keep`` (B, S,
+    k), whether the assignment found room under the capacity; ``slot`` (B, S,
+    k), its row in the batch row's dispatch buffer, ``expert * cap + pos``,
+    or ``E * cap`` (the overflow row) when dropped.  Tensors stay on the
+    device; nothing is read back."""
+    global _ROUTING
+    outer, _ROUTING = _ROUTING, []
+    try:
+        yield _ROUTING
+    finally:
+        _ROUTING = outer
+
+
+def moe_capacity(cfg, S: int) -> int:
+    """Rows per expert and batch row: ``S k / E`` times the capacity factor,
+    rounded, within [1, S]."""
+    cap = int(S * cfg.moe_top_k / cfg.n_experts * cfg.moe_capacity_factor
+              + 0.5)
+    return max(min(cap, S), 1)
+
+
+def moe_apply(cfg, p: dict, x: torch.Tensor):
+    """Capacity-routed top-k MoE with a cumsum-position dispatch, per batch
+    row, as the JAX package's.  x (B, S, d) -> (y (B, S, d), aux).
+
+    Top-k takes the first k of a stable descending sort, so ties go to the
+    lowest expert as with ``jax.lax.top_k`` (``torch.topk`` does not order
+    them).  An assignment's position is the running count of its expert
+    over the batch row's (S k) assignments, token-major; from ``cap`` on it
+    is dropped.  Every kept row of the dispatch buffer holds one token, so
+    the scatter copies; the buffer lies expert-major, (E, B, cap), so each
+    expert's rows of every batch row are one GEMM operand.  Gate and up
+    products stay float32 through ``silu(g) * u`` and round once (unlike
+    ``mlp_apply``); the gather is weighted by ``keep * gate`` in x's dtype."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    cap = moe_capacity(cfg, S)
+    router_logits = dense32(x, p["router"])
+    probs = torch.softmax(router_logits, dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[..., :k], idx[..., :k]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    idx_f = idx.reshape(B, S * k)
+    pos_in_e = torch.nn.functional.one_hot(idx_f, E).cumsum(dim=1) - 1
+    pos = pos_in_e.gather(-1, idx_f[..., None])[..., 0]
+    keep = pos < cap
+    rows = torch.arange(B, device=x.device)[:, None]
+    dest = torch.where(keep, (idx_f * B + rows) * cap + pos, E * B * cap)
+    if _ROUTING is not None:
+        _ROUTING.append({
+            "idx": idx, "keep": keep.reshape(B, S, k),
+            "slot": torch.where(keep, idx_f * cap + pos,
+                                E * cap).reshape(B, S, k)})
+
+    buf = x.new_zeros((E * B * cap + 1, d))
+    buf[dest.reshape(-1)] = x.repeat_interleave(k, dim=1).reshape(-1, d)
+    buf = buf[:-1].view(E, B * cap, d)
+    g = bmm32(buf, p["w_gate"])
+    h = (torch.nn.functional.silu(g) * bmm32(buf, p["w_up"])).to(x.dtype)
+    out = einsum32("ecf,efd->ecd", h, p["w_down"], out_dtype=x.dtype)
+
+    got = out.reshape(E * B * cap, d)[torch.where(keep, dest, 0)]
+    got = got * (keep * gate.reshape(B, S * k)).to(x.dtype)[..., None]
+    y = got.reshape(B, S, k, d).sum(dim=2)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x)
+    return y, moe_load_balance_loss(cfg, router_logits)
+
+
+def moe_load_balance_loss(cfg, router_logits: torch.Tensor) -> torch.Tensor:
+    """E times the sum over experts of (mean router probability) x (share of
+    tokens whose first choice it is), float32."""
+    probs = torch.softmax(router_logits, dim=-1)
+    frac = probs.mean(dim=(0, 1))
+    top1 = torch.nn.functional.one_hot(probs.argmax(-1), cfg.n_experts)
+    return cfg.n_experts * (frac * top1.float().mean(dim=(0, 1))).sum()

@@ -1,20 +1,28 @@
-"""Stage-structured decoder: the dense subset of ``repro/models/transformer.py``.
+"""Stage-structured decoder: the dense and MoE subset of
+``repro/models/transformer.py``.
 
 Layers are grouped into runs of one block kind, and each run's parameters
 are stacked along a leading layer axis, as the JAX package stacks them with
 ``jax.vmap``.  Its ``jax.lax.scan`` over a run becomes a Python loop over the
 stacked weights here.  Runs are also the split boundaries of the paper's
 technique on an LM (``core/splitting.py::LMSplitPlan``): ``forward_slice``
-executes layers [lo, hi) of the same parameters.
+executes layers [lo, hi) of the same parameters, across runs.
 
-The port runs the dense family: GQA attention with optional qk-norm,
-SwiGLU FFNs, RMSNorm, RoPE, tied or separate embeddings, no sliding window
-and no logit soft-capping (``qwen3-1.7b``, ``qwen3-4b``, ``smollm-360m``,
-``starcoder2-15b``).  Any other config raises ``NotImplementedError``.
+The port runs the dense and MoE families: GQA attention with optional
+qk-norm or MLA (the latent attention), SwiGLU or capacity-routed MoE FFNs
+with optional shared experts and leading dense layers, RMSNorm, RoPE, tied
+or separate embeddings (``qwen3-1.7b``, ``qwen3-4b``, ``smollm-360m``,
+``starcoder2-15b``, ``granite-moe-3b-a800m``, ``deepseek-v2-lite-16b``).
+Sliding windows, logit soft-capping, the SSM and hybrid blocks, frontends
+and codebooks raise ``NotImplementedError`` (ROADMAP A8b).
 
-Decode caches are KV-major, (layers, B, KV, max_len, hd) per run, and a
-decode step writes its token into them in place (the JAX package returns a
-new cache).  The training loss (``lm_loss``, ``loss_fn``) is not ported.
+Decode caches are one stacked tree per run: GQA's KV-major, (layers, B, KV,
+max_len, hd), MLA's the latent (layers, B, max_len, r) and the rope key
+(layers, B, max_len, dr).  A decode step writes its token into them in
+place (the JAX package returns a new cache).  ``forward`` and
+``forward_slice`` return the MoE load-balance term summed over the layers
+in float32, as there; the training loss (``lm_loss``, ``loss_fn``) is not
+ported (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -42,26 +50,29 @@ class LayerKind:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the dense family
-    this port runs."""
+    """Raise ``NotImplementedError`` for a config outside the dense and MoE
+    families this port runs."""
     missing = [what for what, on in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
         ("a sliding window", bool(cfg.sliding_window)),
         ("logit soft-capping", bool(cfg.attn_logit_softcap)),
-        ("experts", bool(cfg.n_experts)),
-        ("MLA", cfg.use_mla),
         (f"frontend {cfg.frontend!r}", cfg.frontend != "none"),
         ("codebooks", bool(cfg.n_codebooks)),
         ("a hybrid block", cfg.hybrid)) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port's LM runs the dense family only; "
-            f"{', '.join(missing)} wait for ROADMAP A8b")
+            f"{cfg.name}: the port's LM runs the dense and MoE families "
+            f"only; {', '.join(missing)} wait for ROADMAP A8b")
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
     check_supported(cfg)
-    return tuple(LayerKind() for _ in range(cfg.n_layers))
+    attn = "mla" if cfg.use_mla else "gqa"
+    return tuple(
+        LayerKind(attn=attn, ffn="moe" if (cfg.n_experts and
+                                           i >= cfg.first_dense_layers)
+                  else "dense")
+        for i in range(cfg.n_layers))
 
 
 def layer_runs(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
@@ -74,43 +85,61 @@ def layer_runs(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
     return runs
 
 
-def dtype_of(cfg: ModelConfig) -> torch.dtype:
-    return getattr(torch, cfg.dtype)
-
-
 # ---------------------------------------------------------------------------
 # block init / apply / cache
 # ---------------------------------------------------------------------------
 
 def block_init(cfg: ModelConfig, kind: LayerKind,
                generator: torch.Generator) -> Dict[str, Any]:
-    """One layer's float32 weights, drawn from ``generator`` on its device."""
-    ones = torch.ones((cfg.d_model,), device=generator.device)
+    """One layer's weights in the JAX package's dtypes, drawn from
+    ``generator`` on its device."""
+    ones = torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg),
+                      device=generator.device)
     return {"ln1": ones, "ln2": ones.clone(),
-            "attn": L.attn_init(cfg, generator),
-            "ffn": L.mlp_init(cfg, generator)}
+            "attn": (L.mla_init(cfg, generator) if kind.attn == "mla"
+                     else L.attn_init(cfg, generator)),
+            "ffn": (L.moe_init(cfg, generator) if kind.ffn == "moe"
+                    else L.mlp_init(cfg, generator))}
 
 
 def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
                 cache_index: Optional[int] = None,
                 kv_len: Optional[torch.Tensor] = None):
-    """Pre-norm attention and FFN with residuals.  Returns (x, new_cache)."""
+    """Pre-norm attention and FFN with residuals.  Returns (x, new_cache,
+    aux): aux is the MoE layer's load-balance term, None for a dense FFN."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    ay, new_attn = L.attn_apply(cfg, p["attn"], h, positions,
-                                cache=None if cache is None else cache["attn"],
-                                cache_index=cache_index, kv_len=kv_len)
+    attn_cache = None if cache is None else cache["attn"]
+    if kind.attn == "mla":
+        ay, new_attn = L.mla_apply(cfg, p["attn"], h, positions,
+                                   cache=attn_cache, cache_index=cache_index)
+    else:
+        ay, new_attn = L.attn_apply(cfg, p["attn"], h, positions,
+                                    cache=attn_cache, cache_index=cache_index,
+                                    kv_len=kv_len)
     x = x + ay
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["ffn"], h2), {"attn": new_attn}
+    if kind.ffn == "moe":
+        fy, aux = L.moe_apply(cfg, p["ffn"], h2)
+    else:
+        fy, aux = L.mlp_apply(p["ffn"], h2), None
+    return x + fy, {"attn": new_attn}, aux
 
 
 def block_cache_init(cfg: ModelConfig, kind: LayerKind, B: int, max_len: int,
                      device) -> Dict[str, Any]:
-    """One layer's decode cache, KV-major (B, KV, max_len, hd), zeroed."""
-    shape = (B, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {"attn": {name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
-                     for name in ("k", "v")}}
+    """One layer's decode cache, zeroed: MLA's latent (B, max_len, r) and
+    rope key (B, max_len, dr), or GQA's KV-major k and v (B, KV, max_len,
+    hd)."""
+    if kind.attn == "mla":
+        shapes = {"latent": (B, max_len, cfg.kv_lora_rank),
+                  "k_rope": (B, max_len, cfg.qk_rope_head_dim)}
+    else:
+        shape = (B, cfg.n_kv_heads, max_len, cfg.head_dim)
+        shapes = {"k": shape, "v": shape}
+    return {"attn": {name: torch.zeros(shape, dtype=L.dtype_of(cfg),
+                                       device=device)
+                     for name, shape in shapes.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -118,12 +147,14 @@ def block_cache_init(cfg: ModelConfig, kind: LayerKind, B: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    """Random weights in the JAX package's tree and scales, drawn from
-    ``generator`` on its device and cast to the config's dtype.  The draws
-    are torch's, not ``jax.random``'s: a comparison with the JAX package
-    bridges its weights (``bridge.lm_params_from_numpy``) instead."""
+    """Random weights in the JAX package's tree, scales and dtypes (the
+    config's, the MoE router float32), drawn from ``generator`` on its
+    device.  Each run's stacked weights are allocated once and filled layer
+    by layer, so the peak is the model and one layer.  The draws are
+    torch's, not ``jax.random``'s: a comparison with the JAX package bridges
+    its weights (``bridge.lm_params_from_numpy``) instead."""
     device = resolve_device(device)
-    dt = dtype_of(cfg)
+    dt = L.dtype_of(cfg)
 
     def cast(t):
         return t.to(device=device, dtype=dt)
@@ -137,30 +168,38 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     runs = []
     for kind, count in layer_runs(cfg):
-        per_layer = [tree_map(cast, block_init(cfg, kind, generator))
-                     for _ in range(count)]
-        runs.append(tree_map(lambda *xs: torch.stack(xs), *per_layer))
+        stacked = None
+        for i in range(count):
+            layer = block_init(cfg, kind, generator)
+            if stacked is None:
+                stacked = tree_map(lambda a: a.new_empty(
+                    (count,) + tuple(a.shape), device=device), layer)
+            tree_map(lambda s, a: s[i].copy_(a), stacked, layer)
+        runs.append(stacked)
     params["runs"] = runs
     return params
 
 
 def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """Token ids (B, S) -> the (B, S, d) residual stream."""
-    return params["embed"][batch["tokens"]].to(dtype_of(cfg))
+    return params["embed"][batch["tokens"]].to(L.dtype_of(cfg))
 
 
 def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
                 positions: torch.Tensor, lo: int, hi: int, caches,
                 cache_index: Optional[int]):
-    """Layers [lo, hi).  With ``caches`` (one stacked tree per run) each
-    layer decodes into its slice in place and the new caches are views of
-    them; without, the new caches stack the layers' (k, v)."""
+    """Layers [lo, hi), across runs.  With ``caches`` (one stacked tree per
+    run) each layer decodes into its slice in place and the new caches are
+    views of them; without, the new caches stack the layers' (k, v) or
+    (latent, k_rope).  A run outside [lo, hi) adds no cache.  Returns (h,
+    new_caches, the MoE layers' aux summed in float32)."""
     new_caches = []
     kv_len = None
     if caches is not None:                       # one (B,) tensor per step
         B, S = h.shape[:2]
         kv_len = torch.full((B,), cache_index + S, dtype=torch.int32,
                             device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     start = 0
     for ri, (kind, count) in enumerate(layer_runs(cfg)):
         end = start + count
@@ -171,9 +210,11 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
             got = []
             for i in range(s - start, e - start):
                 c_i = None if rc is None else tree_map(lambda a: a[i], rc)
-                h, c = block_apply(cfg, kind, tree_map(lambda a: a[i], rp), h,
-                                   positions, cache=c_i,
-                                   cache_index=cache_index, kv_len=kv_len)
+                h, c, a = block_apply(cfg, kind, tree_map(lambda a: a[i], rp),
+                                      h, positions, cache=c_i,
+                                      cache_index=cache_index, kv_len=kv_len)
+                if a is not None:
+                    aux = aux + a
                 got.append(c)
             if rc is None:
                 new_caches.append(tree_map(lambda *xs: torch.stack(xs), *got))
@@ -181,23 +222,24 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
                 new_caches.append(tree_map(
                     lambda a: a[s - start:e - start], rc))
         start = end
-    return h, new_caches
+    return h, new_caches, aux
 
 
 def forward(cfg: ModelConfig, params, h: torch.Tensor, positions: torch.Tensor,
             *, caches=None, cache_index: Optional[int] = None):
     """Every layer, then the final norm.  h: (B, S, d).  Returns (h,
-    new_caches)."""
-    h, new_caches = _run_layers(cfg, params, h, positions, 0, cfg.n_layers,
-                                caches, cache_index)
-    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), new_caches
+    new_caches, aux)."""
+    h, new_caches, aux = _run_layers(cfg, params, h, positions, 0,
+                                     cfg.n_layers, caches, cache_index)
+    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), new_caches, aux
 
 
 def forward_slice(cfg: ModelConfig, params, h: torch.Tensor,
                   positions: torch.Tensor, lo: int, hi: int, *, caches=None,
                   cache_index: Optional[int] = None):
     """Layers [lo, hi) only, no final norm: the split-inference partial
-    forward on the published weights.  Returns (h, new_caches_for_slice)."""
+    forward on the published weights.  Returns (h, new_caches_for_slice,
+    aux)."""
     return _run_layers(cfg, params, h, positions, lo, hi, caches, cache_index)
 
 
@@ -236,7 +278,7 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
     B, Sq = h.shape[:2]
     if max_len < Sq:
         raise ValueError(f"max_len {max_len} is shorter than the prompt {Sq}")
-    h, seq_caches = forward(cfg, params, h, positions_for(h))
+    h, seq_caches, _ = forward(cfg, params, h, positions_for(h))
     caches = cache_init(cfg, B, max_len, h.device)
     out = [_merge_prefill_cache(cfg, kind, dec, got, Sq)
            for (kind, _), dec, got in zip(layer_runs(cfg), caches, seq_caches)]
@@ -244,10 +286,14 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
 
 
 def _merge_prefill_cache(cfg: ModelConfig, kind: LayerKind, dec, got, Sq: int):
-    """Write the prompt's (layers, B, Sq, KV, hd) k and v into the first Sq
-    rows of the KV-major decode cache, in place."""
-    for name in ("k", "v"):
-        dec["attn"][name][:, :, :, :Sq] = got["attn"][name].transpose(2, 3)
+    """Write the prompt's rows into the first Sq rows of the decode cache,
+    in place: MLA's (layers, B, Sq, r) latent and (layers, B, Sq, dr) rope
+    key as they lie, GQA's (layers, B, Sq, KV, hd) k and v turned KV-major."""
+    for name, rows in got["attn"].items():
+        if kind.attn == "mla":
+            dec["attn"][name][:, :, :Sq] = rows
+        else:
+            dec["attn"][name][:, :, :, :Sq] = rows.transpose(2, 3)
     return dec
 
 
@@ -256,6 +302,6 @@ def decode_step(cfg: ModelConfig, params, caches, batch, cache_index: int):
     position.  Returns (logits (B, 1, V) float32, caches updated in place)."""
     cache_index = int(cache_index)
     h = embed_inputs(cfg, params, batch)
-    h, caches = forward(cfg, params, h, positions_for(h, cache_index),
-                        caches=caches, cache_index=cache_index)
+    h, caches, _ = forward(cfg, params, h, positions_for(h, cache_index),
+                           caches=caches, cache_index=cache_index)
     return unembed(cfg, params, h), caches

@@ -44,22 +44,27 @@ class TreeDef:
         return built if self.kind == "list" else tuple(built)
 
 
+def _flatten_into(node: Any, leaves: List[Any]) -> TreeDef:
+    """Append ``node``'s leaves to ``leaves``; return its TreeDef.  A
+    module-level function: a nested one that calls itself would close over
+    its own cell, a reference cycle that keeps ``leaves`` (the tensors) alive
+    until the garbage collector runs."""
+    if node is None:
+        return TreeDef("none")
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", keys,
+                       tuple(_flatten_into(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, (), tuple(_flatten_into(c, leaves) for c in node))
+    leaves.append(node)
+    return TreeDef("leaf")
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
-
-    def visit(node) -> TreeDef:
-        if node is None:
-            return TreeDef("none")
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(visit(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, (), tuple(visit(c) for c in node))
-        leaves.append(node)
-        return TreeDef("leaf")
-
-    treedef = visit(tree)
+    treedef = _flatten_into(tree, leaves)
     return leaves, treedef
 
 

@@ -12,7 +12,8 @@ orders; the codec pair and the quant pair bitwise; flash attention and flash
 decode within 1e-5 of the output's max |x| in f32, sums in other orders, and
 1e-2 in bf16, one rounding of the output), the frame loop on the card against
 the same loop on the CPU, and LM serving at the reduced size on the card
-against the CPU path.  The vectorized MAC has no kernel of its own: its
+against the CPU path.  The MoE FFN and MLA run no kernel: one full-width
+layer of each on the card is held to the CPU path (routing equal).  The vectorized MAC has no kernel of its own: its
 step's PyTorch ops on the card are held bit for bit to the CPU path (and
 its lexsort to numpy's), with no host sync inside a step.
 """
@@ -29,7 +30,7 @@ from repro_torch.core.calibration import calibrate
 from repro_torch.core.compression import ActivationCodec
 from repro_torch.core.pipeline import SplitInferencePipeline
 from repro_torch.core.splitting import SwinSplitPlan, split_option
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.splitting import LMSplitPlan, Workload
 from repro_torch.kernels import codec as ck
 from repro_torch.kernels import decode_attention as da
@@ -413,6 +414,92 @@ def test_lm_serving_on_the_card_matches_the_cpu_path(cuda):
     assert dict(ops.LAUNCHES) == {"flash_attention": 2 * n,
                                   "decode_attention": 3 * n,
                                   "codec_encode": 1, "codec_decode": 1}
+    assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0
+
+
+# card vs CPU for the MoE FFN and MLA at full width: f32 sums in other
+# orders (the LM test above holds 1e-4); bf16 by a rounding of h or the
+# output landing one bf16 step apart (2^-8 of a value, two of them)
+MOE_CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, arch, dtype):
+    """One full-width MoE layer (granite: 40 experts top-8; deepseek: 64
+    top-6 and 2 shared) on 2 x 128 tokens: each token's set of experts and
+    each (token, expert)'s keep and slot equal on the card and the CPU (the
+    order within the set follows probabilities that may sit a few ulps
+    apart, and decides only the order of the k-sum), y within MOE_CARD_TOL
+    of its max |y|."""
+    cfg = get_config(arch).replace(dtype=str(dtype).removeprefix("torch."))
+    g = torch.Generator().manual_seed(5)
+    p = L.moe_init(cfg, g)
+    x = torch.randn((2, 128, cfg.d_model), generator=g).to(dtype)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        with torch.no_grad(), L.record_routing() as rec:
+            y, aux = L.moe_apply(cfg, tree_map(lambda a: a.to(dev), p),
+                                 x.to(dev))
+        out[dev.type] = (y, aux, rec[0])
+    (y, aux, r), (y_cpu, aux_cpu, r_cpu) = out["cuda"], out["cpu"]
+    (e, o), (e_cpu, o_cpu) = r["idx"].cpu().sort(-1), r_cpu["idx"].sort(-1)
+    assert torch.equal(e, e_cpu)
+    for name in ("keep", "slot"):
+        assert torch.equal(r[name].cpu().gather(-1, o),
+                           r_cpu[name].gather(-1, o_cpu)), name
+    assert y.dtype == dtype and _rel_err(y, y_cpu) <= MOE_CARD_TOL[dtype]
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_mla_decode_on_the_card_matches_the_cpu(cuda, dtype):
+    """deepseek's full-width MLA layer: a 64-token prefill written into a
+    72-row latent cache, then three absorbed decode steps into it, on the
+    card and the CPU: outputs and cache rows within MOE_CARD_TOL."""
+    cfg = get_config("deepseek-v2-lite-16b").replace(
+        dtype=str(dtype).removeprefix("torch."))
+    g = torch.Generator().manual_seed(6)
+    p = L.mla_init(cfg, g)
+    x = torch.randn((2, 67, cfg.d_model), generator=g).to(dtype)
+    kind = T.LayerKind(attn="mla", ffn="moe")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pd, xd = tree_map(lambda a: a.to(dev), p), x.to(dev)
+        pos = T.positions_for(xd)
+        cache = T.block_cache_init(cfg, kind, 2, 72, dev)["attn"]
+        with torch.no_grad():
+            y, rows = L.mla_apply(cfg, pd, xd[:, :64], pos[:, :64])
+            got = [y]
+            for name in cache:
+                cache[name][:, :64] = rows[name]
+            for i in range(64, 67):
+                y, _ = L.mla_apply(cfg, pd, xd[:, i:i + 1], pos[:, i:i + 1],
+                                   cache=cache, cache_index=i)
+                got.append(y)
+        out[dev.type] = got + [cache["latent"], cache["k_rope"]]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == dtype and _rel_err(a, b) <= MOE_CARD_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_serving_on_the_card_launches_as_its_config_implies(cuda, arch):
+    """``serve`` of a reduced MoE arch on the card with ``--split``: GQA
+    (granite) launches B5 once per layer in the prefill and across the
+    split, B6 once per layer and step; MLA (deepseek) neither; the codec
+    pair once each; no logit non-finite."""
+    cfg = get_reduced_config(arch)
+    ops.LAUNCHES.clear()
+    st = SV.serve(argparse.Namespace(arch=arch, reduced=True, prompt_len=16,
+                                     gen=3, batch=2, split=0.5,
+                                     device="cuda"))
+    n = cfg.n_layers
+    want = {"codec_encode": 1, "codec_decode": 1}
+    if not cfg.use_mla:
+        want.update(flash_attention=2 * n, decode_attention=3 * n)
+    assert dict(ops.LAUNCHES) == want
     assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0
 
 

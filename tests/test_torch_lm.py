@@ -1,14 +1,18 @@
-"""The port's dense LM serving path against the JAX package, on the CPU.
+"""The port's LM serving path against the JAX package, on the CPU.
 
-Reduced configs of the four dense archs run with the JAX package's weights
+Reduced configs of the four dense archs and the two MoE archs (granite:
+GQA and 40 capacity-routed experts; deepseek: MLA, a leading dense layer,
+routed and shared experts) run with the JAX package's weights
 (``T.init(cfg, PRNGKey)`` carried across by ``bridge.lm_params_from_numpy``)
 and the same numpy token ids on both sides: prefill logits and caches,
 three greedy decode steps, and the split (head, int8 codec, tail) at every
 default candidate.  The reduced configs are float32; logits and caches must
 agree within LM_TOL of their max |x| (float32 with sums in other orders: the
 largest gap seen is about 3e-6).  Then the port's own prefill -> decode
-consistency, the serving driver on the CPU with and without ``--split``, the
-accounting of ``LMSplitPlan`` and the configs the port does not run.
+consistency (on a drop-free copy of a MoE config: capacity dropping depends
+on the sequence length), bf16, the serving driver on the CPU with and
+without ``--split``, the accounting of ``LMSplitPlan`` and the configs the
+port does not run.
 """
 import argparse
 import json
@@ -39,7 +43,8 @@ from repro_torch.models.registry import get_model
 from repro_torch.tree import tree_leaves
 
 DENSE = ("qwen3-1.7b", "qwen3-4b", "smollm-360m", "starcoder2-15b")
-OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE)
+MOE = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE + MOE)
 LM_TOL = 2e-5
 CPU = torch.device("cpu")
 
@@ -52,13 +57,30 @@ def _close(port, ref, tol=LM_TOL):
     assert err <= tol, err
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=DENSE + MOE)
 def lm(request):
     """(arch, JAX config, port config, JAX params, port params)."""
     arch = request.param
     jcfg, tcfg = jget_reduced(arch), get_reduced_config(arch)
     jp = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(7)))
     return arch, jcfg, tcfg, jp, lm_params_from_numpy(jp, CPU)
+
+
+def _drop_free(cfg):
+    """A MoE config whose capacity holds every assignment at any length
+    (as ``tests/test_models_smoke.py`` takes it); others as they are."""
+    return cfg.replace(moe_capacity_factor=16.0) if cfg.n_experts else cfg
+
+
+def _close_caches(port, ref):
+    """Every leaf of every run's cache: GQA's KV-major (layers, B, KV,
+    max_len, hd) k and v, MLA's (layers, B, max_len, r) latent and rope
+    key."""
+    assert len(port) == len(ref)
+    for tc, jc in zip(port, ref):
+        assert sorted(tc["attn"]) == sorted(jc["attn"])
+        for name in tc["attn"]:
+            _close(tc["attn"][name], jc["attn"][name])
 
 
 def _tokens(cfg, B, S, seed=0):
@@ -74,8 +96,7 @@ def test_prefill_and_decode_match_the_reference(lm):
     with torch.no_grad():
         tl, tc = T.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)}, 16)
     _close(tl, jl)
-    for name in ("k", "v"):          # KV-major (layers, B, KV, max_len, hd)
-        _close(tc[0]["attn"][name], jc[0]["attn"][name])
+    _close_caches(tc, jc)
     step = jax.jit(lambda p, c, b, i: JT.decode_step(jcfg, p, c, b, i))
     tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
     for i in range(3):
@@ -85,7 +106,7 @@ def test_prefill_and_decode_match_the_reference(lm):
             tl, tc = T.decode_step(tcfg, tp, tc, {"tokens": torch.from_numpy(tok)},
                                    12 + i)
         _close(tl, jl)
-        _close(tc[0]["attn"]["k"], jc[0]["attn"]["k"])
+        _close_caches(tc, jc)
         tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
 
 
@@ -106,7 +127,7 @@ def test_split_head_codec_tail_match_the_reference(lm):
             jpay, _ = jplan.head(batch_j, opt)
             tpay, _ = tplan.head(batch_t, opt)
             _close(tpay["h"], jpay["h"])
-            h, _ = T.forward_slice(tcfg, tp, T.embed_inputs(
+            h, _, _ = T.forward_slice(tcfg, tp, T.embed_inputs(
                 tcfg, tp, {"tokens": torch.from_numpy(toks)}),
                 T.positions_for(torch.zeros(2, 10)), 0, l)
             torch.testing.assert_close(h, tpay["h"], rtol=0, atol=0)
@@ -128,16 +149,20 @@ def test_split_head_codec_tail_match_the_reference(lm):
 
 def test_port_prefill_decode_consistency(lm):
     """Prefill to S-1 plus one decode step gives the logits of a prefill to
-    S (float32: the two paths differ by sum order only)."""
+    S (float32: the two paths differ by sum order only; MLA's absorbed
+    decode against its materialised prefill by rounding only)."""
     _, _, tcfg, _, tp = lm
-    model = get_model(tcfg, CPU)
+    model = get_model(_drop_free(tcfg), CPU)
     toks = torch.from_numpy(_tokens(tcfg, 2, 12, seed=2))
     with torch.no_grad():
         full, _ = model.prefill(tp, {"tokens": toks}, 12)
         _, caches = model.prefill(tp, {"tokens": toks[:, :-1]}, 12)
         dec, caches = model.decode_step(tp, caches, {"tokens": toks[:, -1:]}, 11)
     _close(dec, full.numpy())
-    assert caches[0]["attn"]["k"][:, :, :, 11].abs().sum() > 0
+    for c in caches:                  # the decoded token's row was written
+        rows = c["attn"]["latent"] if "latent" in c["attn"] else \
+            c["attn"]["k"].transpose(2, 3)
+        assert rows[:, :, 11].abs().sum() > 0
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -173,7 +198,37 @@ def test_bf16_reduced_model_runs_and_agrees(arch):
     _close(tl, jl, tol=2e-2)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_bf16_reduced_model_runs_and_agrees(arch):
+    """The MoE archs in bf16 (the router float32, as the JAX tree has it).
+    XLA:CPU has no bf16 batched product with a float32 result, so the JAX
+    package's MoE cannot run in bf16 here: the reference is its float32
+    model on the same bf16 weights.  A bf16 stream and a float32 one may
+    route a near-tied token to different experts, a difference of O(gate)
+    that is no fault; so every expert is chosen (k = E) and none drops
+    (capacity factor 16), and the two differ by the bf16 stream's roundings
+    only: logits within 5e-2 of their max |x| (gaps seen 0.7e-2 to 2.2e-2
+    over eight weight seeds per arch)."""
+    kw = dict(dtype="bfloat16", moe_top_k=4, moe_capacity_factor=16.0)
+    jcfg = jget_reduced(arch).replace(**kw)
+    tcfg = get_reduced_config(arch).replace(**kw)
+    assert tcfg.n_experts == 4
+    jp = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(4)))
+    tp = lm_params_from_numpy(jp, CPU)
+    assert tp["runs"][-1]["ffn"]["router"].dtype == torch.float32
+    jp32 = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+    toks = _tokens(jcfg, 2, 9, seed=4)
+    jl, _ = jax.jit(lambda p, b: JT.prefill(jcfg.replace(dtype="float32"), p,
+                                            b, 9))(jp32,
+                                                   {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        tl, tc = T.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)}, 9)
+    assert tl.dtype == torch.float32
+    assert all(leaf.dtype == torch.bfloat16 for leaf in tree_leaves(tc))
+    _close(tl, jl, tol=5e-2)
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_split_accounting_matches_the_reference(arch):
     jcfg, tcfg = jget_config(arch), get_config(arch)
     assert count_params(tcfg) == jbase.count_params(jcfg)
@@ -221,6 +276,41 @@ def test_serve_on_the_cpu(split, tmp_path, capsys):
     assert back["status"] == "ok" and back["tokens_generated"] == 8
     assert back["metrics"]["counters"] == json.loads(json.dumps(ctr))
     assert "decode 4 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("split", [0.0, 0.5])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_serve_on_the_cpu(arch, split, capsys):
+    """``serve --arch`` of a MoE arch on the CPU: the counters against the
+    JAX package's driver, every logit finite, the split's payload the
+    (B, S, d) stream in the config's dtype."""
+    st = tserve.serve(_serve_args(arch=arch, split=split))
+    ref = jserve.serve(argparse.Namespace(arch=arch, reduced=True,
+                                          prompt_len=16, gen=4, batch=2,
+                                          split=split))
+    ctr, rctr = st["metrics"]["counters"], ref["metrics"]["counters"]
+    for name in ("requests_total", "tokens_generated_total",
+                 "boundary_raw_bytes_total"):
+        assert ctr[name] == rctr[name]
+    cfg = get_reduced_config(arch)
+    assert ctr["boundary_raw_bytes_total"] == (2 * 16 * cfg.d_model * 4
+                                               if split else 0)
+    assert ctr["nonfinite_logits_total"] == 0 and st["tokens_generated"] == 8
+    assert st["metrics"]["histograms"]["decode_step_s"]["count"] == 4
+    assert "decode 4 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_entry_points_default_to_the_card(arch, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced_config(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--arch", arch, "--reduced", "--gen", "1",
+                     "--prompt-len", "4"])
+    for make in (get_model, lambda c: LMSplitPlan(c, None),
+                 lambda c: T.init(c, torch.Generator().manual_seed(0))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg)
 
 
 def test_serve_defaults_to_the_card_and_raises_without_one(monkeypatch):

@@ -177,3 +177,26 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
     assert {"ran_vec.py", "engine_vec.py"} <= {p.name for p in files}
     for path in files + [SRC.parent / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
+
+
+def test_tree_flatten_frees_its_leaves_without_the_collector():
+    """``tree_flatten`` and ``tree_map`` leave no reference cycle behind: a
+    leaf is freed when its last reference goes, not at the next collection
+    (a cycle once kept every layer drawn by a model's init alive until
+    then)."""
+    import gc
+    import weakref
+
+    import torch
+
+    from repro_torch.tree import tree_map
+    gc.disable()
+    try:
+        tree = {"a": [torch.zeros(3), (torch.ones(2), None)], "b": torch.ones(1)}
+        refs = [weakref.ref(leaf) for leaf in tree_flatten(tree)[0]]
+        doubled = tree_map(lambda x: x * 2, tree)
+        assert tree_flatten(doubled)[1] == tree_flatten(tree)[1]
+        del tree, doubled
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
