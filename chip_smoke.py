@@ -31,9 +31,14 @@ when it fails:
     (200 / 520), a ragged length (333 / 333) and 15 heads over 5 at head
     dim 64, at granite-moe-3b-a800m's prefill shape (24 heads over 8 at head
     dim 64), and in bf16 at head dims 16 and 32 and without the causal
-    mask; flash decode (B6) at the full-width decode shapes of qwen3-1.7b
+    mask; B5 with a sliding window at hymba-1.5b's heads (25 over 5 at hd
+    64) in bf16 and f32: its prefill shape at its window of 1024, a ragged
+    1100 and Sq < Skv (200 / 1300) at that window, w = 1 (each row its own
+    v row) and w >= Skv (bitwise the call without a window); flash decode
+    (B6) at the full-width decode shapes of qwen3-1.7b
     and of granite in bf16 and f32 with kv_len 0, 1, one chunk of its split,
-    one chunk + 1, the prompt, the full cache and a ragged 777; each output row (one head's hd values at one position)
+    one chunk + 1, the prompt, the full cache and a ragged 777, and on
+    Hymba's ring (4, 5, 1024, 64) at kv_len 1, 1023 and 1024; each output row (one head's hd values at one position)
     within F32_TOL / BF16_TOL of that row's max |x|, two launches on the
     same inputs bitwise equal; per-window attention (B7) through its entry
     point, ops.window_attention, at the four Swin-T stage partitions of 4 images
@@ -68,7 +73,9 @@ when it fails:
     after the flush, their plain versions read first; then the per-split head+encode, decode and batched-tail times; B5 and
     B6 at the full-width serving shapes with scaled dot-product attention as
     their yardstick, B6 and its yardstick also with a cold L2 (L2_FLUSH_BYTES
-    written before each launch);
+    written before each launch); B5 at Hymba's prefill shape, windowed and
+    global, beside SDPA with the same boolean mask and its bound (the live
+    pairs' operations);
  7. the codec's modes at full width: for splits 1-4, one frame's head
     payload through raw, zlib, int8, int8_zlib and int8_delta_zlib, each
     int8 mode fused and legacy (per-tensor, the quant pair).  Every payload
@@ -154,7 +161,26 @@ when it fails:
     512, 64 experts top-6 and 2 shared, a dense layer 0, bf16) served the
     same way, split at layer 13: the codec pair once each and no other
     kernel (MLA runs none);
-14. a profiler trace of phase 6's head model and batched tail at each
+14. the recurrent and hybrid families at full width (models/ssm.py; the
+    window and ring of models/layers.py), each part timed: (a) hymba-1.5b
+    (32 layers, d 1600, 25 heads over 5 at hd 64 beside mamba heads of
+    d_inner 3200 and state 16, a window of 1024 on all layers but 0, 15 and
+    31, bf16) served as phase 9 serves qwen3-1.7b, split at layer 16: every
+    launch counter starts at 0 and must read B5 32 in the prefill and 32
+    across the split, B6 32 x 32, the codec pair once each and no other
+    kernel; no non-finite logit; prints prefill ms, decode ms per step, the
+    split's bytes and one-shot ms and the peak device memory; (b)
+    xlstm-350m (24 layers, mLSTM but sLSTM at 8 and 16, d 1024, bf16) the
+    same way, split at layer 12 (mid-run): the codec pair once each and no
+    other kernel, and the sLSTM time loop's share of the prefill; (c)
+    prefill to S-1 plus one decode step against a prefill to S at S =
+    RECURRENT_PROMPT (1100, past the window): Hymba at full depth in bf16
+    within HANDOFF_BF16_TOL, both cut to 4 layers keeping every block kind
+    (RECURRENT_CUTS) in f32 within SSM_HANDOFF_F32_TOL; (d) phase 10's
+    check for both cuts (f32, batch 2, prompt 1100, prefill, 2 decode
+    steps, the split tail at layer 2): logits within CPU_TOL, the CPU
+    decode of the card's payload bitwise equal;
+15. a profiler trace of phase 6's head model and batched tail at each
     split: the card's busy time and B1's part of it; then of one
     compress_head, its device encode and copy alone, and one
     decompress_group at split 1: B2/B3 beside the copies and the eager
@@ -162,10 +188,11 @@ when it fails:
     phase 12 (a) under edf: device busy ms (and the sorts' part), idle
     share, kernels, memsets and copies per executed TTI and the host time
     of the stop-code reads; then a decode step of each MoE model of phase
-    13 (batch 4, cache of 2048): device busy ms, device events and the idle
-    share against its host-clock time.  It runs last: after a profiler session,
-    host-clock times later in the same process can read higher, and phases
-    6-13 time on the host clock.
+    13 and of each model of phase 14 (batch 4, cache of 2048): device busy
+    ms, device events and the idle share against its host-clock time, and
+    Hymba's prefill with B5's part of it.  It runs last: after a profiler
+    session, host-clock times later in the same process can read higher,
+    and phases 6-14 time on the host clock.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -223,6 +250,26 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_SPLIT = 4, 2048, 32, 0.5
 # copy of each config (capacity dropping depends on the sequence length)
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 MOE_DROP_FREE = 16.0
+# phase 14: the recurrent and hybrid families, each served as phase 9 serves
+# LM_ARCH (hymba: B5 in every layer, windowed in 29, B6 on 3 global caches
+# and 29 rings, split at layer 16; xlstm: no attention, split at layer 12,
+# mid-run).  The handoff and card-vs-CPU checks take RECURRENT_PROMPT, past
+# the window of 1024: the windowed B5 masks, the ring wraps and the prefill
+# merge rolls (by 76); they cut each model to 4 layers keeping every block
+# kind (RECURRENT_CUTS, as tools/lm_handoff_gap.py cuts them)
+RECURRENT_ARCHS = ("hymba-1.5b", "xlstm-350m")
+RECURRENT_CUTS = {"hymba-1.5b": dict(n_layers=4, global_attn_positions=(0, 3)),
+                  "xlstm-350m": dict(n_layers=4, slstm_positions=(2,))}
+RECURRENT_PROMPT = 1100
+# the f32 prefill -> decode gap of a 4-layer cut at RECURRENT_PROMPT,
+# relative to the max |logit|.  The JAX package's own gap at that size on
+# the CPU (tools/lm_handoff_gap.py --prompt 1100 --dtypes float32, batch 2,
+# seed 0): xlstm-350m 3.10e-6 of 3.154 (9.8e-7), hymba-1.5b 4.29e-6 of
+# 4.130 (1.04e-6); the port's CPU path 7.2e-7 and 9.4e-7.  The limit is ten
+# times the larger JAX reading: the chunkwise mLSTM, the scan and the ring
+# differ from the step forms by sum order only, while a state or ring row
+# written amiss moves the logits by orders of magnitude more
+SSM_HANDOFF_F32_TOL = 1e-5
 CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
 # the vectorized MAC at the sizes benchmarks/bench_scale.py calls city scale:
 # its 10,240-flow headline drain at TOTAL_BYTES of offered load (the oracle
@@ -914,25 +961,24 @@ def mac_event(cell) -> None:
         "the two engines bitwise equal")
 
 
-def moe_serve(arch: str) -> None:
-    """Phase 13 (a), (d): ``serve`` at the full width of ``arch`` as phase 9
-    serves LM_ARCH, every launch counter at 0 before and read after, the
-    routing of every MoE layer recorded.  A GQA model launches B5 once per
-    layer in the prefill and once across the split's head and tail, B6 once
-    per layer and decode step; MLA launches neither; the codec pair once
-    each."""
+def serve_checked(arch: str) -> tuple:
+    """``serve`` at the full width of ``arch`` as phase 9 serves LM_ARCH,
+    every launch counter at 0 before and read after.  A GQA model (dense,
+    MoE or hybrid) launches B5 once per layer in the prefill and once
+    across the split's head and tail, B6 once per layer and decode step;
+    MLA and xLSTM launch neither; the codec pair once each.  No logit may be
+    non-finite, and the split's payload is the (B, S, d) stream.  Returns
+    (the config, the status histograms, the log line's common part)."""
     import argparse
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as SV
-    from repro_torch.models import layers as L
 
     cfg = get_config(arch)
     n = cfg.n_layers
-    n_moe = n - cfg.first_dense_layers
     want = {"codec_encode": 1, "codec_decode": 1}
-    if not cfg.use_mla:
+    if not cfg.use_mla and cfg.family != "ssm":
         want.update(flash_attention=2 * n, decode_attention=n * LM_GEN)
     args = argparse.Namespace(arch=arch, reduced=False,
                               prompt_len=LM_PROMPT, gen=LM_GEN,
@@ -941,8 +987,7 @@ def moe_serve(arch: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     ops.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with L.record_routing() as routing:
-        st = SV.serve(args)
+    st = SV.serve(args)
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     got = dict(ops.LAUNCHES)
@@ -960,6 +1005,29 @@ def moe_serve(arch: str) -> None:
     if raw_b != (LM_BATCH * LM_PROMPT * cfg.d_model
                  * getattr(torch, cfg.dtype).itemsize):
         raise AssertionError(f"split payload of {raw_b} B")
+    line = (f"serve {cfg.name} full width, batch {LM_BATCH}, prompt "
+            f"{LM_PROMPT}, {LM_GEN} decode steps, split at layer "
+            f"{max(1, int(n * LM_SPLIT))}/{n} ({t_serve:.1f} s with init): "
+            f"prefill {hist['prefill_s']['sum'] * 1e3:.2f} ms; decode "
+            f"{hist['decode_step_s']['sum'] / LM_GEN * 1e3:.3f} ms per step "
+            f"of {LM_BATCH} tokens; split one-shot "
+            f"{hist['split_s']['sum'] * 1e3:.2f} ms, boundary {raw_b} B -> "
+            f"{int(ctr['boundary_compressed_bytes_total'])} B; no non-finite "
+            f"logit; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return cfg, hist, line
+
+
+def moe_serve(arch: str) -> None:
+    """Phase 13 (a), (d): ``serve_checked`` with the routing of every MoE
+    layer recorded: the share of routed assignments the prefill dropped at
+    capacity and the busiest expert's load."""
+    import torch
+    from repro_torch.models import layers as L
+
+    with L.record_routing() as routing:
+        cfg, _, line = serve_checked(arch)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
     # the split's head and tail, the prefill, then the decode steps: each a
     # pass over every MoE layer
     if len(routing) != n_moe * (2 + LM_GEN):
@@ -974,22 +1042,12 @@ def moe_serve(arch: str) -> None:
         / fair for r in prefill)
     if not all(bool(r["keep"].all()) for r in routing[2 * n_moe:]):
         raise AssertionError("a decode step dropped an assignment")
-    log(f"serve {cfg.name} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
-        f"{LM_GEN} decode steps, split at layer {max(1, int(n * LM_SPLIT))}/"
-        f"{n} ({t_serve:.1f} s with init): prefill "
-        f"{hist['prefill_s']['sum'] * 1e3:.2f} ms; decode "
-        f"{hist['decode_step_s']['sum'] / LM_GEN * 1e3:.3f} ms per step of "
-        f"{LM_BATCH} tokens; split one-shot {hist['split_s']['sum'] * 1e3:.2f} "
-        f"ms, boundary {raw_b} B -> "
-        f"{int(ctr['boundary_compressed_bytes_total'])} B; the prefill "
-        f"dropped {total - kept} of {total} routed assignments "
-        f"({(total - kept) / total:.4%}) at capacity factor "
+    log(f"{line}; the prefill dropped {total - kept} of {total} routed "
+        f"assignments ({(total - kept) / total:.4%}) at capacity factor "
         f"{cfg.moe_capacity_factor} ({L.moe_capacity(cfg, LM_PROMPT)} rows "
         f"per expert and batch row; the busiest expert of a batch row takes "
         f"{busiest[len(busiest) // 2]:.2f}x its fair share in the median "
-        f"layer, {busiest[-1]:.2f}x at most); no non-finite logit; peak "
-        f"device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"layer, {busiest[-1]:.2f}x at most)")
 
 
 def moe_handoffs(dev) -> None:
@@ -1047,13 +1105,13 @@ def moe_handoffs(dev) -> None:
                                  "logits disagree")
 
 
-def moe_against_cpu(cfg, dev) -> None:
-    """Phase 13 (c): phase 10's check on ``cfg``: f32, 4 layers, batch 2,
-    prompt 256, prefill, two greedy decode steps and the split tail at
-    layer 2 on the card and on the port's CPU path.  Every MoE layer must
-    route every token to the same experts on both; logits within CPU_TOL of
-    the card's max |logit|; the CPU decode of the card's split payload
-    bitwise equal to the card's."""
+def lm_against_cpu(cut, dev, S: int = 256) -> None:
+    """Phase 13 (c), 14 (d): phase 10's check on ``cut``, a 4-layer f32
+    config: batch 2, prompt S, prefill, two greedy decode steps and the
+    split tail at layer 2 on the card and on the port's CPU path.  A MoE
+    config's every MoE layer must route every token to the same experts on
+    both; logits within CPU_TOL of the card's max |logit|; the CPU decode of
+    the card's split payload bitwise equal to the card's."""
     import torch
     from repro_torch.core.compression import ActivationCodec
     from repro_torch.core.splitting import LMSplitPlan, Workload, split_option
@@ -1061,8 +1119,8 @@ def moe_against_cpu(cfg, dev) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
 
-    cut = cfg.replace(n_layers=4, dtype="float32")
-    B, S, steps, split = 2, 256, 2, 2
+    cfg = cut
+    B, steps, split = 2, 2, 2
     cpu = torch.device("cpu")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     p_gpu = T.init(cut, gen, dev)
@@ -1098,8 +1156,8 @@ def moe_against_cpu(cfg, dev) -> None:
     if not torch.equal(dec["cpu"]["h"].view(torch.int32),
                        dec["card"]["h"].cpu().view(torch.int32)):
         raise AssertionError("CPU decode of the card's split payload differs")
-    n_moe = cut.n_layers - cut.first_dense_layers
-    want_calls = n_moe * (1 + steps) + (cut.n_layers - split)
+    n_moe = (cut.n_layers - cut.first_dense_layers) if cut.n_experts else 0
+    want_calls = n_moe * (1 + steps) + (cut.n_layers - split) * bool(n_moe)
     card, host = routes["card"], routes["cpu"]
     if not len(card) == len(host) == want_calls:
         raise AssertionError(f"{len(card)} / {len(host)} MoE layer calls "
@@ -1128,21 +1186,24 @@ def moe_against_cpu(cfg, dev) -> None:
             f"|diff| / max |logit| = {rel:.3g}")
     if not worst <= CPU_TOL:
         raise AssertionError(f"{cut.name} card vs CPU: {worst}")
+    routing = (f"{len(card)} MoE layer calls, {n_assign} routed "
+               f"assignments, the same experts, slots and drops on both "
+               f"({n_swapped} tokens with two experts in the other order); "
+               if n_moe else "")
     log(f"CPU path, {cfg.name} widths, f32, {cut.n_layers} layers, batch {B}, "
         f"prompt {S} ({time.perf_counter() - t0:.1f} s): prefill, {steps} "
         f"decode steps and the split tail at layer {split} within {worst:.3g} "
-        f"of the card (rel. tol {CPU_TOL}); {len(card)} MoE layer calls, "
-        f"{n_assign} routed assignments, the same experts, slots and drops "
-        f"on both ({n_swapped} tokens with two experts in the other order); "
-        f"the CPU decode of the card's payload ({comp.raw_bytes} B -> "
-        f"{comp.compressed_bytes} B) bitwise equal")
+        f"of the card (rel. tol {CPU_TOL}); {routing}the CPU decode of the "
+        f"card's payload ({comp.raw_bytes} B -> {comp.compressed_bytes} B) "
+        f"bitwise equal")
 
 
-def moe_decode_trace(arch: str, dev) -> None:
-    """Phase 14: one MoE model's decode step on serve's weights and prompt
+def decode_trace(arch: str, dev, prefill: bool = False) -> None:
+    """Phase 15: one model's decode step on serve's weights and prompt
     (batch 4, the cache after a 2048-token prefill): the host-clock ms of
     three steps before the trace, then the card's busy ms and device events
-    of three steps under the profiler, and the idle share between them."""
+    of three steps under the profiler, and the idle share between them.
+    With ``prefill``, the prefill too, and B5's part of its busy time."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -1163,8 +1224,22 @@ def moe_decode_trace(arch: str, dev) -> None:
                               at[0])
             at[0] += 1
 
+    def prefill_fn():
+        return model.prefill(params, {"tokens": tokens}, LM_PROMPT + 32)
+
     with torch.no_grad():
-        _, caches = model.prefill(params, {"tokens": tokens}, LM_PROMPT + 32)
+        _, caches = prefill_fn()
+        if prefill:
+            wall = host_ms(prefill_fn, runs=1)
+            busy, n_ev, by_name = traced_busy_ms(f"{arch} prefill", prefill_fn)
+            b5 = sum(t for name, t in by_name.items()
+                     if "flash_attention" in name)
+            log(f"trace {arch} prefill (batch {LM_BATCH}, prompt {LM_PROMPT}): "
+                f"device busy {busy:.2f} ms of {wall:.2f} ms host-clock time, "
+                f"idle share {max(0.0, 1 - busy / wall):.3f}, {n_ev} device "
+                f"events, of which B5 {b5:.3f} ms; largest: "
+                + ", ".join(f"{name[:48]} {t:.3f} ms"
+                            for name, t in by_name.most_common(4)))
         wall = host_ms(steps, runs=1) / 3               # after a warm-up
         busy, n_ev, by_name = traced_busy_ms(f"{arch} decode", steps)
     log(f"trace {arch} decode step (batch {LM_BATCH}, cache of {LM_PROMPT}): "
@@ -1188,7 +1263,8 @@ def phase13(dev) -> None:
     secs = {}
     for part, fn in (("a", lambda: moe_serve(granite)),
                      ("b", lambda: moe_handoffs(dev)),
-                     ("c", lambda: [moe_against_cpu(get_config(a), dev)
+                     ("c", lambda: [lm_against_cpu(get_config(a).replace(
+                         n_layers=4, dtype="float32"), dev)
                                     for a in MOE_ARCHS]),
                      ("d", lambda: moe_serve(deepseek))):
         t0 = time.perf_counter()
@@ -1196,6 +1272,92 @@ def phase13(dev) -> None:
         torch.cuda.empty_cache()
         secs[part] = time.perf_counter() - t0
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
+
+
+def recurrent_serve(arch: str) -> None:
+    """Phase 14 (a), (b): ``serve_checked``; for xLSTM the host-bound sLSTM
+    time loop is also timed alone on one layer at the prompt's shape, and
+    its share of the prefill printed."""
+    import torch
+    from repro_torch.models import ssm as SSM
+
+    cfg, hist, line = serve_checked(arch)
+    if cfg.slstm_positions:
+        layer = SSM.slstm_block_init(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED))
+        x = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), device="cuda",
+                        dtype=getattr(torch, cfg.dtype))
+        with torch.no_grad():
+            one = host_ms(lambda: SSM.slstm_block_apply(cfg, layer, x), runs=1)
+        k = len(cfg.slstm_positions)
+        share = k * one / (hist["prefill_s"]["sum"] * 1e3)
+        line += (f"; the sLSTM time loop {one:.1f} ms a layer on the host "
+                 f"clock, {k} layers {share:.1%} of the prefill")
+    log(line)
+
+
+def recurrent_handoffs(dev) -> None:
+    """Phase 14 (c): prefill to S-1 plus one decode step against a prefill
+    to S at S = RECURRENT_PROMPT, batch LM_BATCH: Hymba at full depth in
+    bf16 (the windowed layers' prefill merge rolls its ring, the decode step
+    writes slot (S-1) % 1024 and reads all 1024 rows) within
+    HANDOFF_BF16_TOL; then both models cut (RECURRENT_CUTS) at batch 2 in
+    f32 on their bf16 weights upcast, within SSM_HANDOFF_F32_TOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    def cases():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        hymba = get_config(RECURRENT_ARCHS[0])
+        params = T.init(hymba, gen, dev)
+        tokens = torch.randint(0, hymba.vocab_size,
+                               (LM_BATCH, RECURRENT_PROMPT), generator=gen,
+                               device=dev, dtype=torch.int32)
+        yield hymba, params, tokens, HANDOFF_BF16_TOL
+        del params
+        for arch in RECURRENT_ARCHS:
+            cut = get_config(arch).replace(**RECURRENT_CUTS[arch])
+            p16 = T.init(cut, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+            yield (cut.replace(dtype="float32"),
+                   tree_map(lambda a: a.float(), p16),
+                   tokens[:2] % cut.vocab_size, SSM_HANDOFF_F32_TOL)
+
+    for cfg, params, toks, tol in cases():
+        gap, top = handoff_gap(*handoff_logits(cfg, params, toks))
+        del params
+        log(f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, batch "
+            f"{toks.shape[0]}: prefill to {RECURRENT_PROMPT - 1} + decode vs "
+            f"prefill to {RECURRENT_PROMPT}: max |diff| {gap:.4g} = "
+            f"{gap / top:.3g} of max |logit| {top:.4g} (tol {tol})")
+        if not gap <= tol * top:
+            raise AssertionError(f"{cfg.name} {cfg.dtype}: prefill -> decode "
+                                 "logits disagree")
+
+
+def phase14(dev) -> None:
+    """The recurrent and hybrid families at full width (module docstring,
+    phase 14), each part timed."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    hymba, xlstm = RECURRENT_ARCHS
+    secs = {}
+    for part, fn in (("a", lambda: recurrent_serve(hymba)),
+                     ("b", lambda: recurrent_serve(xlstm)),
+                     ("c", lambda: recurrent_handoffs(dev)),
+                     ("d", lambda: [lm_against_cpu(get_config(a).replace(
+                         dtype="float32", **RECURRENT_CUTS[a]), dev,
+                         RECURRENT_PROMPT) for a in RECURRENT_ARCHS])):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t0
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
 
 
@@ -1498,14 +1660,63 @@ def main() -> int:
             f"{str(dt).removeprefix('torch.')} causal {causal}: max|kernel-"
             f"plain| {err:.3g}; worst row {rel:.3g} of its max|out| (tol "
             f"{tol}); two launches bitwise equal")
+    # B5 with a sliding window at Hymba's heads (25 over 5 at hd 64) and its
+    # window of 1024: the prefill shape, a ragged 1100, Sq < Skv; w = 1,
+    # where each row is its own v row; w >= Skv, bitwise the call without
+    hy_cfg = get_config(RECURRENT_ARCHS[0])
+    hy_H, hy_KV, hy_hd = hy_cfg.n_heads, hy_cfg.n_kv_heads, hy_cfg.head_dim
+    hy_w = hy_cfg.sliding_window
+    window_cases = []              # (B, Sq, Skv, dtype, window)
+    for dt in (bf16, f32):
+        window_cases += [(LM_BATCH, LM_PROMPT, LM_PROMPT, dt, hy_w),
+                         (2, RECURRENT_PROMPT, RECURRENT_PROMPT, dt, hy_w),
+                         (2, 200, 1300, dt, hy_w), (2, 300, 300, dt, 1),
+                         (2, 300, 300, dt, 300), (2, 200, 520, dt, 4096)]
+    for B, Sq, Skv, dt, w in window_cases:
+        q = rnd((B, Sq, hy_H, hy_hd), dt)
+        k, v = rnd((B, Skv, hy_KV, hy_hd), dt), rnd((B, Skv, hy_KV, hy_hd), dt)
+        ref = fa.flash_attention_plain(q, k, v, True, w)
+        out = fa.flash_attention_cuda(q, k, v, True, w)
+        again = fa.flash_attention_cuda(q, k, v, True, w)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        ok = (bool(torch.isfinite(out).all()) and rel <= tol
+              and torch.equal(out, again))
+        what = ""
+        if w == 1:
+            own = v.repeat_interleave(hy_H // hy_KV, dim=2)[:, Skv - Sq:]
+            rel_v = rel_err(out, own)[1]
+            ok = ok and rel_v <= tol
+            what = f"; each row its own v row within {rel_v:.3g}"
+        if w >= Skv:
+            ok = ok and torch.equal(out, fa.flash_attention_cuda(q, k, v, True))
+            what = "; bitwise the call without a window"
+        if not ok:
+            raise AssertionError(f"B5 {(B, Sq, Skv, hy_H, hy_KV, hy_hd)} {dt} "
+                                 f"window {w}: rel err {rel}, or two launches "
+                                 f"differ{what and ', or' + what}")
+        attn_errs["flash_attention"] = max(attn_errs["flash_attention"], err)
+        log(f"check B5 q {(B, Sq, hy_H, hy_hd)} kv {(B, Skv, hy_KV, hy_hd)} "
+            f"{str(dt).removeprefix('torch.')} causal, window {w}: "
+            f"max|kernel-plain| {err:.3g}; worst row {rel:.3g} of its max|out| "
+            f"(tol {tol}); two launches bitwise equal{what}")
     cache_len = LM_PROMPT + LM_GEN
-    for H_, KV_, hd_ in ((lm_H, lm_KV, lm_hd), (moe_H, moe_KV, moe_hd)):
-        chunk, n_splits = da.split_plan(cache_len, hd_)
-        lens = torch.tensor([0, 1, chunk, chunk + 1, LM_PROMPT, cache_len, 777],
-                            dtype=torch.int32, device=dev)
+    chunk = da.split_plan(cache_len, lm_hd)[0]
+    b6_cases = [  # (H, KV, hd, cache rows, kv_len per batch row)
+        (lm_H, lm_KV, lm_hd, cache_len,
+         [0, 1, chunk, chunk + 1, LM_PROMPT, cache_len, 777]),
+        (moe_H, moe_KV, moe_hd, cache_len, [0, 1] + [
+            da.split_plan(cache_len, moe_hd)[0] + i for i in (0, 1)]
+         + [LM_PROMPT, cache_len, 777]),
+        # Hymba's ring of the window's rows: filling, one short, full
+        (hy_H, hy_KV, hy_hd, hy_w, [1, hy_w - 1, hy_w, hy_w])]
+    for H_, KV_, hd_, rows_, lens in b6_cases:
+        chunk, n_splits = da.split_plan(rows_, hd_)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         for dt in (bf16, f32):
             q = rnd((len(lens), 1, H_, hd_), dt)
-            ck_, cv_ = (rnd((len(lens), KV_, cache_len, hd_), dt)
+            ck_, cv_ = (rnd((len(lens), KV_, rows_, hd_), dt)
                         for _ in range(2))
             ref = da.decode_attention_plain(q, ck_, cv_, lens)
             out = da.decode_attention_cuda(q, ck_, cv_, lens)
@@ -1514,7 +1725,8 @@ def main() -> int:
             err, rel = rel_err(out, ref)
             tol = BF16_TOL if dt == bf16 else F32_TOL
             if not (torch.isfinite(out).all() and rel <= tol
-                    and not out[0].any() and torch.equal(out, again)):
+                    and (lens[0] > 0 or not out[0].any())
+                    and torch.equal(out, again)):
                 raise AssertionError(f"B6 {tuple(q.shape)} {dt}: rel err {rel}, "
                                      "or kv_len 0 is not zeros, or two "
                                      "launches differ")
@@ -1524,7 +1736,8 @@ def main() -> int:
                 f"{lens.tolist()} (chunks of {chunk}, {n_splits} splits) "
                 f"{str(dt).removeprefix('torch.')}: max|kernel-plain| "
                 f"{err:.3g}; worst row {rel:.3g} of its max|out| (tol {tol}); "
-                f"kv_len 0 gives zeros; two launches bitwise equal")
+                f"{'kv_len 0 gives zeros; ' if lens[0] == 0 else ''}two "
+                f"launches bitwise equal")
 
     # B7 through its entry point, ops.window_attention, at the four Swin-T
     # stage partitions of N_UES images, with the shifted-region mask of each
@@ -1918,6 +2131,33 @@ def main() -> int:
         f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({flops} flop "
         f"at {BF16_FLOP_PER_S:.3g}/s, {nbytes} B); launches {lm_cfg.n_layers} "
         f"per prefill")
+    # B5 at Hymba's prefill shape, windowed (29 of its 32 layers) and global,
+    # beside SDPA with the same boolean mask (causal band) and enable_gqa
+    q = rnd((LM_BATCH, LM_PROMPT, hy_H, hy_hd), bf16)
+    k, v = (rnd((LM_BATCH, LM_PROMPT, hy_KV, hy_hd), bf16) for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pos = torch.arange(LM_PROMPT, device=dev)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    for w in (hy_w, 0):
+        live = pos[None, :] <= pos[:, None]
+        if w:
+            live &= pos[None, :] > pos[:, None] - w
+        pairs = int(live.sum())                 # live (q, k) pairs a head
+        flops = LM_BATCH * hy_H * pairs * 4 * hy_hd
+        t = dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True, w)),
+                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=live, enable_gqa=True)),
+                 bound_ms=max(flops / BF16_FLOP_PER_S,
+                              nbytes / HBM_BYTES_PER_S) * 1e3)
+        name = "window" if w else "global"
+        rows["flash_attention"].update({f"{name}_{key}": val
+                                        for key, val in t.items()})
+        log(f"time B5 q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal, "
+            f"{f'window {w}' if w else 'global'} (Hymba's prefill): kernel "
+            f"{t['ms']:.4f} ms, sdpa with the boolean mask "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({pairs} "
+            f"live pairs a head, {flops} flop, {nbytes} B)")
+    del live
     q = rnd((LM_BATCH, 1, lm_H, lm_hd), bf16)
     ck_, cv_ = (rnd((LM_BATCH, lm_KV, cache_len, lm_hd), bf16) for _ in range(2))
     lens = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device=dev)
@@ -1955,7 +2195,7 @@ def main() -> int:
         f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
         f"decode step")
 
-    swin_traces = []                       # traced in phase 14
+    swin_traces = []                       # traced in phase 15
     with torch.no_grad():
         for split in SPLITS:
             opt = split_option(split)
@@ -1981,7 +2221,7 @@ def main() -> int:
             # the host unzip, and one payload's upload with the device decode
             tree = producer(params, frames[:1])
             leaves, _ = codec._leaves(tree)
-            if split == 1:                 # the codec's part, traced in phase 14
+            if split == 1:                 # the codec's part, traced in phase 15
                 codec_traces = [
                     ("split 1 compress_head", functools.partial(
                         codec.compress_head, producer, params, frames[:1])),
@@ -2332,7 +2572,10 @@ def main() -> int:
     # -- 13. the MoE family at full width ------------------------------------
     phase13(dev)
 
-    # -- 14. the Swin path's device time, and B1's part of it ---------------
+    # -- 14. the recurrent and hybrid families at full width -----------------
+    phase14(dev)
+
+    # -- 15. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():
         for what, fn in swin_traces:
             busy, n_ev, by_name = traced_busy_ms(what, fn)
@@ -2384,9 +2627,11 @@ def main() -> int:
         f"{per('copies'):.1f} copies; reads of the stop code and other "
         f"device values {c['reads']:.1f} ms of host time")
 
-    # the MoE family's decode step (phase 13's models, serve's weights)
-    for arch in MOE_ARCHS:
-        moe_decode_trace(arch, dev)
+    # the decode step of the MoE family (phase 13's models) and of the
+    # recurrent and hybrid families (phase 14's), serve's weights; Hymba's
+    # prefill too, and B5's part of it
+    for arch in MOE_ARCHS + RECURRENT_ARCHS:
+        decode_trace(arch, dev, prefill=arch == RECURRENT_ARCHS[0])
 
     kernels = []
     for name, r in rows.items():
@@ -2395,7 +2640,9 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **{k: v for k, v in r.items()
+                           if k.startswith(("window_", "global_"))}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

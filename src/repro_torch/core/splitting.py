@@ -254,12 +254,25 @@ class LMSplitPlan(_PlanBase):
         return total - self.head_flops(option)
 
     def payload_specs(self, option: str) -> List[Tuple[Tuple[int, ...], str]]:
-        """(shape, dtype) per shipped tensor, batch dim excluded.  The JAX
-        package also ships SSM/hybrid state here; the dense and MoE families
-        have none."""
+        """(shape, dtype) per shipped tensor, batch dim excluded.  With
+        ``workload.include_state`` the recurrent state of the head's l
+        layers is counted beside the stream, as the JAX package counts it:
+        mLSTM C (l, nh, hd, hd) for the SSM family, mamba h (l, d_inner, N)
+        for the hybrid one, float32.  ``head`` itself ships the stream
+        only, as there."""
+        cfg = self.cfg
         seq_len = self.workload.n_tokens
         if option == UE_ONLY:
             return []
         if option == SERVER_ONLY:
             return [((seq_len,), "int32")]
-        return [((seq_len, self.cfg.d_model), self.cfg.dtype)]
+        specs = [((seq_len, cfg.d_model), cfg.dtype)]
+        if self.workload.include_state and cfg.family in ("ssm", "hybrid"):
+            l = _split_of(option)
+            di = cfg.ssm_expand * cfg.d_model
+            if cfg.family == "ssm":
+                hd = di // cfg.n_heads
+                specs.append(((l, cfg.n_heads, hd, hd), "float32"))
+            else:
+                specs.append(((l, di, cfg.ssm_state), "float32"))
+        return specs

@@ -9,6 +9,19 @@
 // 1e-30) in q's dtype.  Two kernels sit behind the one C entry point,
 // chosen by dtype.
 //
+// A sliding window w > 0 (causal only; the Pallas kernel has none: the JAX
+// package runs windowed prefill in plain_attention, whose mask this is)
+// also masks keys at or below q_pos - w, so key j is live for query
+// position i iff i - w < j <= i.  Both bodies start their kv loop at the
+// tile that holds q0 + offset - w + 1, the oldest key live for the CTA's
+// first row: the tiles before it are dead for every row of the CTA, so a
+// windowed CTA does work bounded by the window.  Skipping a dead tile is
+// bitwise the same as computing it: a row that meets only dead keys first
+// holds m = -1e30 and the garbage sums of exp(0), which its first live key
+// multiplies by exp(-1e30 - m) = 0 exactly; and every row has a live key,
+// its diagonal, in a tile the loop reaches.  With w >= Skv the loop starts
+// at tile 0 and the mask adds nothing, bitwise w = 0.
+//
 // bf16 (the serving path): the tensor-core kernel.  On the TPU the kv axis
 // is a sequential grid dimension that carries (m, l, acc) in VMEM; here it
 // is a loop inside one CTA per (q tile of 64 rows, head, batch row), 4 warps
@@ -117,7 +130,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                       int H, int KV, int causal, float sm_scale) {
+                       int H, int KV, int causal, int window, float sm_scale) {
   constexpr int kLd = HD + 4;
   constexpr int kCols = HD / 16;            // output columns per thread
   extern __shared__ float smem[];
@@ -140,8 +153,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (static_cast<size_t>(b) * Skv * KV + kvh) * HD;
   load_tile<T, HD>(Qs, qb, q0, Sq, static_cast<size_t>(H) * HD, sm_scale);
 
-  // the last kv row any query of this tile may see
+  // the last kv row any query of this tile may see, and the tile holding
+  // the first one its first query may see in a window
   const int kv_end = causal ? min(Skv, min(q0 + kBlockQ, Sq) + offset) : Skv;
+  const bool windowed = causal && window > 0;
+  const int kv_begin =
+      windowed ? max(0, q0 + offset - window + 1) / kBlockKV * kBlockKV : 0;
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -152,7 +169,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  for (int j0 = 0; j0 < kv_end; j0 += kBlockKV) {
+  for (int j0 = kv_begin; j0 < kv_end; j0 += kBlockKV) {
     __syncthreads();                        // the last tile's P and V are consumed
     load_tile<T, HD>(Ks, kb, j0, Skv, static_cast<size_t>(KV) * HD, 1.f);
     load_tile<T, HD>(Vs, vb, j0, Skv, static_cast<size_t>(KV) * HD, 1.f);
@@ -189,7 +206,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = j0 + tx + 16 * j;
-        if (k_pos >= Skv || (causal && k_pos > q_pos)) s[i][j] = kNegInf;
+        if (k_pos >= Skv || (causal && k_pos > q_pos) ||
+            (windowed && k_pos <= q_pos - window))
+          s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -276,7 +295,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int H, int KV, int causal, float sm_scale, cudaStream_t stream) {
+           int Skv, int H, int KV, int causal, int window, float sm_scale,
+           cudaStream_t stream) {
   constexpr int kSmem = smem_floats<HD>() * static_cast<int>(sizeof(float));
   auto kernel = flash_attention_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -285,19 +305,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, KV, causal, sm_scale);
+      static_cast<T*>(o), Sq, Skv, H, KV, causal, window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Skv, int H, int KV, int causal, float sm_scale,
+                int Sq, int Skv, int H, int KV, int causal, int window, float sm_scale,
                 cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -392,7 +412,8 @@ template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                          int Skv, int H, int KV, int causal, float sm_scale) {
+                          int Skv, int H, int KV, int causal, int window,
+                          float sm_scale) {
   constexpr int kLd = TcTile<HD>::kLd;
   constexpr int kKSteps = HD / 16;          // k16 steps of Q.K^T
   constexpr int kNB = kTcBlockKV / 8;       // n8 blocks of scores
@@ -422,22 +443,26 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* kb = k + (static_cast<size_t>(b) * Skv * KV + kvh) * HD;
   const bf16* vb = v + (static_cast<size_t>(b) * Skv * KV + kvh) * HD;
 
-  // the last kv row any query of this tile may see; this warp's 16 rows
+  // the last kv row any query of this tile may see, the first kv tile its
+  // first query may see in a window; this warp's 16 rows
   const int kv_end = causal ? min(Skv, min(q0 + kTcBlockQ, Sq) + offset) : Skv;
   const int n_tiles = (kv_end + kTcBlockKV - 1) / kTcBlockKV;
+  const bool windowed = causal && window > 0;
+  const int t_begin = windowed ? max(0, q0 + offset - window + 1) / kTcBlockKV : 0;
+  const int n_run = n_tiles - t_begin;      // tiles t_begin .. n_tiles - 1
   const int row0 = q0 + 16 * warp;
   const int warp_last = row0 + 15 + offset;
+  const int warp_first = row0 + offset;
 
-  // one copy group per K/V tile, kStages - 1 tiles ahead (Q rides with
-  // tile 0); groups past the last tile are empty, so the count stays fixed
+  // one copy group per K/V tile, kStages - 1 tiles ahead (Q rides with the
+  // first); groups past the last tile are empty, so the count stays fixed
   load_tile_async<HD>(Qs, qb, kTcBlockQ, q0, Sq, q_stride);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles) {
-      load_tile_async<HD>(Ks + t * TcTile<HD>::kKV, kb, kTcBlockKV, t * kTcBlockKV, Skv,
-                          kv_stride);
-      load_tile_async<HD>(Vs + t * TcTile<HD>::kKV, vb, kTcBlockKV, t * kTcBlockKV, Skv,
-                          kv_stride);
+    if (t < n_run) {
+      const int r0 = (t_begin + t) * kTcBlockKV;
+      load_tile_async<HD>(Ks + t * TcTile<HD>::kKV, kb, kTcBlockKV, r0, Skv, kv_stride);
+      load_tile_async<HD>(Vs + t * TcTile<HD>::kKV, vb, kTcBlockKV, r0, Skv, kv_stride);
     }
     cp_async_commit();
   }
@@ -448,20 +473,24 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float m[2] = {kNegInf, kNegInf};          // row max, base 2
   float l[2] = {0.f, 0.f};
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % kStages;
-    const int ahead = j + kStages - 1;      // its stage was freed at the end of j - 1
-    if (ahead < n_tiles) {
-      load_tile_async<HD>(Ks + (ahead % kStages) * TcTile<HD>::kKV, kb, kTcBlockKV,
-                          ahead * kTcBlockKV, Skv, kv_stride);
-      load_tile_async<HD>(Vs + (ahead % kStages) * TcTile<HD>::kKV, vb, kTcBlockKV,
-                          ahead * kTcBlockKV, Skv, kv_stride);
+  for (int t = 0; t < n_run; ++t) {
+    const int st = t % kStages;
+    const int ahead = t + kStages - 1;      // its stage was freed at the end of t - 1
+    if (ahead < n_run) {
+      const int r0 = (t_begin + ahead) * kTcBlockKV;
+      load_tile_async<HD>(Ks + (ahead % kStages) * TcTile<HD>::kKV, kb, kTcBlockKV, r0,
+                          Skv, kv_stride);
+      load_tile_async<HD>(Vs + (ahead % kStages) * TcTile<HD>::kKV, vb, kTcBlockKV, r0,
+                          Skv, kv_stride);
     }
     cp_async_commit();
-    cp_async_wait<kStages - 1>();           // tile j has landed
+    cp_async_wait<kStages - 1>();           // tile t has landed
     __syncthreads();
-    const int j0 = j * kTcBlockKV;
-    if (!(causal && j0 > warp_last)) {
+    const int j0 = (t_begin + t) * kTcBlockKV;
+    // a warp skips a tile wholly above its rows, or wholly below its first
+    // row's window (dead for all its rows)
+    if (!(causal && j0 > warp_last) &&
+        !(windowed && j0 + kTcBlockKV - 1 <= warp_first - window)) {
       const bf16* Kt = Ks + st * TcTile<HD>::kKV;
       const bf16* Vt = Vs + st * TcTile<HD>::kKV;
       // S = Q K^T: each ldmatrix.x4 of K brings 16 kv rows x 16 columns of
@@ -483,8 +512,11 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           mma_bf16(s[2 * nb2 + 1], qf, kf[2], kf[3]);
         }
       }
-      // scale; mask only a tile that reaches past the diagonal or Skv
-      const bool edge = j0 + kTcBlockKV > Skv || (causal && j0 + kTcBlockKV - 1 > row0 + offset);
+      // scale; mask only a tile that reaches past the diagonal or Skv, or
+      // below the window of the warp's last row
+      const bool edge = j0 + kTcBlockKV > Skv ||
+                        (causal && j0 + kTcBlockKV - 1 > warp_first) ||
+                        (windowed && j0 <= warp_last - window);
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb) {
 #pragma unroll
@@ -493,7 +525,9 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           if (edge) {
             const int k_pos = j0 + 8 * nb + 2 * tig + (e & 1);
             const int q_pos = row0 + gid + 8 * (e >> 1) + offset;
-            if (k_pos >= Skv || (causal && k_pos > q_pos)) s[nb][e] = kNegInf;
+            if (k_pos >= Skv || (causal && k_pos > q_pos) ||
+                (windowed && k_pos <= q_pos - window))
+              s[nb][e] = kNegInf;
           }
         }
       }
@@ -553,7 +587,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         }
       }
     }
-    __syncthreads();                        // stage st is free for tile j + kStages
+    __syncthreads();                        // stage st is free for tile t + kStages
   }
 
 #pragma unroll
@@ -571,7 +605,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-              int Skv, int H, int KV, int causal, float sm_scale, cudaStream_t stream) {
+              int Skv, int H, int KV, int causal, int window, float sm_scale,
+              cudaStream_t stream) {
   constexpr int kSmem = TcTile<HD>::kBytes;
   auto kernel = flash_attention_tc_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -581,18 +616,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   kernel<<<grid, kTcThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, KV, causal,
-      sm_scale);
+      window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Skv, int H, int KV, int causal, float sm_scale,
+                int Sq, int Skv, int H, int KV, int causal, int window, float sm_scale,
                 cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
-    case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
+    case 16: return launch_tc<16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -603,15 +638,18 @@ int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, in
 // contiguous, 16-byte aligned, of one dtype: 0 = f32 (the CUDA-core kernel),
 // 1 = bf16 (the tensor-core kernel).  hd is 16, 32, 64 or 128; H is a
 // multiple of KV; with causal, Sq <= Skv.  B, Sq and Skv are at least 1.
-// Returns the cudaError_t of the launch (0 = success).
+// window: 0, or the sliding window w >= 1 of a causal call.  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int Sq, int Skv, int H, int KV, int hd,
-                                   int causal, int dtype, float sm_scale,
+                                   int causal, int window, int dtype, float sm_scale,
                                    void* cuda_stream) {
   cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  if (window < 0 || (window > 0 && !causal)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
+    return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale,
+                              stream);
   if (dtype == 1)
-    return dispatch_tc(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, sm_scale, stream);
+    return dispatch_tc(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

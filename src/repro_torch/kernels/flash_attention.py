@@ -6,11 +6,16 @@ flash_attention_pallas``.  q (B, Sq, H, hd) attends to k, v (B, Skv, KV, hd):
 query head h reads kv head h // (H // KV), query row i sits at position
 i + Skv - Sq (q aligned to the end of kv), scores above the diagonal (with
 ``causal``) are masked to -1e30, the softmax runs in f32 and the output is
-cast to q's dtype.
+cast to q's dtype.  A sliding window w > 0 (with ``causal`` only) also masks
+the keys at or below i - w, as the JAX package's ``plain_attention`` does
+(``repro/models/layers.py``), where its windowed prefill runs: key j is
+kept for query position i iff i - w < j <= i.  The Pallas kernel takes no
+window; the port gives it to B5 so that every GQA prefill runs the kernel.
 
 The CUDA source (``csrc/flash_attention.cu``) runs one CTA per (q tile,
 head, batch row) that walks the kv tiles up to the diagonal with an f32
-online softmax.  For bf16 both products run on the tensor cores (mma.sync,
+online softmax; with a window it starts at the tile that holds its first
+row's oldest live key, so its work is bounded by the window.  For bf16 both products run on the tensor cores (mma.sync,
 f32 sums; P split into bf16 hi and lo parts, so P is never rounded to bf16
 once) with K and V tiles copied asynchronously; f32 keeps both products in
 f32 on the CUDA cores.  At the full-width prefill shape it is bound by
@@ -36,9 +41,17 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def check_window(causal: bool, sliding_window: int) -> None:
+    if sliding_window < 0 or (sliding_window and not causal):
+        raise ValueError(f"a sliding window ({sliding_window}) is >= 0 and "
+                         "applies to causal attention only")
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True,
+                          sliding_window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
+    check_window(causal, sliding_window)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, hd)
@@ -46,7 +59,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         q_pos = torch.arange(Sq, device=q.device) + (Skv - Sq)
         k_pos = torch.arange(Skv, device=q.device)
-        logits = logits.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+        dead = k_pos[None, :] > q_pos[:, None]
+        if sliding_window:
+            dead |= k_pos[None, :] <= q_pos[:, None] - sliding_window
+        logits = logits.masked_fill(dead, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
@@ -55,7 +71,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.cache
 def _fn():
     fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -77,10 +93,12 @@ def check_attention_operands(what: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True,
+                         sliding_window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
     the plain version; with ``causal``, Sq <= Skv."""
     _build.check_operands("flash_attention_cuda", q, k, v)
+    check_window(causal, sliding_window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_attention_operands("flash_attention_cuda", q, k, v)
     B, Sq, H, hd = q.shape
@@ -96,7 +114,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               B, Sq, Skv, H, KV, hd, int(causal), DTYPE_CODES[q.dtype],
+               B, Sq, Skv, H, KV, hd, int(causal), int(sliding_window),
+               DTYPE_CODES[q.dtype],
                1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1

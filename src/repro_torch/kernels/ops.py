@@ -50,12 +50,14 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    sliding_window: int = 0) -> torch.Tensor:
     """Causal GQA attention: q (B, Sq, H, hd), k and v (B, Skv, KV, hd), q
-    aligned to the end of kv.  Returns (B, Sq, H, hd) in q's dtype."""
+    aligned to the end of kv; ``sliding_window`` w > 0 keeps key j for query
+    position i iff i - w < j <= i.  Returns (B, Sq, H, hd) in q's dtype."""
     fn = (_fa.flash_attention_cuda if _route(q) == "cuda"
           else _fa.flash_attention_plain)
-    return fn(q, k, v, causal)
+    return fn(q, k, v, causal, sliding_window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

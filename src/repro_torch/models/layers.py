@@ -27,7 +27,10 @@ its prefill attention (q and k at head dim dn + dr against v at dv) is
 in plain PyTorch ops, and its decode is the absorbed form against the
 latent cache, einsums.  The MoE FFN (``moe_apply``) is capacity-routed
 top-k with a cumsum-position dispatch, einsums and a scatter, as there.
-Sliding windows and logit soft-capping are not ported (ROADMAP A8b).
+A sliding window (Hymba's) goes to B5 as its argument in prefill; in
+decode the windowed layer keeps the JAX package's ring buffer of w rows, and
+B6 reads its live rows as they lie.  Logit soft-capping is not ported
+(ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -183,14 +186,20 @@ def cache_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                cache: Optional[dict] = None,
                cache_index: Optional[int] = None,
-               kv_len: Optional[torch.Tensor] = None):
-    """GQA attention with qk-norm before RoPE.  ``cache``: None (prefill) or
-    a dict of KV-major k and v (B, KV, S_cache, hd) that the new token is
-    written into at ``cache_index`` in place (the JAX package's
-    ``dynamic_update_slice`` returns a new cache instead); ``kv_len`` (B,)
-    int32 is then ``cache_index`` + S, built once per step by the caller
-    for all layers.  Returns (out, new_kv): the (k, v) for cache
-    construction, or the updated cache."""
+               kv_len: Optional[torch.Tensor] = None,
+               sliding_window: int = 0):
+    """GQA attention with qk-norm before RoPE; with ``sliding_window`` w a
+    query at position i sees keys i - w < j <= i.  ``cache``: None (prefill,
+    B5 with the window) or a dict of KV-major k and v (B, KV, S_cache, hd)
+    that the new token is written into in place (the JAX package's
+    ``dynamic_update_slice`` returns a new cache instead): at
+    ``cache_index``, or on a windowed layer into the ring of S_cache = w
+    rows at slot ``cache_index % w``, where a key carries RoPE at its
+    absolute position.  ``kv_len`` (B,) int32 is then the cache's live
+    rows, ``cache_index`` + S (on a ring at most w: softmax does not depend
+    on the order of the keys, so B6 reads the ring as it lies), built once
+    per step by the caller for all layers.  Returns (out, new_kv): the (k,
+    v) for cache construction, or the updated cache."""
     q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
     k = einsum32("bsd,dnk->bsnk", x, p["wk"], out_dtype=x.dtype)
     v = einsum32("bsd,dnk->bsnk", x, p["wv"], out_dtype=x.dtype)
@@ -202,12 +211,14 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         S = x.shape[1]
-        ck[:, :, cache_index:cache_index + S] = k.transpose(1, 2).to(ck.dtype)
-        cv[:, :, cache_index:cache_index + S] = v.transpose(1, 2).to(cv.dtype)
+        at = cache_index % ck.shape[2] if sliding_window else cache_index
+        ck[:, :, at:at + S] = k.transpose(1, 2).to(ck.dtype)
+        cv[:, :, at:at + S] = v.transpose(1, 2).to(cv.dtype)
         out = cache_attention(q, ck, cv, kv_len)
         new_kv = cache
     else:
-        out = ops.flash_attention(q, k, v, causal=True)
+        out = ops.flash_attention(q, k, v, causal=True,
+                                  sliding_window=sliding_window)
         new_kv = {"k": k, "v": v}
     y = einsum32("bshk,hkd->bsd", out, p["wo"], out_dtype=x.dtype)
     return y, new_kv

@@ -2,8 +2,8 @@
 
 ``get_model(cfg, device)`` returns an ``LMModel`` with init / prefill /
 decode_step / cache_init and the ``*_inputs`` spec factories (shapes and
-dtypes, no allocation), over the dense and MoE LMs of
-``models/transformer.py``.  The training surface (``loss_fn``,
+dtypes, no allocation), over the dense, MoE, recurrent (xLSTM) and hybrid
+(Hymba) LMs of ``models/transformer.py``.  The training surface (``loss_fn``,
 ``train_inputs``) waits for ROADMAP A9.
 """
 from __future__ import annotations

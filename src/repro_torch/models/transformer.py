@@ -1,5 +1,5 @@
-"""Stage-structured decoder: the dense and MoE subset of
-``repro/models/transformer.py``.
+"""Stage-structured decoder: ``repro/models/transformer.py`` for the dense,
+MoE, recurrent (xLSTM) and hybrid (Hymba) families.
 
 Layers are grouped into runs of one block kind, and each run's parameters
 are stacked along a leading layer axis, as the JAX package stacks them with
@@ -8,21 +8,31 @@ stacked weights here.  Runs are also the split boundaries of the paper's
 technique on an LM (``core/splitting.py::LMSplitPlan``): ``forward_slice``
 executes layers [lo, hi) of the same parameters, across runs.
 
-The port runs the dense and MoE families: GQA attention with optional
-qk-norm or MLA (the latent attention), SwiGLU or capacity-routed MoE FFNs
-with optional shared experts and leading dense layers, RMSNorm, RoPE, tied
-or separate embeddings (``qwen3-1.7b``, ``qwen3-4b``, ``smollm-360m``,
-``starcoder2-15b``, ``granite-moe-3b-a800m``, ``deepseek-v2-lite-16b``).
-Sliding windows, logit soft-capping, the SSM and hybrid blocks, frontends
-and codebooks raise ``NotImplementedError`` (ROADMAP A8b).
+Blocks (``LayerKind.block``): ``attn_ffn`` (GQA attention with optional
+qk-norm, or MLA; a SwiGLU or capacity-routed MoE FFN: ``qwen3-1.7b``,
+``qwen3-4b``, ``smollm-360m``, ``starcoder2-15b``, ``granite-moe-3b-a800m``,
+``deepseek-v2-lite-16b``), ``mlstm`` and ``slstm`` (``xlstm-350m``,
+``models/ssm.py``) and ``hymba`` (``hymba-1.5b``: GQA attention and mamba
+heads in parallel on the same normed input, fused by learned per-channel
+gates, then the FFN; a sliding window on every layer but
+``global_attn_positions``).  Logit soft-capping, frontends and codebooks
+raise ``NotImplementedError`` (ROADMAP A8b).
+
+What runs where: GQA prefill attention runs B5 (``ops.flash_attention``,
+with the layer's window), GQA decode B6 (``ops.decode_attention_kv_major``);
+on CPU tensors their plain versions.  MLA, the MoE FFN, the recurrent blocks
+and everything else are plain PyTorch ops on the tensors' device.
 
 Decode caches are one stacked tree per run: GQA's KV-major, (layers, B, KV,
-max_len, hd), MLA's the latent (layers, B, max_len, r) and the rope key
-(layers, B, max_len, dr).  A decode step writes its token into them in
-place (the JAX package returns a new cache).  ``forward`` and
-``forward_slice`` return the MoE load-balance term summed over the layers
-in float32, as there; the training loss (``lm_loss``, ``loss_fn``) is not
-ported (ROADMAP A9).
+max_len, hd), on a windowed layer a ring of (layers, B, KV, w, hd) whatever
+max_len is; MLA's the latent (layers, B, max_len, r) and the rope key
+(layers, B, max_len, dr); the recurrent states as ``models/ssm.py`` lays
+them out (mLSTM conv and (C, n, m), sLSTM (h, c, n, m), mamba conv and
+state).  A decode step writes its token's rows, and each layer's new
+states, into them in place (the JAX package returns new caches).
+``forward`` and ``forward_slice`` return the MoE load-balance term summed
+over the layers in float32, as there; the training loss (``lm_loss``,
+``loss_fn``) is not ported (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.tree import tree_map
 
 
@@ -43,36 +54,46 @@ from repro_torch.tree import tree_map
 
 @dataclass(frozen=True)
 class LayerKind:
-    block: str = "attn_ffn"
-    attn: str = "gqa"
-    ffn: str = "dense"
-    sliding_window: int = 0
+    block: str = "attn_ffn"     # attn_ffn | mlstm | slstm | hymba
+    attn: str = "gqa"           # gqa | mla | none
+    ffn: str = "dense"          # dense | moe | none
+    sliding_window: int = 0     # 0 = global attention
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the dense and MoE
-    families this port runs."""
+    """Raise ``NotImplementedError`` for a config outside the families this
+    port runs (dense, MoE, SSM, hybrid) or with a feature it lacks."""
     missing = [what for what, on in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
-        ("a sliding window", bool(cfg.sliding_window)),
+        (f"family {cfg.family!r}", cfg.family not in FAMILIES),
         ("logit soft-capping", bool(cfg.attn_logit_softcap)),
         (f"frontend {cfg.frontend!r}", cfg.frontend != "none"),
-        ("codebooks", bool(cfg.n_codebooks)),
-        ("a hybrid block", cfg.hybrid)) if on]
+        ("codebooks", bool(cfg.n_codebooks))) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port's LM runs the dense and MoE families "
-            f"only; {', '.join(missing)} wait for ROADMAP A8b")
+            f"{cfg.name}: the port's LM runs the {', '.join(FAMILIES)} "
+            f"families; {', '.join(missing)} wait for ROADMAP A8b")
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
     check_supported(cfg)
-    attn = "mla" if cfg.use_mla else "gqa"
-    return tuple(
-        LayerKind(attn=attn, ffn="moe" if (cfg.n_experts and
-                                           i >= cfg.first_dense_layers)
-                  else "dense")
-        for i in range(cfg.n_layers))
+    plan = []
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            plan.append(LayerKind(block="slstm" if i in cfg.slstm_positions
+                                  else "mlstm", attn="none", ffn="none"))
+        elif cfg.hybrid:
+            sw = 0 if i in cfg.global_attn_positions else cfg.sliding_window
+            plan.append(LayerKind(block="hymba", attn="gqa", ffn="dense",
+                                  sliding_window=sw))
+        else:
+            ffn = ("moe" if (cfg.n_experts and i >= cfg.first_dense_layers)
+                   else "dense")
+            plan.append(LayerKind(attn="mla" if cfg.use_mla else "gqa",
+                                  ffn=ffn))
+    return tuple(plan)
 
 
 def layer_runs(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
@@ -91,23 +112,46 @@ def layer_runs(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
 
 def block_init(cfg: ModelConfig, kind: LayerKind,
                generator: torch.Generator) -> Dict[str, Any]:
-    """One layer's weights in the JAX package's dtypes, drawn from
+    """One layer's weights in the JAX package's tree and dtypes, drawn from
     ``generator`` on its device."""
-    ones = torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg),
-                      device=generator.device)
-    return {"ln1": ones, "ln2": ones.clone(),
-            "attn": (L.mla_init(cfg, generator) if kind.attn == "mla"
-                     else L.attn_init(cfg, generator)),
-            "ffn": (L.moe_init(cfg, generator) if kind.ffn == "moe"
-                    else L.mlp_init(cfg, generator))}
+    if kind.block == "mlstm":
+        return SSM.mlstm_block_init(cfg, generator)
+    if kind.block == "slstm":
+        return SSM.slstm_block_init(cfg, generator)
+    dev = generator.device
+    ones = torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg), device=dev)
+    p = {"ln1": ones, "ln2": ones.clone(),
+         "attn": (L.mla_init(cfg, generator) if kind.attn == "mla"
+                  else L.attn_init(cfg, generator)),
+         "ffn": (L.moe_init(cfg, generator) if kind.ffn == "moe"
+                 else L.mlp_init(cfg, generator))}
+    if kind.block == "hymba":
+        p["mamba"] = SSM.mamba_init(cfg, generator)
+        p["norm_attn"] = ones.clone()
+        p["norm_ssm"] = ones.clone()
+        p["beta_attn"] = torch.ones((cfg.d_model,), dtype=torch.float32,
+                                    device=dev)
+        p["beta_ssm"] = p["beta_attn"].clone()
+    return p
 
 
 def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
                 cache_index: Optional[int] = None,
                 kv_len: Optional[torch.Tensor] = None):
-    """Pre-norm attention and FFN with residuals.  Returns (x, new_cache,
-    aux): aux is the MoE layer's load-balance term, None for a dense FFN."""
+    """One layer.  ``attn_ffn``: pre-norm attention and FFN with residuals;
+    ``hymba``: attention (windowed or global, ``kind.sliding_window``) and
+    mamba on the same normed input, each output rms-normed, weighted by
+    beta and averaged in float32, then the FFN; ``mlstm``/``slstm``: the
+    recurrent block.  ``kv_len`` (B,) int32: the live rows of this layer's
+    attention cache in a decode step.  Returns (x, new_cache, aux): aux is
+    the MoE layer's load-balance term, None otherwise."""
+    if kind.block == "mlstm":
+        x, c = SSM.mlstm_block_apply(cfg, p, x, cache=cache)
+        return x, c, None
+    if kind.block == "slstm":
+        x, c = SSM.slstm_block_apply(cfg, p, x, cache=cache)
+        return x, c, None
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_cache = None if cache is None else cache["attn"]
     if kind.attn == "mla":
@@ -116,30 +160,51 @@ def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
     else:
         ay, new_attn = L.attn_apply(cfg, p["attn"], h, positions,
                                     cache=attn_cache, cache_index=cache_index,
-                                    kv_len=kv_len)
-    x = x + ay
+                                    kv_len=kv_len,
+                                    sliding_window=kind.sliding_window)
+    new_cache: Dict[str, Any] = {"attn": new_attn}
+    if kind.block == "hymba":
+        my, new_cache["mamba"] = SSM.mamba_apply(
+            cfg, p["mamba"], h, cache=None if cache is None else cache["mamba"])
+        fused = 0.5 * (p["beta_attn"] * L.rms_norm(ay, p["norm_attn"],
+                                                   cfg.norm_eps).float()
+                       + p["beta_ssm"] * L.rms_norm(my, p["norm_ssm"],
+                                                    cfg.norm_eps).float())
+        x = x + fused.to(x.dtype)
+    else:
+        x = x + ay
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind.ffn == "moe":
         fy, aux = L.moe_apply(cfg, p["ffn"], h2)
     else:
         fy, aux = L.mlp_apply(p["ffn"], h2), None
-    return x + fy, {"attn": new_attn}, aux
+    return x + fy, new_cache, aux
 
 
 def block_cache_init(cfg: ModelConfig, kind: LayerKind, B: int, max_len: int,
                      device) -> Dict[str, Any]:
     """One layer's decode cache, zeroed: MLA's latent (B, max_len, r) and
-    rope key (B, max_len, dr), or GQA's KV-major k and v (B, KV, max_len,
-    hd)."""
+    rope key (B, max_len, dr); GQA's KV-major k and v (B, KV, max_len, hd),
+    on a windowed layer the ring (B, KV, w, hd); the recurrent blocks'
+    states (``models/ssm.py``), and on a hymba layer the mamba state beside
+    the attention cache."""
+    if kind.block == "mlstm":
+        return SSM.mlstm_cache_init(cfg, B, device)
+    if kind.block == "slstm":
+        return SSM.slstm_state_init(cfg, B, device)
     if kind.attn == "mla":
         shapes = {"latent": (B, max_len, cfg.kv_lora_rank),
                   "k_rope": (B, max_len, cfg.qk_rope_head_dim)}
     else:
-        shape = (B, cfg.n_kv_heads, max_len, cfg.head_dim)
+        shape = (B, cfg.n_kv_heads, kind.sliding_window or max_len,
+                 cfg.head_dim)
         shapes = {"k": shape, "v": shape}
-    return {"attn": {name: torch.zeros(shape, dtype=L.dtype_of(cfg),
-                                       device=device)
-                     for name, shape in shapes.items()}}
+    c: Dict[str, Any] = {"attn": {
+        name: torch.zeros(shape, dtype=L.dtype_of(cfg), device=device)
+        for name, shape in shapes.items()}}
+    if kind.block == "hymba":
+        c["mamba"] = SSM.mamba_cache_init(cfg, B, device)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -189,19 +254,25 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
                 positions: torch.Tensor, lo: int, hi: int, caches,
                 cache_index: Optional[int]):
     """Layers [lo, hi), across runs.  With ``caches`` (one stacked tree per
-    run) each layer decodes into its slice in place and the new caches are
-    views of them; without, the new caches stack the layers' (k, v) or
-    (latent, k_rope).  A run outside [lo, hi) adds no cache.  Returns (h,
-    new_caches, the MoE layers' aux summed in float32)."""
+    run) each layer decodes into its slice in place (attention rows, and
+    the new recurrent states copied over the old) and the new caches are
+    views of them; without, the new caches stack the layers' (k, v),
+    (latent, k_rope) or states.  A run outside [lo, hi) adds no cache.
+    Returns (h, new_caches, the MoE layers' aux summed in float32)."""
+    runs = layer_runs(cfg)
     new_caches = []
-    kv_len = None
-    if caches is not None:                       # one (B,) tensor per step
+    live = {}
+    if caches is not None:
+        # the live rows of an attention cache, one (B,) tensor per step and
+        # window: cache_index + S, or on a ring of w rows at most w
         B, S = h.shape[:2]
-        kv_len = torch.full((B,), cache_index + S, dtype=torch.int32,
-                            device=h.device)
+        n = cache_index + S
+        live = {w: torch.full((B,), min(n, w) if w else n, dtype=torch.int32,
+                              device=h.device)
+                for w in {kind.sliding_window for kind, _ in runs}}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     start = 0
-    for ri, (kind, count) in enumerate(layer_runs(cfg)):
+    for ri, (kind, count) in enumerate(runs):
         end = start + count
         s, e = max(lo, start), min(hi, end)
         if s < e:
@@ -212,9 +283,12 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
                 c_i = None if rc is None else tree_map(lambda a: a[i], rc)
                 h, c, a = block_apply(cfg, kind, tree_map(lambda a: a[i], rp),
                                       h, positions, cache=c_i,
-                                      cache_index=cache_index, kv_len=kv_len)
+                                      cache_index=cache_index,
+                                      kv_len=live.get(kind.sliding_window))
                 if a is not None:
                     aux = aux + a
+                if c_i is not None:
+                    tree_map(_store, c_i, c)
                 got.append(c)
             if rc is None:
                 new_caches.append(tree_map(lambda *xs: torch.stack(xs), *got))
@@ -223,6 +297,13 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
                     lambda a: a[s - start:e - start], rc))
         start = end
     return h, new_caches, aux
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write a layer's new cache leaf into its slice of the stacked caches;
+    the attention rows were written in place already (src is dst)."""
+    if src is not dst:
+        dst.copy_(src)
 
 
 def forward(cfg: ModelConfig, params, h: torch.Tensor, positions: torch.Tensor,
@@ -286,14 +367,25 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
 
 
 def _merge_prefill_cache(cfg: ModelConfig, kind: LayerKind, dec, got, Sq: int):
-    """Write the prompt's rows into the first Sq rows of the decode cache,
-    in place: MLA's (layers, B, Sq, r) latent and (layers, B, Sq, dr) rope
-    key as they lie, GQA's (layers, B, Sq, KV, hd) k and v turned KV-major."""
+    """Write the prompt's rows into the decode cache, in place: MLA's
+    (layers, B, Sq, r) latent and (layers, B, Sq, dr) rope key as they lie
+    into the first Sq rows; GQA's (layers, B, Sq, KV, hd) k and v turned
+    KV-major into the first Sq rows, or on a ring of w rows with Sq >= w the
+    last w rows rolled by Sq % w, so that position p sits in slot p % w.
+    Recurrent states are taken as they come."""
+    if kind.block in ("mlstm", "slstm"):
+        return got
+    w = kind.sliding_window
     for name, rows in got["attn"].items():
         if kind.attn == "mla":
             dec["attn"][name][:, :, :Sq] = rows
+        elif w and Sq >= w:
+            dec["attn"][name].copy_(torch.roll(
+                rows[:, :, Sq - w:].transpose(2, 3), Sq % w, dims=3))
         else:
             dec["attn"][name][:, :, :, :Sq] = rows.transpose(2, 3)
+    if kind.block == "hymba":
+        dec["mamba"] = got["mamba"]
     return dec
 
 

@@ -90,6 +90,49 @@ def test_flash_plain_bf16():
                                    rtol=BF16_TOL, atol=BF16_TOL)
 
 
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,w", [
+    (2, 40, 40, 4, 2, 16, 16),          # Hymba's reduced window
+    (1, 37, 37, 4, 2, 32, 1),           # w = 1: each row its own v row
+    (2, 20, 53, 6, 2, 16, 8),           # Sq < Skv
+    (1, 24, 24, 4, 4, 64, 100),         # w >= Skv: the causal mask alone
+])
+def test_flash_plain_with_a_window_matches_the_reference(B, Sq, Skv, H, KV,
+                                                         hd, w):
+    """B5's plain version with a sliding window against the JAX package's
+    windowed prefill: ``plain_attention`` and the blockwise XLA path at
+    blocks of 8 (``flash_attention_xla``, taken above ``attn_block_q``),
+    float32 within F32_TOL."""
+    from repro.models.attention_flash import flash_attention_xla
+    from repro.models.layers import plain_attention
+    q, k, v = _normal(Sq * 3 + w, (B, Sq, H, hd), (B, Skv, KV, hd),
+                      (B, Skv, KV, hd))
+    out = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)), True, w)
+    qj, kj, vj = map(jnp.asarray, (q, k, v))
+    refs = [flash_attention_xla(qj, kj, vj, causal=True, sliding_window=w,
+                                block_q=8, block_kv=8)]
+    if Sq == Skv:                # plain_attention aligns q to kv's start
+        refs.append(plain_attention(qj, kj, vj, causal=True, sliding_window=w))
+    for exp in refs:
+        np.testing.assert_allclose(out.numpy(), np.asarray(exp), rtol=F32_TOL,
+                                   atol=F32_TOL)
+    if w == 1:
+        vg = np.repeat(v, H // KV, axis=2)[:, Skv - Sq:]
+        np.testing.assert_allclose(out.numpy(), vg, rtol=F32_TOL, atol=F32_TOL)
+    if w >= Skv:
+        torch.testing.assert_close(
+            out, fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                          True), rtol=0, atol=0)
+
+
+def test_flash_window_takes_causal_attention_only():
+    """The window is the causal mask's companion, as in ``plain_attention``;
+    the CUDA wrapper makes the same check (``check_window``)."""
+    t = torch.zeros((1, 8, 2, 16))
+    for causal, w in ((False, 4), (True, -1)):
+        with pytest.raises(ValueError, match="sliding window"):
+            fa.flash_attention_plain(t, t, t, causal, w)
+
+
 def test_ops_flash_attention_routes_cpu_tensors_to_the_plain_version():
     q, k, v = map(torch.from_numpy,
                   _normal(4, (1, 40, 4, 32), (1, 40, 2, 32), (1, 40, 2, 32)))

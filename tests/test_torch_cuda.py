@@ -8,11 +8,13 @@ marked ``cuda`` and skip without one.  On a machine with a card:
 They import no JAX: the plain versions are held against the JAX package by
 the CPU tests, and here the kernels are held against the plain versions on
 the same inputs (window attention within 1e-4, both fp32 with sums in other
-orders; the codec pair and the quant pair bitwise; flash attention and flash
-decode within 1e-5 of the output's max |x| in f32, sums in other orders, and
-1e-2 in bf16, one rounding of the output), the frame loop on the card against
-the same loop on the CPU, and LM serving at the reduced size on the card
-against the CPU path.  The MoE FFN and MLA run no kernel: one full-width
+orders; the codec pair and the quant pair bitwise; flash attention, with and
+without a sliding window, and flash decode within 1e-5 of the output's max
+|x| in f32, sums in other orders, and 1e-2 in bf16, one rounding of the
+output; a window of w >= Skv bitwise the call without one), the frame loop
+on the card against the same loop on the CPU, and LM serving at the reduced
+size on the card against the CPU path (xLSTM and Hymba too, past the ring's
+wrap).  The MoE FFN and MLA run no kernel: one full-width
 layer of each on the card is held to the CPU path (routing equal).  The vectorized MAC has no kernel of its own: its
 step's PyTorch ops on the card are held bit for bit to the CPU path (and
 its lexsort to numpy's), with no host sync inside a step.
@@ -328,6 +330,43 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, KV,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,w", [
+    (2, 300, 300, 25, 5, 64, 64),       # Hymba's heads, a window of a tile
+    (2, 1100, 1100, 25, 5, 64, 1024),   # Hymba's window, ragged
+    (2, 200, 1300, 25, 5, 64, 1024),    # Sq < Skv
+    (1, 130, 130, 4, 2, 32, 1),         # w = 1: the diagonal alone
+    (2, 150, 190, 4, 2, 16, 17),        # a window across tile edges
+    (2, 96, 96, 8, 2, 128, 50),
+])
+def test_flash_attention_window_matches_plain(cuda, dtype, B, Sq, Skv, H, KV,
+                                              hd, w):
+    """B5 with a sliding window within tolerance of the plain version, and
+    two launches bitwise equal."""
+    g = torch.Generator().manual_seed(17)
+    q = torch.randn((B, Sq, H, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    out = fa.flash_attention_cuda(q, k, v, True, w)
+    again = fa.flash_attention_cuda(q, k, v, True, w)
+    ref = fa.flash_attention_plain(q, k, v, True, w)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[dtype]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("w", [300, 301, 5000])
+def test_flash_attention_window_past_skv_is_the_causal_call(cuda, dtype, w):
+    """A window of w >= Skv gives bitwise the output of no window."""
+    g = torch.Generator().manual_seed(18)
+    q = torch.randn((2, 250, 25, 64), generator=g).to(cuda, dtype)
+    k = torch.randn((2, 300, 5, 64), generator=g).to(cuda, dtype)
+    v = torch.randn((2, 300, 5, 64), generator=g).to(cuda, dtype)
+    assert torch.equal(fa.flash_attention_cuda(q, k, v, True, w),
+                       fa.flash_attention_cuda(q, k, v, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("S,H,KV,hd,lens", [
     (512, 8, 2, 64, (170, 256, 512)),
     (300, 4, 4, 64, (0, 1, 300)),
@@ -414,6 +453,43 @@ def test_lm_serving_on_the_card_matches_the_cpu_path(cuda):
     assert dict(ops.LAUNCHES) == {"flash_attention": 2 * n,
                                   "decode_attention": 3 * n,
                                   "codec_encode": 1, "codec_decode": 1}
+    assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b"])
+def test_recurrent_serving_on_the_card_matches_the_cpu_path(cuda, arch):
+    """Reduced xLSTM and Hymba (f32, Hymba's window of 16) on the same weights
+    and tokens: a 20-token prefill and 20 decode steps (past the ring's
+    wrap), on the card and on the CPU, logits within 1e-4 of their max |x|;
+    then serve on the card launches the kernels its config implies."""
+    cfg = get_reduced_config(arch)
+    g = torch.Generator().manual_seed(19)
+    params = T.init(cfg, g, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=g,
+                         dtype=torch.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(dev), params)
+        with torch.no_grad():
+            lg, caches = T.prefill(cfg, p, {"tokens": toks.to(dev)}, 40)
+            got = [lg]
+            tok = toks[:, -1:]
+            for i in range(20):
+                lg, caches = T.decode_step(cfg, p, caches,
+                                           {"tokens": tok.to(dev)}, 20 + i)
+                got.append(lg)
+                tok = (tok + 1) % cfg.vocab_size
+        out[dev.type] = got
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _rel_err(a, b) <= 1e-4
+    ops.LAUNCHES.clear()
+    st = SV.serve(argparse.Namespace(arch=arch, reduced=True, prompt_len=20,
+                                     gen=3, batch=2, split=0.5, device="cuda"))
+    n = cfg.n_layers
+    want = {"codec_encode": 1, "codec_decode": 1}
+    if cfg.hybrid:
+        want.update(flash_attention=2 * n, decode_attention=3 * n)
+    assert dict(ops.LAUNCHES) == want
     assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0
 
 

@@ -1,8 +1,10 @@
 """The port's LM serving path against the JAX package, on the CPU.
 
-Reduced configs of the four dense archs and the two MoE archs (granite:
+Reduced configs of the four dense archs, the two MoE archs (granite:
 GQA and 40 capacity-routed experts; deepseek: MLA, a leading dense layer,
-routed and shared experts) run with the JAX package's weights
+routed and shared experts), xLSTM (mLSTM and sLSTM blocks) and Hymba
+(attention and mamba heads in parallel, a sliding window of 16 on its
+middle layer and the ring-buffer decode cache) run with the JAX package's weights
 (``T.init(cfg, PRNGKey)`` carried across by ``bridge.lm_params_from_numpy``)
 and the same numpy token ids on both sides: prefill logits and caches,
 three greedy decode steps, and the split (head, int8 codec, tail) at every
@@ -40,11 +42,12 @@ from repro_torch.core.splitting import (SERVER_ONLY, UE_ONLY, LMSplitPlan,
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 DENSE = ("qwen3-1.7b", "qwen3-4b", "smollm-360m", "starcoder2-15b")
 MOE = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
-OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE + MOE)
+RECURRENT = ("xlstm-350m", "hymba-1.5b")
+OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE + MOE + RECURRENT)
 LM_TOL = 2e-5
 CPU = torch.device("cpu")
 
@@ -57,7 +60,7 @@ def _close(port, ref, tol=LM_TOL):
     assert err <= tol, err
 
 
-@pytest.fixture(scope="module", params=DENSE + MOE)
+@pytest.fixture(scope="module", params=DENSE + MOE + RECURRENT)
 def lm(request):
     """(arch, JAX config, port config, JAX params, port params)."""
     arch = request.param
@@ -74,13 +77,15 @@ def _drop_free(cfg):
 
 def _close_caches(port, ref):
     """Every leaf of every run's cache: GQA's KV-major (layers, B, KV,
-    max_len, hd) k and v, MLA's (layers, B, max_len, r) latent and rope
-    key."""
+    max_len, hd) k and v (a windowed layer's ring of w rows), MLA's
+    (layers, B, max_len, r) latent and rope key, the recurrent states."""
     assert len(port) == len(ref)
     for tc, jc in zip(port, ref):
-        assert sorted(tc["attn"]) == sorted(jc["attn"])
-        for name in tc["attn"]:
-            _close(tc["attn"][name], jc["attn"][name])
+        leaves, treedef = tree_flatten(tc)
+        jleaves, jdef = jax.tree.flatten(jc)
+        assert treedef.num_leaves == jdef.num_leaves
+        for a, b in zip(leaves, jleaves):
+            _close(a, b)
 
 
 def _tokens(cfg, B, S, seed=0):
@@ -160,9 +165,10 @@ def test_port_prefill_decode_consistency(lm):
         dec, caches = model.decode_step(tp, caches, {"tokens": toks[:, -1:]}, 11)
     _close(dec, full.numpy())
     for c in caches:                  # the decoded token's row was written
-        rows = c["attn"]["latent"] if "latent" in c["attn"] else \
-            c["attn"]["k"].transpose(2, 3)
-        assert rows[:, :, 11].abs().sum() > 0
+        if "attn" in c:
+            rows = c["attn"]["latent"] if "latent" in c["attn"] else \
+                c["attn"]["k"].transpose(2, 3)
+            assert rows[:, :, 11].abs().sum() > 0
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -228,13 +234,19 @@ def test_moe_bf16_reduced_model_runs_and_agrees(arch):
     _close(tl, jl, tol=5e-2)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
-def test_split_accounting_matches_the_reference(arch):
+@pytest.mark.parametrize("include_state", [False, True])
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+def test_split_accounting_matches_the_reference(arch, include_state):
+    """Field-exact with the JAX package's plan; with ``include_state`` the
+    SSM (mLSTM C) and hybrid (mamba h) payloads gain the head layers'
+    state."""
     jcfg, tcfg = jget_config(arch), get_config(arch)
     assert count_params(tcfg) == jbase.count_params(jcfg)
     assert count_active_params(tcfg) == jbase.count_active_params(jcfg)
-    jplan = jsplit.LMSplitPlan(jcfg, None, workload=jsplit.Workload(n_tokens=2048))
-    tplan = LMSplitPlan(tcfg, None, workload=Workload(n_tokens=2048), device=CPU)
+    jplan = jsplit.LMSplitPlan(jcfg, None, workload=jsplit.Workload(
+        n_tokens=2048, include_state=include_state))
+    tplan = LMSplitPlan(tcfg, None, workload=Workload(
+        n_tokens=2048, include_state=include_state), device=CPU)
     assert tplan.options == jplan.options
     for opt in tplan.options:
         assert tplan.payload_specs(opt) == jplan.payload_specs(opt)
@@ -279,28 +291,31 @@ def test_serve_on_the_cpu(split, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("split", [0.0, 0.5])
-@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("arch", MOE + RECURRENT)
 def test_moe_serve_on_the_cpu(arch, split, capsys):
-    """``serve --arch`` of a MoE arch on the CPU: the counters against the
-    JAX package's driver, every logit finite, the split's payload the
-    (B, S, d) stream in the config's dtype."""
-    st = tserve.serve(_serve_args(arch=arch, split=split))
+    """``serve --arch`` of a MoE, SSM or hybrid arch on the CPU: the
+    counters against the JAX package's driver, every logit finite, the
+    split's payload the (B, S, d) stream in the config's dtype alone, as the
+    JAX package's head ships it.  A prompt of 20 and 6 steps take Hymba's
+    reduced window of 16 past its wrap."""
+    st = tserve.serve(_serve_args(arch=arch, split=split, prompt_len=20,
+                                  gen=6))
     ref = jserve.serve(argparse.Namespace(arch=arch, reduced=True,
-                                          prompt_len=16, gen=4, batch=2,
+                                          prompt_len=20, gen=6, batch=2,
                                           split=split))
     ctr, rctr = st["metrics"]["counters"], ref["metrics"]["counters"]
     for name in ("requests_total", "tokens_generated_total",
                  "boundary_raw_bytes_total"):
         assert ctr[name] == rctr[name]
     cfg = get_reduced_config(arch)
-    assert ctr["boundary_raw_bytes_total"] == (2 * 16 * cfg.d_model * 4
+    assert ctr["boundary_raw_bytes_total"] == (2 * 20 * cfg.d_model * 4
                                                if split else 0)
-    assert ctr["nonfinite_logits_total"] == 0 and st["tokens_generated"] == 8
-    assert st["metrics"]["histograms"]["decode_step_s"]["count"] == 4
-    assert "decode 4 steps" in capsys.readouterr().out
+    assert ctr["nonfinite_logits_total"] == 0 and st["tokens_generated"] == 12
+    assert st["metrics"]["histograms"]["decode_step_s"]["count"] == 6
+    assert "decode 6 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("arch", MOE + RECURRENT)
 def test_moe_entry_points_default_to_the_card(arch, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_reduced_config(arch)
@@ -324,17 +339,21 @@ def test_serve_defaults_to_the_card_and_raises_without_one(monkeypatch):
         T.init(cfg, torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", OTHERS)
+@pytest.mark.parametrize("arch", OTHERS + ("softcap",))
 def test_configs_outside_the_dense_family_raise(arch):
-    cfg = get_reduced_config(arch)
+    """The frontends (musicgen, internvl) and logit soft-capping, which no
+    config sets (here on a reduced qwen3-1.7b), wait for ROADMAP A8b."""
+    cfg = (get_reduced_config("qwen3-1.7b").replace(attn_logit_softcap=30.0)
+           if arch == "softcap" else get_reduced_config(arch))
     with pytest.raises(NotImplementedError, match="A8b"):
         T.init(cfg, torch.Generator().manual_seed(0), CPU)
     with pytest.raises(NotImplementedError, match="A8b"):
         get_model(cfg, CPU)
     with pytest.raises(NotImplementedError, match="A8b"):
         LMSplitPlan(cfg, None, device=CPU)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        tserve.serve(_serve_args(arch=arch))
+    if arch != "softcap":
+        with pytest.raises(NotImplementedError, match="A8b"):
+            tserve.serve(_serve_args(arch=arch))
 
 
 def test_registry_input_specs():
@@ -351,3 +370,80 @@ def test_registry_input_specs():
     caches = model.cache_init(3, 11)
     assert caches[0]["attn"]["k"].shape == (cfg.n_layers, 3, cfg.n_kv_heads, 11,
                                             cfg.head_dim)
+
+
+@pytest.fixture(scope="module")
+def hymba():
+    """Reduced hymba-1.5b (3 layers, the middle one windowed at 16): (JAX
+    config, port config, JAX params, port params)."""
+    jcfg, tcfg = jget_reduced("hymba-1.5b"), get_reduced_config("hymba-1.5b")
+    assert [k.sliding_window for k in T.layer_plan(tcfg)] == [0, 16, 0]
+    jp = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(11)))
+    return jcfg, tcfg, jp, lm_params_from_numpy(jp, CPU)
+
+
+@pytest.mark.parametrize("prompt", [12, 16, 20, 37])
+def test_hymba_ring_decode_past_the_wrap_matches_the_reference(hymba, prompt):
+    """Prompts below, at and past the window of 16 (the prefill merge rolls
+    the last 16 rows by prompt % 16), then 20 greedy decode steps, which
+    wrap the ring: logits and every cache leaf (the ring as it lies, the
+    global caches, the mamba states) against the JAX ``decode_step``."""
+    jcfg, tcfg, jp, tp = hymba
+    toks = _tokens(jcfg, 2, prompt, seed=prompt)
+    max_len = prompt + 20
+    jl, jc = jax.jit(lambda p, b: JT.prefill(jcfg, p, b, max_len))(
+        jp, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        tl, tc = T.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                           max_len)
+    _close(tl, jl)
+    _close_caches(tc, jc)
+    assert tc[1]["attn"]["k"].shape[3] == 16      # the ring, whatever max_len
+    step = jax.jit(lambda p, c, b, i: JT.decode_step(jcfg, p, c, b, i))
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for i in range(20):
+        jl, jc = step(jp, jc, {"tokens": jnp.asarray(tok)},
+                      jnp.asarray(prompt + i, jnp.int32))
+        with torch.no_grad():
+            tl, tc = T.decode_step(tcfg, tp, tc,
+                                   {"tokens": torch.from_numpy(tok)}, prompt + i)
+        _close(tl, jl)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    _close_caches(tc, jc)
+
+
+@pytest.mark.parametrize("prompt", [15, 16, 37])
+def test_hymba_port_prefill_decode_consistency_across_the_window(hymba, prompt):
+    """Prefill to S-1 plus one decode step (on the ring) against a prefill
+    to S (B5's plain version with the window), float32."""
+    _, tcfg, _, tp = hymba
+    toks = torch.from_numpy(_tokens(tcfg, 2, prompt, seed=3))
+    with torch.no_grad():
+        full, _ = T.prefill(tcfg, tp, {"tokens": toks}, prompt)
+        _, caches = T.prefill(tcfg, tp, {"tokens": toks[:, :-1]}, prompt)
+        dec, _ = T.decode_step(tcfg, tp, caches, {"tokens": toks[:, -1:]},
+                               prompt - 1)
+    _close(dec, full.numpy())
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_writes_its_states_into_the_caches(arch):
+    """A decode step leaves the stacked caches holding the new states: the
+    tree ``decode_step`` returns is views of the caches it was given, and a
+    second step from them equals a second step from a copy."""
+    cfg = get_reduced_config(arch)
+    params = T.init(cfg, torch.Generator().manual_seed(5), CPU)
+    toks = torch.from_numpy(_tokens(cfg, 2, 9, seed=5))
+    with torch.no_grad():
+        _, caches = T.prefill(cfg, params, {"tokens": toks}, 11)
+        before = [tree_map(torch.clone, c) for c in caches]
+        _, after = T.decode_step(cfg, params, caches, {"tokens": toks[:, :1]}, 9)
+        for c, b, a in zip(caches, before, after):
+            for x, y, z in zip(tree_leaves(c), tree_leaves(b), tree_leaves(a)):
+                assert x.data_ptr() == z.data_ptr()
+            assert any(not torch.equal(x, y) for x, y in
+                       zip(tree_leaves(c), tree_leaves(b)))
+        copies = [tree_map(torch.clone, c) for c in caches]
+        l1, _ = T.decode_step(cfg, params, caches, {"tokens": toks[:, 1:2]}, 10)
+        l2, _ = T.decode_step(cfg, params, copies, {"tokens": toks[:, 1:2]}, 10)
+    torch.testing.assert_close(l1, l2, rtol=0, atol=0)

@@ -1,8 +1,10 @@
-"""Prefill -> decode handoff gap of the dense LM: the JAX package against the
+"""Prefill -> decode handoff gap of an LM: the JAX package against the
 port's CPU path, on the same weights and prompt.
 
     PYTHONPATH=src python tools/lm_handoff_gap.py \
         [--arch qwen3-1.7b] [--layers 4] [--batch 2] [--prompt 256]
+    PYTHONPATH=src python tools/lm_handoff_gap.py --arch hymba-1.5b \
+        --prompt 1100 --dtypes float32
 
 At the arch's full width and a cut depth, the weights are the JAX package's
 ``init`` (seeded), carried to the port by ``bridge.lm_params_from_numpy``.
@@ -13,7 +15,9 @@ max |diff| of the two, the max |logit|, and the share of logits outside the
 JAX package's own test tolerance (|diff| <= 3e-2 + 3e-2 |logit|), then the
 bf16-vs-float32 gap of the prefill logits.  The last line is one JSON object
 with these numbers.  It runs on the CPU; at 4 layers of qwen3-1.7b it needs
-about 6 GiB.
+about 6 GiB.  Cut to 4 layers, xlstm-350m and hymba-1.5b keep every block
+kind (``CUTS``, as ``chip_smoke.py`` cuts them): an sLSTM layer at 2, and
+global attention at layers 0 and 3 around two windowed ones.
 """
 from __future__ import annotations
 
@@ -32,6 +36,9 @@ from repro_torch.configs import get_config
 from repro_torch.models import transformer as T
 
 RTOL = ATOL = 3e-2                  # tests/test_models_smoke.py
+# a 4-layer cut that keeps every block kind of the recurrent archs
+CUTS = {"xlstm-350m": dict(slstm_positions=(2,)),
+        "hymba-1.5b": dict(global_attn_positions=(0, 3))}
 
 
 def jax_logits(cfg, params, toks):
@@ -72,15 +79,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"],
+                    choices=["bfloat16", "float32"])
     args = ap.parse_args(argv)
 
-    jcfg = jget_config(args.arch).replace(n_layers=args.layers)
-    tcfg = get_config(args.arch).replace(n_layers=args.layers)
+    cut = dict(n_layers=args.layers,
+               **(CUTS.get(args.arch, {}) if args.layers == 4 else {}))
+    jcfg = jget_config(args.arch).replace(**cut)
+    tcfg = get_config(args.arch).replace(**cut)
     toks = np.random.default_rng(args.seed).integers(
         0, jcfg.vocab_size, (args.batch, args.prompt)).astype(np.int32)
     jp = JT.init(jcfg, jax.random.PRNGKey(args.seed))
     out, prefill = {}, {}
-    for dt in ("bfloat16", "float32"):
+    for dt in args.dtypes:
         if dt != jcfg.dtype:
             jcfg, tcfg = jcfg.replace(dtype=dt), tcfg.replace(dtype=dt)
             jp = jax.tree.map(lambda a: a.astype(dt), jp)
@@ -97,7 +108,7 @@ def main(argv=None) -> dict:
                   f"{out[f'{pkg} {dt}']['share_outside_ref_tol']:.3g}",
                   flush=True)
         del tp
-    for pkg in ("jax", "port_cpu"):
+    for pkg in ("jax", "port_cpu") if len(args.dtypes) == 2 else ():
         noise = float(np.abs(prefill[(pkg, "bfloat16")]
                              - prefill[(pkg, "float32")]).max())
         out[f"{pkg} bf16_vs_f32_prefill"] = noise
