@@ -38,8 +38,16 @@ when it fails:
     (B6) at the full-width decode shapes of qwen3-1.7b
     and of granite in bf16 and f32 with kv_len 0, 1, one chunk of its split,
     one chunk + 1, the prompt, the full cache and a ragged 777, and on
-    Hymba's ring (4, 5, 1024, 64) at kv_len 1, 1023 and 1024; each output row (one head's hd values at one position)
-    within F32_TOL / BF16_TOL of that row's max |x|, two launches on the
+    Hymba's ring (4, 5, 1024, 64) at kv_len 1, 1023 and 1024; B5 with a
+    logit soft-cap in bf16 and f32 at qwen3-1.7b's prefill shape and at
+    internvl2-26b's heads (48 over 8, hd 128), each at a binding cap of 1.0
+    (which must move the plain output by more than the tolerance) and at
+    Gemma 2's 50.0, windowed and capped at Hymba's shape, and at
+    musicgen-medium's one query head per kv head (24 over 24, hd 64); B6
+    capped on qwen3-1.7b's and InternVL's global caches and on Hymba's ring,
+    and at musicgen's G = 1; a cap of 0 bitwise the call without one; each
+    output row (one head's hd values at one position) within F32_TOL /
+    BF16_TOL of that row's max |x|, two launches on the
     same inputs bitwise equal; per-window attention (B7) through its entry
     point, ops.window_attention, at the four Swin-T stage partitions of 4 images
     with the shifted-region mask and without one (B7's own path: its launch
@@ -75,7 +83,9 @@ when it fails:
     their yardstick, B6 and its yardstick also with a cold L2 (L2_FLUSH_BYTES
     written before each launch); B5 at Hymba's prefill shape, windowed and
     global, beside SDPA with the same boolean mask and its bound (the live
-    pairs' operations);
+    pairs' operations); B5 and B6 soft-capped at 50.0 at the serving shapes
+    (no single PyTorch call takes a cap), and B5 at InternVL's and
+    musicgen's prefill shapes beside SDPA;
  7. the codec's modes at full width: for splits 1-4, one frame's head
     payload through raw, zlib, int8, int8_zlib and int8_delta_zlib, each
     int8 mode fused and legacy (per-tensor, the quant pair).  Every payload
@@ -180,7 +190,26 @@ when it fails:
     check for both cuts (f32, batch 2, prompt 1100, prefill, 2 decode
     steps, the split tail at layer 2): logits within CPU_TOL, the CPU
     decode of the card's payload bitwise equal;
-15. a profiler trace of phase 6's head model and batched tail at each
+15. the frontends and logit soft-capping at full width, each part timed:
+    (a) musicgen-medium (48 layers, d 1536, 24 heads over 24 at hd 64, four
+    codebook heads of 2048, bf16; 2048 precomputed frames in, codebook
+    tokens fed back) served as phase 9 serves qwen3-1.7b, split at layer
+    24: every launch counter starts at 0 and must read B5 48 in the prefill
+    and 48 across the split, B6 48 x 32, the codec pair once each and no
+    other kernel; no non-finite logit; a raw boundary of 25,165,824 B;
+    prefill ms, decode ms per step, the split's bytes and one-shot ms, peak
+    device memory; (b) internvl2-26b (48 layers, d 6144, 48 heads over 8,
+    vocab 92,553, bf16; 256 precomputed patches before 1,792 text tokens)
+    the same way: a raw boundary of 100,663,296 B; (c) prefill to S-1 plus
+    one decode step against a prefill to S: musicgen at full depth in bf16
+    decoding a frame and decoding codebook tokens (their summed embeddings
+    the full prompt's last frame), InternVL decoding its last text token
+    after the patches, qwen3-1.7b soft-capped at 50.0 and at 1.0, all
+    within HANDOFF_BF16_TOL; each cut to 4 layers in f32 within
+    HANDOFF_F32_TOL; (d) phase 10's check (f32, prefill, 2 decode steps,
+    the split tail) for musicgen and the capped qwen3-1.7b cut to 4 layers
+    and InternVL cut to 2 layers at batch 1 and a prompt of 264;
+16. a profiler trace of phase 6's head model and batched tail at each
     split: the card's busy time and B1's part of it; then of one
     compress_head, its device encode and copy alone, and one
     decompress_group at split 1: B2/B3 beside the copies and the eager
@@ -188,11 +217,11 @@ when it fails:
     phase 12 (a) under edf: device busy ms (and the sorts' part), idle
     share, kernels, memsets and copies per executed TTI and the host time
     of the stop-code reads; then a decode step of each MoE model of phase
-    13 and of each model of phase 14 (batch 4, cache of 2048): device busy
-    ms, device events and the idle share against its host-clock time, and
-    Hymba's prefill with B5's part of it.  It runs last: after a profiler
-    session, host-clock times later in the same process can read higher,
-    and phases 6-14 time on the host clock.
+    13 and of each model of phases 14 and 15 (batch 4, cache of 2048):
+    device busy ms, device events and the idle share against its host-clock
+    time, and Hymba's prefill with B5's part of it.  It runs last: after a
+    profiler session, host-clock times later in the same process can read
+    higher, and phases 6-15 time on the host clock.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -270,6 +299,19 @@ RECURRENT_PROMPT = 1100
 # differ from the step forms by sum order only, while a state or ring row
 # written amiss moves the logits by orders of magnitude more
 SSM_HANDOFF_F32_TOL = 1e-5
+# phase 15: the frontends, each served as phase 9 serves LM_ARCH, split at
+# layer 24 (musicgen-medium: 2048 precomputed frames in, four codebook heads
+# out, 24 heads over 24, G = 1; internvl2-26b: 256 precomputed patches
+# before 1,792 text tokens, 48 heads over 8, 36.99 GiB of bf16 weights), and
+# logit soft-capping on LM_ARCH at Gemma 2's attn_logit_softcapping (50.0,
+# which seldom binds) and at 1.0 (which binds on most scores).  (d) cuts
+# InternVL to 2 layers at batch 1 and 256 patches + 8 tokens, so that its
+# f32 weights on the host stay near 7.7 GB (the embedding and heads 4.55 GB)
+FRONTEND_ARCHS = ("musicgen-medium", "internvl2-26b")
+GEMMA2_SOFTCAP, BINDING_SOFTCAP = 50.0, 1.0
+SOFTCAPS = (GEMMA2_SOFTCAP, BINDING_SOFTCAP)
+INTERNVL_CPU_LAYERS = 2
+INTERNVL_CPU_B, INTERNVL_CPU_S = 1, 264
 CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
 # the vectorized MAC at the sizes benchmarks/bench_scale.py calls city scale:
 # its 10,240-flow headline drain at TOTAL_BYTES of offered load (the oracle
@@ -495,17 +537,24 @@ def traced_busy_ms(what: str, fn):
     return busy, n_ev, by_name
 
 
-def handoff_logits(cfg, params, tokens):
-    """(logits of a prefill to S, of a prefill to S-1 + decode of token
-    S-1), float32 (B, 1, V), on the tokens' device."""
+def handoff_logits(cfg, params, batch, last=None):
+    """(logits of a prefill to S, of a prefill to S-1 + decode of position
+    S-1), float32 (B, 1, V) or (B, 1, ncb, V), on the inputs' device.
+    ``batch``: the prompt to S, token ids, frames, or patches and tokens
+    (the patches stay whole, the text loses its last token); ``last``: the
+    decode input of position S-1, the batch's own last position unless
+    given (musicgen's codebook tokens whose summed embeddings are the
+    batch's last frame)."""
     import torch
     import repro_torch.models.transformer as T
-    S = tokens.shape[1]
+    pre = {k: v if k == "patches" else v[:, :-1] for k, v in batch.items()}
+    if last is None:
+        last = {k: v[:, -1:] for k, v in batch.items() if k != "patches"}
+    S = sum(v.shape[1] for v in batch.values())
     with torch.no_grad():
-        full, _ = T.prefill(cfg, params, {"tokens": tokens}, S)
-        _, caches = T.prefill(cfg, params, {"tokens": tokens[:, :-1]}, S)
-        dec, _ = T.decode_step(cfg, params, caches, {"tokens": tokens[:, -1:]},
-                               S - 1)
+        full, _ = T.prefill(cfg, params, batch, S)
+        _, caches = T.prefill(cfg, params, pre, S)
+        dec, _ = T.decode_step(cfg, params, caches, last, S - 1)
     return full, dec
 
 
@@ -964,8 +1013,9 @@ def mac_event(cell) -> None:
 def serve_checked(arch: str) -> tuple:
     """``serve`` at the full width of ``arch`` as phase 9 serves LM_ARCH,
     every launch counter at 0 before and read after.  A GQA model (dense,
-    MoE or hybrid) launches B5 once per layer in the prefill and once
-    across the split's head and tail, B6 once per layer and decode step;
+    MoE, hybrid, audio or vision) launches B5 once per layer in the prefill
+    and once across the split's head and tail, B6 once per layer and decode
+    step;
     MLA and xLSTM launch neither; the codec pair once each.  No logit may be
     non-finite, and the split's payload is the (B, S, d) stream.  Returns
     (the config, the status histograms, the log line's common part)."""
@@ -1093,7 +1143,7 @@ def moe_handoffs(dev) -> None:
                    tree_map(lambda a: a.float(), p16), toks, HANDOFF_F32_TOL)
 
     for cfg, params, toks, tol in cases():
-        gap, top = handoff_gap(*handoff_logits(cfg, params, toks))
+        gap, top = handoff_gap(*handoff_logits(cfg, params, {"tokens": toks}))
         del params
         log(f"{cfg.name} drop-free (capacity factor {MOE_DROP_FREE}), top-"
             f"{cfg.moe_top_k} of {cfg.n_experts}, {cfg.n_layers} layers, "
@@ -1105,41 +1155,46 @@ def moe_handoffs(dev) -> None:
                                  "logits disagree")
 
 
-def lm_against_cpu(cut, dev, S: int = 256) -> None:
-    """Phase 13 (c), 14 (d): phase 10's check on ``cut``, a 4-layer f32
-    config: batch 2, prompt S, prefill, two greedy decode steps and the
-    split tail at layer 2 on the card and on the port's CPU path.  A MoE
-    config's every MoE layer must route every token to the same experts on
-    both; logits within CPU_TOL of the card's max |logit|; the CPU decode of
-    the card's split payload bitwise equal to the card's."""
+def lm_against_cpu(cut, dev, S: int = 256, B: int = 2) -> None:
+    """Phase 13 (c), 14 (d), 15 (d): phase 10's check on ``cut``, a cut-depth
+    f32 config: batch B, prompt S (token ids, or the frontend's frames or
+    patches and tokens, drawn as ``serve`` draws them), prefill, two greedy
+    decode steps (codebook tokens for musicgen) and the split tail at layer
+    2 on the card and on the port's CPU path.  A MoE config's every MoE
+    layer must route every token to the same experts on both; logits within
+    CPU_TOL of the card's max |logit|; the CPU decode of the card's split
+    payload bitwise equal to the card's."""
     import torch
+    from repro_torch.configs.base import InputShape
     from repro_torch.core.compression import ActivationCodec
     from repro_torch.core.splitting import LMSplitPlan, Workload, split_option
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
     from repro_torch.tree import tree_map
 
     cfg = cut
-    B, steps, split = 2, 2, 2
+    steps, split = 2, min(2, cut.n_layers - 1)
     cpu = torch.device("cpu")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     p_gpu = T.init(cut, gen, dev)
     p_cpu = tree_map(lambda a: a.to(cpu), p_gpu)
-    tokens = torch.randint(0, cut.vocab_size, (B, S), generator=gen,
-                           device=dev, dtype=torch.int32)
+    model = get_model(cut, dev)
+    prompt = model.concrete(model.prefill_inputs(InputShape(
+        "cli", seq_len=S, global_batch=B, kind="prefill")), gen)
     t0 = time.perf_counter()
     logits, routes = {}, {}
     opt = split_option(split)
     with torch.no_grad():
         payload, _ = LMSplitPlan(cut, p_gpu, candidates=(split,),
                                  workload=Workload(n_tokens=S),
-                                 device=dev).head({"tokens": tokens}, opt)
+                                 device=dev).head(prompt, opt)
         comp = ActivationCodec(device=dev).compress(payload)
         dec = {}
         for where, params_, d in (("card", p_gpu, dev), ("cpu", p_cpu, cpu)):
             with L.record_routing() as rec:
-                lg, caches = T.prefill(cut, params_, {"tokens": tokens.to(d)},
-                                       S + steps)
+                lg, caches = T.prefill(cut, params_, {
+                    k: v.to(d) for k, v in prompt.items()}, S + steps)
                 logits.setdefault("prefill", []).append(lg)
                 tok = logits["prefill"][0][:, -1:].argmax(-1).to(torch.int32)
                 for i in range(steps):
@@ -1190,8 +1245,9 @@ def lm_against_cpu(cut, dev, S: int = 256) -> None:
                f"assignments, the same experts, slots and drops on both "
                f"({n_swapped} tokens with two experts in the other order); "
                if n_moe else "")
+    what = ", ".join(f"{k} {tuple(v.shape)}" for k, v in prompt.items())
     log(f"CPU path, {cfg.name} widths, f32, {cut.n_layers} layers, batch {B}, "
-        f"prompt {S} ({time.perf_counter() - t0:.1f} s): prefill, {steps} "
+        f"prompt {S}: {what} ({time.perf_counter() - t0:.1f} s): prefill, {steps} "
         f"decode steps and the split tail at layer {split} within {worst:.3g} "
         f"of the card (rel. tol {CPU_TOL}); {routing}the CPU decode of the "
         f"card's payload ({comp.raw_bytes} B -> {comp.compressed_bytes} B) "
@@ -1199,8 +1255,8 @@ def lm_against_cpu(cut, dev, S: int = 256) -> None:
 
 
 def decode_trace(arch: str, dev, prefill: bool = False) -> None:
-    """Phase 15: one model's decode step on serve's weights and prompt
-    (batch 4, the cache after a 2048-token prefill): the host-clock ms of
+    """Phase 16: one model's decode step on serve's weights and prompt
+    (batch 4, the cache after a 2048-position prefill): the host-clock ms of
     three steps before the trace, then the card's busy ms and device events
     of three steps under the profiler, and the idle share between them.
     With ``prefill``, the prefill too, and B5's part of its busy time."""
@@ -1213,19 +1269,21 @@ def decode_trace(arch: str, dev, prefill: bool = False) -> None:
     model = get_model(get_config(arch), dev)
     gen = torch.Generator(device=dev).manual_seed(SV.SEED)
     params = model.init(gen)
-    tokens = model.concrete(model.prefill_inputs(InputShape(
-        "cli", seq_len=LM_PROMPT, global_batch=LM_BATCH, kind="prefill")),
-        gen)["tokens"]
+    shape = InputShape("cli", seq_len=LM_PROMPT, global_batch=LM_BATCH,
+                       kind="prefill")
+    batch = model.concrete(model.prefill_inputs(shape), gen)
+    # the prompt's last token again, or musicgen's codebook tokens
+    step_in = ({"tokens": batch["tokens"][:, -1:]} if "tokens" in batch
+               else model.concrete(model.decode_inputs(shape), gen))
     at = [LM_PROMPT]
 
     def steps():
         for _ in range(3):
-            model.decode_step(params, caches, {"tokens": tokens[:, -1:]},
-                              at[0])
+            model.decode_step(params, caches, step_in, at[0])
             at[0] += 1
 
     def prefill_fn():
-        return model.prefill(params, {"tokens": tokens}, LM_PROMPT + 32)
+        return model.prefill(params, batch, LM_PROMPT + 32)
 
     with torch.no_grad():
         _, caches = prefill_fn()
@@ -1327,7 +1385,7 @@ def recurrent_handoffs(dev) -> None:
                    tokens[:2] % cut.vocab_size, SSM_HANDOFF_F32_TOL)
 
     for cfg, params, toks, tol in cases():
-        gap, top = handoff_gap(*handoff_logits(cfg, params, toks))
+        gap, top = handoff_gap(*handoff_logits(cfg, params, {"tokens": toks}))
         del params
         log(f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, batch "
             f"{toks.shape[0]}: prefill to {RECURRENT_PROMPT - 1} + decode vs "
@@ -1358,6 +1416,93 @@ def phase14(dev) -> None:
         torch.cuda.empty_cache()
         secs[part] = time.perf_counter() - t0
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
+
+
+def frontend_handoffs(dev) -> None:
+    """Phase 15 (c): prefill to S-1 plus one decode step against a prefill
+    to S at batch LM_BATCH, S = LM_PROMPT, at full depth in bf16 within
+    HANDOFF_BF16_TOL: musicgen decoding its last frame, and decoding
+    codebook tokens whose summed embeddings are the full prompt's last frame;
+    InternVL decoding its last text token after the patches; LM_ARCH with
+    each of SOFTCAPS.  Then each cut to 4 layers in f32 at batch 2 within
+    HANDOFF_F32_TOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+
+    def prompt(cfg, gen, B):
+        model = get_model(cfg, dev)
+        return model.concrete(model.prefill_inputs(InputShape(
+            "cli", seq_len=LM_PROMPT, global_batch=B, kind="prefill")), gen)
+
+    def runs(cfg, params, gen, B):
+        """(what, config, batch, last) of each check on one model."""
+        batch = prompt(cfg, gen, B)
+        if cfg.frontend == "none":
+            for cap in SOFTCAPS:
+                yield (f"capped at {cap}",
+                       cfg.replace(attn_logit_softcap=cap), batch, None)
+            return
+        yield "", cfg, batch, None
+        if cfg.n_codebooks:
+            tok = torch.randint(0, cfg.vocab_size, (B, 1, cfg.n_codebooks),
+                                generator=gen, device=dev, dtype=torch.int32)
+            frame = T.embed_inputs(cfg, params, {"tokens": tok}).float()
+            yield ("codebook tokens decoded", cfg,
+                   {"frames": torch.cat([batch["frames"][:, :-1], frame], 1)},
+                   {"tokens": tok})
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for arch in FRONTEND_ARCHS + (LM_ARCH,):
+        for cfg, B, tol in ((get_config(arch), LM_BATCH, HANDOFF_BF16_TOL),
+                            (get_config(arch).replace(n_layers=4,
+                                                      dtype="float32"),
+                             2, HANDOFF_F32_TOL)):
+            params = T.init(cfg, gen, dev)
+            for what, c, batch, last in runs(cfg, params, gen, B):
+                gap, top = handoff_gap(*handoff_logits(c, params, batch,
+                                                       last))
+                log(f"{c.name}{', ' + what if what else ''}, {c.n_layers} "
+                    f"layers, {c.dtype}, batch {B}: prefill to "
+                    f"{LM_PROMPT - 1} + decode vs prefill to {LM_PROMPT}: "
+                    f"max |diff| {gap:.4g} = {gap / top:.3g} of max |logit| "
+                    f"{top:.4g} (tol {tol})")
+                if not gap <= tol * top:
+                    raise AssertionError(f"{c.name} {what} {c.dtype}: "
+                                         "prefill -> decode logits disagree")
+            del params
+            torch.cuda.empty_cache()
+
+
+def phase15(dev) -> None:
+    """The frontends and soft-capping at full width (module docstring,
+    phase 15), each part timed."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    musicgen, internvl = FRONTEND_ARCHS
+    secs = {}
+    for part, fn in (("a", lambda: log(serve_checked(musicgen)[2])),
+                     ("b", lambda: log(serve_checked(internvl)[2])),
+                     ("c", lambda: frontend_handoffs(dev)),
+                     ("d", lambda: [
+                         lm_against_cpu(get_config(musicgen).replace(
+                             n_layers=4, dtype="float32"), dev),
+                         lm_against_cpu(get_config(LM_ARCH).replace(
+                             n_layers=4, dtype="float32",
+                             attn_logit_softcap=BINDING_SOFTCAP), dev),
+                         lm_against_cpu(get_config(internvl).replace(
+                             n_layers=INTERNVL_CPU_LAYERS, dtype="float32"),
+                             dev, INTERNVL_CPU_S, INTERNVL_CPU_B)])):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t0
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
 
 
@@ -1738,6 +1883,96 @@ def main() -> int:
                 f"{err:.3g}; worst row {rel:.3g} of its max|out| (tol {tol}); "
                 f"{'kv_len 0 gives zeros; ' if lens[0] == 0 else ''}two "
                 f"launches bitwise equal")
+
+    # B5 with a logit soft-cap, in both bodies: qwen3-1.7b's prefill shape
+    # and InternVL's heads (48 over 8, hd 128) at each of SOFTCAPS (a cap of
+    # 1.0 binds on most scores, so a cap taken in the bf16 body's base-2
+    # units would miss; 50.0 seldom binds), windowed and capped at Hymba's
+    # shape, musicgen's G = 1 (24 over 24 at hd 64); a cap of 0 bitwise the
+    # call without the argument
+    mg_cfg, iv_cfg = (get_config(a) for a in FRONTEND_ARCHS)
+    iv_H, iv_KV, iv_hd = iv_cfg.n_heads, iv_cfg.n_kv_heads, iv_cfg.head_dim
+    mg_H, mg_KV, mg_hd = mg_cfg.n_heads, mg_cfg.n_kv_heads, mg_cfg.head_dim
+    full = (LM_BATCH, LM_PROMPT, LM_PROMPT)
+    cap_cases = []              # (B, Sq, Skv, H, KV, hd, dtype, window, cap)
+    for dt in (bf16, f32):
+        for cap in SOFTCAPS:
+            cap_cases += [full + (lm_H, lm_KV, lm_hd, dt, 0, cap),
+                          full + (iv_H, iv_KV, iv_hd, dt, 0, cap)]
+        cap_cases += [full + (hy_H, hy_KV, hy_hd, dt, hy_w, BINDING_SOFTCAP),
+                      full + (mg_H, mg_KV, mg_hd, dt, 0, 0.0),
+                      (2, 333, 333, mg_H, mg_KV, mg_hd, dt, 0,
+                       BINDING_SOFTCAP),
+                      (2, 300, 300, iv_H, iv_KV, iv_hd, dt, hy_w, 0.0)]
+    for B, Sq, Skv, h_, kv_, hd_, dt, w, cap in cap_cases:
+        q = rnd((B, Sq, h_, hd_), dt)
+        k, v = rnd((B, Skv, kv_, hd_), dt), rnd((B, Skv, kv_, hd_), dt)
+        ref = fa.flash_attention_plain(q, k, v, True, w, cap)
+        out = fa.flash_attention_cuda(q, k, v, True, w, cap)
+        again = fa.flash_attention_cuda(q, k, v, True, w, cap)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        ok = (bool(torch.isfinite(out).all()) and rel <= tol
+              and torch.equal(out, again))
+        if cap:
+            moved = rel_err(fa.flash_attention_plain(q, k, v, True, w), ref)[1]
+            what = f"; the cap moves the plain output by {moved:.3g}"
+            ok = ok and (cap != BINDING_SOFTCAP or moved > tol)
+        else:
+            ok = ok and torch.equal(out, fa.flash_attention_cuda(q, k, v,
+                                                                 True, w))
+            what = "; bitwise the call without a cap"
+        if not ok:
+            raise AssertionError(f"B5 {(B, Sq, Skv, h_, kv_, hd_)} {dt} window "
+                                 f"{w} cap {cap}: rel err {rel}, or two "
+                                 f"launches differ{what and ', or' + what}")
+        attn_errs["flash_attention"] = max(attn_errs["flash_attention"], err)
+        log(f"check B5 q {(B, Sq, h_, hd_)} kv {(B, Skv, kv_, hd_)} "
+            f"{str(dt).removeprefix('torch.')} causal, window {w}, soft-cap "
+            f"{cap}: max|kernel-plain| {err:.3g}; worst row {rel:.3g} of its "
+            f"max|out| (tol {tol}); two launches bitwise equal{what}")
+    del q, k, v, ref, out, again
+    # B6 with a logit soft-cap on a global cache (qwen3-1.7b's, InternVL's
+    # G = 6) and on Hymba's ring, at G = 1 (musicgen's) capped and not; a
+    # cap of 0 bitwise the call without the argument
+    b6_cap_cases = [  # (H, KV, hd, cache rows, kv_len per batch row, cap)
+        (lm_H, lm_KV, lm_hd, cache_len, [1, 129, LM_PROMPT, cache_len], 1.0),
+        (lm_H, lm_KV, lm_hd, cache_len, [0, 777, LM_PROMPT, cache_len], 50.0),
+        (iv_H, iv_KV, iv_hd, cache_len, [1, 777, LM_PROMPT, cache_len], 1.0),
+        (hy_H, hy_KV, hy_hd, hy_w, [1, hy_w - 1, hy_w, hy_w], 1.0),
+        (mg_H, mg_KV, mg_hd, cache_len, [0, 1, LM_PROMPT, cache_len], 0.0),
+        (mg_H, mg_KV, mg_hd, cache_len, [1, 777, LM_PROMPT, cache_len], 1.0)]
+    for H_, KV_, hd_, rows_, lens, cap in b6_cap_cases:
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dt in (bf16, f32):
+            q = rnd((len(lens), 1, H_, hd_), dt)
+            ck_, cv_ = (rnd((len(lens), KV_, rows_, hd_), dt)
+                        for _ in range(2))
+            ref = da.decode_attention_plain(q, ck_, cv_, lens, cap)
+            out = da.decode_attention_cuda(q, ck_, cv_, lens, cap)
+            again = da.decode_attention_cuda(q, ck_, cv_, lens, cap)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, ref)
+            tol = BF16_TOL if dt == bf16 else F32_TOL
+            ok = (bool(torch.isfinite(out).all()) and rel <= tol
+                  and bool(lens[0] > 0 or not out[0].any())
+                  and torch.equal(out, again))
+            if not cap:
+                ok = ok and torch.equal(out, da.decode_attention_cuda(
+                    q, ck_, cv_, lens))
+            if not ok:
+                raise AssertionError(f"B6 {tuple(q.shape)} {dt} cap {cap}: "
+                                     f"rel err {rel}, or kv_len 0 is not "
+                                     "zeros, or two launches differ, or cap "
+                                     "0 is not the call without one")
+            attn_errs["decode_attention"] = max(attn_errs["decode_attention"],
+                                                err)
+            log(f"check B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
+                f"{lens.tolist()} {str(dt).removeprefix('torch.')}, soft-cap "
+                f"{cap}: max|kernel-plain| {err:.3g}; worst row {rel:.3g} of "
+                f"its max|out| (tol {tol}); two launches bitwise equal"
+                f"{'' if cap else '; bitwise the call without a cap'}")
 
     # B7 through its entry point, ops.window_attention, at the four Swin-T
     # stage partitions of N_UES images, with the shifted-region mask of each
@@ -2158,6 +2393,41 @@ def main() -> int:
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({pairs} "
             f"live pairs a head, {flops} flop, {nbytes} B)")
     del live
+    # B5 soft-capped (Gemma 2's 50.0; tanhf runs on every score the kernel
+    # computes, whatever the cap) at qwen3-1.7b's prefill shape, with no
+    # single PyTorch call that takes a cap beside it; then B5 at InternVL's
+    # (48 heads over 8, hd 128) and musicgen's (24 over 24, hd 64) prefill
+    # shapes beside SDPA; bounds by the live pairs' operations
+    for name, (h_, kv_, hd_), cap in (
+            ("capped", (lm_H, lm_KV, lm_hd), GEMMA2_SOFTCAP),
+            ("internvl", (iv_H, iv_KV, iv_hd), 0.0),
+            ("musicgen", (mg_H, mg_KV, mg_hd), 0.0)):
+        q = rnd((LM_BATCH, LM_PROMPT, h_, hd_), bf16)
+        k, v = (rnd((LM_BATCH, LM_PROMPT, kv_, hd_), bf16) for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = LM_PROMPT * (LM_PROMPT + 1) // 2
+        flops = LM_BATCH * h_ * pairs * 4 * hd_
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        t = dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True, 0,
+                                                            cap)),
+                 bound_ms=max(flops / BF16_FLOP_PER_S,
+                              nbytes / HBM_BYTES_PER_S) * 1e3,
+                 library_ms=None if cap else cuda_ms(
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True, enable_gqa=True)))
+        if cap:
+            t["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, True, 0, cap), reps=3)
+        rows["flash_attention"].update({f"{name}_{key}": val
+                                        for key, val in t.items()})
+        beside = (f"plain {t['plain_ms']:.4f} ms, no single PyTorch call "
+                  f"takes a cap" if cap else
+                  f"sdpa {t['library_ms']:.4f} ms")
+        log(f"time B5 q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal"
+            f"{f', soft-cap {cap}' if cap else ''} ({name}): kernel "
+            f"{t['ms']:.4f} ms, {beside}, bound {t['bound_ms']:.4f} ms "
+            f"({flops} flop, {nbytes} B)")
+    del qt, kt, vt
     q = rnd((LM_BATCH, 1, lm_H, lm_hd), bf16)
     ck_, cv_ = (rnd((LM_BATCH, lm_KV, cache_len, lm_hd), bf16) for _ in range(2))
     lens = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device=dev)
@@ -2183,6 +2453,15 @@ def main() -> int:
                   >= nbytes / HBM_BYTES_PER_S else "bytes"),
         library_ms=cuda_ms(b6_sdpa))
     r = rows["decode_attention"]
+    # soft-capped (Gemma 2's 50.0): no single PyTorch call takes a cap
+    r.update(capped_ms=cuda_ms(lambda: da.decode_attention_cuda(
+        q, ck_, cv_, lens, GEMMA2_SOFTCAP)), capped_plain_ms=cuda_ms(
+        lambda: da.decode_attention_plain(q, ck_, cv_, lens, GEMMA2_SOFTCAP)),
+        capped_bound_ms=r["bound_ms"], capped_library_ms=None)
+    log(f"time B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
+        f"{LM_PROMPT} bf16, soft-cap {GEMMA2_SOFTCAP}: kernel "
+        f"{r['capped_ms']:.4f} ms warm, plain {r['capped_plain_ms']:.4f} ms, "
+        f"no single PyTorch call takes a cap; bound {r['bound_ms']:.4f} ms")
     # K and V (33.5 MB) fit in the 50 MB L2, so back-to-back launches read
     # them from L2; a decode step reads every layer's cache in turn and
     # finds it cold: time each launch alone after writing L2_FLUSH_BYTES
@@ -2195,7 +2474,7 @@ def main() -> int:
         f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
         f"decode step")
 
-    swin_traces = []                       # traced in phase 15
+    swin_traces = []                       # traced in phase 16
     with torch.no_grad():
         for split in SPLITS:
             opt = split_option(split)
@@ -2221,7 +2500,7 @@ def main() -> int:
             # the host unzip, and one payload's upload with the device decode
             tree = producer(params, frames[:1])
             leaves, _ = codec._leaves(tree)
-            if split == 1:                 # the codec's part, traced in phase 15
+            if split == 1:                 # the codec's part, traced in phase 16
                 codec_traces = [
                     ("split 1 compress_head", functools.partial(
                         codec.compress_head, producer, params, frames[:1])),
@@ -2450,7 +2729,7 @@ def main() -> int:
     full_by = {}
     for dt_name, c in (("bf16", lm_cfg), ("f32", lm_cfg.replace(dtype="float32"))):
         p_ = lm_params if c is lm_cfg else tree_map(lambda a: a.float(), lm_params)
-        full, dec = handoff_logits(c, p_, tokens)
+        full, dec = handoff_logits(c, p_, {"tokens": tokens})
         torch.cuda.synchronize()
         del p_
         tol = HANDOFF_BF16_TOL if dt_name == "bf16" else HANDOFF_F32_TOL
@@ -2552,7 +2831,8 @@ def main() -> int:
     for where, params_, toks in (("card", p_gpu, tokens),
                                  ("cpu", p_cpu, tokens.cpu())):
         params_ = tree_map(lambda a: a.to(torch.bfloat16), params_)
-        gap, top = handoff_gap(*handoff_logits(cut16, params_, toks))
+        gap, top = handoff_gap(*handoff_logits(cut16, params_,
+                                                   {"tokens": toks}))
         log(f"bf16 prefill to {S10 - 1} + decode vs prefill to {S10} on the "
             f"{where}, {cut.n_layers} layers, batch {B10}: max |diff| "
             f"{gap:.4g} = {gap / top:.3g} of max |logit| {top:.4g} (tol "
@@ -2575,7 +2855,10 @@ def main() -> int:
     # -- 14. the recurrent and hybrid families at full width -----------------
     phase14(dev)
 
-    # -- 15. the Swin path's device time, and B1's part of it ---------------
+    # -- 15. the frontends and soft-capping at full width --------------------
+    phase15(dev)
+
+    # -- 16. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():
         for what, fn in swin_traces:
             busy, n_ev, by_name = traced_busy_ms(what, fn)
@@ -2627,10 +2910,10 @@ def main() -> int:
         f"{per('copies'):.1f} copies; reads of the stop code and other "
         f"device values {c['reads']:.1f} ms of host time")
 
-    # the decode step of the MoE family (phase 13's models) and of the
-    # recurrent and hybrid families (phase 14's), serve's weights; Hymba's
-    # prefill too, and B5's part of it
-    for arch in MOE_ARCHS + RECURRENT_ARCHS:
+    # the decode step of the MoE family (phase 13's models), of the
+    # recurrent and hybrid families (phase 14's) and of the frontends (phase
+    # 15's), serve's weights; Hymba's prefill too, and B5's part of it
+    for arch in MOE_ARCHS + RECURRENT_ARCHS + FRONTEND_ARCHS:
         decode_trace(arch, dev, prefill=arch == RECURRENT_ARCHS[0])
 
     kernels = []
@@ -2642,7 +2925,8 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{k: v for k, v in r.items()
-                           if k.startswith(("window_", "global_"))}})
+                           if k.startswith(("window_", "global_", "capped_",
+                                            "internvl_", "musicgen_"))}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

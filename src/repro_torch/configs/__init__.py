@@ -1,9 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 A copy of ``repro/configs/__init__.py`` and its config files, as data.  The
-port's LM (``models/transformer.py``) runs the dense and MoE families;
-the other configs are here so that ``--arch`` names every architecture and
-the model raises on the ones it does not run yet.
+port's LM (``models/transformer.py``) runs every one of them.
 """
 from __future__ import annotations
 

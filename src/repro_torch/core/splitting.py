@@ -194,7 +194,6 @@ class LMSplitPlan(_PlanBase):
     device: Any = "cuda"
 
     def __post_init__(self):
-        T.check_supported(self.cfg)
         self.device = resolve_device(self.device)
         if not self.candidates:
             self.candidates = default_candidates(self.cfg)
@@ -206,8 +205,11 @@ class LMSplitPlan(_PlanBase):
 
     # -- execution (prefill-style single-shot inference) ---------------------
     def _embed(self, params, batch) -> torch.Tensor:
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return T.embed_inputs(self.cfg, params, {"tokens": tokens})
+        """The whole batch (tokens, frames, patches) on the plan's device,
+        through ``embed_inputs``."""
+        return T.embed_inputs(self.cfg, params, {
+            name: torch.as_tensor(x, device=self.device)
+            for name, x in batch.items()})
 
     def head(self, batch, option: str):
         """UE-side layers.  Returns (payload_or_None, logits_or_None): the
@@ -265,6 +267,9 @@ class LMSplitPlan(_PlanBase):
         if option == UE_ONLY:
             return []
         if option == SERVER_ONLY:
+            # counted as the JAX package counts it: S token ids, even where
+            # the raw input is float frames or patches (``head`` ships the
+            # batch as it is)
             return [((seq_len,), "int32")]
         specs = [((seq_len, cfg.d_model), cfg.dtype)]
         if self.workload.include_state and cfg.family in ("ssm", "hybrid"):

@@ -9,7 +9,12 @@
 // out = acc / max(l, 1e-30) in q's dtype, so kv_len = 0 gives zeros.  The
 // cache is read in the layout the LM keeps, KV-major (B, KV, S, hd), so the
 // decode path never transposes it; the TPU wrapper transposed a
-// (B, S, KV, hd) cache into that layout before its launch.
+// (B, S, KV, hd) cache into that layout before its launch.  A logit
+// soft-cap c > 0 (the Pallas kernel has none) replaces each scaled score s
+// by tanh(s / c) c in pass 1, with tanhf and a true division, as the JAX
+// package's cache_attention does; the launch picks an instantiation by
+// c != 0, so c = 0 runs the uncapped body, bitwise the kernel without a cap.
+// The combine pass does not see it.
 //
 // Design.  On the TPU the kv axis is a sequential grid dimension whose
 // blocks past kv_len are skipped and whose state sits in VMEM.  Here the
@@ -82,12 +87,12 @@ int partial_smem_bytes(int G, int hd, int chunk) {
 }
 
 // part[((b H + h) n_splits + split) (hd + 2) + {0: m, 1: l, 2 + d: acc[d]}]
-template <typename T, int HD, int GM>
+template <typename T, int HD, int GM, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ kv_len,
                       float* __restrict__ part, int H, int KV, int S, int chunk,
-                      float sm_scale) {
+                      float softcap, float sm_scale) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));  // elements a lane loads
   constexpr int L = HD / E;                 // lanes a cache row
   constexpr int R = 32 / L;                 // rows a warp takes at once
@@ -164,6 +169,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int off = L / 2; off > 0; off >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, off);
+          if constexpr (kCap) s = tanhf(s / softcap) * softcap;
           if (sub == 0 && j < cl) sc[g * chunk + j] = s;
         }
       }
@@ -281,16 +287,17 @@ __global__ void decode_combine_kernel(const float* __restrict__ part, T* __restr
 template <typename T, int HD, int GM>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, void* o,
            void* part, int B, int S, int H, int KV, int chunk, int n_splits,
-           float sm_scale, cudaStream_t stream) {
+           float softcap, float sm_scale, cudaStream_t stream) {
   const int bytes = partial_smem_bytes(H / KV, HD, chunk);
-  auto kernel = decode_partial_kernel<T, HD, GM>;
+  auto kernel = softcap != 0.f ? decode_partial_kernel<T, HD, GM, true>
+                               : decode_partial_kernel<T, HD, GM, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(n_splits, KV, B), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(kv_len), static_cast<float*>(part), H, KV, S, chunk,
-      sm_scale);
+      softcap, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<T><<<B * H, HD, 0, stream>>>(
@@ -301,26 +308,34 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len, void
 template <typename T, int HD>
 int dispatch_g(const void* q, const void* k, const void* v, const void* kv_len, void* o,
                void* part, int B, int S, int H, int KV, int chunk, int n_splits,
-               float sm_scale, cudaStream_t stream) {
+               float softcap, float sm_scale, cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 2)
-    return launch<T, HD, 2>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+    return launch<T, HD, 2>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+                                softcap, sm_scale, stream);
   if (G <= 4)
-    return launch<T, HD, 4>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+    return launch<T, HD, 4>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+                                softcap, sm_scale, stream);
   if (G <= 8)
-    return launch<T, HD, 8>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
-  return launch<T, HD, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+    return launch<T, HD, 8>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+                                softcap, sm_scale, stream);
+  return launch<T, HD, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+                                softcap, sm_scale, stream);
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* kv_len,
                 void* o, void* part, int B, int S, int H, int KV, int chunk, int n_splits,
-                float sm_scale, cudaStream_t stream) {
+                float softcap, float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return dispatch_g<T, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
-    case 32: return dispatch_g<T, 32>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
-    case 64: return dispatch_g<T, 64>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
-    case 128: return dispatch_g<T, 128>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits, sm_scale, stream);
+    case 16: return dispatch_g<T, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+                                          n_splits, softcap, sm_scale, stream);
+    case 32: return dispatch_g<T, 32>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+                                          n_splits, softcap, sm_scale, stream);
+    case 64: return dispatch_g<T, 64>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+                                          n_splits, softcap, sm_scale, stream);
+    case 128: return dispatch_g<T, 128>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+                                          n_splits, softcap, sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -332,21 +347,22 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 // of B H n_splits (hd + 2) f32; contiguous, 16-byte aligned, q, k, v and o of
 // one dtype: 0 = f32, 1 = bf16.  hd is 16, 32, 64 or 128; H is a multiple of
 // KV with H / KV <= 16; B and KV are at least 1; chunk >= 1 and n_splits =
-// max(1, ceil(S / chunk)).  Launches pass 1 and the combine; returns the
-// first cudaError_t (0 = success).
+// max(1, ceil(S / chunk)); softcap 0 (no cap) or the logit soft-cap c > 0.
+// Launches pass 1 and the combine; returns the first cudaError_t (0 =
+// success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* o, void* part, int B,
                                     int S, int H, int KV, int hd, int chunk,
                                     int n_splits, int dtype, float sm_scale,
-                                    void* cuda_stream) {
+                                    float softcap, void* cuda_stream) {
   cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (H % KV != 0 || H / KV > kMaxG || chunk < 1 || n_splits < 1)
+  if (H % KV != 0 || H / KV > kMaxG || chunk < 1 || n_splits < 1 || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch_hd<float>(hd, q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
-                              sm_scale, stream);
+                              softcap, sm_scale, stream);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_len, o, part, B, S, H, KV, chunk,
-                                      n_splits, sm_scale, stream);
+                                      n_splits, softcap, sm_scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

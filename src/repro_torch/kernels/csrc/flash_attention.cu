@@ -22,6 +22,20 @@
 // its diagonal, in a tile the loop reaches.  With w >= Skv the loop starts
 // at tile 0 and the mask adds nothing, bitwise w = 0.
 //
+// A logit soft-cap c > 0 (Gemma 2's attn_logit_softcapping; the Pallas
+// kernel has none: the JAX package applies it in plain_attention and
+// flash_attention_xla, whose arithmetic this is) replaces each scaled score
+// s = q.k / sqrt(hd) by tanh(s / c) c before the masks, with tanhf and a
+// true division (no fast math); masked keys stay at -1e30, so the tile
+// skipping above is unchanged.  c is a run-time argument; the launch picks
+// an instantiation by c != 0, so c = 0 runs the uncapped body with no test
+// in its loop, bitwise the kernel without a cap.
+// The bf16 body runs its softmax in base 2 on scores scaled by
+// hd^-1/2 log2(e): there the cap acts on s = (q.k) hd^-1/2 in natural
+// units and only its result is multiplied by log2(e); a cap applied to the
+// base-2 score would bind at c log2(e) instead and give a plausible but
+// wrong softmax.
+//
 // bf16 (the serving path): the tensor-core kernel.  On the TPU the kv axis
 // is a sequential grid dimension that carries (m, l, acc) in VMEM; here it
 // is a loop inside one CTA per (q tile of 64 rows, head, batch row), 4 warps
@@ -126,11 +140,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* x, int r0, int n_
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                       int H, int KV, int causal, int window, float sm_scale) {
+                       int H, int KV, int causal, int window, float softcap,
+                       float sm_scale) {
   constexpr int kLd = HD + 4;
   constexpr int kCols = HD / 16;            // output columns per thread
   extern __shared__ float smem[];
@@ -198,7 +213,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // mask, then the online softmax of each row over its 16 lanes
+    // cap (Q was scaled at its load), mask, then the online softmax of each
+    // row over its 16 lanes
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int q_pos = q0 + ty + 16 * i + offset;
@@ -206,6 +222,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = j0 + tx + 16 * j;
+        if constexpr (kCap) s[i][j] = tanhf(s[i][j] / softcap) * softcap;
         if (k_pos >= Skv || (causal && k_pos > q_pos) ||
             (windowed && k_pos <= q_pos - window))
           s[i][j] = kNegInf;
@@ -295,29 +312,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int H, int KV, int causal, int window, float sm_scale,
-           cudaStream_t stream) {
+           int Skv, int H, int KV, int causal, int window, float softcap,
+           float sm_scale, cudaStream_t stream) {
   constexpr int kSmem = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_attention_kernel<T, HD>;
+  auto kernel = softcap != 0.f ? flash_attention_kernel<T, HD, true>
+                               : flash_attention_kernel<T, HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, KV, causal, window, sm_scale);
+      static_cast<T*>(o), Sq, Skv, H, KV, causal, window, softcap, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Skv, int H, int KV, int causal, int window, float sm_scale,
-                cudaStream_t stream) {
+                int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
+                float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -408,12 +430,12 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int 
   }
 }
 
-template <int HD>
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
                           int Skv, int H, int KV, int causal, int window,
-                          float sm_scale) {
+                          float softcap, float sm_scale) {
   constexpr int kLd = TcTile<HD>::kLd;
   constexpr int kKSteps = HD / 16;          // k16 steps of Q.K^T
   constexpr int kNB = kTcBlockKV / 8;       // n8 blocks of scores
@@ -512,8 +534,9 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           mma_bf16(s[2 * nb2 + 1], qf, kf[2], kf[3]);
         }
       }
-      // scale; mask only a tile that reaches past the diagonal or Skv, or
-      // below the window of the warp's last row
+      // scale (capped in natural units, then to base 2); mask only a tile
+      // that reaches past the diagonal or Skv, or below the window of the
+      // warp's last row
       const bool edge = j0 + kTcBlockKV > Skv ||
                         (causal && j0 + kTcBlockKV - 1 > warp_first) ||
                         (windowed && j0 <= warp_last - window);
@@ -521,7 +544,10 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       for (int nb = 0; nb < kNB; ++nb) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[nb][e] *= scale2;
+          if constexpr (kCap)
+            s[nb][e] = tanhf(s[nb][e] * sm_scale / softcap) * softcap * kLog2e;
+          else
+            s[nb][e] *= scale2;
           if (edge) {
             const int k_pos = j0 + 8 * nb + 2 * tig + (e & 1);
             const int q_pos = row0 + gid + 8 * (e >> 1) + offset;
@@ -605,10 +631,11 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-              int Skv, int H, int KV, int causal, int window, float sm_scale,
-              cudaStream_t stream) {
+              int Skv, int H, int KV, int causal, int window, float softcap,
+              float sm_scale, cudaStream_t stream) {
   constexpr int kSmem = TcTile<HD>::kBytes;
-  auto kernel = flash_attention_tc_kernel<HD>;
+  auto kernel = softcap != 0.f ? flash_attention_tc_kernel<HD, true>
+                               : flash_attention_tc_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -616,18 +643,22 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   kernel<<<grid, kTcThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, KV, causal,
-      window, sm_scale);
+      window, softcap, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Skv, int H, int KV, int causal, int window, float sm_scale,
-                cudaStream_t stream) {
+                int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
+                float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
-    case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    case 16: return launch_tc<16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
+    case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
+    case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
+    case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                                 sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -638,18 +669,21 @@ int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, in
 // contiguous, 16-byte aligned, of one dtype: 0 = f32 (the CUDA-core kernel),
 // 1 = bf16 (the tensor-core kernel).  hd is 16, 32, 64 or 128; H is a
 // multiple of KV; with causal, Sq <= Skv.  B, Sq and Skv are at least 1.
-// window: 0, or the sliding window w >= 1 of a causal call.  Returns the
-// cudaError_t of the launch (0 = success).
+// window: 0, or the sliding window w >= 1 of a causal call.  softcap: 0 (no
+// cap) or the logit soft-cap c > 0.  Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int Sq, int Skv, int H, int KV, int hd,
-                                   int causal, int window, int dtype, float sm_scale,
-                                   void* cuda_stream) {
+                                   int causal, int window, float softcap, int dtype,
+                                   float sm_scale, void* cuda_stream) {
   cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (window < 0 || (window > 0 && !causal)) return static_cast<int>(cudaErrorInvalidValue);
+  if (window < 0 || (window > 0 && !causal) || !(softcap >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale,
-                              stream);
+    return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                              sm_scale, stream);
   if (dtype == 1)
-    return dispatch_tc(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, sm_scale, stream);
+    return dispatch_tc(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+                       sm_scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

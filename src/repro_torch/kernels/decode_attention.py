@@ -6,7 +6,8 @@ decode_attention_pallas``.  For each batch row b, query heads
 n G .. n G + G - 1 (G = H // KV) of q (B, 1, H, hd) attend to the first
 ``kv_len[b]`` rows of kv head n; f32 softmax, output in q's dtype.  A row
 with ``kv_len = 0`` gives zeros, as the TPU kernel's ``acc / max(l, 1e-30)``
-does.
+does.  A logit soft-cap c > 0 replaces each scaled logit s by tanh(s / c) c,
+as the JAX package's ``cache_attention`` does (the Pallas kernel has none).
 
 Both versions here take the cache KV-major, (B, KV, S, hd), the layout the
 LM keeps (``models/transformer.py::block_cache_init``), so the decode path
@@ -34,7 +35,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (DTYPE_CODES,
-                                                 check_attention_operands)
+                                                 check_attention_operands,
+                                                 check_softcap, softcap)
 
 MAX_GROUP = 16                  # query heads per kv head the kernel takes
 CHUNK_ELEMS = 16384             # cache elements a CTA reads from K (and V)
@@ -50,14 +52,17 @@ def split_plan(S: int, hd: int) -> Tuple[int, int]:
 
 
 def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                           kv_len: torch.Tensor) -> torch.Tensor:
+                           kv_len: torch.Tensor,
+                           logit_softcap: float = 0.0) -> torch.Tensor:
     """q (B, 1, H, hd); ck, cv (B, KV, S, hd); kv_len (B,) -> (B, 1, H, hd)
     in q's dtype: the masked softmax over the live rows, zeros where
     ``kv_len`` is 0."""
+    check_softcap(logit_softcap)
     B, _, H, hd = q.shape
     KV, S = ck.shape[1], ck.shape[2]
     qg = q.float().reshape(B, KV, H // KV, hd)
-    logits = torch.einsum("bngd,bnkd->bngk", qg, ck.float()) / math.sqrt(hd)
+    logits = softcap(torch.einsum("bngd,bnkd->bngk", qg, ck.float())
+                     / math.sqrt(hd), logit_softcap)
     live = (torch.arange(S, device=q.device)[None, :]
             < kv_len.to(q.device)[:, None])[:, None, None, :]     # (B, 1, 1, S)
     logits = logits.masked_fill(~live, -torch.inf)
@@ -72,16 +77,18 @@ def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 def _fn():
     fn = _build.library("decode_attention").decode_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                          kv_len: torch.Tensor) -> torch.Tensor:
+                          kv_len: torch.Tensor,
+                          logit_softcap: float = 0.0) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
     the plain version; at most ``MAX_GROUP`` query heads per kv head."""
     _build.check_operands("decode_attention_cuda", q, ck, cv, kv_len)
+    check_softcap(logit_softcap)
     q, ck, cv = q.contiguous(), ck.contiguous(), cv.contiguous()
     check_attention_operands("decode_attention_cuda", q, ck, cv)
     B, _, H, hd = q.shape
@@ -106,7 +113,7 @@ def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     rc = _fn()(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
                kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), B, S, H,
                KV, hd, chunk, n_splits, DTYPE_CODES[q.dtype],
-               1.0 / math.sqrt(hd),
+               1.0 / math.sqrt(hd), float(logit_softcap),
                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1

@@ -9,8 +9,12 @@ i + Skv - Sq (q aligned to the end of kv), scores above the diagonal (with
 cast to q's dtype.  A sliding window w > 0 (with ``causal`` only) also masks
 the keys at or below i - w, as the JAX package's ``plain_attention`` does
 (``repro/models/layers.py``), where its windowed prefill runs: key j is
-kept for query position i iff i - w < j <= i.  The Pallas kernel takes no
-window; the port gives it to B5 so that every GQA prefill runs the kernel.
+kept for query position i iff i - w < j <= i.  A logit soft-cap c > 0 (the
+config's ``attn_logit_softcap``) replaces each scaled logit s = q.k /
+sqrt(hd) by tanh(s / c) c before the masks, as ``plain_attention`` and
+``flash_attention_xla`` do there.  The Pallas kernel takes neither window
+nor cap; the port gives both to B5 so that every GQA prefill runs the
+kernel.
 
 The CUDA source (``csrc/flash_attention.cu``) runs one CTA per (q tile,
 head, batch row) that walks the kv tiles up to the diagonal with an f32
@@ -47,15 +51,30 @@ def check_window(causal: bool, sliding_window: int) -> None:
                          "applies to causal attention only")
 
 
+def check_softcap(logit_softcap: float) -> None:
+    if not logit_softcap >= 0 or math.isinf(logit_softcap):
+        raise ValueError(f"a logit soft-cap ({logit_softcap}) is 0 (none) or "
+                         "a finite c > 0")
+
+
+def softcap(logits: torch.Tensor, logit_softcap: float) -> torch.Tensor:
+    """tanh(s / c) c, the JAX package's soft-cap, or s itself for c = 0."""
+    if logit_softcap:
+        return torch.tanh(logits / logit_softcap) * logit_softcap
+    return logits
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          sliding_window: int = 0) -> torch.Tensor:
+                          causal: bool = True, sliding_window: int = 0,
+                          logit_softcap: float = 0.0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
     check_window(causal, sliding_window)
+    check_softcap(logit_softcap)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, hd)
-    logits = torch.einsum("bqngd,bknd->bngqk", qg, k.float()) / math.sqrt(hd)
+    logits = softcap(torch.einsum("bqngd,bknd->bngqk", qg, k.float())
+                     / math.sqrt(hd), logit_softcap)
     if causal:
         q_pos = torch.arange(Sq, device=q.device) + (Skv - Sq)
         k_pos = torch.arange(Skv, device=q.device)
@@ -71,8 +90,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.cache
 def _fn():
     fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,12 +112,13 @@ def check_attention_operands(what: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         sliding_window: int = 0) -> torch.Tensor:
+                         causal: bool = True, sliding_window: int = 0,
+                         logit_softcap: float = 0.0) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
     the plain version; with ``causal``, Sq <= Skv."""
     _build.check_operands("flash_attention_cuda", q, k, v)
     check_window(causal, sliding_window)
+    check_softcap(logit_softcap)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_attention_operands("flash_attention_cuda", q, k, v)
     B, Sq, H, hd = q.shape
@@ -115,7 +135,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                B, Sq, Skv, H, KV, hd, int(causal), int(sliding_window),
-               DTYPE_CODES[q.dtype],
+               float(logit_softcap), DTYPE_CODES[q.dtype],
                1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1

@@ -50,33 +50,36 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    sliding_window: int = 0) -> torch.Tensor:
+                    causal: bool = True, sliding_window: int = 0,
+                    logit_softcap: float = 0.0) -> torch.Tensor:
     """Causal GQA attention: q (B, Sq, H, hd), k and v (B, Skv, KV, hd), q
     aligned to the end of kv; ``sliding_window`` w > 0 keeps key j for query
-    position i iff i - w < j <= i.  Returns (B, Sq, H, hd) in q's dtype."""
+    position i iff i - w < j <= i; ``logit_softcap`` c > 0 caps each scaled
+    logit s at tanh(s / c) c.  Returns (B, Sq, H, hd) in q's dtype."""
     fn = (_fa.flash_attention_cuda if _route(q) == "cuda"
           else _fa.flash_attention_plain)
-    return fn(q, k, v, causal, sliding_window)
+    return fn(q, k, v, causal, sliding_window, logit_softcap)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
+                     kv_len: torch.Tensor, *,
+                     logit_softcap: float = 0.0) -> torch.Tensor:
     """One query token against a cache: q (B, 1, H, hd), k and v
-    (B, S, KV, hd), kv_len (B,) int32 valid rows.  Transposes the cache to
-    KV-major, as the TPU wrapper does; returns (B, 1, H, hd)."""
+    (B, S, KV, hd), kv_len (B,) int32 valid rows, ``logit_softcap`` as
+    ``flash_attention``'s.  Transposes the cache to KV-major, as the TPU
+    wrapper does; returns (B, 1, H, hd)."""
     return decode_attention_kv_major(q, k.transpose(1, 2), v.transpose(1, 2),
-                                     kv_len)
+                                     kv_len, logit_softcap=logit_softcap)
 
 
 def decode_attention_kv_major(q: torch.Tensor, ck: torch.Tensor,
-                              cv: torch.Tensor,
-                              kv_len: torch.Tensor) -> torch.Tensor:
+                              cv: torch.Tensor, kv_len: torch.Tensor, *,
+                              logit_softcap: float = 0.0) -> torch.Tensor:
     """``decode_attention`` on a KV-major cache, ck and cv (B, KV, S, hd):
     no transpose."""
     fn = (_da.decode_attention_cuda if _route(q) == "cuda"
           else _da.decode_attention_plain)
-    return fn(q, ck, cv, kv_len)
+    return fn(q, ck, cv, kv_len, logit_softcap)
 
 
 def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,

@@ -9,10 +9,16 @@ decode latency histograms, token and boundary-byte counters, and with
 run keeps at 0.
 ``status(registry)`` is the dict a /status endpoint would serve;
 ``--status-out status.json`` writes it after the run.  Weights and prompt
-tokens are random, from a generator seeded with 0 on the run's device.  Every
-clock read that closes device work follows a device synchronize.
+inputs are random, from a generator seeded with 0 on the run's device: token
+ids, or for the stub frontends precomputed embeddings (musicgen's frames;
+InternVL's ``n_frontend_tokens`` patches, counted in ``--prompt-len``, before
+its text tokens).  A codebook model's greedy token is one per codebook, the
+argmax of each head, fed back as (B, 1, ncb).  Every clock read that closes
+device work follows a device synchronize.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --prompt-len 2048 --gen 32 --batch 4 --split 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
         --prompt-len 2048 --gen 32 --batch 4 --split 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --reduced --device cpu --prompt-len 16 --gen 4 --batch 2 --split 0.5
@@ -121,7 +127,8 @@ def serve(args, registry=None) -> Dict:
         t_prefill = clock() - t0
         reg.histogram("prefill_s").observe(t_prefill)
         count_nonfinite(logits)
-        tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)          # (B, 1)
+        # (B, 1), or one token per codebook (B, 1, ncb) from (B, 1, ncb, V)
+        tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
         outs = []
         t0 = clock()
         for i in range(args.gen):

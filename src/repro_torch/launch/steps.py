@@ -26,8 +26,9 @@ def build_prefill(cfg: ModelConfig, shape: InputShape, *,
 
 
 def build_decode_step(cfg: ModelConfig) -> Callable:
-    """decode_step(params, caches, batch, cache_index) -> (logits, caches):
-    one new token against the caches ``build_prefill`` made."""
+    """decode_step(params, caches, batch, cache_index) -> (logits (B, 1, V),
+    or (B, 1, ncb, V) with codebooks, caches): one new token against the
+    caches ``build_prefill`` made."""
 
     def decode_step(params, caches, batch, cache_index: int):
         return T.decode_step(cfg, params, caches, batch, cache_index)

@@ -29,8 +29,10 @@ latent cache, einsums.  The MoE FFN (``moe_apply``) is capacity-routed
 top-k with a cumsum-position dispatch, einsums and a scatter, as there.
 A sliding window (Hymba's) goes to B5 as its argument in prefill; in
 decode the windowed layer keeps the JAX package's ring buffer of w rows, and
-B6 reads its live rows as they lie.  Logit soft-capping is not ported
-(ROADMAP A8b).
+B6 reads its live rows as they lie.  A logit soft-cap
+(``attn_logit_softcap``) goes to B5 and B6 as their argument, on windowed
+layers and rings too; MLA ignores it, as the JAX package's ``mla_apply``
+does.
 """
 from __future__ import annotations
 
@@ -174,13 +176,16 @@ def attn_init(cfg, generator: torch.Generator) -> dict:
 
 
 def cache_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                    kv_len: torch.Tensor) -> torch.Tensor:
+                    kv_len: torch.Tensor, *,
+                    logit_softcap: float = 0.0) -> torch.Tensor:
     """Decode attention against a KV-major cache: q (B, 1, H, hd), ck and cv
-    (B, KV, Sc, hd), kv_len (B,) int32.  Runs B6 on the cache as it lies."""
+    (B, KV, Sc, hd), kv_len (B,) int32, each scaled logit soft-capped at
+    ``logit_softcap`` (0: none).  Runs B6 on the cache as it lies."""
     if q.shape[1] != 1:
         raise ValueError(f"the cache path decodes one token a step; got "
                          f"{q.shape[1]}")
-    return ops.decode_attention_kv_major(q, ck, cv, kv_len)
+    return ops.decode_attention_kv_major(q, ck, cv, kv_len,
+                                         logit_softcap=logit_softcap)
 
 
 def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
@@ -189,13 +194,14 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                kv_len: Optional[torch.Tensor] = None,
                sliding_window: int = 0):
     """GQA attention with qk-norm before RoPE; with ``sliding_window`` w a
-    query at position i sees keys i - w < j <= i.  ``cache``: None (prefill,
-    B5 with the window) or a dict of KV-major k and v (B, KV, S_cache, hd)
-    that the new token is written into in place (the JAX package's
-    ``dynamic_update_slice`` returns a new cache instead): at
-    ``cache_index``, or on a windowed layer into the ring of S_cache = w
-    rows at slot ``cache_index % w``, where a key carries RoPE at its
-    absolute position.  ``kv_len`` (B,) int32 is then the cache's live
+    query at position i sees keys i - w < j <= i; the config's
+    ``attn_logit_softcap`` caps the scaled logits in prefill and decode.
+    ``cache``: None (prefill, B5 with the window) or a dict of KV-major k
+    and v (B, KV, S_cache, hd) that the new token is written into in place
+    (the JAX package's ``dynamic_update_slice`` returns a new cache
+    instead): at ``cache_index``, or on a windowed layer into the ring of
+    S_cache = w rows at slot ``cache_index % w``, where a key carries RoPE
+    at its absolute position.  ``kv_len`` (B,) int32 is then the cache's live
     rows, ``cache_index`` + S (on a ring at most w: softmax does not depend
     on the order of the keys, so B6 reads the ring as it lies), built once
     per step by the caller for all layers.  Returns (out, new_kv): the (k,
@@ -214,11 +220,13 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
         at = cache_index % ck.shape[2] if sliding_window else cache_index
         ck[:, :, at:at + S] = k.transpose(1, 2).to(ck.dtype)
         cv[:, :, at:at + S] = v.transpose(1, 2).to(cv.dtype)
-        out = cache_attention(q, ck, cv, kv_len)
+        out = cache_attention(q, ck, cv, kv_len,
+                              logit_softcap=cfg.attn_logit_softcap)
         new_kv = cache
     else:
         out = ops.flash_attention(q, k, v, causal=True,
-                                  sliding_window=sliding_window)
+                                  sliding_window=sliding_window,
+                                  logit_softcap=cfg.attn_logit_softcap)
         new_kv = {"k": k, "v": v}
     y = einsum32("bshk,hkd->bsd", out, p["wo"], out_dtype=x.dtype)
     return y, new_kv

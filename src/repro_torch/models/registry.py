@@ -2,9 +2,10 @@
 
 ``get_model(cfg, device)`` returns an ``LMModel`` with init / prefill /
 decode_step / cache_init and the ``*_inputs`` spec factories (shapes and
-dtypes, no allocation), over the dense, MoE, recurrent (xLSTM) and hybrid
-(Hymba) LMs of ``models/transformer.py``.  The training surface (``loss_fn``,
-``train_inputs``) waits for ROADMAP A9.
+dtypes, no allocation), over every LM of ``models/transformer.py``: dense,
+MoE, recurrent (xLSTM), hybrid (Hymba), audio (musicgen: frames in) and
+vision-language (InternVL: patches and tokens in).  The training surface
+(``loss_fn``, ``train_inputs``) waits for ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ class LMModel:
     device: Any = "cuda"
 
     def __post_init__(self):
-        T.check_supported(self.cfg)
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # -- parameters and steps -------------------------------------------------
@@ -49,12 +49,28 @@ class LMModel:
 
     # -- input specs ------------------------------------------------------------
     def prefill_inputs(self, shape: InputShape) -> Dict[str, TensorSpec]:
-        return {"tokens": TensorSpec((shape.global_batch, shape.seq_len),
-                                     torch.int32)}
+        """The prompt's inputs, the JAX package's ``train_inputs`` without
+        labels: audio frames (B, S, d) float32; for a vision config
+        ``n_frontend_tokens`` patches (B, P, d) float32 and S - P tokens;
+        otherwise tokens (B, S)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if cfg.frontend == "audio_frames":
+            return {"frames": TensorSpec((B, S, cfg.d_model), torch.float32)}
+        if cfg.frontend == "vision_patches":
+            P = cfg.n_frontend_tokens
+            return {"patches": TensorSpec((B, P, cfg.d_model), torch.float32),
+                    "tokens": TensorSpec((B, S - P), torch.int32)}
+        return {"tokens": TensorSpec((B, S), torch.int32)}
 
     def decode_inputs(self, shape: InputShape) -> Dict[str, TensorSpec]:
-        """One-token inputs for a decode step (the cache passed separately)."""
-        return {"tokens": TensorSpec((shape.global_batch, 1), torch.int32)}
+        """One-token inputs for a decode step (the cache passed separately):
+        tokens (B, 1), or one per codebook (B, 1, ncb) for audio."""
+        B = shape.global_batch
+        if self.cfg.frontend == "audio_frames":
+            return {"tokens": TensorSpec((B, 1, self.cfg.n_codebooks),
+                                         torch.int32)}
+        return {"tokens": TensorSpec((B, 1), torch.int32)}
 
     def concrete(self, specs: Dict[str, TensorSpec],
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:

@@ -166,7 +166,7 @@ def mlstm_sequence(q, k, v, i_raw, f_raw, state=None, chunk: int = 64):
     return h, {"C": C, "n": n, "m": m}
 
 
-def mlstm_state_init(B: int, nh: int, hd: int, device="cpu"):
+def mlstm_state_init(B: int, nh: int, hd: int, device):
     f32 = torch.float32
     return {"C": torch.zeros((B, nh, hd, hd), dtype=f32, device=device),
             "n": torch.zeros((B, nh, hd), dtype=f32, device=device),
@@ -233,7 +233,7 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     return x + y, {"conv": new_conv, "state": new_state}
 
 
-def mlstm_cache_init(cfg, B: int, device="cpu") -> dict:
+def mlstm_cache_init(cfg, B: int, device) -> dict:
     di = cfg.ssm_expand * cfg.d_model
     return {"conv": torch.zeros((B, cfg.ssm_conv - 1, di), dtype=torch.float32,
                                 device=device),
@@ -319,7 +319,7 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     return x, {"state": dict(zip(("h", "c", "n", "m"), carry))}
 
 
-def slstm_state_init(cfg, B: int, device="cpu") -> dict:
+def slstm_state_init(cfg, B: int, device) -> dict:
     nh = cfg.n_heads
     shape = (B, nh, cfg.d_model // nh)
     z = lambda: torch.zeros(shape, dtype=torch.float32, device=device)
@@ -420,7 +420,7 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     return out, {"conv": new_conv, "state": new_state}
 
 
-def mamba_cache_init(cfg, B: int, device="cpu") -> dict:
+def mamba_cache_init(cfg, B: int, device) -> dict:
     di = cfg.ssm_expand * cfg.d_model
     return {"conv": torch.zeros((B, cfg.ssm_conv - 1, di), dtype=torch.float32,
                                 device=device),

@@ -1,5 +1,6 @@
-"""Stage-structured decoder: ``repro/models/transformer.py`` for the dense,
-MoE, recurrent (xLSTM) and hybrid (Hymba) families.
+"""Stage-structured decoder: ``repro/models/transformer.py`` for every LM
+family the JAX package has: dense, MoE, recurrent (xLSTM), hybrid (Hymba),
+audio (musicgen) and vision-language (InternVL).
 
 Layers are grouped into runs of one block kind, and each run's parameters
 are stacked along a leading layer axis, as the JAX package stacks them with
@@ -15,8 +16,13 @@ qk-norm, or MLA; a SwiGLU or capacity-routed MoE FFN: ``qwen3-1.7b``,
 ``models/ssm.py``) and ``hymba`` (``hymba-1.5b``: GQA attention and mamba
 heads in parallel on the same normed input, fused by learned per-channel
 gates, then the FFN; a sliding window on every layer but
-``global_attn_positions``).  Logit soft-capping, frontends and codebooks
-raise ``NotImplementedError`` (ROADMAP A8b).
+``global_attn_positions``).  The audio and vision families are the dense
+block behind a stub frontend, as there: musicgen takes precomputed EnCodec
+frame embeddings (B, S, d) in prefill, and in decode a frame or one token
+of each of its ``n_codebooks`` codebooks (B, 1, ncb), whose embeddings are
+summed; its ``n_codebooks`` heads give logits (B, S, ncb, V).  InternVL
+prepends precomputed patch embeddings (B, n_frontend_tokens, d) to its
+text tokens' embeddings.  ``attn_logit_softcap`` goes to B5 and B6.
 
 What runs where: GQA prefill attention runs B5 (``ops.flash_attention``,
 with the layer's window), GQA decode B6 (``ops.decode_attention_kv_major``);
@@ -36,6 +42,7 @@ over the layers in float32, as there; the training loss (``lm_loss``,
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -60,25 +67,7 @@ class LayerKind:
     sliding_window: int = 0     # 0 = global attention
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the families this
-    port runs (dense, MoE, SSM, hybrid) or with a feature it lacks."""
-    missing = [what for what, on in (
-        (f"family {cfg.family!r}", cfg.family not in FAMILIES),
-        ("logit soft-capping", bool(cfg.attn_logit_softcap)),
-        (f"frontend {cfg.frontend!r}", cfg.frontend != "none"),
-        ("codebooks", bool(cfg.n_codebooks))) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's LM runs the {', '.join(FAMILIES)} "
-            f"families; {', '.join(missing)} wait for ROADMAP A8b")
-
-
 def layer_plan(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
-    check_supported(cfg)
     plan = []
     for i in range(cfg.n_layers):
         if cfg.family == "ssm":
@@ -214,22 +203,28 @@ def block_cache_init(cfg: ModelConfig, kind: LayerKind, B: int, max_len: int,
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random weights in the JAX package's tree, scales and dtypes (the
     config's, the MoE router float32), drawn from ``generator`` on its
-    device.  Each run's stacked weights are allocated once and filled layer
-    by layer, so the peak is the model and one layer.  The draws are
-    torch's, not ``jax.random``'s: a comparison with the JAX package bridges
-    its weights (``bridge.lm_params_from_numpy``) instead."""
+    device.  With ``n_codebooks`` the embedding is (ncb, V, d) at scale 0.02
+    and the heads (ncb, d, V) at d^-1/2.  Each run's stacked weights are
+    allocated once and filled layer by layer, so the peak is the model and
+    one layer.  The draws are torch's, not ``jax.random``'s: a comparison
+    with the JAX package bridges its weights (``bridge.lm_params_from_numpy``)
+    instead."""
     device = resolve_device(device)
     dt = L.dtype_of(cfg)
+    V, d, ncb = cfg.vocab_size, cfg.d_model, cfg.n_codebooks
 
     def cast(t):
         return t.to(device=device, dtype=dt)
 
-    params: Dict[str, Any] = {
-        "embed": cast(L.init_dense(generator, (cfg.vocab_size, cfg.d_model),
-                                   scale=0.02))}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = cast(L.init_dense(generator,
-                                              (cfg.d_model, cfg.vocab_size)))
+    params: Dict[str, Any] = {}
+    if ncb:
+        params["embed"] = cast(L.init_dense(generator, (ncb, V, d), scale=0.02))
+        params["lm_head"] = cast(L.init_dense(generator, (ncb, d, V),
+                                              scale=1.0 / math.sqrt(d)))
+    else:
+        params["embed"] = cast(L.init_dense(generator, (V, d), scale=0.02))
+        if not cfg.tie_embeddings:
+            params["lm_head"] = cast(L.init_dense(generator, (d, V)))
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     runs = []
     for kind, count in layer_runs(cfg):
@@ -246,8 +241,23 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
 
 
 def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
-    """Token ids (B, S) -> the (B, S, d) residual stream."""
-    return params["embed"][batch["tokens"]].to(L.dtype_of(cfg))
+    """Raw inputs -> the (B, S, d) residual stream in the config's dtype:
+    ``frames`` (B, S, d) as they are; token ids (B, S), or with codebooks
+    (B, S, ncb) whose embeddings are summed in codebook order in the
+    config's dtype; ``patches`` (B, P, d) prepended to the tokens'."""
+    dt = L.dtype_of(cfg)
+    if "frames" in batch:
+        return batch["frames"].to(dt)
+    tokens = batch["tokens"]
+    if cfg.n_codebooks:
+        h = params["embed"][0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            h = h + params["embed"][c][tokens[..., c]]
+    else:
+        h = params["embed"][tokens]
+    if "patches" in batch:
+        h = torch.cat([batch["patches"].to(dt), h.to(dt)], dim=1)
+    return h.to(dt)
 
 
 def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
@@ -325,7 +335,10 @@ def forward_slice(cfg: ModelConfig, params, h: torch.Tensor,
 
 
 def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
-    """h: (B, S, d) -> float32 logits (B, S, V); tied: ``embed.T``."""
+    """h: (B, S, d) -> float32 logits (B, S, V); tied: ``embed.T``; with
+    codebooks (B, S, ncb, V), one head each."""
+    if cfg.n_codebooks:
+        return L.einsum32("bsd,cdv->bscv", h, params["lm_head"])
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return L.dense32(h, w)
 
@@ -353,8 +366,9 @@ def cache_init(cfg: ModelConfig, B: int, max_len: int, device="cuda"):
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int):
-    """Process the prompt and build the decode caches.  Returns
-    (last-position logits (B, 1, V) float32, caches)."""
+    """Process the prompt (tokens, frames, or patches and tokens) and build
+    the decode caches.  Returns (last-position logits (B, 1, V), or
+    (B, 1, ncb, V) with codebooks, float32, caches)."""
     h = embed_inputs(cfg, params, batch)
     B, Sq = h.shape[:2]
     if max_len < Sq:
@@ -390,8 +404,10 @@ def _merge_prefill_cache(cfg: ModelConfig, kind: LayerKind, dec, got, Sq: int):
 
 
 def decode_step(cfg: ModelConfig, params, caches, batch, cache_index: int):
-    """One-token decode.  batch: tokens (B, 1); cache_index: the new token's
-    position.  Returns (logits (B, 1, V) float32, caches updated in place)."""
+    """One-token decode.  batch: tokens (B, 1), or (B, 1, ncb) with
+    codebooks, or frames (B, 1, d); cache_index: the new token's position
+    (a prompt's patches count).  Returns (logits (B, 1, V), or (B, 1, ncb,
+    V), float32, caches updated in place)."""
     cache_index = int(cache_index)
     h = embed_inputs(cfg, params, batch)
     h, caches, _ = forward(cfg, params, h, positions_for(h, cache_index),

@@ -211,25 +211,36 @@ def _row_rel(out, ref):
     return float((np.abs(out - ref).max(-1) / top).max())
 
 
-def _b5_bf16_mirror(q, k, v, causal, split_p=True, tile=64):
+def _b5_bf16_mirror(q, k, v, causal, split_p=True, tile=64, softcap=0.0,
+                    cap_in_base2=False):
     """B5's bf16 arithmetic on the CPU, in f32: q.k^T of the bf16 values (each
     product exact in f32), times hd^-1/2 log2(e) rounded to f32, the
     online softmax in base 2 over kv tiles of ``tile`` rows, and P.V as
     P_hi.V + P_lo.V with P_hi = bf16(P), P_lo = bf16(P - P_hi) (or bf16(P).V
-    with ``split_p`` off).  Returns (B, Sq, H, hd) f32, before the cast."""
+    with ``split_p`` off).  With ``softcap`` c the score is tanh(s hd^-1/2 /
+    c) c log2(e), the cap in natural units as the kernel applies it, or with
+    ``cap_in_base2`` the cap on the base-2 score, the mistake the kernel's
+    note warns of.  Returns (B, Sq, H, hd) f32, before the cast."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Sq, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B, KV, 1, Skv, hd)
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
-    scale2 = (torch.tensor(1 / math.sqrt(hd), dtype=torch.float32)
-              * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    sm_scale = torch.tensor(1 / math.sqrt(hd), dtype=torch.float32)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    scale2 = sm_scale * log2e
     q_pos = torch.arange(Sq) + (Skv - Sq)
     m = torch.full(qf.shape[:-1], -1e30)
     l = torch.zeros(qf.shape[:-1])
     acc = torch.zeros(qf.shape)
     for j0 in range(0, Skv, tile):
-        s = (qf @ kf[..., j0:j0 + tile, :].transpose(-1, -2)) * scale2
+        s = qf @ kf[..., j0:j0 + tile, :].transpose(-1, -2)
+        if softcap and not cap_in_base2:
+            s = torch.tanh(s * sm_scale / softcap) * softcap * log2e
+        else:
+            s = s * scale2
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
         if causal:
             k_pos = torch.arange(j0, min(j0 + tile, Skv))
             s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -1e30)
@@ -274,6 +285,119 @@ def test_b5_bf16_tensor_core_numerics_match_the_reference(B, Sq, Skv, H, KV, hd,
     for exp in exps:
         assert _row_rel(split, exp) <= B5_MIRROR_TOL
         assert _row_rel(single, exp) > B5_MIRROR_TOL
+
+
+@pytest.mark.parametrize("cap", [1.0, 50.0])
+def test_b5_bf16_soft_cap_acts_in_natural_units(cap):
+    """B5's bf16 body with a cap against the JAX package's capped blockwise
+    attention on the same bf16 values: the cap on s = q.k hd^-1/2, then the
+    base-2 factor, within B5_MIRROR_TOL.  The cap on the base-2 score
+    instead misses a binding cap of 1.0 by far more than a bf16 kernel's
+    tolerance (0.25 of a row's max here) and hides under it at a cap of 50,
+    which seldom binds (6e-3): a check at a cap of 50 alone would pass it."""
+    from repro.models.attention_flash import flash_attention_xla
+    B, Sq, H, KV, hd = 2, 96, 4, 2, 64
+    q, k, v = _normal(int(cap) + 21, (B, Sq, H, hd), (B, Sq, KV, hd),
+                      (B, Sq, KV, hd))
+    qt, kt, vt = (_bf16_pair(x)[1] for x in (q, k, v))
+    qj, kj, vj = (jnp.asarray(t.float().numpy()) for t in (qt, kt, vt))
+    exp = flash_attention_xla(qj, kj, vj, causal=True, block_q=32,
+                              block_kv=32, logit_softcap=cap)
+    right = _b5_bf16_mirror(qt, kt, vt, True, softcap=cap).numpy()
+    wrong = _b5_bf16_mirror(qt, kt, vt, True, softcap=cap,
+                            cap_in_base2=True).numpy()
+    assert _row_rel(right, exp) <= B5_MIRROR_TOL
+    assert (_row_rel(wrong, exp) > BF16_TOL) == (cap == 1.0)
+    assert _row_rel(wrong, exp) > B5_MIRROR_TOL
+
+
+@pytest.mark.parametrize("cap", [0.5, 50.0])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,w", [
+    (2, 40, 40, 4, 2, 16, 0),
+    (2, 40, 40, 4, 2, 16, 16),          # Hymba's reduced window
+    (2, 20, 53, 6, 2, 16, 8),           # Sq < Skv, windowed
+    (1, 33, 33, 3, 3, 64, 0),           # one query head per kv head
+])
+def test_flash_plain_with_a_softcap_matches_the_reference(B, Sq, Skv, H, KV,
+                                                          hd, w, cap):
+    """B5's plain version with ``logit_softcap`` against the JAX package's
+    capped prefill, ``plain_attention`` and ``flash_attention_xla`` at
+    blocks of 8, float32 within F32_TOL; with or without a window."""
+    from repro.models.attention_flash import flash_attention_xla
+    from repro.models.layers import plain_attention
+    q, k, v = _normal(Sq * 5 + w, (B, Sq, H, hd), (B, Skv, KV, hd),
+                      (B, Skv, KV, hd))
+    out = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)), True, w,
+                                   cap)
+    qj, kj, vj = map(jnp.asarray, (q, k, v))
+    refs = [flash_attention_xla(qj, kj, vj, causal=True, sliding_window=w,
+                                block_q=8, block_kv=8, logit_softcap=cap)]
+    if Sq == Skv:
+        refs.append(plain_attention(qj, kj, vj, causal=True, sliding_window=w,
+                                    logit_softcap=cap))
+    for exp in refs:
+        np.testing.assert_allclose(out.numpy(), np.asarray(exp), rtol=F32_TOL,
+                                   atol=F32_TOL)
+    torch.testing.assert_close(
+        ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                            sliding_window=w, logit_softcap=cap), out,
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cap", [0.5, 50.0])
+@pytest.mark.parametrize("ring", [False, True])
+def test_decode_plain_with_a_softcap_matches_the_reference(ring, cap):
+    """B6's plain version with ``logit_softcap`` against the JAX package's
+    ``cache_attention``: on a global cache masked by length, and on a ring
+    of 16 rows masked as ``attn_apply`` masks it (rows up to the cache
+    index, all of them once it wraps), which B6 reads as kv_len = min(index
+    + 1, 16) rows as they lie; float32 within F32_TOL."""
+    from repro.models.layers import cache_attention
+    B, H, KV, hd, S = 2, 6, 2, 32, 16 if ring else 40
+    q, ck, cv = _normal(S + int(cap), (B, 1, H, hd), (B, KV, S, hd),
+                        (B, KV, S, hd))
+    for index in ((5, 15, 23) if ring else (0, 17, 39)):
+        if ring:
+            exp = cache_attention(jnp.asarray(q), jnp.asarray(ck),
+                                  jnp.asarray(cv),
+                                  explicit_mask=jnp.arange(S) <= index,
+                                  logit_softcap=cap)
+            lens = np.full((B,), min(index + 1, S), np.int32)
+        else:
+            lens = np.full((B,), index + 1, np.int32)
+            exp = cache_attention(jnp.asarray(q), jnp.asarray(ck),
+                                  jnp.asarray(cv), kv_len=jnp.asarray(lens),
+                                  logit_softcap=cap)
+        out = ops.decode_attention_kv_major(
+            *map(torch.from_numpy, (q, ck, cv, lens)), logit_softcap=cap)
+        np.testing.assert_allclose(out.numpy(), np.asarray(exp), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+@pytest.mark.parametrize("cap", [-1.0, float("inf"), float("nan")])
+def test_attention_takes_a_finite_nonnegative_softcap(cap):
+    """A cap is 0 (none) or a finite c > 0, in the plain versions and (the
+    same ``check_softcap``) the CUDA wrappers."""
+    t = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="soft-cap"):
+        fa.flash_attention_plain(t, t, t, True, 0, cap)
+    with pytest.raises(ValueError, match="soft-cap"):
+        da.decode_attention_plain(t[:, :1], t.transpose(1, 2),
+                                  t.transpose(1, 2),
+                                  torch.ones(1, dtype=torch.int32), cap)
+
+
+def test_a_zero_softcap_is_the_uncapped_call():
+    q, k, v = map(torch.from_numpy,
+                  _normal(9, (1, 40, 4, 32), (1, 40, 2, 32), (1, 40, 2, 32)))
+    torch.testing.assert_close(fa.flash_attention_plain(q, k, v, True, 0, 0.0),
+                               fa.flash_attention_plain(q, k, v, True),
+                               rtol=0, atol=0)
+    lens = torch.tensor([40], dtype=torch.int32)
+    ck, cv = k.transpose(1, 2), v.transpose(1, 2)
+    torch.testing.assert_close(
+        da.decode_attention_plain(q[:, :1], ck, cv, lens, 0.0),
+        da.decode_attention_plain(q[:, :1], ck, cv, lens), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
@@ -325,11 +449,12 @@ def test_decode_wrapper_launch_ignores_kv_len_values(monkeypatch):
     assert da._build.LAUNCHES["decode_attention"] == 4
 
 
-def _b6_split_mirror(q, ck, cv, kv_len):
+def _b6_split_mirror(q, ck, cv, kv_len, softcap=0.0):
     """B6's split-KV arithmetic in f32 on the wrapper's chunks: per chunk the
     partial (m, l, acc) of its live rows (m = -1e30, l = 0, acc = 0 when it
-    has none), then the combine over the chunks in order.  q (B, 1, H, hd),
-    ck, cv (B, KV, S, hd), kv_len (B,) -> (B, 1, H, hd) f32."""
+    has none; the scores capped at ``softcap`` first), then the combine over
+    the chunks in order.  q (B, 1, H, hd), ck, cv (B, KV, S, hd), kv_len
+    (B,) -> (B, 1, H, hd) f32."""
     B, _, H, hd = q.shape
     KV, S = ck.shape[1], ck.shape[2]
     chunk, n = da.split_plan(S, hd)
@@ -343,6 +468,8 @@ def _b6_split_mirror(q, ck, cv, kv_len):
             if hi <= lo:
                 continue
             s = qs[b] @ ck[b, :, lo:hi].transpose(0, 2, 1)    # (KV, G, rows)
+            if softcap:
+                s = np.tanh(s / np.float32(softcap)) * np.float32(softcap)
             m[i, b] = s.max(-1)
             p = np.exp(s - m[i, b][..., None])
             l[i, b] = p.sum(-1)
@@ -372,3 +499,19 @@ def test_b6_split_kv_numerics_match_the_reference(S, H, KV, hd):
         interpret=True)
     np.testing.assert_allclose(out, np.asarray(kern), rtol=F32_TOL, atol=F32_TOL)
     assert not out[0].any()
+
+
+@pytest.mark.parametrize("cap", [0.5, 50.0])
+def test_b6_split_kv_numerics_with_a_softcap_match_the_reference(cap):
+    """The partials capped in pass 1, the combine unchanged, against the JAX
+    package's capped ``cache_attention`` at kv_len 1, one chunk + 1 and the
+    full cache."""
+    from repro.models.layers import cache_attention
+    S, H, KV, hd = 600, 4, 4, 64
+    chunk, n = da.split_plan(S, hd)
+    lens = np.asarray([1, chunk + 1, S], np.int32)
+    q, ck, cv = _normal(S + 3, (3, 1, H, hd), (3, KV, S, hd), (3, KV, S, hd))
+    out = _b6_split_mirror(q, ck, cv, lens, softcap=cap)
+    exp = cache_attention(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                          kv_len=jnp.asarray(lens), logit_softcap=cap)
+    np.testing.assert_allclose(out, np.asarray(exp), rtol=F32_TOL, atol=F32_TOL)

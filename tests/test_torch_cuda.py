@@ -9,12 +9,13 @@ They import no JAX: the plain versions are held against the JAX package by
 the CPU tests, and here the kernels are held against the plain versions on
 the same inputs (window attention within 1e-4, both fp32 with sums in other
 orders; the codec pair and the quant pair bitwise; flash attention, with and
-without a sliding window, and flash decode within 1e-5 of the output's max
-|x| in f32, sums in other orders, and 1e-2 in bf16, one rounding of the
-output; a window of w >= Skv bitwise the call without one), the frame loop
-on the card against the same loop on the CPU, and LM serving at the reduced
-size on the card against the CPU path (xLSTM and Hymba too, past the ring's
-wrap).  The MoE FFN and MLA run no kernel: one full-width
+without a sliding window or a logit soft-cap, and flash decode, with and
+without a cap, within 1e-5 of the output's max |x| in f32, sums in other
+orders, and 1e-2 in bf16, one rounding of the output; a window of w >= Skv
+and a cap of 0 bitwise the call without one), the frame loop on the card
+against the same loop on the CPU, and LM serving at the reduced size on the
+card against the CPU path (xLSTM and Hymba too, past the ring's wrap;
+musicgen's frames and codebooks, InternVL's patches, soft-capped and not).  The MoE FFN and MLA run no kernel: one full-width
 layer of each on the card is held to the CPU path (routing equal).  The vectorized MAC has no kernel of its own: its
 step's PyTorch ops on the card are held bit for bit to the CPU path (and
 its lexsort to numpy's), with no host sync inside a step.
@@ -401,6 +402,79 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, S, H, KV, hd, lens):
             assert not out[b].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,w,cap", [
+    (2, 300, 300, 16, 8, 128, 0, 1.0),      # qwen3's heads, a binding cap
+    (2, 200, 520, 16, 8, 128, 0, 50.0),     # Gemma 2's cap, Sq < Skv
+    (2, 256, 256, 48, 8, 128, 0, 1.0),      # InternVL's heads, G = 6
+    (2, 300, 300, 25, 5, 64, 64, 1.0),      # windowed and capped
+    (2, 333, 333, 24, 24, 64, 0, 1.0),      # musicgen's heads, G = 1
+    (1, 70, 200, 6, 2, 16, 0, 0.5),
+])
+def test_flash_attention_softcap_matches_plain(cuda, dtype, B, Sq, Skv, H,
+                                               KV, hd, w, cap):
+    """B5 with a logit soft-cap within tolerance of the plain version (a cap
+    of 1.0 binds on most scores of unit-normal q and k, so a cap applied in
+    the bf16 body's base-2 units would miss), two launches bitwise equal."""
+    g = torch.Generator().manual_seed(23)
+    q = torch.randn((B, Sq, H, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    out = fa.flash_attention_cuda(q, k, v, True, w, cap)
+    again = fa.flash_attention_cuda(q, k, v, True, w, cap)
+    ref = fa.flash_attention_plain(q, k, v, True, w, cap)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[dtype]
+    assert torch.equal(out, again)
+    assert _rel_err(fa.flash_attention_plain(q, k, v, True, w), ref) > 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_zero_softcap_is_bitwise_the_uncapped_kernels(cuda, dtype):
+    """cap = 0 takes the uncapped branch of both kernels: bitwise the call
+    without the argument."""
+    g = torch.Generator().manual_seed(24)
+    q = torch.randn((2, 300, 16, 128), generator=g).to(cuda, dtype)
+    k = torch.randn((2, 300, 8, 128), generator=g).to(cuda, dtype)
+    v = torch.randn((2, 300, 8, 128), generator=g).to(cuda, dtype)
+    assert torch.equal(fa.flash_attention_cuda(q, k, v, True, 0, 0.0),
+                       fa.flash_attention_cuda(q, k, v, True))
+    ck_, cv_ = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lens = torch.tensor([1, 300], dtype=torch.int32, device=cuda)
+    assert torch.equal(da.decode_attention_cuda(q[:, :1], ck_, cv_, lens, 0.0),
+                       da.decode_attention_cuda(q[:, :1], ck_, cv_, lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S,H,KV,hd,lens,cap", [
+    (2080, 16, 8, 128, (1, 129, 2048, 2080), 1.0),   # a global cache
+    (2080, 16, 8, 128, (0, 2048), 50.0),
+    (1024, 25, 5, 64, (1, 1023, 1024), 1.0),         # Hymba's ring
+    (2080, 24, 24, 64, (1, 2048, 2080), 1.0),        # musicgen's G = 1
+    (2080, 48, 8, 128, (2048, 2049), 1.0),           # InternVL's G = 6
+    (2080, 24, 24, 64, (5, 2048), 0.0),              # G = 1, no cap
+])
+def test_decode_attention_softcap_matches_plain(cuda, dtype, S, H, KV, hd,
+                                                lens, cap):
+    """B6 with a logit soft-cap (and at G = 1) within tolerance of the plain
+    version, zeros where kv_len is 0, two launches bitwise equal."""
+    g = torch.Generator().manual_seed(25)
+    B = len(lens)
+    q = torch.randn((B, 1, H, hd), generator=g).to(cuda, dtype)
+    ck_ = torch.randn((B, KV, S, hd), generator=g).to(cuda, dtype)
+    cv_ = torch.randn((B, KV, S, hd), generator=g).to(cuda, dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = da.decode_attention_cuda(q, ck_, cv_, kv_len, cap)
+    again = da.decode_attention_cuda(q, ck_, cv_, kv_len, cap)
+    ref = da.decode_attention_plain(q, ck_, cv_, kv_len, cap)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[dtype]
+    assert torch.equal(out, again)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not out[b].any()
+
+
 @pytest.mark.parametrize("shape", [(2, 1, 256), (3, 5, 256)])
 def test_dense32_bf16_on_the_card_matches_the_upcast(cuda, shape):
     """The tied unembedding's bf16 GEMM with a float32 output on the card
@@ -490,6 +564,64 @@ def test_recurrent_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     if cfg.hybrid:
         want.update(flash_attention=2 * n, decode_attention=3 * n)
     assert dict(ops.LAUNCHES) == want
+    assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0
+
+
+def _frontend_prompt(cfg, B, S, g):
+    """musicgen's frames (B, S, d), or InternVL's patches and S - P tokens,
+    on the CPU."""
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.randn((B, S, cfg.d_model), generator=g)}
+    P = cfg.n_frontend_tokens
+    return {"patches": torch.randn((B, P, cfg.d_model), generator=g),
+            "tokens": torch.randint(0, cfg.vocab_size, (B, S - P), generator=g,
+                                    dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("cap", [0.0, 0.5])
+@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-26b"])
+def test_frontend_serving_on_the_card_matches_the_cpu_path(cuda, arch, cap):
+    """Reduced musicgen (frames in, two codebook heads, codebook tokens
+    decoded) and InternVL (8 patches before the text), f32, optionally
+    soft-capped, on the same weights and inputs: a 20-position prefill, six
+    decode steps and the split tail through the codec, on the card and on
+    the CPU, logits within 1e-4 of their max |x|; then serve on the card
+    launches B5, B6 and the codec pair as its config implies."""
+    cfg = get_reduced_config(arch).replace(attn_logit_softcap=cap)
+    g = torch.Generator().manual_seed(29)
+    params = T.init(cfg, g, device="cpu")
+    prompt = _frontend_prompt(cfg, 2, 20, g)
+    shape = (2, 1, cfg.n_codebooks) if cfg.n_codebooks else (2, 1)
+    toks = torch.randint(0, cfg.vocab_size, (6,) + shape, generator=g,
+                         dtype=torch.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(dev), params)
+        with torch.no_grad():
+            lg, caches = T.prefill(cfg, p, {k: x.to(dev)
+                                            for k, x in prompt.items()}, 26)
+            got = [lg]
+            for i in range(6):
+                lg, caches = T.decode_step(cfg, p, caches,
+                                           {"tokens": toks[i].to(dev)}, 20 + i)
+                got.append(lg)
+            plan = LMSplitPlan(cfg, p, candidates=(1,),
+                               workload=Workload(n_tokens=20), device=dev)
+            codec = ActivationCodec(device=dev)
+            payload, _ = plan.head(prompt, "split1")
+            got.append(plan.tail(codec.decompress(codec.compress(payload)),
+                                 "split1"))
+        out[dev.type] = got
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _rel_err(a, b) <= 1e-4
+    ops.LAUNCHES.clear()
+    st = SV.serve(argparse.Namespace(arch=arch, reduced=True, prompt_len=16,
+                                     gen=3, batch=2, split=0.5,
+                                     device="cuda"))
+    n = get_reduced_config(arch).n_layers
+    assert dict(ops.LAUNCHES) == {"flash_attention": 2 * n,
+                                  "decode_attention": 3 * n,
+                                  "codec_encode": 1, "codec_decode": 1}
     assert st["metrics"]["counters"]["nonfinite_logits_total"] == 0
 
 

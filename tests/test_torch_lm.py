@@ -13,8 +13,9 @@ agree within LM_TOL of their max |x| (float32 with sums in other orders: the
 largest gap seen is about 3e-6).  Then the port's own prefill -> decode
 consistency (on a drop-free copy of a MoE config: capacity dropping depends
 on the sequence length), bf16, the serving driver on the CPU with and
-without ``--split``, the accounting of ``LMSplitPlan`` and the configs the
-port does not run.
+without ``--split`` and the accounting of ``LMSplitPlan`` (the frontend
+archs too).  The frontends and logit soft-capping have their own file,
+``tests/test_torch_frontends.py``.
 """
 import argparse
 import json
@@ -33,7 +34,7 @@ from repro.core import splitting as jsplit
 from repro.launch import serve as jserve
 from repro.models import transformer as JT
 from repro_torch.bridge import lm_params_from_numpy
-from repro_torch.configs import ARCH_IDS, get_config, get_reduced_config
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.base import InputShape, count_active_params, count_params
 from repro_torch.core.compression import ActivationCodec
 from repro_torch.core.splitting import (SERVER_ONLY, UE_ONLY, LMSplitPlan,
@@ -47,7 +48,7 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 DENSE = ("qwen3-1.7b", "qwen3-4b", "smollm-360m", "starcoder2-15b")
 MOE = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 RECURRENT = ("xlstm-350m", "hymba-1.5b")
-OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE + MOE + RECURRENT)
+FRONTENDS = ("musicgen-medium", "internvl2-26b")
 LM_TOL = 2e-5
 CPU = torch.device("cpu")
 
@@ -235,11 +236,12 @@ def test_moe_bf16_reduced_model_runs_and_agrees(arch):
 
 
 @pytest.mark.parametrize("include_state", [False, True])
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTENDS)
 def test_split_accounting_matches_the_reference(arch, include_state):
     """Field-exact with the JAX package's plan; with ``include_state`` the
     SSM (mLSTM C) and hybrid (mamba h) payloads gain the head layers'
-    state."""
+    state.  ``SERVER_ONLY`` counts S token ids for every arch, musicgen's
+    float frames included, as the JAX package counts them."""
     jcfg, tcfg = jget_config(arch), get_config(arch)
     assert count_params(tcfg) == jbase.count_params(jcfg)
     assert count_active_params(tcfg) == jbase.count_active_params(jcfg)
@@ -337,23 +339,6 @@ def test_serve_defaults_to_the_card_and_raises_without_one(monkeypatch):
         get_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.init(cfg, torch.Generator().manual_seed(0))
-
-
-@pytest.mark.parametrize("arch", OTHERS + ("softcap",))
-def test_configs_outside_the_dense_family_raise(arch):
-    """The frontends (musicgen, internvl) and logit soft-capping, which no
-    config sets (here on a reduced qwen3-1.7b), wait for ROADMAP A8b."""
-    cfg = (get_reduced_config("qwen3-1.7b").replace(attn_logit_softcap=30.0)
-           if arch == "softcap" else get_reduced_config(arch))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        T.init(cfg, torch.Generator().manual_seed(0), CPU)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        get_model(cfg, CPU)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        LMSplitPlan(cfg, None, device=CPU)
-    if arch != "softcap":
-        with pytest.raises(NotImplementedError, match="A8b"):
-            tserve.serve(_serve_args(arch=arch))
 
 
 def test_registry_input_specs():

@@ -121,7 +121,7 @@ def test_mlstm_sequence_matches_its_own_step_form():
     ``tests/test_ssm.py``)."""
     q, k, v, i_raw, f_raw = (torch.from_numpy(a) for a in _mlstm_inputs(0))
     h_seq, st_seq = S.mlstm_sequence(q, k, v, i_raw, f_raw, chunk=8)
-    state = S.mlstm_state_init(2, 2, 16)
+    state = S.mlstm_state_init(2, 2, 16, CPU)
     hs = []
     for t in range(q.shape[1]):
         h_t, state = S.mlstm_cell_step(q[:, t], k[:, t], v[:, t],
@@ -193,7 +193,7 @@ def test_mamba_step_form_matches_the_reference_and_its_sequence_form():
     jcfg, tcfg, jp, tp = _block_params("hymba-1.5b", "mamba", 2)
     x, = _normal(2, (2, 9, tcfg.d_model))
     jc = JS.mamba_cache_init(jcfg, 2)
-    tc = S.mamba_cache_init(tcfg, 2)
+    tc = S.mamba_cache_init(tcfg, 2, CPU)
     ys = []
     with torch.no_grad():
         for t in range(9):

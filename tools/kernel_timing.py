@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Time one group of kernels of one checkout of the port on the card, at the
+sizes ``chip_smoke.py`` times them.
+
+    python3 tools/kernel_timing.py codec                  # this checkout
+    python3 tools/kernel_timing.py attention --src build/parent/src
+
+``codec``: B2 (encode) and B3 (decode), then the quant pair B4a (quant) and
+B4b (dequant).  For each of ``chip_smoke.CODEC_LENGTHS`` (one split-1 UE
+frame, the qwen3-1.7b split handoff, an 8-UE split2 cell group) it makes a
+stream of normals (numpy, seed 0, times 3) and times B2 and B3 with delta
+off through the checkout's wrappers, as ``chip_smoke.codec_times`` does:
+back to back, each launch alone after a cold L2 (L2_FLUSH_BYTES written
+before it, as in chip_smoke.py), and the wrapper's host time a call, beside
+the byte bound at 3.35 TB/s.  Then it makes the split-1 payload's two leaves
+(``chip_smoke.SPLIT1_LEAVES``, normals from the same generator, times 3)
+and times B4a and B4b over them, one launch per leaf, as
+``chip_smoke.quant_times`` does (also cold with the card held after the
+flush, so that no host time enters), and reads the kernels' own device time
+from a torch.profiler trace, warm and after the flush.
+
+``attention``: B5 (flash attention) at qwen3-1.7b's prefill shape (q (4,
+2048, 16, 128), kv 8 heads, bf16, causal) and B6 (flash decode) at its
+decode shape (q (4, 1, 16, 128) against a (4, 8, 2080, 128) bf16 cache at
+kv_len 2048), on normals from a torch generator seeded with 0: back to back
+(``chip_smoke.cuda_ms``), B6 also with each launch alone after a cold L2,
+and each kernel's own device time in a trace.  Where the checkout's
+wrappers take ``logit_softcap``, the same with a cap of 50.0.
+
+To compare two checkouts, run both in turns in one call on one card
+(parent, change, change, parent): numbers from different calls may come
+from different cards.  Prints one line per size or case and kernel, the
+card's name and power limit, and a JSON object last.  Needs an NVIDIA card;
+builds the checkout's kernels into its own build/.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import inspect
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as CS  # noqa: E402  (its helpers; it imports no package)
+
+ROUNDS = 20                 # rounds of the calls in a device-time trace
+CAP = 50.0                  # Gemma 2's attn_logit_softcapping
+
+
+def device_ms(fns, match: str, before=None) -> float:
+    """The device time of the events whose name holds ``match`` in one round
+    of ``fns`` (each after ``before()`` if given): their durations in a
+    torch.profiler trace of ROUNDS rounds, over ROUNDS.  No launch latency
+    and no host time enters."""
+    def rounds():
+        for _ in range(ROUNDS):
+            for f in fns:
+                if before is not None:
+                    before()
+                f()
+    _, _, by_name = CS.traced_busy_ms(match, rounds)
+    return sum(ms for name, ms in by_name.items() if match in name) / ROUNDS
+
+
+def codec(ck, qk, dev, flush) -> dict:
+    import torch
+    block = 8192
+    rng = np.random.default_rng(CS.SEED)
+    results = {}
+    for what, total in CS.CODEC_LENGTHS.items():
+        flat = torch.from_numpy(
+            rng.standard_normal(total, dtype=np.float32) * 3).to(dev)
+        nbytes = CS.codec_bytes(total, block)
+        bound = nbytes / CS.HBM_BYTES_PER_S * 1e3
+        t = CS.codec_times(ck, flat, block, flush)
+        for name, r in t.items():
+            print(f"{what} ({total} f32) B{2 if name == 'encode' else 3}: "
+                  f"{r['ms']:.4f} ms back to back, {r['cold_ms']:.4f} ms cold "
+                  f"L2 ({r['cold_ms'] / bound:.2f}x the bound), wrapper "
+                  f"{r['host_us']:.1f} us a call; bound {bound:.4f} ms "
+                  f"({nbytes} B)", flush=True)
+        results[what] = dict(total=total, bound_ms=bound, **t)
+    leaves = [torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32) * 3).to(dev)
+        for shape in CS.SPLIT1_LEAVES]
+    nbytes = CS.quant_bytes(leaves, block)
+    bound = nbytes / CS.HBM_BYTES_PER_S * 1e3
+    t = CS.quant_times(qk, leaves, block, flush)
+    quantised = [qk.quant_cuda(x, block) for x in leaves]
+    calls = {"quant": [lambda x=x: qk.quant_cuda(x, block) for x in leaves],
+             "dequant": [lambda x=x, r=r: qk.dequant_cuda(*r, tuple(x.shape))
+                         for x, r in zip(leaves, quantised)]}
+    for name, fns in calls.items():
+        match = f"::{name}_kernel("     # "quant_kernel" alone is in both
+        t[name].update(device_ms=device_ms(fns, match),
+                       device_cold_ms=device_ms(fns, match, before=flush))
+    for name, r in t.items():
+        print(f"split-1 leaves {CS.SPLIT1_LEAVES} "
+              f"B4{'a' if name == 'quant' else 'b'}: {r['ms']:.4f} ms back to "
+              f"back, {r['cold_ms']:.4f} ms cold L2, {r['held_ms']:.4f} ms "
+              f"cold and held ({r['held_ms'] / bound:.2f}x the bound), "
+              f"wrappers {r['host_us']:.1f} us for the leaves; the kernel "
+              f"alone on the device (trace) {r['device_ms']:.4f} ms warm, "
+              f"{r['device_cold_ms']:.4f} ms cold; bound {bound:.4f} ms "
+              f"({nbytes} B)", flush=True)
+    results["split-1 leaves"] = dict(shapes=CS.SPLIT1_LEAVES, bound_ms=bound,
+                                     **t)
+    return results
+
+
+def attention(fa, da, dev, flush) -> dict:
+    import torch
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+
+    B, S, H, KV, hd = CS.LM_BATCH, CS.LM_PROMPT, 16, 8, 128
+    q, k, v = rnd((B, S, H, hd)), rnd((B, S, KV, hd)), rnd((B, S, KV, hd))
+    qd = rnd((B, 1, H, hd))
+    ck_, cv_ = rnd((B, KV, S + CS.LM_GEN, hd)), rnd((B, KV, S + CS.LM_GEN, hd))
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    capped = "logit_softcap" in inspect.signature(
+        fa.flash_attention_cuda).parameters
+    results = {}
+    for cap in (0.0, CAP) if capped else (0.0,):
+        kw = {"logit_softcap": cap} if cap else {}
+        b5 = lambda: fa.flash_attention_cuda(q, k, v, True, **kw)
+        b6 = lambda: da.decode_attention_cuda(qd, ck_, cv_, lens, **kw)
+        name = f"cap {cap}" if cap else "no cap"
+        r = {"b5_ms": CS.cuda_ms(b5),
+             "b5_device_ms": device_ms([b5], "flash_attention_tc_kernel"),
+             "b6_ms": CS.cuda_ms(b6),
+             "b6_cold_ms": CS.cuda_ms(b6, before=flush),
+             "b6_device_ms": device_ms([b6], "decode_"),
+             "b6_cold_device_ms": device_ms([b6], "decode_", before=flush)}
+        results[name] = r
+        print(f"B5 q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal, "
+              f"{name}: {r['b5_ms']:.4f} ms back to back, device alone "
+              f"{r['b5_device_ms']:.4f} ms", flush=True)
+        print(f"B6 q {tuple(qd.shape)} cache {tuple(ck_.shape)} kv_len {S} "
+              f"bf16, {name}: {r['b6_ms']:.4f} ms back to back, "
+              f"{r['b6_cold_ms']:.4f} ms cold L2; device alone (both "
+              f"passes) {r['b6_device_ms']:.4f} ms warm, "
+              f"{r['b6_cold_device_ms']:.4f} ms cold", flush=True)
+    return results
+
+
+# group -> (wrapper modules, passed to the timing function in order;
+#           csrc/*.cu sources to build; the timing function)
+GROUPS = {"codec": (("codec", "quant"), ("codec",), codec),
+          "attention": (("flash_attention", "decode_attention"),
+                        ("flash_attention", "decode_attention"), attention)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("group", choices=sorted(GROUPS))
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src/ directory of the checkout to time")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_timing: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    modules, sources, run = GROUPS[args.group]
+    mods = [importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in modules]
+    for mod in mods:
+        if src not in Path(mod.__file__).resolve().parents:
+            raise RuntimeError(f"imported {mod.__file__}, not from {src}")
+    _build.build(sources)
+    dev = torch.device("cuda")
+    card = CS.gpu_name_and_limit()
+    l2_flush = torch.empty(CS.L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                           device=dev)
+    results = run(*mods, dev, lambda: l2_flush.fill_(1.0))
+    print(card, flush=True)
+    print(json.dumps({"src": str(src), "card": card, args.group: results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,6 +5,9 @@ port's CPU path, on the same weights and prompt.
         [--arch qwen3-1.7b] [--layers 4] [--batch 2] [--prompt 256]
     PYTHONPATH=src python tools/lm_handoff_gap.py --arch hymba-1.5b \
         --prompt 1100 --dtypes float32
+    PYTHONPATH=src python tools/lm_handoff_gap.py --arch internvl2-26b \
+        --layers 2 --batch 1 --prompt 264
+    PYTHONPATH=src python tools/lm_handoff_gap.py --softcap 1.0
 
 At the arch's full width and a cut depth, the weights are the JAX package's
 ``init`` (seeded), carried to the port by ``bridge.lm_params_from_numpy``.
@@ -17,7 +20,11 @@ bf16-vs-float32 gap of the prefill logits.  The last line is one JSON object
 with these numbers.  It runs on the CPU; at 4 layers of qwen3-1.7b it needs
 about 6 GiB.  Cut to 4 layers, xlstm-350m and hymba-1.5b keep every block
 kind (``CUTS``, as ``chip_smoke.py`` cuts them): an sLSTM layer at 2, and
-global attention at layers 0 and 3 around two windowed ones.
+global attention at layers 0 and 3 around two windowed ones.  The frontend
+archs take their prompt as ``serve`` does: musicgen-medium precomputed
+frames (the decoded position a frame), internvl2-26b its patches before
+``--prompt`` minus their count text tokens (the last text token decoded);
+``--softcap`` sets ``attn_logit_softcap``.
 """
 from __future__ import annotations
 
@@ -41,26 +48,52 @@ CUTS = {"xlstm-350m": dict(slstm_positions=(2,)),
         "hymba-1.5b": dict(global_attn_positions=(0, 3))}
 
 
-def jax_logits(cfg, params, toks):
+def prompt(cfg, batch: int, S: int, seed: int) -> dict:
+    """The prompt to S as numpy arrays: token ids, or musicgen's frames, or
+    InternVL's patches and S - P text tokens."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frames": rng.standard_normal((batch, S, cfg.d_model))
+                .astype(np.float32)}
+    P = cfg.n_frontend_tokens if cfg.frontend == "vision_patches" else 0
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, S - P))
+           .astype(np.int32)}
+    if P:
+        out["patches"] = rng.standard_normal((batch, P, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def handoff(batch: dict):
+    """(the prompt to S-1, the decode input of position S-1, S): the
+    patches stay whole, every other input loses its last position."""
+    pre = {k: v if k == "patches" else v[:, :-1] for k, v in batch.items()}
+    last = {k: v[:, -1:] for k, v in batch.items() if k != "patches"}
+    return pre, last, sum(v.shape[1] for v in batch.values())
+
+
+def jax_logits(cfg, params, batch):
     """(prefill to S, prefill to S-1 + decode S-1) logits, float32 numpy."""
-    S = toks.shape[1]
+    pre_b, last, S = handoff(batch)
     pre = jax.jit(lambda p, b: JT.prefill(cfg, p, b, S))
-    full, _ = pre(params, {"tokens": jnp.asarray(toks)})
-    _, caches = pre(params, {"tokens": jnp.asarray(toks[:, :-1])})
+    full, _ = pre(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    _, caches = pre(params, {k: jnp.asarray(v) for k, v in pre_b.items()})
     dec, _ = jax.jit(lambda p, c, b, i: JT.decode_step(cfg, p, c, b, i))(
-        params, caches, {"tokens": jnp.asarray(toks[:, -1:])},
+        params, caches, {k: jnp.asarray(v) for k, v in last.items()},
         jnp.asarray(S - 1, jnp.int32))
     return np.asarray(full, np.float32), np.asarray(dec, np.float32)
 
 
-def port_logits(cfg, params, toks):
-    S = toks.shape[1]
-    t = torch.from_numpy(toks)
+def port_logits(cfg, params, batch):
+    pre_b, last, S = handoff(batch)
+
+    def tensors(b):
+        return {k: torch.from_numpy(v) for k, v in b.items()}
+
     with torch.no_grad():
-        full, _ = T.prefill(cfg, params, {"tokens": t}, S)
-        _, caches = T.prefill(cfg, params, {"tokens": t[:, :-1]}, S)
-        dec, _ = T.decode_step(cfg, params, caches, {"tokens": t[:, -1:]},
-                               S - 1)
+        full, _ = T.prefill(cfg, params, tensors(batch), S)
+        _, caches = T.prefill(cfg, params, tensors(pre_b), S)
+        dec, _ = T.decode_step(cfg, params, caches, tensors(last), S - 1)
     return full.numpy(), dec.numpy()
 
 
@@ -79,16 +112,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--softcap", type=float, default=0.0,
+                    help="attn_logit_softcap (0: the config's)")
     ap.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"],
                     choices=["bfloat16", "float32"])
     args = ap.parse_args(argv)
 
     cut = dict(n_layers=args.layers,
                **(CUTS.get(args.arch, {}) if args.layers == 4 else {}))
+    if args.softcap:
+        cut["attn_logit_softcap"] = args.softcap
     jcfg = jget_config(args.arch).replace(**cut)
     tcfg = get_config(args.arch).replace(**cut)
-    toks = np.random.default_rng(args.seed).integers(
-        0, jcfg.vocab_size, (args.batch, args.prompt)).astype(np.int32)
+    toks = prompt(jcfg, args.batch, args.prompt, args.seed)
     jp = JT.init(jcfg, jax.random.PRNGKey(args.seed))
     out, prefill = {}, {}
     for dt in args.dtypes:
@@ -114,7 +150,8 @@ def main(argv=None) -> dict:
         out[f"{pkg} bf16_vs_f32_prefill"] = noise
         print(f"{pkg:8s} max |bf16 - f32| prefill logits {noise:.4g}")
     res = {"arch": args.arch, "layers": args.layers, "batch": args.batch,
-           "prompt": args.prompt, "seed": args.seed, **out}
+           "prompt": args.prompt, "seed": args.seed,
+           "softcap": args.softcap, **out}
     print(json.dumps(res))
     return res
 
