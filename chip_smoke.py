@@ -221,7 +221,43 @@ when it fails:
     device busy ms, device events and the idle share against its host-clock
     time, and Hymba's prefill with B5's part of it.  It runs last: after a
     profiler session, host-clock times later in the same process can read
-    higher, and phases 6-15 time on the host clock.
+    higher, and phases 6-15 and 17 time on the host clock;
+17. training, run before 16: (a) B5's backward kernels against
+    flash_attention_bwd_plain on the kernel's own forward output and
+    log-sum-exp, in bf16 and f32 (the f32 cases at batch 2 at most), at
+    smollm-360m's train shape (8, 2048, 15 over 5, hd 64), qwen3-1.7b's
+    heads at hd 128, hymba-1.5b's window of 1024 (2048 and a ragged 1100),
+    caps of 1.0 and 50.0, musicgen's G = 1 and a ragged 333: dQ, dK and dV
+    within F32_TOL / BF16_TOL of each (batch row, head) slice's max |x|, two
+    launches bitwise equal; B5's forward at the serving shape bitwise the
+    same with and without its log-sum-exp, which must match the plain
+    logsumexp; (b) smollm-360m trained at full width (random weights from a
+    seeded generator, the synthetic TokenStream) through its entry point,
+    repro_torch.launch.train.main, with --seq 2048 --batch 8 --grad-accum 2
+    --steps 20: every launch counter starts at 0 and must read, per step,
+    B5's forward 2 x 64 (32 layers and their recompute under remat, per
+    micro-batch) and each backward kernel 2 x 32, and no other kernel;
+    finite losses and gradient norms, the last loss below the first; the
+    step ms, tok/s and the run's peak memory above what was allocated
+    before it; (c) smollm-360m's widths in f32 cut to 2
+    layers, batch 2, seq 256: the loss and every gradient leaf on the card
+    within TRAIN_CPU_TOL of the port's CPU path; (d) a restart at full
+    width cut to 2 layers: four steps, a checkpoint after the second under
+    build/ restored bitwise, steps 3-4 from it within RESUME_TOL of the
+    straight run, the files deleted; (e) B5's backward timed (its three
+    kernels back to back) beside its plain version, its bound (10 flops a
+    live pair per hd at 989 TFLOP/s) and SDPA's backward through autograd
+    at the same shape (never called by the port), and a profiler trace of
+    one full-width train step: device busy, idle share against that
+    step's own host-clock time, B5's forward and backward parts.
+
+Every profiler session starts after a synchronize and idles TRACE_PAD_S
+before and after its work: the profiler keeps only the device events whose
+time stamps fall inside the session on the host's clock, and the card's
+time stamps lag it at times, by up to 33 ms in the profiler's own warnings
+during this script's train step (tools/trace_probe.py counts the events it
+drops).  The script logs how
+many sessions it opened and how many came back with no device event.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -231,6 +267,7 @@ with one entry per kernel, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -312,6 +349,38 @@ GEMMA2_SOFTCAP, BINDING_SOFTCAP = 50.0, 1.0
 SOFTCAPS = (GEMMA2_SOFTCAP, BINDING_SOFTCAP)
 INTERNVL_CPU_LAYERS = 2
 INTERNVL_CPU_B, INTERNVL_CPU_S = 1, 264
+# phase 17: training.  (a) B5's backward kernels against their plain version
+# at TRAIN_ARCH's train shape and the other families' heads (TRAIN_BWD_CASES:
+# B, S, H, KV, hd, window, cap), the f32 cases at batch 2 at most (the plain
+# version holds five (B, H, S, S) f32 tensors); (b) the full-width trainer
+# through repro_torch.launch.train.main with TRAIN_ARGV; (c) TRAIN_ARCH's
+# widths in f32 cut to TRAIN_CPU_LAYERS, batch 2, seq 256, card vs CPU;
+# (d) a restart at full width cut to TRAIN_CPU_LAYERS layers; (e) timing
+TRAIN_ARCH = "smollm-360m"
+TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_STEPS = 8, 2048, 2, 20
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_S), "--batch",
+              str(TRAIN_B), "--grad-accum", str(TRAIN_ACCUM), "--steps",
+              str(TRAIN_STEPS), "--log-every", "5"]
+TRAIN_BWD_CASES = (
+    (TRAIN_B, TRAIN_S, 15, 5, 64, 0, 0.0),    # smollm-360m's train shape
+    (2, TRAIN_S, 16, 8, 128, 0, 0.0),         # qwen3-1.7b's heads
+    (2, TRAIN_S, 25, 5, 64, 1024, 0.0),       # hymba-1.5b's window
+    (2, 1100, 25, 5, 64, 1024, 0.0),          # ragged, past the window
+    (2, 1024, 15, 5, 64, 0, 1.0),             # a binding cap
+    (2, 1024, 15, 5, 64, 0, 50.0),            # Gemma 2's cap
+    (2, 1024, 24, 24, 64, 0, 0.0),            # musicgen-medium's G = 1
+    (2, 333, 15, 5, 64, 0, 0.0),              # ragged
+)
+TRAIN_CPU_LAYERS = 2
+# card vs CPU in f32 (c): every gradient leaf within TRAIN_CPU_TOL of its max
+# |g| and the loss within it relative; both are f32 with sums in other
+# orders (cuBLAS and B5's kernels against oneDNN and the plain versions)
+TRAIN_CPU_TOL = 1e-4
+# a resumed run's losses against the straight run's (d), relative: the
+# embedding's backward accumulates with atomics on the card, so two runs of
+# one step need not give the same bits
+RESUME_TOL = 1e-3
+
 CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
 # the vectorized MAC at the sizes benchmarks/bench_scale.py calls city scale:
 # its 10,240-flow headline drain at TOTAL_BYTES of offered load (the oracle
@@ -325,6 +394,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
 L2_FLUSH_BYTES = 128 * 2**20       # written before a cold-L2 timing (L2 is 50 MB)
+TRACE_TRIES = 2                    # profiler sessions before an empty trace fails
+TRACE_PAD_S = 0.1                  # idle host time at each end of a session
+TRACE_COUNT = collections.Counter()  # profiler sessions opened, and empty
 # cycles the card spins (torch.cuda._sleep, no memory traffic) after the
 # flush in a "held" cold timing: about 0.2 ms at the H100's 1.98 GHz, longer
 # than a wrapper's host time, so the launch is queued before the start event
@@ -504,37 +576,58 @@ def host_ms(fn, runs: int = 3) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def padded_profile():
+    """A torch.profiler session (host and card) opened after a synchronize,
+    idling TRACE_PAD_S before its body and, after a synchronize, after it:
+    device events whose card time stamps stray from the host clock by less
+    than the pad stay inside the session (module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
+def count_session(n_device_events: int) -> None:
+    TRACE_COUNT["sessions"] += 1
+    TRACE_COUNT["empty"] += n_device_events == 0
+
+
 def device_busy_ms(fn):
     """Time on the card while ``fn`` runs, from a torch.profiler (CUPTI)
     trace: the durations of its device events (kernels, copies, fills) summed
     by name.  Returns (total ms, number of device events, a Counter of ms by
     name)."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         fn()
-        torch.cuda.synchronize()
     by_name = collections.Counter()
     n = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
             n += 1
+    count_session(n)
     return sum(by_name.values()), n, by_name
 
 
 def traced_busy_ms(what: str, fn):
     """``device_busy_ms`` of a ``fn`` that launches work on the card and can
-    run twice: a profiler session can come back with no device event at
-    all, so an empty one is taken again once, and a second empty one fails."""
-    busy, n_ev, by_name = device_busy_ms(fn)
-    if n_ev == 0:
-        log(f"trace {what}: the profiler recorded no device event; tracing again")
+    run again: an empty session is taken again, up to TRACE_TRIES sessions,
+    and fails if every one is empty."""
+    for attempt in range(1, TRACE_TRIES + 1):
         busy, n_ev, by_name = device_busy_ms(fn)
-        if n_ev == 0:
-            raise AssertionError(f"trace {what}: no device event recorded twice")
-    return busy, n_ev, by_name
+        if n_ev:
+            return busy, n_ev, by_name
+        log(f"trace {what}: the profiler recorded no device event in session "
+            f"{attempt} of {TRACE_TRIES}")
+    raise AssertionError(f"trace {what}: no device event recorded in "
+                         f"{TRACE_TRIES} sessions")
 
 
 def handoff_logits(cfg, params, batch, last=None):
@@ -819,17 +912,14 @@ def mac_trace(fn):
     the card) and memsets (``memsets``), and the host ms spent reading a
     device value (``reads``: the stop code after each step, which waits for
     the card); and ``fn``'s own result."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         out = fn()
-        torch.cuda.synchronize()
     c = collections.Counter()
     for e in prof.events():
         ms = e.time_range.elapsed_us() / 1e3
         if e.device_type == DeviceType.CUDA:
+            c["events"] += 1
             c["busy"] += ms
             kind = ("copies" if e.name.startswith("Memcpy") else
                     "memsets" if e.name.startswith("Memset") else "kernels")
@@ -838,6 +928,7 @@ def mac_trace(fn):
                 c["sort"] += ms
         elif e.name == "aten::_local_scalar_dense":
             c["reads"] += ms
+    count_session(c["events"])
     return c, out
 
 
@@ -1153,6 +1244,338 @@ def moe_handoffs(dev) -> None:
         if not gap <= tol * top:
             raise AssertionError(f"{cfg.name} {cfg.dtype}: prefill -> decode "
                                  "logits disagree")
+
+
+def train_bwd_checks(dev) -> float:
+    """Phase 17 (a): B5's backward on the card against
+    ``flash_attention_bwd_plain`` on the kernel's own forward output and
+    log-sum-exp, dQ, dK and dV each within F32_TOL / BF16_TOL of the max |x|
+    of each (batch row, head) slice (not of each row: a query's dQ sums dS =
+    P (dP - D), which cancels exactly for a row that sees one key), two
+    launches bitwise equal; then B5's forward at the serving shape: the
+    output bitwise equal with and without the log-sum-exp, and the
+    log-sum-exp against the plain version's.  Returns the largest
+    |kernel - plain| of any gradient."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(SEED)
+
+    def slice_err(out, ref):
+        d = (out.double() - ref.double()).abs().amax(dim=(1, 3))
+        top = ref.double().abs().amax(dim=(1, 3)).clamp_min(1e-30)
+        return float((d / top).max())
+
+    worst = 0.0
+    for B, S, H, KV, hd, w, cap in TRAIN_BWD_CASES:
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            b = B if dt == torch.bfloat16 else min(B, 2)
+            q, dout = (torch.randn((b, S, H, hd), generator=g).to(dev, dt)
+                       for _ in range(2))
+            k, v = (torch.randn((b, S, KV, hd), generator=g).to(dev, dt)
+                    for _ in range(2))
+            out, lse = fa.flash_attention_cuda(q, k, v, True, w, cap,
+                                               with_lse=True)
+            got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True,
+                                              w, cap)
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True,
+                                                w, cap)
+            ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True,
+                                               w, cap)
+            errs = [slice_err(a, r) for a, r in zip(got, ref)]
+            abs_err = max(float((a.double() - r.double()).abs().max())
+                          for a, r in zip(got, ref))
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            what = (f"B5 backward q {(b, S, H, hd)} kv {(b, S, KV, hd)} {dt} "
+                    f"window {w} cap {cap}")
+            if not (max(errs) <= tol and same):
+                raise AssertionError(f"{what}: dq/dk/dv slice errors {errs} "
+                                     f"(tol {tol}), two launches equal: {same}")
+            worst = max(worst, abs_err)
+            tops = "/".join(f"{float(r.abs().max()):.3g}" for r in ref)
+            log(f"check {what}: max|kernel-plain| {abs_err:.3g} (max |dq|/|dk|"
+                f"/|dv| {tops}); dq/dk/dv within {errs[0]:.3g} / {errs[1]:.3g} "
+                f"/ {errs[2]:.3g} of each (batch, head) slice's max (tol {tol}); "
+                f"two launches bitwise equal")
+            del q, k, v, dout, out, lse, got, again, ref
+    torch.cuda.empty_cache()
+    # B5's forward at the serving shape: the log-sum-exp leaves O bitwise
+    q = torch.randn((LM_BATCH, LM_PROMPT, 16, 128), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((LM_BATCH, LM_PROMPT, 8, 128), generator=g).to(
+        dev, torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    _, ref = fa.flash_attention_plain(q, k, v, True, with_lse=True)
+    lse_err = float(((lse - ref).abs() / ref.abs().clamp_min(1.0)).max())
+    if not (torch.equal(out, fa.flash_attention_cuda(q, k, v, True))
+            and lse_err <= F32_TOL):
+        raise AssertionError(f"B5 forward with the log-sum-exp: output "
+                             f"changed or lse off by {lse_err}")
+    log(f"check B5 forward q {tuple(q.shape)} bf16 with the log-sum-exp: output "
+        f"bitwise equal to the call without it; lse within {lse_err:.3g} of the "
+        f"plain logsumexp (relative, at least 1; tol {F32_TOL})")
+    return worst
+
+
+def train_full_width() -> dict:
+    """Phase 17 (b): ``launch.train.main`` at TRAIN_ARGV with every launch
+    counter at 0: per step B5's forward 2 x 2 n_layers (remat recomputes
+    it), each backward kernel 2 x n_layers, no other kernel; every loss and
+    gradient norm finite, the last loss below the first.  Returns the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TR
+
+    n = get_config(TRAIN_ARCH).n_layers
+    want = {"flash_attention": TRAIN_STEPS * TRAIN_ACCUM * 2 * n,
+            **{k: TRAIN_STEPS * TRAIN_ACCUM * n for k in fa.BWD_KERNELS}}
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()     # earlier phases' tensors
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    run = TR.main(TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    log(f"train {TRAIN_ARCH} launches: {got} (expected {want})")
+    if got != want:
+        raise AssertionError("training did not go through B5's forward and "
+                             "backward kernels as often as its config implies")
+    losses = [m["loss"] for m in run["steps"]]
+    norms = [m["grad_norm"] for m in run["steps"]]
+    if not (all(map(math.isfinite, losses + norms)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses {losses}, norms {norms}")
+    ms = [m["ms"] for m in run["steps"]]
+    run["step_ms"] = statistics.median(ms[1:])
+    run["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+    run["launches"] = got
+    log(f"train {TRAIN_ARCH} full width ({' '.join(TRAIN_ARGV)}; {wall:.1f} s "
+        f"with init): loss {losses[0]:.4f} -> {losses[-1]:.4f}, gnorm "
+        f"{norms[0]:.3f} -> {norms[-1]:.3f}; step {run['step_ms']:.1f} ms "
+        f"(median of steps 1-{TRAIN_STEPS - 1}; step 0 {ms[0]:.1f} ms), "
+        f"{TRAIN_B * TRAIN_S / run['step_ms'] * 1e3:.0f} tok/s by that median, "
+        f"{run['tok_s']:.0f} tok/s over the run; peak device memory "
+        f"{run['peak_gib']:.2f} GiB above the {before / 2**30:.2f} GiB "
+        f"allocated before it")
+    return run
+
+
+def train_against_cpu(dev) -> None:
+    """Phase 17 (c): TRAIN_ARCH's widths in f32 cut to TRAIN_CPU_LAYERS,
+    batch 2, seq 256: the loss and every gradient leaf on the card against
+    the port's CPU path on the same weights and batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map, tree_paths, tree_leaves
+
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CPU_LAYERS,
+                                         dtype="float32")
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = next(TokenStream(cfg, seq_len=256, batch=2, seed=SEED))
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        got[d.type] = value_and_grad(
+            cfg, tree_map(lambda a: a.to(d), params),
+            {k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+    (lc, gc), (lh, gh) = got["cuda"], got["cpu"]
+    loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+    worst, where = 0.0, ""
+    for name, a, b in zip(tree_paths(gh), tree_leaves(gc), tree_leaves(gh)):
+        err = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        if err > worst:
+            worst, where = err, name
+    if not (loss_err <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL):
+        raise AssertionError(f"train card vs CPU: loss {loss_err}, grads "
+                             f"{worst} at {where}")
+    log(f"train card vs CPU, {TRAIN_ARCH} widths, f32, {TRAIN_CPU_LAYERS} "
+        f"layers, batch 2, seq 256 ({time.perf_counter() - t0:.1f} s): loss "
+        f"{float(lh):.6f}, within {loss_err:.3g}; every gradient leaf within "
+        f"{worst:.3g} of its max (worst {where}; tol {TRAIN_CPU_TOL})")
+
+
+def train_restart(dev) -> None:
+    """Phase 17 (d): TRAIN_ARCH at full width cut to TRAIN_CPU_LAYERS layers,
+    bf16, TRAIN_B x TRAIN_S, grad_accum TRAIN_ACCUM: four steps, a
+    checkpoint after the second under build/ (deleted afterwards), restored
+    bitwise, and steps 3-4 from it within RESUME_TOL of the straight run."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import store as CK
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CPU_LAYERS)
+    opt = AdamW(lr=3e-3, warmup_steps=5, total_steps=4)
+    step = build_train_step(cfg, InputShape("restart", TRAIN_S, TRAIN_B,
+                                            "train"),
+                            opt=opt, grad_accum=TRAIN_ACCUM)
+    params = get_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    state = opt.init(params)
+    stream = TokenStream(cfg, seq_len=TRAIN_S, batch=TRAIN_B, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+               for _ in range(4)]
+    where = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(where, ignore_errors=True)
+    straight = []
+    try:
+        for i, b in enumerate(batches):
+            params, state, m = step(params, state, b)
+            straight.append(float(m["loss"]))
+            if i == 1:
+                CK.save((params, state), str(where), 2)
+                saved = tree_map(lambda a: a.clone(), (params, state))
+        restored = CK.restore(str(where), 2, saved, dev)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    for a, b in zip(tree_leaves(restored), tree_leaves(saved)):
+        if not (a.dtype == b.dtype and torch.equal(a, b)):
+            raise AssertionError("the restored state differs from the saved")
+    params, state = restored
+    resumed = []
+    for b in batches[2:]:
+        params, state, m = step(params, state, b)
+        resumed.append(float(m["loss"]))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(resumed, straight[2:])]
+    if not max(gaps) <= RESUME_TOL:
+        raise AssertionError(f"resumed losses {resumed} against {straight}")
+    log(f"train restart, {TRAIN_ARCH} full width, {TRAIN_CPU_LAYERS} layers: "
+        f"losses {straight}; the checkpoint after step 2 "
+        f"({len(tree_leaves(saved))} leaves) restored bitwise; steps 3-4 "
+        f"resumed {resumed}, within {max(gaps):.3g} of the straight run "
+        f"(tol {RESUME_TOL}); checkpoint deleted")
+
+
+def train_timing(dev, run) -> dict:
+    """Phase 17 (e): B5's backward (its three kernels back to back) at
+    TRAIN_ARCH's train shape, its plain version, its bound and SDPA's
+    backward through autograd at the same shape (the forward outside the
+    timed window); then a profiler trace of one full-width train step on
+    (b)'s weights and state.  Returns the kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import AdamW
+
+    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 15, 5, 64
+    g = torch.Generator().manual_seed(SEED)
+    bf16 = torch.bfloat16
+    q, dout = (torch.randn((B, S, H, hd), generator=g).to(dev, bf16)
+               for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=g).to(dev, bf16)
+            for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    pairs = S * (S + 1) // 2
+    flops = 10 * B * H * pairs * hd       # the recomputed S, dP, dV, dK, dQ
+    nbytes = 2 * (3 * q.numel() + 2 * (k.numel() + v.numel())) + 4 * lse.numel()
+    bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True)
+    row = dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention_flash.py:32",
+        ms=cuda_ms(bwd),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, True), reps=3),
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by=("operations" if flops / BF16_FLOP_PER_S
+                  >= nbytes / HBM_BYTES_PER_S else "bytes"))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    go = dout.transpose(1, 2)
+    row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), go, retain_graph=True))
+    log(f"time B5 backward q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal "
+        f"(3 kernels): {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"SDPA backward (autograd, is_causal, enable_gqa) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({flops} "
+        f"flop at {BF16_FLOP_PER_S:.3g}/s, {nbytes} B); launches per train "
+        f"step {TRAIN_ACCUM * get_config(TRAIN_ARCH).n_layers} of each kernel")
+    del q, k, v, dout, out, lse, qt, kt, vt, o_sdpa, go
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamW(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    step = build_train_step(cfg, InputShape("trace", TRAIN_S, TRAIN_B, "train"),
+                            opt=opt, grad_accum=TRAIN_ACCUM)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(TokenStream(
+        cfg, seq_len=TRAIN_S, batch=TRAIN_B, seed=SEED)).items()}
+    params, state = run["params"], run["opt_state"]
+    walls = []
+
+    def traced_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    busy, n_ev, by_name = traced_busy_ms("train step", traced_step)
+    b5f = sum(t for name, t in by_name.items() if "flash_attention_kernel" in name
+              or "flash_attention_tc_kernel" in name)
+    b5b = sum(t for name, t in by_name.items() if "flash_attention_bwd" in name)
+    row["train_step_busy_ms"] = busy
+    row["train_step_traced_ms"] = walls[-1]
+    row["train_step_idle_share"] = 1.0 - busy / walls[-1]
+    log(f"trace train step {TRAIN_ARCH} full width ({TRAIN_B} x {TRAIN_S}, "
+        f"grad_accum {TRAIN_ACCUM}): device busy {busy:.2f} ms, {n_ev} device "
+        f"events; idle share {row['train_step_idle_share']:.3f} against the "
+        f"traced step's {walls[-1]:.1f} ms (host clock, under the profiler; "
+        f"(b)'s median step {run['step_ms']:.1f} ms); B5 forward "
+        f"{b5f:.2f} ms, B5 backward {b5b:.2f} ms; largest: "
+        + ", ".join(f"{name[:60]} {t:.2f} ms"
+                    for name, t in by_name.most_common(5)))
+    return row
+
+
+def phase17(dev) -> tuple:
+    """Training on the card (module docstring, phase 17), each part timed.
+    Returns (B5 backward's kernels-line row, the launch counts of (b)'s
+    run)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    secs = {}
+    t0 = time.perf_counter()
+    err = train_bwd_checks(dev)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = train_full_width()
+    secs["b"] = time.perf_counter() - t0
+    for part, fn in (("c", lambda: train_against_cpu(dev)),
+                     ("d", lambda: train_restart(dev))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fn()
+        secs[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    row = train_timing(dev, run)
+    secs["e"] = time.perf_counter() - t0
+    row["max_abs_err"] = err
+    row["launches_by_kernel"] = {k: run["launches"][k] for k in fa.BWD_KERNELS}
+    row["train_step_ms"] = run["step_ms"]
+    row["train_tok_s"] = TRAIN_B * TRAIN_S / run["step_ms"] * 1e3
+    row["train_peak_gib"] = run["peak_gib"]
+    launches = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
+    return row, launches
 
 
 def lm_against_cpu(cut, dev, S: int = 256, B: int = 2) -> None:
@@ -2858,6 +3281,11 @@ def main() -> int:
     # -- 15. the frontends and soft-capping at full width --------------------
     phase15(dev)
 
+    # -- 17. training at full width (before 16: its host timings) ----------
+    rows["flash_attention_bwd"], train_launches = phase17(dev)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd_dkdv"]
+    rows["flash_attention"]["train_launches"] = train_launches["flash_attention"]
+
     # -- 16. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():
         for what, fn in swin_traces:
@@ -2915,6 +3343,8 @@ def main() -> int:
     # 15's), serve's weights; Hymba's prefill too, and B5's part of it
     for arch in MOE_ARCHS + RECURRENT_ARCHS + FRONTEND_ARCHS:
         decode_trace(arch, dev, prefill=arch == RECURRENT_ARCHS[0])
+    log(f"profiler sessions: {TRACE_COUNT['sessions']}, of which "
+        f"{TRACE_COUNT['empty']} recorded no device event")
 
     kernels = []
     for name, r in rows.items():
@@ -2926,7 +3356,8 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         **{k: v for k, v in r.items()
                            if k.startswith(("window_", "global_", "capped_",
-                                            "internvl_", "musicgen_"))}})
+                                            "internvl_", "musicgen_", "train_",
+                                            "launches_by_"))}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,10 @@ init`` and keeps every leaf's layout and dtype: the per-layer weights are
 stacked by ``jax.vmap`` into a leading layer axis, so ``wq`` is (layers, d,
 H, hd), 4-D and no convolution.  bf16 leaves arrive as ``ml_dtypes``
 bfloat16 arrays, which torch cannot take: their bits go through uint16.
+
+``adamw_state_from_numpy`` takes the JAX package's ``AdamWState`` (step,
+m, v) with numpy leaves and returns the port's, leaves kept as they are, so
+both optimizers can step from the same state.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_map
 
 
@@ -50,3 +55,10 @@ def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
         return torch.from_numpy(a.copy()).to(device)
 
     return tree_map(convert, tree)
+
+
+def adamw_state_from_numpy(state: Any, device="cuda") -> AdamWState:
+    step, m, v = state
+    return AdamWState(step=lm_params_from_numpy(step, device),
+                      m=lm_params_from_numpy(m, device),
+                      v=lm_params_from_numpy(v, device))

@@ -143,9 +143,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* x, int r0, int n_
 template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                       int H, int KV, int causal, int window, float softcap,
-                       float sm_scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                       int causal, int window, float softcap, float sm_scale) {
   constexpr int kLd = HD + 4;
   constexpr int kCols = HD / 16;            // output columns per thread
   extern __shared__ float smem[];
@@ -296,6 +296,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = m[i] + logf(l[i]);
     T* orow = o + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD;
     if constexpr (HD >= 64) {
 #pragma unroll
@@ -311,8 +313,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int H, int KV, int causal, int window, float softcap,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
            float sm_scale, cudaStream_t stream) {
   constexpr int kSmem = smem_floats<HD>() * static_cast<int>(sizeof(float));
   auto kernel = softcap != 0.f ? flash_attention_kernel<T, HD, true>
@@ -323,22 +325,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, KV, causal, window, softcap, sm_scale);
+      static_cast<T*>(o), lse, Sq, Skv, H, KV, causal, window, softcap, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
-                float sm_scale, cudaStream_t stream) {
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
+                int B, int Sq, int Skv, int H, int KV, int causal, int window,
+                float softcap, float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -433,14 +435,15 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int 
 template <int HD, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                          int Skv, int H, int KV, int causal, int window,
-                          float softcap, float sm_scale) {
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                          int causal, int window, float softcap, float sm_scale) {
   constexpr int kLd = TcTile<HD>::kLd;
   constexpr int kKSteps = HD / 16;          // k16 steps of Q.K^T
   constexpr int kNB = kTcBlockKV / 8;       // n8 blocks of scores
   constexpr int kDB = HD / 8;               // n8 blocks of the output
   constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kLn2 = 0.6931471805599453f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + TcTile<HD>::kQ;           // [kStages][kTcBlockKV][kLd]
@@ -621,6 +624,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int row = row0 + gid + 8 * r;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && tig == 0)   // natural units: m and l are base 2
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = (m[r] + log2f(l[r])) * kLn2;
     bf16* orow = o + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD + 2 * tig;
 #pragma unroll
     for (int db = 0; db < kDB; ++db)
@@ -630,8 +635,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-              int Skv, int H, int KV, int causal, int window, float softcap,
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+              int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
               float sm_scale, cudaStream_t stream) {
   constexpr int kSmem = TcTile<HD>::kBytes;
   auto kernel = softcap != 0.f ? flash_attention_tc_kernel<HD, true>
@@ -642,22 +647,22 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   const dim3 grid((Sq + kTcBlockQ - 1) / kTcBlockQ, H, B);
   kernel<<<grid, kTcThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, KV, causal,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Skv, H, KV, causal,
       window, softcap, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
-                float sm_scale, cudaStream_t stream) {
+int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
+                int B, int Sq, int Skv, int H, int KV, int causal, int window,
+                float softcap, float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 16: return launch_tc<16>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 32: return launch_tc<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 64: return launch_tc<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
-    case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    case 128: return launch_tc<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                                  sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -667,23 +672,26 @@ int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, in
 
 // q (B, Sq, H, hd), k and v (B, Skv, KV, hd), o (B, Sq, H, hd), all
 // contiguous, 16-byte aligned, of one dtype: 0 = f32 (the CUDA-core kernel),
-// 1 = bf16 (the tensor-core kernel).  hd is 16, 32, 64 or 128; H is a
+// 1 = bf16 (the tensor-core kernel).  lse: null, or (B, H, Sq) f32 that
+// receives each row's log-sum-exp of its scaled (capped, masked) scores in
+// natural units, m + ln(l), for the backward (flash_attention_bwd.cu); o
+// is bitwise the same either way.  hd is 16, 32, 64 or 128; H is a
 // multiple of KV; with causal, Sq <= Skv.  B, Sq and Skv are at least 1.
 // window: 0, or the sliding window w >= 1 of a causal call.  softcap: 0 (no
 // cap) or the logit soft-cap c > 0.  Returns the cudaError_t of the launch
 // (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int Sq, int Skv, int H, int KV, int hd,
+                                   float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
                                    int causal, int window, float softcap, int dtype,
                                    float sm_scale, void* cuda_stream) {
   cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
   if (window < 0 || (window > 0 && !causal) || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    return dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                               sm_scale, stream);
   if (dtype == 1)
-    return dispatch_tc(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window, softcap,
+    return dispatch_tc(hd, q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                        sm_scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

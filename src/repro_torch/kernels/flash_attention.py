@@ -29,6 +29,18 @@ operations (the source note gives the numbers).
 f32 (``repro/kernels/ref.py::flash_attention_ref``).  ``kernels/ops.py``
 takes it only for tensors on the CPU; ``chip_smoke.py`` holds the kernel
 against it on the card.
+
+Training.  With ``with_lse`` both versions also return each row's
+log-sum-exp of its scaled, capped and masked scores, (B, H, Sq) f32 in
+natural units (the bf16 body converts its base-2 m + log2(l)); the kernel's
+output is bitwise the same either way.  B5's backward
+(``csrc/flash_attention_bwd.cu``: a pass for D = sum(dO o), a dK/dV kernel
+and a dQ kernel, no atomics) and its plain version
+``flash_attention_bwd_plain`` compute dq, dk, dv of the same function for
+Sq = Skv; the Pallas kernel has no backward, and the JAX package takes this
+gradient from XLA's autodiff of ``plain_attention`` and of
+``models/attention_flash.py``.  ``FlashAttentionFn`` ties the two together
+for autograd; ``ops.flash_attention`` calls it where a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -64,33 +76,54 @@ def softcap(logits: torch.Tensor, logit_softcap: float) -> torch.Tensor:
     return logits
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, sliding_window: int = 0,
-                          logit_softcap: float = 0.0) -> torch.Tensor:
-    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
-    check_window(causal, sliding_window)
-    check_softcap(logit_softcap)
+def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            sliding_window: int, logit_softcap: float) -> torch.Tensor:
+    """The scaled, capped and masked f32 scores (B, KV, G, Sq, Skv)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, hd)
     logits = softcap(torch.einsum("bqngd,bknd->bngqk", qg, k.float())
                      / math.sqrt(hd), logit_softcap)
     if causal:
-        q_pos = torch.arange(Sq, device=q.device) + (Skv - Sq)
-        k_pos = torch.arange(Skv, device=q.device)
-        dead = k_pos[None, :] > q_pos[:, None]
-        if sliding_window:
-            dead |= k_pos[None, :] <= q_pos[:, None] - sliding_window
-        logits = logits.masked_fill(dead, NEG_INF)
+        logits = logits.masked_fill(
+            dead_pairs(Sq, Skv, sliding_window, q.device), NEG_INF)
+    return logits
+
+
+def dead_pairs(Sq: int, Skv: int, sliding_window: int,
+               device) -> torch.Tensor:
+    """(Sq, Skv) bool: the causal (and windowed) mask, True where masked."""
+    q_pos = torch.arange(Sq, device=device) + (Skv - Sq)
+    k_pos = torch.arange(Skv, device=device)
+    dead = k_pos[None, :] > q_pos[:, None]
+    if sliding_window:
+        dead |= k_pos[None, :] <= q_pos[:, None] - sliding_window
+    return dead
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, sliding_window: int = 0,
+                          logit_softcap: float = 0.0, with_lse: bool = False):
+    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype;
+    with ``with_lse`` also each row's log-sum-exp of its scaled, capped and
+    masked scores, (B, H, Sq) f32 in natural units, as the kernel writes it
+    for the backward."""
+    check_window(causal, sliding_window)
+    check_softcap(logit_softcap)
+    B, Sq, H, hd = q.shape
+    logits = _logits(q, k, causal, sliding_window, logit_softcap)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    out = out.reshape(B, Sq, H, hd).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
 
 
 @functools.cache
 def _fn():
     fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -113,9 +146,10 @@ def check_attention_operands(what: str, q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, sliding_window: int = 0,
-                         logit_softcap: float = 0.0) -> torch.Tensor:
+                         logit_softcap: float = 0.0, with_lse: bool = False):
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
-    the plain version; with ``causal``, Sq <= Skv."""
+    the plain version; with ``causal``, Sq <= Skv.  The output is bitwise
+    the same with and without ``with_lse``."""
     _build.check_operands("flash_attention_cuda", q, k, v)
     check_window(causal, sliding_window)
     check_softcap(logit_softcap)
@@ -131,12 +165,149 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention needs 1 <= Skv and, causal, Sq <= Skv; "
                          f"got Sq {Sq}, Skv {Skv}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               B, Sq, Skv, H, KV, hd, int(causal), int(sliding_window),
+               None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal), int(sliding_window),
                float(logit_softcap), DTYPE_CODES[q.dtype],
                1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+# ---------------------------------------------------------------------------
+# the backward (``csrc/flash_attention_bwd.cu``) and autograd
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor,
+                              causal: bool = True, sliding_window: int = 0,
+                              logit_softcap: float = 0.0):
+    """(dq, dk, dv) of B5's function at (q, k, v), given its output ``o``,
+    its log-sum-exp ``lse`` (B, H, S) and the output's gradient ``dout``, by
+    the kernels' explicit formulas in f32: P = exp(S - LSE), D = sum(dO o),
+    dV = P^T dO, dS = P (dO V^T - D) (times 1 - tanh^2(s / c) under a cap),
+    dQ = dS K hd^-1/2, dK = dS^T Q hd^-1/2.  Sq = Skv; each gradient comes
+    back in its input's dtype."""
+    check_backward_shapes(q, k)
+    check_window(causal, sliding_window)
+    check_softcap(logit_softcap)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, S, KV, G, hd)
+    dog = dout.float().reshape(B, S, KV, G, hd)
+    s = torch.einsum("bqngd,bknd->bngqk", qg, k.float()) * scale
+    if logit_softcap:
+        t = torch.tanh(s / logit_softcap)
+        s = t * logit_softcap
+    p = torch.exp(s - lse.reshape(B, KV, G, S, 1))
+    if causal:
+        p = p.masked_fill(dead_pairs(S, S, sliding_window, q.device), 0.0)
+    delta = (dout.float() * o.float()).sum(-1)                  # (B, S, H)
+    delta = delta.reshape(B, S, KV, G).permute(0, 2, 3, 1)[..., None]
+    dv = torch.einsum("bngqk,bqngd->bknd", p, dog)
+    ds = p * (torch.einsum("bqngd,bknd->bngqk", dog, v.float()) - delta)
+    if logit_softcap:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bngqk,bknd->bqngd", ds, k.float()) * scale
+    dk = torch.einsum("bngqk,bqngd->bknd", ds, qg) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def check_backward_shapes(q: torch.Tensor, k: torch.Tensor) -> None:
+    """The backward takes Sq = Skv only (training's shapes)."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"B5's backward takes Sq = Skv; got Sq {q.shape[1]}, "
+                         f"Skv {k.shape[1]}")
+
+
+BWD_KERNELS = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq")
+
+
+@functools.cache
+def _bwd_fns():
+    lib = _build.library("flash_attention_bwd")
+    fns = []
+    for name in BWD_KERNELS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns.append((name, fn))
+    return fns
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True, sliding_window: int = 0,
+                             logit_softcap: float = 0.0):
+    """Launch the three backward kernels (D, then dK/dV, then dQ) on
+    PyTorch's current stream.  Same contract as the plain version; each
+    kernel counts its launches."""
+    _build.check_operands("flash_attention_bwd_cuda", q, k, v, o, lse, dout)
+    check_window(causal, sliding_window)
+    check_softcap(logit_softcap)
+    check_backward_shapes(q, k)
+    q, k, v, o, dout = (t.contiguous() for t in (q, k, v, o, dout))
+    check_attention_operands("flash_attention_bwd_cuda", q, k, v)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if tuple(k.shape) != (B, S, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, S, KV, hd) = {tuple(k.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not split into {KV} kv heads")
+    if (o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype
+            or dout.dtype != q.dtype):
+        raise ValueError("o and dout must be q's shape and dtype")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (B, H, S) = {(B, H, S)} float32")
+    lse = lse.contiguous()
+    if any(t.data_ptr() % 16 for t in (o, dout, lse)):
+        raise ValueError("flash_attention_bwd_cuda takes 16-byte aligned "
+                         "operands")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    for name, fn in _bwd_fns():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV, hd,
+                int(causal), int(sliding_window), float(logit_softcap),
+                DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd), stream)
+        _build.check(rc, name)
+        _build.LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B5 with its gradient: the forward keeps its output and log-sum-exp,
+    the backward runs ``flash_attention_bwd_*``.  Both take the kernels for
+    CUDA tensors and the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sliding_window: int,
+                logit_softcap: float):
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        out, lse = fwd(q, k, v, causal, sliding_window, logit_softcap,
+                       with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sliding_window, logit_softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None

@@ -55,8 +55,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal GQA attention: q (B, Sq, H, hd), k and v (B, Skv, KV, hd), q
     aligned to the end of kv; ``sliding_window`` w > 0 keeps key j for query
     position i iff i - w < j <= i; ``logit_softcap`` c > 0 caps each scaled
-    logit s at tanh(s / c) c.  Returns (B, Sq, H, hd) in q's dtype."""
-    fn = (_fa.flash_attention_cuda if _route(q) == "cuda"
+    logit s at tanh(s / c) c.  Returns (B, Sq, H, hd) in q's dtype.  Where a
+    gradient is wanted (grad enabled and an operand requiring it) the call
+    goes through ``FlashAttentionFn``, which also keeps the log-sum-exp and
+    runs B5's backward; otherwise no log-sum-exp is written."""
+    route = _route(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, sliding_window,
+                                          logit_softcap)
+    fn = (_fa.flash_attention_cuda if route == "cuda"
           else _fa.flash_attention_plain)
     return fn(q, k, v, causal, sliding_window, logit_softcap)
 

@@ -64,13 +64,25 @@ def einsum32(subs: str, *args: torch.Tensor,
     return out if out_dtype is None else out.to(out_dtype)
 
 
+def _half_gemm_f32_out(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a product of ``a`` and ``b`` may take cuBLAS's half GEMM with
+    a float32 output: on the card, half-precision operands of one dtype, and
+    no gradient wanted.  ``mm``/``bmm`` with ``out_dtype`` have no
+    derivative (their backward raises "derivative for aten::mm is not
+    implemented"), so under autograd the operands are upcast instead: the
+    same exact products and float32 sums."""
+    return (a.is_cuda and a.dtype == b.dtype != torch.float32
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad)))
+
+
 def bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with products accumulated in float32 and a float32
     result.  On the card, half-precision operands go through cuBLAS's half
     GEMM with a float32 output (no float32 copy of the expert weights);
-    elsewhere the operands are upcast (``aten::bmm.dtype`` has no CPU
-    kernel)."""
-    if a.is_cuda and a.dtype == b.dtype != torch.float32:
+    elsewhere, and where a gradient is wanted, the operands are upcast
+    (``aten::bmm.dtype`` has no CPU kernel)."""
+    if _half_gemm_f32_out(a, b):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -80,8 +92,9 @@ def dense32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     as the JAX package's ``einsum32`` without ``out_dtype``.  On the card,
     half-precision operands go through cuBLAS's half GEMM with a float32
     output, so a large ``w`` (the tied unembedding) is never copied to
-    float32; elsewhere the operands are upcast."""
-    if x.is_cuda and x.dtype == w.dtype != torch.float32:
+    float32; elsewhere, and where a gradient is wanted, the operands are
+    upcast."""
+    if _half_gemm_f32_out(x, w):
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())

@@ -1,11 +1,11 @@
 """Model registry: the serving surface of ``repro/models/registry.py``.
 
-``get_model(cfg, device)`` returns an ``LMModel`` with init / prefill /
-decode_step / cache_init and the ``*_inputs`` spec factories (shapes and
-dtypes, no allocation), over every LM of ``models/transformer.py``: dense,
-MoE, recurrent (xLSTM), hybrid (Hymba), audio (musicgen: frames in) and
-vision-language (InternVL: patches and tokens in).  The training surface
-(``loss_fn``, ``train_inputs``) waits for ROADMAP A9.
+``get_model(cfg, device)`` returns an ``LMModel`` with init / loss_fn /
+prefill / decode_step / cache_init and the ``*_inputs`` spec factories
+(shapes and dtypes, no allocation), over every LM of
+``models/transformer.py``: dense, MoE, recurrent (xLSTM), hybrid (Hymba),
+audio (musicgen: frames in) and vision-language (InternVL: patches and
+tokens in).
 """
 from __future__ import annotations
 
@@ -38,6 +38,9 @@ class LMModel:
     def init(self, generator: torch.Generator):
         return T.init(self.cfg, generator, self.device)
 
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        return T.loss_fn(self.cfg, params, batch)
+
     def prefill(self, params, batch, max_len: int):
         return T.prefill(self.cfg, params, batch, max_len)
 
@@ -48,11 +51,22 @@ class LMModel:
         return T.cache_init(self.cfg, B, max_len, self.device)
 
     # -- input specs ------------------------------------------------------------
+    def train_inputs(self, shape: InputShape) -> Dict[str, TensorSpec]:
+        """A training batch: ``prefill_inputs`` and int32 labels, (B, S),
+        or one per codebook (B, S, ncb) for audio; a vision config's labels
+        cover its patch positions too (-1 there)."""
+        batch = self.prefill_inputs(shape)
+        B, S = shape.global_batch, shape.seq_len
+        labels = ((B, S, self.cfg.n_codebooks)
+                  if self.cfg.frontend == "audio_frames" else (B, S))
+        batch["labels"] = TensorSpec(labels, torch.int32)
+        return batch
+
     def prefill_inputs(self, shape: InputShape) -> Dict[str, TensorSpec]:
-        """The prompt's inputs, the JAX package's ``train_inputs`` without
-        labels: audio frames (B, S, d) float32; for a vision config
-        ``n_frontend_tokens`` patches (B, P, d) float32 and S - P tokens;
-        otherwise tokens (B, S)."""
+        """The prompt's inputs, ``train_inputs`` without labels: audio
+        frames (B, S, d) float32; for a vision config ``n_frontend_tokens``
+        patches (B, P, d) float32 and S - P tokens; otherwise tokens (B,
+        S)."""
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         if cfg.frontend == "audio_frames":

@@ -366,8 +366,19 @@ def _affine_scan(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     (a1 a2, a2 b1 + b2), the combine of the JAX package's
     ``associative_scan``, in log2(S) doubling steps.  Step s combines each
     t >= s with t - s; two buffers a side alternate, so no step reads what
-    it writes.  Consumes ``da`` and ``db`` (their storage is reused)."""
+    it writes.  Consumes ``da`` and ``db`` (their storage is reused).
+    Where a gradient is wanted the same steps run out of place, as autograd
+    needs (``out=`` is not differentiable), with the same arithmetic."""
     S = da.shape[1]
+    if torch.is_grad_enabled() and (da.requires_grad or db.requires_grad):
+        a, b, s = da, db, 1
+        while s < S:
+            b = torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:],
+                                                   b[:, :S - s])], dim=1)
+            if 2 * s < S:
+                a = torch.cat([a[:, :s], a[:, :S - s] * a[:, s:]], dim=1)
+            s *= 2
+        return b
     a, b = da, db
     a2, b2 = torch.empty_like(a), torch.empty_like(b)
     s = 1

@@ -37,8 +37,17 @@ them out (mLSTM conv and (C, n, m), sLSTM (h, c, n, m), mamba conv and
 state).  A decode step writes its token's rows, and each layer's new
 states, into them in place (the JAX package returns new caches).
 ``forward`` and ``forward_slice`` return the MoE load-balance term summed
-over the layers in float32, as there; the training loss (``lm_loss``,
-``loss_fn``) is not ported (ROADMAP A9).
+over the layers in float32, as there.
+
+Training (``loss_fn``): ``train_forward`` runs every layer with no cache,
+each under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the JAX
+package's ``jax.checkpoint`` of its scan body in train mode: only the
+residual stream between layers is kept, and the backward recomputes each
+layer, B5's forward included); ``lm_loss`` is the chunked cross-entropy over
+``cfg.loss_chunk`` positions, each chunk's float32 logits recomputed in the
+backward as there.  GQA attention then runs B5 through its autograd
+function, whose backward is B5's backward kernel on the card.  MoE routing
+is not recorded in training (a recompute would record it twice).
 """
 from __future__ import annotations
 
@@ -47,12 +56,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +343,81 @@ def forward_slice(cfg: ModelConfig, params, h: torch.Tensor,
     forward on the published weights.  Returns (h, new_caches_for_slice,
     aux)."""
     return _run_layers(cfg, params, h, positions, lo, hi, caches, cache_index)
+
+
+def _train_block(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
+                 positions: torch.Tensor):
+    x, _, aux = block_apply(cfg, kind, p, x, positions)
+    return x, aux
+
+
+def train_forward(cfg: ModelConfig, params, h: torch.Tensor,
+                  positions: torch.Tensor):
+    """Every layer with no cache, then the final norm: the JAX package's
+    ``forward(mode="train")``.  With ``cfg.remat`` each layer runs under
+    ``checkpoint(use_reentrant=False)``, so the backward keeps only the
+    residual stream between layers and recomputes the rest.  Each run's
+    stacked weights are unbound once, so a layer's gradient lands in its
+    slice of the stack with one stacking per run.  Returns (h, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for (kind, count), rp in zip(layer_runs(cfg), params["runs"]):
+        leaves, treedef = tree_flatten(rp)
+        layers = zip(*(leaf.unbind(0) for leaf in leaves))
+        for p in map(treedef.unflatten, layers):
+            if cfg.remat:
+                h, a = checkpoint(_train_block, cfg, kind, p, h, positions,
+                                  use_reentrant=False)
+            else:
+                h, a = _train_block(cfg, kind, p, h, positions)
+            if a is not None:
+                aux = aux + a
+    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), aux
+
+
+def _chunk_loss(cfg: ModelConfig, params, h: torch.Tensor,
+                labels: torch.Tensor):
+    """Summed cross-entropy of one chunk and its count of labels >= 0."""
+    logits = unembed(cfg, params, h)                  # (B, Lc, [ncb,] V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    w = (labels >= 0).float()
+    return ((lse - picked) * w).sum(), w.sum()
+
+
+def lm_loss(cfg: ModelConfig, params, h: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of h (B, S, d) against labels (B, S), or (B, S,
+    ncb) with codebooks, -1 ignored: over chunks of ``cfg.loss_chunk``
+    positions (the last padded with ignored labels), each chunk's float32
+    logits made under ``checkpoint`` and recomputed in the backward, so the
+    (B, S, V) logits never exist at once.  The sum over the chunks in order
+    divided by the count of labels, at least 1."""
+    S = h.shape[1]
+    Lc = min(cfg.loss_chunk, S)
+    pad = (-S) % Lc
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, 0) * (labels.dim() - 2) + (0, pad),
+                       value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S + pad, Lc):
+        s, n = checkpoint(_chunk_loss, cfg, params, h[:, c0:c0 + Lc],
+                          labels[:, c0:c0 + Lc], use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """The training loss of ``batch`` (``embed_inputs``'s inputs and
+    ``labels``): ``lm_loss`` after ``train_forward``, plus 0.01 times the
+    MoE load-balance term over the layers for a MoE config."""
+    h = embed_inputs(cfg, params, batch)
+    h, aux = train_forward(cfg, params, h, positions_for(h))
+    loss = lm_loss(cfg, params, h, batch["labels"])
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
+    return loss
 
 
 def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:

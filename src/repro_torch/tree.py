@@ -3,8 +3,11 @@
 ``jax.tree.flatten`` visits dict keys in sorted order; PyTorch's own pytree
 keeps insertion order.  The codec's packed stream and its per-leaf metas
 follow the leaf order, so the port flattens exactly as JAX does: dicts by
-sorted key, lists and tuples in order, ``None`` as an empty subtree, and
-anything else as a leaf.
+sorted key, lists and tuples in order, a NamedTuple (the optimizer's state)
+by field and rebuilt as its own type, ``None`` as an empty subtree, and
+anything else as a leaf.  ``tree_paths`` names each leaf as
+``jax.tree_util.keystr`` does (``[0]['runs'][0]['attn']['wq']``,
+``[1].m['embed']``), the names a checkpoint's manifest carries.
 """
 from __future__ import annotations
 
@@ -14,9 +17,10 @@ from typing import Any, Callable, Iterator, List, Tuple
 
 @dataclass(frozen=True)
 class TreeDef:
-    kind: str                           # "leaf" | "none" | "dict" | "list" | "tuple"
-    keys: Tuple[Any, ...] = ()
+    kind: str                           # "leaf" | "none" | "dict" | "list" | "tuple" | "namedtuple"
+    keys: Tuple[Any, ...] = ()          # a dict's keys, a NamedTuple's fields
     children: Tuple["TreeDef", ...] = ()
+    node_type: Any = None               # a NamedTuple's class
 
     @property
     def num_leaves(self) -> int:
@@ -41,7 +45,19 @@ class TreeDef:
         built = [c._build(it) for c in self.children]
         if self.kind == "dict":
             return dict(zip(self.keys, built))
+        if self.kind == "namedtuple":
+            return self.node_type(*built)
         return built if self.kind == "list" else tuple(built)
+
+    def paths(self, prefix: str = "") -> List[str]:
+        """Each leaf's key path in ``jax.tree_util.keystr``'s spelling."""
+        if self.kind == "leaf":
+            return [prefix]
+        names = ([f"[{k!r}]" for k in self.keys] if self.kind == "dict" else
+                 [f".{k}" for k in self.keys] if self.kind == "namedtuple"
+                 else [f"[{i}]" for i in range(len(self.children))])
+        return [p for name, c in zip(names, self.children)
+                for p in c.paths(prefix + name)]
 
 
 def _flatten_into(node: Any, leaves: List[Any]) -> TreeDef:
@@ -55,6 +71,10 @@ def _flatten_into(node: Any, leaves: List[Any]) -> TreeDef:
         keys = tuple(sorted(node))
         return TreeDef("dict", keys,
                        tuple(_flatten_into(node[k], leaves) for k in keys))
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return TreeDef("namedtuple", tuple(node._fields),
+                       tuple(_flatten_into(c, leaves) for c in node),
+                       type(node))
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
         return TreeDef(kind, (), tuple(_flatten_into(c, leaves) for c in node))
@@ -66,6 +86,11 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
     treedef = _flatten_into(tree, leaves)
     return leaves, treedef
+
+
+def tree_paths(tree: Any) -> List[str]:
+    """Each leaf's key path, in leaf order (``jax.tree_util.keystr``)."""
+    return tree_flatten(tree)[1].paths()
 
 
 def tree_leaves(tree: Any) -> List[Any]:

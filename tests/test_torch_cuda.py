@@ -8,7 +8,9 @@ marked ``cuda`` and skip without one.  On a machine with a card:
 They import no JAX: the plain versions are held against the JAX package by
 the CPU tests, and here the kernels are held against the plain versions on
 the same inputs (window attention within 1e-4, both fp32 with sums in other
-orders; the codec pair and the quant pair bitwise; flash attention, with and
+orders; the codec pair and the quant pair bitwise; flash attention's backward
+kernels, and its log-sum-exp, which leaves its output bitwise; flash
+attention, with and
 without a sliding window or a logit soft-cap, and flash decode, with and
 without a cap, within 1e-5 of the output's max |x| in f32, sums in other
 orders, and 1e-2 in bf16, one rounding of the output; a window of w >= Skv
@@ -18,7 +20,9 @@ card against the CPU path (xLSTM and Hymba too, past the ring's wrap;
 musicgen's frames and codebooks, InternVL's patches, soft-capped and not).  The MoE FFN and MLA run no kernel: one full-width
 layer of each on the card is held to the CPU path (routing equal).  The vectorized MAC has no kernel of its own: its
 step's PyTorch ops on the card are held bit for bit to the CPU path (and
-its lexsort to numpy's), with no host sync inside a step.
+its lexsort to numpy's), with no host sync inside a step.  ``dense32`` and
+``bmm32`` upcast under autograd because the half GEMMs with a float32
+output have no derivative, which one case checks.
 """
 import argparse
 
@@ -486,6 +490,144 @@ def test_dense32_bf16_on_the_card_matches_the_upcast(cuda, shape):
     got = L.dense32(x.to(cuda), w.to(cuda))
     assert got.dtype == torch.float32 and got.shape == shape[:-1] + (1000,)
     assert _rel_err(got, L.dense32(x, w)) <= 1e-5
+
+
+def _slice_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The worst (batch row, head) slice of a (B, S, heads, hd) gradient,
+    relative to that slice's max |x|.  Per slice, not per row: a query's
+    dQ sums dS = P (dP - D), which cancels exactly for a row that sees one
+    key, so that row is rounding noise against rounding noise."""
+    d = (out.double() - ref.double()).abs().amax(dim=(1, 3))
+    return float((d / ref.double().abs().amax(dim=(1, 3)).clamp_min(1e-30)).max())
+
+
+BWD_CASES = [
+    (2, 300, 15, 5, 64, 0, 0.0),        # smollm-360m's heads
+    (2, 333, 4, 2, 128, 0, 0.0),        # ragged, qwen3's head dim
+    (1, 1100, 25, 5, 64, 1024, 0.0),    # Hymba's window, ragged
+    (2, 200, 4, 2, 16, 0, 1.0),         # a binding cap
+    (2, 256, 4, 2, 32, 0, 50.0),        # Gemma 2's cap
+    (2, 192, 24, 24, 64, 0, 0.0),       # musicgen's G = 1
+    (2, 150, 4, 2, 64, 17, 1.0),        # window and cap across tile edges
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,S,H,KV,hd,w,cap", BWD_CASES)
+def test_flash_attention_backward_matches_plain(cuda, dtype, B, S, H, KV, hd,
+                                                w, cap):
+    """B5's backward kernels against ``flash_attention_bwd_plain`` on the
+    same inputs (the kernel's forward output and log-sum-exp), each
+    gradient's (batch row, head) slices within the kernel tolerance, and two
+    launches bitwise equal (no atomics)."""
+    g = torch.Generator().manual_seed(23)
+    q = torch.randn((B, S, H, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    dout = torch.randn((B, S, H, hd), generator=g).to(cuda, dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, True, w, cap, with_lse=True)
+    ops.LAUNCHES.clear()
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True, w, cap)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True, w, cap)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True, w, cap)
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCHES) == {name: 2 for name in fa.BWD_KERNELS}
+    for a, b, c in zip(got, again, ref):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        assert _slice_err(a, c) <= ATTN_KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("Sq,Skv,w,cap", [(333, 333, 0, 0.0), (200, 520, 0, 0.0),
+                                          (1100, 1100, 1024, 0.0),
+                                          (256, 256, 0, 1.0)])
+def test_flash_attention_lse_leaves_the_output_bitwise(cuda, dtype, Sq, Skv,
+                                                       w, cap):
+    """The forward with the log-sum-exp gives bitwise the output without
+    it, and the log-sum-exp of the plain version's scores within 1e-5 of
+    its magnitude (at least 1)."""
+    g = torch.Generator().manual_seed(24)
+    q = torch.randn((2, Sq, 10, 64), generator=g).to(cuda, dtype)
+    k = torch.randn((2, Skv, 5, 64), generator=g).to(cuda, dtype)
+    v = torch.randn((2, Skv, 5, 64), generator=g).to(cuda, dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, True, w, cap, with_lse=True)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, True, w, cap))
+    _, ref = fa.flash_attention_plain(q, k, v, True, w, cap, with_lse=True)
+    assert lse.shape == (2, 10, Sq) and lse.dtype == torch.float32
+    assert float(((lse - ref).abs() / ref.abs().clamp_min(1.0)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("op", ["dense32", "bmm32"])
+def test_half_gemms_with_f32_output_under_autograd(cuda, op):
+    """``dense32``/``bmm32`` on bf16 operands: without a gradient they take
+    the half GEMM with a float32 output, which has no derivative (its
+    backward raises); with one they upcast the operands.  Both give the
+    same products within 1e-5 of the output's max (exact products, float32
+    sums in other orders), and the bf16 gradients match the CPU's upcast
+    path within 1e-2 of each one's max (one rounding of float32 sums)."""
+    g = torch.Generator().manual_seed(25)
+    shapes = {"dense32": ((3, 40, 96), (96, 200)),
+              "bmm32": ((4, 40, 96), (4, 96, 56))}[op]
+    a, b = (torch.randn(s, generator=g).to(torch.bfloat16) for s in shapes)
+    fn = getattr(L, op)
+    ac, bc = a.to(cuda), b.to(cuda)
+    with torch.no_grad():
+        ref = fn(ac, bc)
+    half = (torch.bmm(ac, bc, out_dtype=torch.float32) if op == "bmm32" else
+            torch.mm(ac.reshape(-1, 96), bc, out_dtype=torch.float32))
+    assert torch.equal(ref.reshape(half.shape), half)
+    with pytest.raises(RuntimeError, match="derivative for aten::.*mm"):
+        x = ac.clone().requires_grad_(True)
+        (torch.bmm(x, bc, out_dtype=torch.float32) if op == "bmm32" else
+         torch.mm(x.reshape(-1, 96), bc, out_dtype=torch.float32)).sum() \
+            .backward()
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        x, w = (t.to(dev).requires_grad_(True) for t in (a, b))
+        y = fn(x, w)
+        if dev.type == "cuda":
+            assert y.dtype == torch.float32
+            assert _rel_err(y.detach(), ref) <= 1e-5
+        (y * torch.linspace(-1, 1, y.shape[-1], device=dev)).sum().backward()
+        grads[dev.type] = (x.grad, w.grad)
+    for gc, gh in zip(grads["cuda"], grads["cpu"]):
+        assert gc.dtype == torch.bfloat16
+        assert _rel_err(gc, gh) <= ATTN_KERNEL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b",
+                                  "musicgen-medium"])
+def test_training_on_the_card_matches_the_cpu_path(cuda, arch):
+    """A reduced config (f32) on the same weights and batch: the loss and
+    every gradient on the card within 1e-4 of the CPU's (relative to each
+    leaf's max), through B5's forward (twice a layer: remat recomputes it)
+    and its backward kernels (once a layer), and no other kernel: smollm's
+    dense layers, Hymba's windowed attention beside its mamba heads,
+    musicgen's frames, G = 1 and codebook heads."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.steps import value_and_grad
+    cfg = get_reduced_config(arch)
+    params = T.init(cfg, torch.Generator().manual_seed(4), device="cpu")
+    # 80 positions: past the reduced Hymba's window of 16
+    batch = next(TokenStream(cfg, seq_len=80, batch=2, seed=4))
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        ops.LAUNCHES.clear()
+        got[dev.type] = value_and_grad(
+            cfg, tree_map(lambda a: a.to(dev), params),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            n = cfg.n_layers
+            assert dict(ops.LAUNCHES) == {"flash_attention": 2 * n,
+                                          **{k: n for k in fa.BWD_KERNELS}}
+    (lc, gc), (lh, gh) = got["cuda"], got["cpu"]
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for a, b in zip(tree_flatten(gc)[0], tree_flatten(gh)[0]):
+        if not b.abs().max():           # musicgen's token embedding: unused
+            assert not a.abs().max()
+        else:
+            assert _rel_err(a, b) <= 1e-4
 
 
 def test_lm_serving_on_the_card_matches_the_cpu_path(cuda):

@@ -161,7 +161,9 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.core.timeline, repro_torch.core.ran, "
             "repro_torch.core.mobility, repro_torch.core.chaos, "
             "repro_torch.core.trace_export, repro_torch.runtime.failures, "
-            "repro_torch.core.ran_vec, repro_torch.core.engine_vec\n"
+            "repro_torch.core.ran_vec, repro_torch.core.engine_vec, "
+            "repro_torch.launch.train, repro_torch.checkpoint.store, "
+            "repro_torch.optim.adamw, repro_torch.data.tokens\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -174,7 +176,8 @@ def test_import_leaves_jax_and_the_reference_out():
 def test_no_file_of_the_port_imports_jax_or_the_reference():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = sorted((SRC / "repro_torch").rglob("*.py"))
-    assert {"ran_vec.py", "engine_vec.py"} <= {p.name for p in files}
+    assert {"ran_vec.py", "engine_vec.py", "train.py", "store.py", "adamw.py",
+            "tokens.py"} <= {p.name for p in files}
     for path in files + [SRC.parent / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 

@@ -135,15 +135,16 @@ def main() -> int:
     for w, kv, s, c in TILINGS:
         name = f"w{w}_kv{kv}_s{s}_c{c}"
         fn = ctypes.CDLL(str(OUT / f"{name}.so")).flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
         def call(fn=fn):
             o = torch.empty_like(q)
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 4,
-                    2048, 2048, 16, 8, 128, 1, 1, 1 / math.sqrt(128),
-                    torch.cuda.current_stream().cuda_stream)
+            # no log-sum-exp, causal, no window, no cap, bf16
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    None, 4, 2048, 2048, 16, 8, 128, 1, 0, 0.0, 1,
+                    1 / math.sqrt(128), torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"{name}: cudaError_t {rc}")
             return o
