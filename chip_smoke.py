@@ -250,6 +250,25 @@ when it fails:
     at the same shape (never called by the port), and a profiler trace of
     one full-width train step: device busy, idle share against that
     step's own host-clock time, B5's forward and backward parts.
+18. The mesh, sharding, gradient compression and the dry-run (phase 18,
+    after 17): (a) ``optim.compress.compressed_psum`` on the one-rank NCCL
+    group over smollm-360m's full-width gradient tree (one micro-batch of
+    4 x 2048), mean and error buffers bitwise the same call on the CPU
+    over a gloo group, its ms beside an fp32 all-reduce of the same
+    elements and both wire byte counts; (b) MESH_STEPS steps of phase
+    17's shape through ``build_train_step(mesh=make_host_mesh())`` beside
+    the mesh-free step on the same weights and batches, deterministic
+    algorithms on: loss, gradient norm, every parameter and moment bitwise
+    equal, B5's launches per step phase 17's, each step's host ms; (c)
+    ``MultiCellVecMac(mesh=...)`` over phase 12 (b)'s city, bitwise its
+    reports; (d) ``launch.dryrun`` over every (arch x shape) cell at full
+    size on the meta device, started before phase 13 in DRYRUN_JOBS
+    single-thread processes niced to 19 (so it takes cores the card's
+    phases leave idle), its wall time; every cell OK or SKIP by the JAX
+    dry-run's rule; smollm-360m's train step at 8 x 2048 and qwen3-1.7b's
+    prefill at 4 x 2048 estimated beside the peaks phases 17 (b) and 9
+    measured; B5's counted operations in that prefill equal to the bound's
+    formula.
 
 Every profiler session starts after a synchronize and idles TRACE_PAD_S
 before and after its work: the profiler keeps only the device events whose
@@ -390,6 +409,10 @@ MAC_FLOWS, MAC_ORACLE_FLOWS, MAC_TOTAL_BYTES = 10_240, 1_024, 2_625_000
 MAC_POLICIES = ("rr", "pf", "edf")
 MAC_WARM_S = 0.05                  # a warm-up advance: the first 50 TTIs
 CITY_UES, CITY_CELLS, CITY_SLOTS = 4096, 8, 2
+# phase 18: train steps of the mesh step beside the mesh-free one, and the
+# dry-run's worker processes
+MESH_STEPS = 3
+DRYRUN_JOBS = 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
@@ -514,17 +537,18 @@ def quant_times(qk, leaves, block: int, flush) -> dict:
 
 
 def quant_bytes(leaves, block: int) -> int:
-    """Bytes B4a or B4b must move over a payload's leaves: 4 B a value of
-    the leaf, 1 B an element of the padded (nb, block) q and 4 B a block's
-    scale."""
-    nb = sum(-(-x.numel() // block) for x in leaves)
-    return sum(4 * x.numel() for x in leaves) + nb * (block + 4)
+    """Bytes B4a or B4b must move over a payload's leaves, by the cost
+    function ``ops.COSTS`` counts them with: 4 B a value of the leaf, 1 B
+    an element of the padded (nb, block) q and 4 B a block's scale."""
+    from repro_torch.kernels import quant as qk
+    return sum(qk.cost(x.numel(), block)[1] for x in leaves)
 
 
 def codec_bytes(total: int, block: int) -> int:
-    """Bytes B2 or B3 must move for a stream of ``total`` f32: 4 B and 1 B
-    an element, 4 B a block's scale."""
-    return 5 * total + 4 * (total // block)
+    """Bytes B2 or B3 must move for a stream of ``total`` f32 (4 B and 1 B
+    an element, 4 B a block's scale), by the kernels' cost function."""
+    from repro_torch.kernels import codec as ck
+    return ck.cost(total, block)[1]
 
 
 def sass_ops(lib: Path, ops: tuple) -> dict:
@@ -938,12 +962,14 @@ def phase12(cell) -> tuple:
     for bit to the port's CPU path and its oracle (core/ran.py): (a)
     ``mac_streams``, (b) ``mac_city``, (c) ``mac_lockstep``, (d)
     ``mac_event``, each with its wall time.  Returns the profiler phase's
-    MAC drain (what, fn): edf at MAC_FLOWS flows."""
+    MAC drain (what, fn): edf at MAC_FLOWS flows, and (b)'s reports (for
+    phase 18 (c))."""
     t_phase = time.perf_counter()
     dev = cell["dev"]
     secs = {}
+    city = {}
     for part, fn in (("a", lambda: mac_streams(dev)),
-                     ("b", lambda: mac_city(dev)),
+                     ("b", lambda: city.update(mac_city(dev))),
                      ("c", lambda: mac_lockstep(cell)),
                      ("d", lambda: mac_event(cell))):
         t0 = time.perf_counter()
@@ -953,7 +979,7 @@ def phase12(cell) -> tuple:
         + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
     streams = iter([mac_stream(MAC_FLOWS, "edf", dev) for _ in range(2)])
     return (f"MAC drain, edf, {MAC_FLOWS} flows",
-            lambda: mac_drain(next(streams)))
+            lambda: mac_drain(next(streams)), city)
 
 
 def mac_streams(dev) -> None:
@@ -989,20 +1015,29 @@ def mac_streams(dev) -> None:
             "paired")
 
 
-def mac_city(dev) -> None:
-    """Phase 12 (b): ``MultiCellVecMac`` over one synthetic city, CITY_SLOTS
-    slots per policy, against the oracle cell by cell."""
-    import numpy as np
-    import torch
-    from repro_torch.core.engine_vec import MultiCellVecMac, synthetic_city
-    from repro_torch.core.ran import (RanCell, RanConfig, UplinkRequest,
-                                      make_policy)
+def city_requests():
+    """Phase 12 (b)'s synthetic city as one ``UplinkRequest`` list a
+    cell."""
+    from repro_torch.core.engine_vec import synthetic_city
+    from repro_torch.core.ran import UplinkRequest
     batches = synthetic_city(CITY_UES, CITY_CELLS, seed=0)
-    reqs = [[UplinkRequest(ue_id=int(b["ue"][i]), n_bytes=int(b["n_bytes"][i]),
+    return [[UplinkRequest(ue_id=int(b["ue"][i]), n_bytes=int(b["n_bytes"][i]),
                            enqueue_s=float(b["enq"][i]),
                            deadline_s=float(b["dead"][i]),
                            link_rate_bps=float(b["link_rate_bps"][i]))
              for i in range(len(b["ue"]))] for b in batches]
+
+
+def mac_city(dev) -> dict:
+    """Phase 12 (b): ``MultiCellVecMac`` over one synthetic city, CITY_SLOTS
+    slots per policy, against the oracle cell by cell.  Returns each
+    policy's slot reports (``hexed``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine_vec import MultiCellVecMac
+    from repro_torch.core.ran import RanCell, RanConfig, make_policy
+    reqs = city_requests()
+    city = {}
     for pol in MAC_POLICIES:
         mk = lambda: [RanCell(policy=make_policy(pol),
                               cfg=RanConfig(tti_s=1e-3))
@@ -1021,7 +1056,8 @@ def mac_city(dev) -> None:
             t0 = time.perf_counter()
             want = [c.serve_slot(r, g) for c, r, g in zip(oracle, reqs, r_py)]
             oracle_ms.append((time.perf_counter() - t0) * 1e3)
-            if hexed(got) != hexed(want):
+            city.setdefault(pol, []).append(hexed(got))
+            if city[pol][-1] != hexed(want):
                 raise AssertionError(f"MAC (b) {pol}: slot {slot} reports "
                                      "differ from the oracle's")
         last = max(max(r.finish_s for r in w.values()) for w in want)
@@ -1032,6 +1068,7 @@ def mac_city(dev) -> None:
             f"{', '.join(f'{t:.1f}' for t in oracle_ms)}; the last slot "
             f"drains at {last:.3f} s (simulated); every report bitwise "
             "equal")
+    return city
 
 
 def mac_sim(cell, policy, **kw):
@@ -1479,9 +1516,9 @@ def train_timing(dev, run) -> dict:
     k, v = (torch.randn((B, S, KV, hd), generator=g).to(dev, bf16)
             for _ in range(2))
     out, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
-    pairs = S * (S + 1) // 2
-    flops = 10 * B * H * pairs * hd       # the recomputed S, dP, dV, dK, dQ
-    nbytes = 2 * (3 * q.numel() + 2 * (k.numel() + v.numel())) + 4 * lse.numel()
+    # 10 hd flop a live pair (the recomputed S, dP, dV, dK, dQ); q, o, dO,
+    # k, v and the log-sum-exp read, dq, dk, dv written (ops.COSTS's count)
+    flops, nbytes = fa.backward_cost(q.shape, k.shape, q.element_size())
     bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True)
     row = dict(
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1576,6 +1613,257 @@ def phase17(dev) -> tuple:
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
     return row, launches
+
+
+def compress_check(dev) -> None:
+    """Phase 18 (a): ``compressed_psum`` over one full-width TRAIN_ARCH
+    gradient tree (one micro-batch of phase 17's step, bf16) on the
+    one-rank NCCL group, bitwise against the same call on the CPU over a
+    gloo group on the same gradients; its time by CUDA events beside an
+    fp32 all-reduce of the same elements, and the bytes each puts on the
+    wire."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import compress as GC
+    from repro_torch.tree import tree_leaves, tree_map
+
+    make_host_mesh()                       # the one-rank NCCL group
+    cfg = get_config(TRAIN_ARCH)
+    params = get_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = next(TokenStream(cfg, seq_len=TRAIN_S,
+                             batch=TRAIN_B // TRAIN_ACCUM, seed=SEED))
+    _, grads = value_and_grad(cfg, params, {
+        k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    del params
+    err = GC.init_error_state(grads)
+    n = sum(g.numel() for g in tree_leaves(grads))
+    mean, new_err = GC.compressed_psum(grads, err)
+    cpu_mean, cpu_err = GC.compressed_psum(
+        tree_map(lambda g: g.cpu(), grads), tree_map(lambda e: e.cpu(), err),
+        group=dist.new_group(backend="gloo"))
+    bad = [i for i, (a, b) in enumerate(zip(
+        tree_leaves((mean, new_err)), tree_leaves((cpu_mean, cpu_err))))
+        if not torch.equal(a.cpu(), b)]
+    if bad:
+        raise AssertionError(f"compressed_psum card vs CPU: leaves {bad} "
+                             "differ")
+    del cpu_mean, cpu_err, mean, new_err
+    ms = cuda_ms(lambda: GC.compressed_psum(grads, err), reps=3, runs=3)
+    flat = torch.cat([g.float().reshape(-1) for g in tree_leaves(grads)])
+    fp32_ms = cuda_ms(lambda: dist.all_reduce(flat), reps=3, runs=3)
+    nb = sum(-(-g.numel() // GC.BLOCK) for g in tree_leaves(grads))
+    log(f"compressed_psum: {TRAIN_ARCH} gradients ({len(tree_leaves(grads))} "
+        f"leaves, {n} elements, bf16, one micro-batch of {TRAIN_B // TRAIN_ACCUM}"
+        f" x {TRAIN_S}), one-rank NCCL group: mean and error buffers bitwise "
+        f"the CPU's (gloo); {ms:.3f} ms a call (CUDA events, median of 3 x "
+        f"3) beside an fp32 all-reduce of the same elements {fp32_ms:.3f} ms; "
+        f"wire bytes {n * GC.wire_bytes_per_element():.0f} (int8 and a "
+        f"scale per {GC.BLOCK}, wire_bytes_per_element) against fp32's "
+        f"{4 * n}; the all-reduces as called move {4 * nb * GC.BLOCK + 4 * nb}"
+        f" B (an int32 payload of the padded blocks, the scales)")
+
+
+def mesh_train_check(dev, per_step: dict) -> None:
+    """Phase 18 (b): TRAIN_ARCH at phase 17's shape, MESH_STEPS steps of
+    ``build_train_step(mesh=make_host_mesh())`` beside the mesh-free step
+    on the same weights and batches, deterministic algorithms on (the
+    embedding's backward otherwise accumulates with atomics): loss,
+    gradient norm, learning rate, every parameter and moment bitwise equal;
+    B5's launches per step those of phase 17 (``per_step``); each step's
+    host ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import ShardingRules, gather
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = InputShape("t", TRAIN_S, TRAIN_B, "train")
+    opt = AdamW(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    mesh = make_host_mesh()
+    free = build_train_step(cfg, shape, opt=opt, grad_accum=TRAIN_ACCUM)
+    meshed = build_train_step(cfg, shape, mesh=mesh, opt=opt,
+                              grad_accum=TRAIN_ACCUM, rules=ShardingRules())
+    p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    st = opt.init(p)
+    pm, sm = meshed.place(p, st)
+    stream = TokenStream(cfg, seq_len=TRAIN_S, batch=TRAIN_B, seed=SEED)
+    ms_free, ms_mesh = [], []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(MESH_STEPS):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(stream).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, m0 = free(p, st, b)
+            torch.cuda.synchronize()
+            ms_free.append((time.perf_counter() - t0) * 1e3)
+            ops.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            pm, sm, m1 = meshed(pm, sm, b)
+            torch.cuda.synchronize()
+            ms_mesh.append((time.perf_counter() - t0) * 1e3)
+            got = dict(ops.LAUNCHES)
+            if got != per_step:
+                raise AssertionError(f"mesh step {i} launches {got}, phase "
+                                     f"17 a step {per_step}")
+            if any(not torch.equal(m0[k], m1[k]) for k in m0):
+                raise AssertionError(f"mesh step {i}: {m1} vs mesh-free {m0}")
+            if not all(torch.equal(a, c) for a, c in zip(
+                    tree_leaves((p, st)), tree_leaves(gather((pm, sm))))):
+                raise AssertionError(f"mesh step {i}: parameters or moments "
+                                     "differ from the mesh-free step's")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"mesh train step: {TRAIN_ARCH} full width, {TRAIN_B} x {TRAIN_S} in "
+        f"{TRAIN_ACCUM} micro-batches, {MESH_STEPS} steps on the 1 x 1 mesh "
+        f"(one-rank NCCL group) beside the mesh-free step: loss "
+        f"{float(m1['loss']):.6f}, grad norm {float(m1['grad_norm']):.6f}, "
+        f"every parameter and moment bitwise equal; launches a step {got} "
+        f"(phase 17's); step ms (host clock, deterministic algorithms) mesh "
+        f"{', '.join(f'{t:.1f}' for t in ms_mesh)}, mesh-free "
+        f"{', '.join(f'{t:.1f}' for t in ms_free)}")
+    del p, st, pm, sm
+
+
+def mac_mesh_check(dev, city: dict) -> None:
+    """Phase 18 (c): ``MultiCellVecMac(mesh=make_host_mesh())`` over phase
+    12 (b)'s city, CITY_SLOTS slots per policy, bitwise phase 12's
+    reports (on one card the cells split into one part: the mesh path, a
+    flag all-reduced a chunk and the reports gathered)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine_vec import MultiCellVecMac
+    from repro_torch.core.ran import RanCell, RanConfig, make_policy
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh()
+    reqs = city_requests()
+    for pol in MAC_POLICIES:
+        mac = MultiCellVecMac([RanCell(policy=make_policy(pol),
+                                       cfg=RanConfig(tti_s=1e-3))
+                               for _ in range(CITY_CELLS)], device=dev,
+                              mesh=mesh)
+        gens = [np.random.default_rng(k)
+                for k in np.random.SeedSequence(SEED).spawn(CITY_CELLS)]
+        ms = []
+        for slot in range(CITY_SLOTS):
+            t0 = time.perf_counter()
+            got = hexed(mac.serve_slot(reqs, gens))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if got != city[pol][slot]:
+                raise AssertionError(f"MAC over the mesh, {pol}: slot {slot} "
+                                     "differs from phase 12 (b)")
+        log(f"MAC over the mesh, {pol}: {CITY_UES} UEs over {CITY_CELLS} "
+            f"cells, {CITY_SLOTS} slots bitwise phase 12 (b)'s; ms per slot "
+            f"{', '.join(f'{t:.1f}' for t in ms)}")
+
+
+def dryrun_report(records, t_wall: float, peaks: dict) -> None:
+    """Phase 18 (d): every dry-run cell OK or SKIP (SKIP only for
+    ``long_500k`` of a family that is not sub-quadratic); the estimated
+    peaks of phase 17's train step and phase 9's prefill beside the peaks
+    the card measured; B5's counted operations in phase 9's prefill equal
+    to the bound's formula."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    bad = [r for r in records if r["status"] == "FAIL" or (
+        r["status"] == "SKIP") != (r["shape"] == "long_500k"
+                                   and not get_config(r["arch"]).sub_quadratic())]
+    if bad:
+        raise AssertionError(f"dry-run cells: {bad}")
+    for r in records:
+        if r["status"] == "OK":
+            log(f"dry-run {r['arch']} {r['shape']}: {r['flops']:.4e} flop "
+                f"(kernels {r['kernel_flops']:.4e}), arguments "
+                f"{r['memory']['argument_bytes'] / 2**30:.2f} GiB, peak "
+                f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB, fits the card "
+                f"{r['fits_card']}, {r['seconds']:.1f} s")
+    n = collections.Counter(r["status"] for r in records)
+    log(f"dry-run: {n['OK']} OK, {n['SKIP']} SKIP of {len(records)} cells at "
+        f"full size on the meta device, {t_wall:.1f} s wall from its start "
+        f"before phase 13 ({DRYRUN_JOBS} niced processes beside phases "
+        f"13-18), {sum(r.get('seconds', 0) for r in records):.1f} s of cell "
+        f"time")
+    train, prefill = records[-2], records[-1]
+    log(f"dry-run estimate vs the card: {TRAIN_ARCH} train {TRAIN_B} x "
+        f"{TRAIN_S} ({TRAIN_ACCUM} micro-batches) peak "
+        f"{train['memory']['peak_bytes'] / 2**30:.2f} GiB estimated, phase 17 "
+        f"(b) measured {peaks['train']:.2f} GiB above what was allocated "
+        f"before it; {LM_ARCH} prefill {LM_BATCH} x {LM_PROMPT} "
+        f"{prefill['memory']['peak_bytes'] / 2**30:.2f} GiB estimated (the "
+        f"prefill alone), phase 9's serve measured {peaks['serve']:.2f} GiB "
+        f"(split, prefill and decode)")
+    cfg = get_config(LM_ARCH)
+    want = cfg.n_layers * fa.forward_cost(
+        (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.head_dim),
+        (LM_BATCH, LM_PROMPT, cfg.n_kv_heads, cfg.head_dim), 2)[0]
+    pairs = LM_PROMPT * (LM_PROMPT + 1) // 2
+    formula = (cfg.n_layers * LM_BATCH * cfg.n_heads * pairs * 4
+               * cfg.head_dim)
+    got = prefill["kernels"]["flash_attention"]["flop"]
+    if not got == want == formula:
+        raise AssertionError(f"B5 counted {got} flop in the prefill, the "
+                             f"bound formula {formula}")
+    log(f"dry-run {LM_ARCH} prefill: B5 counted {got} flop over "
+        f"{cfg.n_layers} launches = {cfg.n_layers} x {LM_BATCH} x "
+        f"{cfg.n_heads} heads x {pairs} live pairs x 4 x {cfg.head_dim}, the "
+        f"bound formula's")
+
+
+def dryrun_start():
+    """Phase 18 (d), started before phase 13: every dry-run cell at full
+    size, and phase 17's train step and phase 9's prefill, counted on the
+    meta device by DRYRUN_JOBS single-thread processes niced to 19, so that
+    they take cores the card's phases leave idle.  Returns (pool, futures,
+    start time)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as DR
+    todo = DR.cells(ARCH_IDS) + [
+        (TRAIN_ARCH, InputShape("train", TRAIN_S, TRAIN_B, "train"),
+         {"grad_accum": TRAIN_ACCUM}),
+        (LM_ARCH, InputShape("prefill", LM_PROMPT, LM_BATCH, "prefill"))]
+    t0 = time.perf_counter()
+    pool, futs = DR.submit_cells(todo, DRYRUN_JOBS, nice=19)
+    return pool, futs, t0
+
+
+def phase18(dev, per_step: dict, city: dict, peaks: dict, dry) -> None:
+    """The mesh, sharding and launch slice (module docstring, phase 18);
+    ``dry`` is ``dryrun_start``'s."""
+    t_phase = time.perf_counter()
+    pool, futs, t_dry = dry
+    with pool:
+        secs = {}
+        for part, fn in (("a", lambda: compress_check(dev)),
+                         ("b", lambda: mesh_train_check(dev, per_step)),
+                         ("c", lambda: mac_mesh_check(dev, city))):
+            t0 = time.perf_counter()
+            fn()
+            secs[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        records = [f.result() for f in futs]
+        t_wall = time.perf_counter() - t_dry
+    secs["d"] = time.perf_counter() - t0
+    dryrun_report(records, t_wall, peaks)
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items())
+        + "; (d) the wait for the dry-run after (c))")
 
 
 def lm_against_cpu(cut, dev, S: int = 256, B: int = 2) -> None:
@@ -2613,9 +2901,8 @@ def main() -> int:
 
             def sdpa():
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=fmask)
-            nbytes = 4 * B * Hp * Wp * 4 * C + 4 * nh * w2 * w2
-            nbytes += 0 if mask is None else nW * w2 * w2
-            flops = B * nW * nh * (4 * w2 * w2 * hd + 4 * w2 * w2 + w2 * hd)
+            flops, nbytes = wa.fused_cost(qkv.shape, qkv.element_size(), nh,
+                                          w, mask is not None)
             ts = dict(
                 kernel=cuda_ms(b1), kernel_cold=cuda_ms(b1, **cold),
                 plain=cuda_ms(lambda: wa.fused_window_attention_plain(
@@ -2659,8 +2946,7 @@ def main() -> int:
     nB, _, nh, hd = q.shape
     fmask = bias[None].expand(nB, nh, w2, w2).masked_fill(~mask[:, None], -1e9)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    nbytes = 4 * 4 * q.numel() + 4 * bias.numel() + mask.numel()
-    flops = nB * nh * (4 * w2 * w2 * hd + 4 * w2 * w2 + w2 * hd)
+    flops, nbytes = wa.windows_cost(q.shape, q.element_size(), True)
     rows["window_attention"] = dict(
         source="src/repro_torch/kernels/csrc/window_attention.cu",
         replaces="src/repro/kernels/window_attention.py:57",
@@ -2768,9 +3054,8 @@ def main() -> int:
     # (kv_len = the prompt, as in the first decode step), both bf16
     q = rnd((LM_BATCH, LM_PROMPT, lm_H, lm_hd), bf16)
     k, v = rnd((LM_BATCH, LM_PROMPT, lm_KV, lm_hd), bf16), rnd((LM_BATCH, LM_PROMPT, lm_KV, lm_hd), bf16)
-    pairs = LM_PROMPT * (LM_PROMPT + 1) // 2               # causal (q, k) pairs
-    flops = LM_BATCH * lm_H * pairs * 4 * lm_hd                 # Q.K^T and P.V
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in; out
+    # 4 hd flop a live (q, k) pair (Q.K^T and P.V); q, k, v in, out
+    flops, nbytes = fa.forward_cost(q.shape, k.shape, q.element_size())
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     rows["flash_attention"] = dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2795,13 +3080,13 @@ def main() -> int:
     k, v = (rnd((LM_BATCH, LM_PROMPT, hy_KV, hy_hd), bf16) for _ in range(2))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pos = torch.arange(LM_PROMPT, device=dev)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     for w in (hy_w, 0):
         live = pos[None, :] <= pos[:, None]
         if w:
             live &= pos[None, :] > pos[:, None] - w
-        pairs = int(live.sum())                 # live (q, k) pairs a head
-        flops = LM_BATCH * hy_H * pairs * 4 * hy_hd
+        pairs = fa.live_pairs(LM_PROMPT, LM_PROMPT, True, w)   # a head
+        flops, nbytes = fa.forward_cost(q.shape, k.shape, q.element_size(),
+                                        True, w)
         t = dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True, w)),
                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                      qt, kt, vt, attn_mask=live, enable_gqa=True)),
@@ -2828,9 +3113,7 @@ def main() -> int:
         q = rnd((LM_BATCH, LM_PROMPT, h_, hd_), bf16)
         k, v = (rnd((LM_BATCH, LM_PROMPT, kv_, hd_), bf16) for _ in range(2))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        pairs = LM_PROMPT * (LM_PROMPT + 1) // 2
-        flops = LM_BATCH * h_ * pairs * 4 * hd_
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops, nbytes = fa.forward_cost(q.shape, k.shape, q.element_size())
         t = dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, True, 0,
                                                             cap)),
                  bound_ms=max(flops / BF16_FLOP_PER_S,
@@ -2856,8 +3139,8 @@ def main() -> int:
     lens = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device=dev)
     live = torch.arange(cache_len, device=dev)[None, :] < lens[:, None]
     bool_mask = live[:, None, None, :]                      # (B, 1, 1, S)
-    nbytes = 2 * (2 * LM_BATCH * lm_KV * LM_PROMPT * lm_hd + 2 * q.numel()) + 4 * LM_BATCH
-    flops = 4 * LM_BATCH * lm_H * LM_PROMPT * lm_hd
+    # the live rows (kv_len = the prompt) of K and V, q, out and kv_len
+    flops, nbytes = da.cost(q.shape, ck_.shape, q.element_size(), LM_PROMPT)
     def b6():
         return da.decode_attention_cuda(q, ck_, cv_, lens)
 
@@ -3109,6 +3392,7 @@ def main() -> int:
     raw_b = int(ctr["boundary_raw_bytes_total"])
     if raw_b != LM_BATCH * LM_PROMPT * lm_cfg.d_model * 2:
         raise AssertionError(f"split payload of {raw_b} B")
+    lm_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"serve {LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
         f"{LM_GEN} decode steps, split at layer {head_layers}/{n_layers} "
         f"({t_serve:.1f} s with init): prefill "
@@ -3269,8 +3553,11 @@ def main() -> int:
                         dev=dev, n_blocks=n_blocks))
 
     # -- 12. the vectorized MAC ---------------------------------------------
-    mac_what, mac_fn = phase12(cell)
+    mac_what, mac_fn, city = phase12(cell)
     del cell
+
+    # -- 18 (d) starts here: the dry-run counts on idle host cores ----------
+    dry = dryrun_start()
 
     # -- 13. the MoE family at full width ------------------------------------
     phase13(dev)
@@ -3285,6 +3572,12 @@ def main() -> int:
     rows["flash_attention_bwd"], train_launches = phase17(dev)
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd_dkdv"]
     rows["flash_attention"]["train_launches"] = train_launches["flash_attention"]
+
+    # -- 18. the mesh, sharding, compression and the dry-run ----------------
+    phase18(dev, {k: v // TRAIN_STEPS for k, v in train_launches.items()},
+            city, {"train": rows["flash_attention_bwd"]["train_peak_gib"],
+                   "serve": lm_peak_gib}, dry)
+    del city
 
     # -- 16. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():

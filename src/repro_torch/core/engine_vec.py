@@ -5,8 +5,13 @@ every cell of a homogeneous deployment through ONE batched step per TTI
 on one device -- carry and request tensors carry a leading cell axis, so
 C cells cost one run of launches per TTI instead of C.  The JAX package's
 ``jax.vmap`` of its slot kernel is here the slot step's own cell axis
-(``ran_vec._slot_step``); its ``mesh=`` placement of that axis across
-devices is not ported (the port runs on one card).
+(``ran_vec._slot_step``).  With ``mesh=`` (``launch/mesh.py``) the cell
+axis is placed by ``launch.sharding.cell_axis_sharding``: where the cell
+count divides the mesh's batch ranks, each rank steps its own cells (the
+step is elementwise across cells, so no collective runs inside it; one
+flag a chunk keeps the ranks' chunks in step) and the reports and policy
+state are gathered to every rank; otherwise every rank steps every
+cell.
 
 Exactness discipline is inherited from ``core/ran_vec.py``: each cell
 keeps its own uniform tape paired with its own HARQ generator, and the
@@ -37,10 +42,11 @@ class MultiCellVecMac:
     ``serve_slot_arrays`` with one request batch and one HARQ generator
     per cell.  Policy state (RR pointer, PF EWMA) persists per cell,
     exactly like the per-cell oracle objects.  The steps run on
-    ``device`` (the card unless the caller asks for the CPU).
+    ``device`` (the card unless the caller asks for the CPU), and with
+    ``mesh`` on each rank's own cells (the module's docstring).
     """
 
-    def __init__(self, cells, device="cuda"):
+    def __init__(self, cells, device="cuda", mesh=None):
         if isinstance(cells, MultiCell):
             cells = cells.cells
         cells = list(cells)
@@ -63,6 +69,15 @@ class MultiCellVecMac:
         self._tapes = [_UniformTape() for _ in vcells]
         self._rr_ptr = np.array([vc._rr_ptr for vc in vcells], np.int64)
         self._pf_avg = [np.array(vc._pf_avg, np.float64) for vc in vcells]
+        self.mesh = mesh
+        self._mine = None            # the cells this rank steps, if split
+        if mesh is not None:
+            from repro_torch.launch.mesh import batch_index
+            from repro_torch.launch.sharding import cell_axis_sharding
+            if cell_axis_sharding(mesh, self.n_cells):
+                r, n = batch_index(mesh)
+                per = self.n_cells // n
+                self._mine = range(r * per, (r + 1) * per)
 
     # -- one frame-slot across all cells -------------------------------------
     def serve_slot_arrays(self, batches: Sequence[Dict[str, np.ndarray]],
@@ -81,13 +96,45 @@ class MultiCellVecMac:
         n_real = [len(b["ue"]) for b in batches]
         if not any(n_real):
             return [{} for _ in range(C)]
-        rr, pfa, outs = _serve_cells(
-            self.cfg, self.policy, self.device, batches, self._tapes, rngs,
-            self._rr_ptr, self._pf_avg, _pad_len(max(n_real)))
+        width = _pad_len(max(n_real))
+        if self._mine is None:
+            rr, pfa, outs = _serve_cells(
+                self.cfg, self.policy, self.device, batches, self._tapes, rngs,
+                self._rr_ptr, self._pf_avg, width)
+        else:
+            rr, pfa, outs = self._serve_mine(batches, rngs, width)
         self._rr_ptr = rr.copy()
         if self.policy == _PF:
             self._pf_avg = pfa
         return outs
+
+    def _serve_mine(self, batches, rngs, width: int):
+        """``_serve_cells`` on this rank's cells with the whole deployment's
+        tape lanes, PF width and stopping chunk, then every rank's results
+        gathered in cell order."""
+        import torch.distributed as dist
+        from functools import partial
+
+        from repro_torch.launch.mesh import all_ranks
+        mine = list(self._mine)
+        ue_max = max((int(np.max(b["ue"])) for b in batches if len(b["ue"])),
+                     default=0)
+        pf_width = max([_pad_len(ue_max + 1)]
+                       + [a.size for a in self._pf_avg])
+        got = _serve_cells(
+            self.cfg, self.policy, self.device, [batches[c] for c in mine],
+            [self._tapes[c] for c in mine], [rngs[c] for c in mine],
+            self._rr_ptr[mine], [self._pf_avg[c] for c in mine], width,
+            n_lanes=self.n_cells * width, pf_width=pf_width,
+            all_stopped=partial(all_ranks, self.mesh))
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, (mine, got))
+        rr = self._rr_ptr.copy()
+        pfa, outs = list(self._pf_avg), [None] * self.n_cells
+        for cells, (r_part, p_part, o_part) in parts:
+            for i, c in enumerate(cells):
+                rr[c], pfa[c], outs[c] = r_part[i], p_part[i], o_part[i]
+        return rr, pfa, outs
 
     def serve_slot(self, requests: Sequence[Sequence[UplinkRequest]],
                    rngs: Sequence[np.random.Generator],

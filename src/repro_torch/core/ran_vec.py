@@ -62,7 +62,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -541,7 +541,9 @@ def _grant_reports(requests: Sequence[UplinkRequest],
 
 
 def _serve_cells(cfg: RanConfig, policy: int, device, batches, tapes, rngs,
-                 rr_ptr, pf_avg, width: int, on_chunk=None):
+                 rr_ptr, pf_avg, width: int, on_chunk=None, *,
+                 n_lanes: Optional[int] = None, pf_width: int = 0,
+                 all_stopped=None):
     """One frame-slot of ``serve_slot`` for C cells at once: the host loop
     shared by ``VecRanCell`` (C = 1) and ``MultiCellVecMac``.
 
@@ -553,7 +555,13 @@ def _serve_cells(cfg: RanConfig, policy: int, device, batches, tapes, rngs,
     request count.  ``on_chunk(ys)`` (if given) receives each chunk's
     per-step records.  Returns the new ``rr_ptr`` (C,), the new ``pf_avg``
     (one array per cell) and one report-field dict per cell, floats
-    identical to the per-cell oracle's."""
+    identical to the per-cell oracle's.
+
+    A rank that steps some cells of a larger deployment (``MultiCellVecMac``
+    over a mesh) passes the whole deployment's tape lanes (``n_lanes``), its
+    PF width (``pf_width``) and ``all_stopped(local)``, true when every
+    rank's cells have stopped: its chunks, draws and widths are then the
+    one-process run's."""
     C, n, dev = len(batches), width, device
     n_real = np.array([len(b["ue"]) for b in batches], np.int64)
     ue = np.zeros((C, n), np.int64)
@@ -577,7 +585,8 @@ def _serve_cells(cfg: RanConfig, policy: int, device, batches, tapes, rngs,
     finish = np.where(rem > 0, np.nan, enq)
 
     if policy == _PF:
-        want = max([_pad_len(int(ue.max()) + 1)] + [a.size for a in pf_avg])
+        want = max([_pad_len(int(ue.max()) + 1), pf_width]
+                   + [a.size for a in pf_avg])
         pfa = np.zeros((C, want))
         for c, a in enumerate(pf_avg):
             pfa[c, :a.size] = a
@@ -590,7 +599,7 @@ def _serve_cells(cfg: RanConfig, policy: int, device, batches, tapes, rngs,
             t(n_real, I64), torch.arange(n, dtype=I64, device=dev)]
     kw = dict(tti=_divisor(cfg.tti_s, dev), bler=cfg.bler_target,
               max_slots=cfg.max_slots, n_prbs=cfg.n_prbs, policy=policy)
-    for steps in _chunk_schedule(C * n):
+    for steps in _chunk_schedule(n_lanes or C * n):
         buf = np.zeros((C, steps * n))
         for c in range(C):
             want = steps * int(n_real[c])
@@ -606,7 +615,8 @@ def _serve_cells(cfg: RanConfig, policy: int, device, batches, tapes, rngs,
         carry = carry._replace(ptr=torch.zeros_like(carry.ptr))
         if on_chunk is not None:
             on_chunk(ys)
-        if (codes != _RUNNING).all():
+        stopped = bool((codes != _RUNNING).all())
+        if all_stopped(stopped) if all_stopped is not None else stopped:
             break
     if (codes == _SLOT_GUARD).any():
         raise RuntimeError(

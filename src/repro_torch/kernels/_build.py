@@ -9,7 +9,11 @@ first use, and ``build`` starts one nvcc per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show that it went through the
-kernels and not through their plain versions.
+kernels and not through their plain versions.  ``COSTS`` counts the work
+of every call of a kernel's function, on any route (the kernel, its plain
+version, or shapes alone on the meta device): ``(name, "flop")`` and
+``(name, "bytes")``, from the operands' shapes by each kernel module's
+cost function, the counts its bound is taken from.
 """
 from __future__ import annotations
 
@@ -31,6 +35,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: collections.Counter = collections.Counter()
+COSTS: collections.Counter = collections.Counter()
+
+
+def count(name: str, cost) -> None:
+    """Add one call's (flop, bytes) to ``COSTS``."""
+    flop, nbytes = cost
+    COSTS[(name, "flop")] += flop
+    COSTS[(name, "bytes")] += nbytes
+
+
+def route(t) -> str:
+    """Where a call on ``t`` goes: "cuda" (the kernel), "cpu" (its plain
+    version) or "meta" (empty outputs of the right shapes, nothing run)."""
+    if t.device.type in ("cpu", "cuda", "meta"):
+        return t.device.type
+    raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
 def _nvcc() -> str:

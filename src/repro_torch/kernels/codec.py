@@ -47,6 +47,25 @@ def _check_geometry(total: int, block: int) -> int:
     return total // block
 
 
+def cost(total: int, block: int):
+    """(flop, bytes) of B2 or B3 over a stream of ``total`` f32: bound by
+    bytes, 4 B and 1 B an element and 4 B a block's scale (no flop
+    counted)."""
+    return 0, 5 * total + 4 * (total // block)
+
+
+def codec_encode_meta(flat, block, delta):
+    """Shapes alone (meta tensors): the stream and scales, empty."""
+    nb = _check_geometry(flat.shape[0], block)
+    dt = torch.uint8 if delta else torch.int8
+    return (torch.empty(flat.shape, dtype=dt, device=flat.device),
+            torch.empty((nb,), dtype=torch.float32, device=flat.device))
+
+
+def codec_decode_meta(stream, scales, block, delta):
+    return torch.empty(stream.shape, dtype=torch.float32, device=stream.device)
+
+
 def codec_encode_plain(flat: torch.Tensor, block: int,
                        delta: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """flat (total,) f32 with total % block == 0 -> (stream (total,) uint8 if

@@ -51,6 +51,22 @@ def split_plan(S: int, hd: int) -> Tuple[int, int]:
     return chunk, max(1, -(-S // chunk))
 
 
+def cost(q_shape, cache_shape, esize: int, rows=None):
+    """(flop, bytes) of B6 over ``rows`` live cache rows of every batch row
+    (the cache's capacity if unknown): 4 hd flop a row and query head; the
+    live K and V rows, q and the output, and kv_len moved once."""
+    B, _, H, hd = q_shape
+    KV, S = cache_shape[1], cache_shape[2]
+    rows = S if rows is None else rows
+    flop = 4 * B * H * rows * hd
+    return flop, esize * (2 * B * KV * rows * hd + 2 * B * H * hd) + 4 * B
+
+
+def decode_attention_meta(q, ck, cv, kv_len, logit_softcap=0.0):
+    """Shapes alone (meta tensors): the output, empty."""
+    return torch.empty_like(q)
+
+
 def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            kv_len: torch.Tensor,
                            logit_softcap: float = 0.0) -> torch.Tensor:

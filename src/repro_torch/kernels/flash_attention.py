@@ -101,6 +101,45 @@ def dead_pairs(Sq: int, Skv: int, sliding_window: int,
     return dead
 
 
+def _range_sum(a: int, b: int) -> int:
+    return (a + b) * (b - a + 1) // 2 if b >= a else 0
+
+
+def live_pairs(Sq: int, Skv: int, causal: bool = True,
+               sliding_window: int = 0) -> int:
+    """The (query, key) pairs one head attends: a query at position p (q
+    aligned to the end of kv) sees p + 1 keys, at most w with a window."""
+    if not causal:
+        return Sq * Skv
+    a, b, w = Skv - Sq + 1, Skv, sliding_window
+    if not w:
+        return _range_sum(a, b)
+    return _range_sum(a, min(b, w)) + w * max(0, b - max(a, w + 1) + 1)
+
+
+def forward_cost(q_shape, k_shape, esize: int, causal: bool = True,
+                 sliding_window: int = 0, with_lse: bool = False):
+    """(flop, bytes) of B5: 4 hd flop a live pair and head (Q.K^T, P.V);
+    q, k, v read and the output written once (plus the log-sum-exp)."""
+    B, Sq, H, hd = q_shape
+    Skv, KV = k_shape[1], k_shape[2]
+    flop = 4 * hd * B * H * live_pairs(Sq, Skv, causal, sliding_window)
+    nbytes = esize * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
+    return flop, nbytes + (4 * B * H * Sq if with_lse else 0)
+
+
+def backward_cost(q_shape, k_shape, esize: int, causal: bool = True,
+                  sliding_window: int = 0):
+    """(flop, bytes) of B5's backward (its three kernels together): 10 hd
+    flop a live pair and head (the recomputed S, dP, dV, dK, dQ); q, o,
+    dO, k, v and the log-sum-exp read, dq, dk, dv written once."""
+    B, S, H, hd = q_shape
+    KV = k_shape[2]
+    flop = 10 * hd * B * H * live_pairs(S, S, causal, sliding_window)
+    nbytes = esize * (4 * B * S * H * hd + 4 * B * S * KV * hd)
+    return flop, nbytes + 4 * B * H * S
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, sliding_window: int = 0,
                           logit_softcap: float = 0.0, with_lse: bool = False):
@@ -290,17 +329,56 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_attention_meta(q, k, v, causal=True, sliding_window=0,
+                         logit_softcap=0.0, with_lse=False):
+    """Shapes alone (meta tensors): the outputs, empty."""
+    out = torch.empty_like(q)
+    if not with_lse:
+        return out
+    B, Sq, H, _ = q.shape
+    return out, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+
+
+def flash_attention_bwd_meta(q, k, v, o, lse, dout, causal=True,
+                             sliding_window=0, logit_softcap=0.0):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+FORWARD = {"cuda": flash_attention_cuda, "cpu": flash_attention_plain,
+           "meta": flash_attention_meta}
+BACKWARD = {"cuda": flash_attention_bwd_cuda, "cpu": flash_attention_bwd_plain,
+            "meta": flash_attention_bwd_meta}
+
+
+def forward(q, k, v, causal: bool = True, sliding_window: int = 0,
+            logit_softcap: float = 0.0, with_lse: bool = False):
+    """B5 on the route of q's device, its work counted in ``COSTS``."""
+    _build.count("flash_attention", forward_cost(
+        q.shape, k.shape, q.element_size(), causal, sliding_window, with_lse))
+    return FORWARD[_build.route(q)](q, k, v, causal, sliding_window,
+                                    logit_softcap, with_lse=with_lse)
+
+
+def backward(q, k, v, o, lse, dout, causal: bool = True,
+             sliding_window: int = 0, logit_softcap: float = 0.0):
+    """B5's backward on the route of q's device, counted in ``COSTS``."""
+    _build.count("flash_attention_bwd", backward_cost(
+        q.shape, k.shape, q.element_size(), causal, sliding_window))
+    return BACKWARD[_build.route(q)](q, k, v, o, lse, dout, causal,
+                                     sliding_window, logit_softcap)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """B5 with its gradient: the forward keeps its output and log-sum-exp,
-    the backward runs ``flash_attention_bwd_*``.  Both take the kernels for
-    CUDA tensors and the plain versions for CPU tensors."""
+    the backward runs ``flash_attention_bwd_*``.  Both go by the device:
+    the kernels for CUDA tensors, the plain versions for CPU tensors,
+    shapes alone on the meta device."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sliding_window: int,
                 logit_softcap: float):
-        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
-        out, lse = fwd(q, k, v, causal, sliding_window, logit_softcap,
-                       with_lse=True)
+        out, lse = forward(q, k, v, causal, sliding_window, logit_softcap,
+                           with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, sliding_window, logit_softcap)
         return out
@@ -308,6 +386,5 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, lse, dout, *ctx.args)
+        dq, dk, dv = backward(q, k, v, out, lse, dout, *ctx.args)
         return dq, dk, dv, None, None, None

@@ -40,6 +40,26 @@ def _check_block(block: int) -> None:
         raise ValueError(f"quant block must pack whole {LANES}-lane rows; got {block}")
 
 
+def cost(n: int, block: int):
+    """(flop, bytes) of B4a or B4b on one leaf of ``n`` values: bound by
+    bytes, 4 B a value, 1 B an element of the padded (nb, block) q and 4 B
+    a block's scale (no flop counted)."""
+    return 0, 4 * n + -(-n // block) * (block + 4)
+
+
+def quant_meta(x, block):
+    """Shapes alone (meta tensors): q and scales, empty."""
+    _check_block(block)
+    n = x.numel()
+    nb = -(-n // block)
+    return (torch.empty((nb, block), dtype=torch.int8, device=x.device),
+            torch.empty((nb,), dtype=torch.float32, device=x.device), n)
+
+
+def dequant_meta(q, scales, n, shape, dtype=torch.float32):
+    return torch.empty(tuple(shape), dtype=dtype, device=q.device)
+
+
 def quant_plain(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """x any shape -> (q (nb, block) int8, scales (nb,) f32, n)."""
     _check_block(block)

@@ -93,6 +93,41 @@ def fused_window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 @functools.cache
+def fused_cost(qkv_shape, esize: int, n_heads: int, window: int,
+               masked: bool):
+    """(flop, bytes) of B1: per window and head 4 w2^2 hd flop (Q.K^T,
+    P.V) plus the softmax's 4 w2^2 and the normalisation's w2 hd; qkv read
+    and the output written once (4C values a pixel), the f32 bias and the
+    bool mask once."""
+    B, Hp, Wp, C3 = qkv_shape
+    C, w2 = C3 // 3, window * window
+    nW = (Hp // window) * (Wp // window)
+    hd = C // n_heads
+    flop = B * nW * n_heads * (4 * w2 * w2 * hd + 4 * w2 * w2 + w2 * hd)
+    nbytes = esize * B * Hp * Wp * 4 * C + 4 * n_heads * w2 * w2
+    return flop, nbytes + (nW * w2 * w2 if masked else 0)
+
+
+def windows_cost(q_shape, esize: int, masked: bool):
+    """(flop, bytes) of B7: B1's counts on pre-partitioned windows; q, k,
+    v read and the output written once, the f32 bias and the mask once."""
+    nB, w2, nh, hd = q_shape
+    flop = nB * nh * (4 * w2 * w2 * hd + 4 * w2 * w2 + w2 * hd)
+    nbytes = esize * 4 * nB * w2 * nh * hd + 4 * nh * w2 * w2
+    return flop, nbytes + (nB * w2 * w2 if masked else 0)
+
+
+def fused_window_attention_meta(qkv, bias, mask, *, window, shift, n_heads):
+    """Shapes alone (meta tensors): the output, empty."""
+    B, Hp, Wp, C3 = qkv.shape
+    return torch.empty((B, Hp, Wp, C3 // 3), dtype=torch.float32,
+                       device=qkv.device)
+
+
+def window_attention_meta(q, k, v, bias, mask=None):
+    return torch.empty_like(q)
+
+
 def _lib():
     lib = _build.library("window_attention")
     fn = lib.fused_window_attention_f32

@@ -66,10 +66,12 @@ def serve(args, registry=None) -> Dict:
     from repro_torch.configs.base import InputShape
     from repro_torch.core.compression import ActivationCodec
     from repro_torch.core.splitting import LMSplitPlan, Workload, split_option
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_decode_step, build_prefill
     from repro_torch.models.registry import get_model
 
     dev = resolve_device(args.device)
+    mesh = make_host_mesh(device=dev)
 
     def clock() -> float:
         """Host time after the device has finished the work queued so far."""
@@ -119,11 +121,14 @@ def serve(args, registry=None) -> Dict:
                   f"({100 * (1 - comp.ratio):.1f}% reduction), "
                   f"one-shot latency {dt * 1e3:.0f} ms")
 
-        prefill = build_prefill(cfg, shape, max_len=max_len)
-        decode = build_decode_step(cfg)
+        prefill = build_prefill(cfg, shape, mesh=mesh, max_len=max_len)
+        decode = build_decode_step(cfg, InputShape(
+            "cli", seq_len=max_len, global_batch=args.batch, kind="decode"),
+            mesh=mesh)
+        placed = prefill.place(params)
 
         t0 = clock()
-        logits, caches = prefill(params, batch)
+        logits, caches = prefill(placed, batch)
         t_prefill = clock() - t0
         reg.histogram("prefill_s").observe(t_prefill)
         count_nonfinite(logits)
@@ -133,7 +138,7 @@ def serve(args, registry=None) -> Dict:
         t0 = clock()
         for i in range(args.gen):
             ts = clock()
-            logits, caches = decode(params, caches, {"tokens": tok},
+            logits, caches = decode(placed, caches, {"tokens": tok},
                                     args.prompt_len + i)
             tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
             outs.append(tok[:, 0])

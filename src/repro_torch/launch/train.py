@@ -20,6 +20,12 @@ straight one: a checkpoint is labelled with the number of steps it holds
 run, which a resume then runs again), and a resumed run skips the batches
 its checkpoint has consumed.  The on-disk layout is the JAX package's.
 
+The run goes through ``make_host_mesh()``, as the JAX driver's does: a
+one-rank group starts where none exists, and under ``torchrun`` every rank
+of its group takes its rows of each batch (data-parallel; rank 0 prints
+and writes the checkpoints).  On one card the mesh is 1 x 1 and the step
+is the mesh-free step.
+
 ``main(argv)`` returns the run to a caller: {"steps": one dict per step
 (step, loss, grad_norm, lr, ms), "tok_s", "checkpoint": the final path or
 None, "params", "opt_state"}.
@@ -54,18 +60,23 @@ def parse_args(argv=None):
 def main(argv=None) -> Dict:
     args = parse_args(argv)
     import torch
+    import torch.distributed as dist
 
     from repro_torch import resolve_device
     from repro_torch.checkpoint import store as CK
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import ShardingRules, gather
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.registry import get_model
     from repro_torch.optim.adamw import AdamW
     from repro_torch.runtime.failures import StragglerMonitor
 
     dev = resolve_device(args.device)
+    mesh = make_host_mesh(device=dev)
+    lead = dist.get_rank() == 0
 
     def clock() -> float:
         """Host time after the device has finished the work queued so far."""
@@ -80,7 +91,9 @@ def main(argv=None) -> Dict:
                        kind="train")
     opt = AdamW(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                 total_steps=args.steps)
-    step_fn = build_train_step(cfg, shape, opt=opt, grad_accum=args.grad_accum)
+    step_fn = build_train_step(cfg, shape, mesh=mesh, opt=opt,
+                               grad_accum=args.grad_accum,
+                               rules=ShardingRules())
 
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     opt_state = opt.init(params)
@@ -94,7 +107,9 @@ def main(argv=None) -> Dict:
                 params, opt_state = CK.restore(args.ckpt, last,
                                                (params, opt_state), dev)
                 start = last
-                print(f"resumed from step {last}")
+                if lead:
+                    print(f"resumed from step {last}")
+    params, opt_state = step_fn.place(params, opt_state)
 
     stream = TokenStream(cfg, seq_len=args.seq, batch=args.batch, seed=SEED)
     straggler = StragglerMonitor(n_workers=1)
@@ -110,21 +125,25 @@ def main(argv=None) -> Dict:
         steps.append({"step": step, "ms": dt * 1e3,
                       **{k: float(metrics[k]) for k in ("loss", "grad_norm",
                                                         "lr")}})
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             m = steps[-1]
             print(f"step {step:5d} loss {m['loss']:.4f} "
                   f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e} "
                   f"{dt * 1e3:.0f} ms", flush=True)
         done = step + 1
         if ckpt and done % args.ckpt_every == 0 and done < args.steps:
-            ckpt.save_async((params, opt_state), done)
-    if ckpt:
+            state = gather((params, opt_state))
+            if lead:
+                ckpt.save_async(state, done)
+    params, opt_state = gather((params, opt_state))
+    if ckpt and lead:
         ckpt.save_async((params, opt_state), args.steps)
         ckpt.wait()
         print(f"final checkpoint: {ckpt.last_path}")
     toks = (args.steps - start) * args.batch * args.seq
     tok_s = toks / (clock() - t_start)
-    print(f"done: {tok_s:.0f} tok/s")
+    if lead:
+        print(f"done: {tok_s:.0f} tok/s")
     return {"steps": steps, "tok_s": tok_s,
             "checkpoint": ckpt.last_path if ckpt else None,
             "params": params, "opt_state": opt_state}

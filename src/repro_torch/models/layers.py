@@ -66,12 +66,14 @@ def einsum32(subs: str, *args: torch.Tensor,
 
 def _half_gemm_f32_out(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether a product of ``a`` and ``b`` may take cuBLAS's half GEMM with
-    a float32 output: on the card, half-precision operands of one dtype, and
-    no gradient wanted.  ``mm``/``bmm`` with ``out_dtype`` have no
-    derivative (their backward raises "derivative for aten::mm is not
-    implemented"), so under autograd the operands are upcast instead: the
-    same exact products and float32 sums."""
-    return (a.is_cuda and a.dtype == b.dtype != torch.float32
+    a float32 output: on the card (or on the meta device, where a dry-run
+    counts the card's path), half-precision operands of one dtype, and no
+    gradient wanted.  ``mm``/``bmm`` with ``out_dtype`` have no derivative
+    (their backward raises "derivative for aten::mm is not implemented"),
+    so under autograd the operands are upcast instead: the same exact
+    products and float32 sums."""
+    return (a.device.type in ("cuda", "meta")
+            and a.dtype == b.dtype != torch.float32
             and not (torch.is_grad_enabled()
                      and (a.requires_grad or b.requires_grad)))
 
@@ -188,23 +190,39 @@ def attn_init(cfg, generator: torch.Generator) -> dict:
     return p
 
 
+def attn_spec(cfg) -> dict:
+    """The logical axes of ``attn_init``'s leaves, for the sharding rules."""
+    p = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        p["q_norm"] = ("head_dim",)
+        p["k_norm"] = ("head_dim",)
+    return p
+
+
 def cache_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                     kv_len: torch.Tensor, *,
-                    logit_softcap: float = 0.0) -> torch.Tensor:
+                    logit_softcap: float = 0.0,
+                    kv_rows: Optional[int] = None) -> torch.Tensor:
     """Decode attention against a KV-major cache: q (B, 1, H, hd), ck and cv
     (B, KV, Sc, hd), kv_len (B,) int32, each scaled logit soft-capped at
-    ``logit_softcap`` (0: none).  Runs B6 on the cache as it lies."""
+    ``logit_softcap`` (0: none); ``kv_rows`` the live rows on the host, for
+    B6's cost count.  Runs B6 on the cache as it lies."""
     if q.shape[1] != 1:
         raise ValueError(f"the cache path decodes one token a step; got "
                          f"{q.shape[1]}")
     return ops.decode_attention_kv_major(q, ck, cv, kv_len,
-                                         logit_softcap=logit_softcap)
+                                         logit_softcap=logit_softcap,
+                                         kv_rows=kv_rows)
 
 
 def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                cache: Optional[dict] = None,
                cache_index: Optional[int] = None,
                kv_len: Optional[torch.Tensor] = None,
+               kv_rows: Optional[int] = None,
                sliding_window: int = 0):
     """GQA attention with qk-norm before RoPE; with ``sliding_window`` w a
     query at position i sees keys i - w < j <= i; the config's
@@ -217,7 +235,8 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     at its absolute position.  ``kv_len`` (B,) int32 is then the cache's live
     rows, ``cache_index`` + S (on a ring at most w: softmax does not depend
     on the order of the keys, so B6 reads the ring as it lies), built once
-    per step by the caller for all layers.  Returns (out, new_kv): the (k,
+    per step by the caller for all layers, ``kv_rows`` the same on the
+    host.  Returns (out, new_kv): the (k,
     v) for cache construction, or the updated cache."""
     q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
     k = einsum32("bsd,dnk->bsnk", x, p["wk"], out_dtype=x.dtype)
@@ -234,7 +253,8 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
         ck[:, :, at:at + S] = k.transpose(1, 2).to(ck.dtype)
         cv[:, :, at:at + S] = v.transpose(1, 2).to(cv.dtype)
         out = cache_attention(q, ck, cv, kv_len,
-                              logit_softcap=cfg.attn_logit_softcap)
+                              logit_softcap=cfg.attn_logit_softcap,
+                              kv_rows=kv_rows)
         new_kv = cache
     else:
         out = ops.flash_attention(q, k, v, causal=True,
@@ -263,6 +283,16 @@ def mla_init(cfg, generator: torch.Generator) -> dict:
                          dtype=dt),
         "kv_norm": torch.ones((r,), dtype=dt, device=generator.device),
     }
+
+
+def mla_spec(cfg) -> dict:
+    """The logical axes of ``mla_init``'s leaves."""
+    return {"wq": ("embed", "heads", "head_dim"),
+            "w_dkv": ("embed", "kv_lora"),
+            "w_uk": ("kv_lora", "heads", "head_dim"),
+            "w_uv": ("kv_lora", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+            "kv_norm": ("kv_lora",)}
 
 
 def mla_prefill_attention(q: torch.Tensor, k: torch.Tensor,
@@ -336,6 +366,12 @@ def mlp_init(cfg, generator: torch.Generator,
             "w_down": init_dense(generator, (f, d), dtype=dt)}
 
 
+def mlp_spec(cfg) -> dict:
+    """The logical axes of ``mlp_init``'s leaves."""
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU; SiLU runs on the float32 of the already-rounded gate."""
     h = torch.nn.functional.silu(dense(x, p["w_gate"]).float()).to(x.dtype)
@@ -363,6 +399,19 @@ def moe_init(cfg, generator: torch.Generator) -> dict:
 
 
 _ROUTING: Optional[List[dict]] = None
+
+
+def moe_spec(cfg) -> dict:
+    """The logical axes of ``moe_init``'s leaves: experts replicated (their
+    counts do not divide a 16-way axis), each expert's hidden dim over
+    ``expert_mlp``."""
+    p = {"router": ("embed", "experts"),
+         "w_gate": ("experts", "embed", "expert_mlp"),
+         "w_up": ("experts", "embed", "expert_mlp"),
+         "w_down": ("experts", "expert_mlp", "embed")}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_spec(cfg)
+    return p
 
 
 @contextlib.contextmanager

@@ -1,8 +1,10 @@
 """Model registry: the serving surface of ``repro/models/registry.py``.
 
-``get_model(cfg, device)`` returns an ``LMModel`` with init / loss_fn /
-prefill / decode_step / cache_init and the ``*_inputs`` spec factories
-(shapes and dtypes, no allocation), over every LM of
+``get_model(cfg, device)`` returns an ``LMModel`` with init / spec /
+loss_fn / prefill / decode_step / cache_init, the ``*_inputs`` spec
+factories (shapes and dtypes, no allocation) and ``abstract_params`` /
+``abstract_cache``, the same trees as tensors on ``torch.device("meta")``
+(the port's ``jax.eval_shape``), over every LM of
 ``models/transformer.py``: dense, MoE, recurrent (xLSTM), hybrid (Hymba),
 audio (musicgen: frames in) and vision-language (InternVL: patches and
 tokens in).
@@ -26,6 +28,18 @@ class TensorSpec:
     dtype: torch.dtype
 
 
+META = torch.device("meta")
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: an ``init`` given
+    one builds its tree's shapes and dtypes and allocates nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return META
+
+
 @dataclass(frozen=True)
 class LMModel:
     cfg: ModelConfig
@@ -37,6 +51,18 @@ class LMModel:
     # -- parameters and steps -------------------------------------------------
     def init(self, generator: torch.Generator):
         return T.init(self.cfg, generator, self.device)
+
+    def spec(self):
+        """Each parameter's logical axes (``transformer.spec``)."""
+        return T.spec(self.cfg)
+
+    def abstract_params(self):
+        """``init``'s tree on the meta device: shapes and dtypes only."""
+        return T.init(self.cfg, MetaGenerator(), META)
+
+    def abstract_cache(self, B: int, max_len: int):
+        """``cache_init``'s tree on the meta device."""
+        return T.cache_init(self.cfg, B, max_len, META)
 
     def loss_fn(self, params, batch) -> torch.Tensor:
         return T.loss_fn(self.cfg, params, batch)

@@ -45,8 +45,9 @@ def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def _div_weak(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` with the Python scalar first rounded to x's dtype, as JAX
-    takes a weakly typed scalar."""
-    return x / float(torch.tensor(c, dtype=x.dtype))
+    takes a weakly typed scalar (rounded on the host, whatever the default
+    device)."""
+    return x / float(torch.tensor(c, dtype=x.dtype, device="cpu"))
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -199,6 +200,15 @@ def mlstm_block_init(cfg, generator: torch.Generator) -> dict:
     }
 
 
+def mlstm_block_spec(cfg) -> dict:
+    """The logical axes of ``mlstm_block_init``'s leaves."""
+    return {"norm": ("embed",), "w_up": ("embed", "inner"),
+            "conv_w": ("conv", "inner"), "wq": ("inner", "inner_out"),
+            "wk": ("inner", "inner_out"), "wv": ("inner", "inner_out"),
+            "w_if": ("inner", None), "b_if": (None,),
+            "gn": ("heads", "head_dim"), "w_down": ("inner", "embed")}
+
+
 def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     """x: (B, S, d).  cache: None or dict(conv, state).  The step form runs
     for one token against a cache, the chunkwise form otherwise.  Returns
@@ -268,6 +278,14 @@ def slstm_block_init(cfg, generator: torch.Generator) -> dict:
                              scale=1.0 / math.sqrt(f_up * 2 * cfg.n_layers),
                              dtype=dt),
     }
+
+
+def slstm_block_spec(cfg) -> dict:
+    """The logical axes of ``slstm_block_init``'s leaves."""
+    return {"norm": ("embed",), "w_gates": ("embed", "inner"),
+            "r_gates": ("heads", "head_dim", None), "b_gates": (None,),
+            "gn": ("heads", "head_dim"), "w_up1": ("embed", "mlp"),
+            "w_up2": ("embed", "mlp"), "w_down": ("mlp", "embed")}
 
 
 def _slstm_step(r_gates: torch.Tensor, b_h: torch.Tensor, carry, wx_t):
@@ -358,6 +376,14 @@ def mamba_init(cfg, generator: torch.Generator) -> dict:
                             scale=1.0 / math.sqrt(di * 2 * cfg.n_layers),
                             dtype=dt),
     }
+
+
+def mamba_spec(cfg) -> dict:
+    """The logical axes of ``mamba_init``'s leaves."""
+    return {"w_in": ("embed", "inner"), "conv_w": ("conv", "inner"),
+            "w_x": ("inner", None), "w_dt": (None, "inner_out"),
+            "b_dt": ("inner_out",), "A_log": ("inner_out", "state"),
+            "D": ("inner_out",), "w_out": ("inner", "embed")}
 
 
 def _affine_scan(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:

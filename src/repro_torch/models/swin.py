@@ -155,6 +155,16 @@ def init(cfg: SwinConfig, generator: torch.Generator, device="cuda"):
     return tree_map(lambda a: a.to(device), params)
 
 
+def spec(cfg: SwinConfig) -> Callable[[Any], Any]:
+    """The sharding spec of Swin's weights: every leaf replicated (the
+    model is small; activations split over the batch instead).  As in the
+    JAX package, a function of the parameter tree; here it gives each leaf
+    (None,) * ndim, which the rules place as replication."""
+    def like(params):
+        return tree_map(lambda a: (None,) * a.dim(), params)
+    return like
+
+
 # ---------------------------------------------------------------------------
 # forward pieces
 # ---------------------------------------------------------------------------

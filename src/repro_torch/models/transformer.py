@@ -63,7 +63,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.tree import spec_map, tree_flatten, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -135,16 +135,35 @@ def block_init(cfg: ModelConfig, kind: LayerKind,
     return p
 
 
+def block_spec(cfg: ModelConfig, kind: LayerKind) -> Dict[str, Any]:
+    """The logical axes of ``block_init``'s leaves, in its tree."""
+    if kind.block == "mlstm":
+        return SSM.mlstm_block_spec(cfg)
+    if kind.block == "slstm":
+        return SSM.slstm_block_spec(cfg)
+    p: Dict[str, Any] = {
+        "ln1": ("embed",), "ln2": ("embed",),
+        "attn": L.mla_spec(cfg) if kind.attn == "mla" else L.attn_spec(cfg),
+        "ffn": L.moe_spec(cfg) if kind.ffn == "moe" else L.mlp_spec(cfg)}
+    if kind.block == "hymba":
+        p["mamba"] = SSM.mamba_spec(cfg)
+        for name in ("norm_attn", "norm_ssm", "beta_attn", "beta_ssm"):
+            p[name] = ("embed",)
+    return p
+
+
 def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
                 cache_index: Optional[int] = None,
-                kv_len: Optional[torch.Tensor] = None):
+                kv_len: Optional[torch.Tensor] = None,
+                kv_rows: Optional[int] = None):
     """One layer.  ``attn_ffn``: pre-norm attention and FFN with residuals;
     ``hymba``: attention (windowed or global, ``kind.sliding_window``) and
     mamba on the same normed input, each output rms-normed, weighted by
     beta and averaged in float32, then the FFN; ``mlstm``/``slstm``: the
     recurrent block.  ``kv_len`` (B,) int32: the live rows of this layer's
-    attention cache in a decode step.  Returns (x, new_cache, aux): aux is
+    attention cache in a decode step, ``kv_rows`` the same count on the
+    host (every row's; for the kernel's cost count).  Returns (x, new_cache, aux): aux is
     the MoE layer's load-balance term, None otherwise."""
     if kind.block == "mlstm":
         x, c = SSM.mlstm_block_apply(cfg, p, x, cache=cache)
@@ -160,7 +179,7 @@ def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
     else:
         ay, new_attn = L.attn_apply(cfg, p["attn"], h, positions,
                                     cache=attn_cache, cache_index=cache_index,
-                                    kv_len=kv_len,
+                                    kv_len=kv_len, kv_rows=kv_rows,
                                     sliding_window=kind.sliding_window)
     new_cache: Dict[str, Any] = {"attn": new_attn}
     if kind.block == "hymba":
@@ -251,6 +270,24 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     return params
 
 
+def spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every leaf of ``init``'s tree (a tuple of names,
+    one per dim), which ``launch/sharding.py`` maps onto a mesh: each run's
+    stacked leaves lead with ``"layers"``."""
+    sp: Dict[str, Any] = {}
+    if cfg.n_codebooks:
+        sp["embed"] = (None, "vocab", "embed")
+        sp["lm_head"] = (None, "embed", "vocab")
+    else:
+        sp["embed"] = ("vocab", "embed")
+        if not cfg.tie_embeddings:
+            sp["lm_head"] = ("embed", "vocab")
+    sp["final_norm"] = ("embed",)
+    sp["runs"] = [spec_map(lambda s: ("layers",) + s, block_spec(cfg, kind))
+                  for kind, _ in layer_runs(cfg)]
+    return sp
+
+
 def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """Raw inputs -> the (B, S, d) residual stream in the config's dtype:
     ``frames`` (B, S, d) as they are; token ids (B, S), or with codebooks
@@ -282,15 +319,16 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
     Returns (h, new_caches, the MoE layers' aux summed in float32)."""
     runs = layer_runs(cfg)
     new_caches = []
-    live = {}
+    live, rows = {}, {}
     if caches is not None:
         # the live rows of an attention cache, one (B,) tensor per step and
         # window: cache_index + S, or on a ring of w rows at most w
         B, S = h.shape[:2]
         n = cache_index + S
-        live = {w: torch.full((B,), min(n, w) if w else n, dtype=torch.int32,
-                              device=h.device)
+        rows = {w: min(n, w) if w else n
                 for w in {kind.sliding_window for kind, _ in runs}}
+        live = {w: torch.full((B,), r, dtype=torch.int32, device=h.device)
+                for w, r in rows.items()}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     start = 0
     for ri, (kind, count) in enumerate(runs):
@@ -305,7 +343,8 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
                 h, c, a = block_apply(cfg, kind, tree_map(lambda a: a[i], rp),
                                       h, positions, cache=c_i,
                                       cache_index=cache_index,
-                                      kv_len=live.get(kind.sliding_window))
+                                      kv_len=live.get(kind.sliding_window),
+                                      kv_rows=rows.get(kind.sliding_window))
                 if a is not None:
                     aux = aux + a
                 if c_i is not None:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -68,13 +68,21 @@ class AdamW:
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           m=zeros(params), v=zeros(params))
 
-    def update(self, grads, state: AdamWState, params
+    @staticmethod
+    def global_norm(g32) -> torch.Tensor:
+        """The float32 norm of a list of float32 gradients, as a whole."""
+        return torch.sqrt(sum(torch.sum(g * g) for g in g32))
+
+    def update(self, grads, state: AdamWState, params,
+               grad_norm: Optional[torch.Tensor] = None
                ) -> Tuple[Any, AdamWState, dict]:
-        """One step: returns (new params, new state, {"grad_norm", "lr"})."""
+        """One step: returns (new params, new state, {"grad_norm", "lr"}).
+        ``grad_norm``: the gradient's global norm, for a caller that passes
+        only its shards of the gradient (else computed from ``grads``)."""
         dev = state.step.device
         step = state.step + 1
         g32, treedef = tree_flatten(tree_map(lambda g: g.float(), grads))
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in g32))
+        gnorm = self.global_norm(g32) if grad_norm is None else grad_norm
         scale = torch.clamp(_f32(self.max_grad_norm, dev) / (gnorm + 1e-9),
                             max=1.0)
         g32 = [g * scale for g in g32]

@@ -106,3 +106,21 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
             raise ValueError("tree_map over trees of different structure")
     return treedef.unflatten(
         [fn(*xs) for xs in zip(leaves, *(o[0] for o in others))])
+
+
+def spec_map(fn: Callable[..., Any], spec: Any, *rest: Any) -> Any:
+    """Apply ``fn`` over a spec tree (dicts, lists and NamedTuples whose
+    leaves are plain tuples, e.g. of logical axis names) and trees of its
+    structure, each leaf of ``rest`` taken at the spec leaf's place."""
+    if isinstance(spec, tuple) and hasattr(spec, "_fields"):
+        return type(spec)(*(spec_map(fn, s, *(r[i] for r in rest))
+                            for i, s in enumerate(spec)))
+    if isinstance(spec, tuple):
+        return fn(spec, *rest)
+    if isinstance(spec, dict):
+        return {k: spec_map(fn, spec[k], *(r[k] for r in rest)) for k in spec}
+    if isinstance(spec, list):
+        return [spec_map(fn, s, *(r[i] for r in rest))
+                for i, s in enumerate(spec)]
+    raise TypeError(f"a spec tree holds dicts, lists and tuples; got "
+                    f"{type(spec).__name__}")

@@ -1,0 +1,136 @@
+"""Helpers for the port's multi-rank CPU tests: ranks spawned with
+``torch.multiprocessing`` into one gloo group over a ``FileStore``, each
+returning its result through a file.  The module imports torch and the
+port only, so a spawned rank starts quickly."""
+import contextlib
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+@contextlib.contextmanager
+def one_rank_group(tmp_path):
+    """A one-rank gloo group for this process, or the group it already
+    holds (the port's drivers start one where none exists and keep it)."""
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo", store=dist.FileStore(
+            str(Path(tmp_path) / "store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _rank_main(rank, world, tmp, fn, args):
+    store = dist.FileStore(str(Path(tmp) / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        out = fn(rank, world, *args)
+        torch.save(out, Path(tmp) / f"out{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world, tmp_path, *args, timeout=120.0):
+    """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; returns each
+    rank's result in rank order.  Fails, and ends the ranks, after
+    ``timeout`` seconds.  ``fn`` must be importable (a module-level function
+    of a module on the path)."""
+    ctx = mp.spawn(_rank_main, args=(world, str(tmp_path), fn, args),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"ranks did not finish in {timeout} s")
+    return [torch.load(Path(tmp_path) / f"out{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# rank bodies
+# ---------------------------------------------------------------------------
+
+def compress_rank(rank, world, grads_by_rank, err_by_rank):
+    """``compressed_psum`` of this rank's gradients, and the payload and
+    scales it agreed on."""
+    from repro_torch.optim import compress as C
+    g = {k: torch.from_numpy(v) for k, v in grads_by_rank[rank].items()}
+    e = {k: torch.from_numpy(v) for k, v in err_by_rank[rank].items()}
+    mean, new_e = C.compressed_psum(g, e)
+    blocks = [C._blocks(g[k], e[k]) for k in sorted(g)]
+    absmax = torch.cat([b.abs().amax(1) for b in blocks])
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX)
+    scale = C.shared_scale(absmax)
+    q = C.quantize(torch.cat(blocks), scale)
+    return {"mean": {k: v.numpy() for k, v in mean.items()},
+            "err": {k: v.numpy() for k, v in new_e.items()},
+            "q": q.numpy(), "scale": scale.numpy()}
+
+
+def mac_run(pol, n_cells, seed, mesh=None):
+    """Three slots of a ``MultiCellVecMac`` on the CPU over ``n_cells``
+    cells with random request batches: each slot's reports, then the
+    policy state and each cell's generator state."""
+    import numpy as np
+
+    from repro_torch.core import ran as RAN
+    from repro_torch.core.engine_vec import MultiCellVecMac
+    rng = np.random.default_rng(seed)
+    mac = MultiCellVecMac([RAN.RanCell(policy=RAN.make_policy(pol),
+                                       cfg=RAN.RanConfig(n_prbs=24))
+                           for _ in range(n_cells)], device="cpu", mesh=mesh)
+    gens = [np.random.default_rng(k)
+            for k in np.random.SeedSequence(seed).spawn(n_cells)]
+    slots = []
+    for _ in range(3):
+        batches = []
+        for _ in range(n_cells):
+            m = int(rng.integers(0, 12))
+            enq = rng.random(m) * 0.01
+            batches.append(dict(
+                ue=rng.choice(80, size=m, replace=False),
+                n_bytes=rng.integers(2_000, 60_000, m), enq=enq,
+                dead=enq + 0.05 + rng.random(m) * 0.05,
+                link_rate_bps=10.0 ** rng.uniform(7.3, 8.3, m)))
+        slots.append(mac.serve_slot_arrays(batches, gens))
+    return {"slots": slots, "rr": mac._rr_ptr, "pf": mac._pf_avg,
+            "gens": [g.bit_generator.state for g in gens]}
+
+
+def mac_rank(rank, world, pol, n_cells, seed):
+    from repro_torch.launch.mesh import make_host_mesh
+    return mac_run(pol, n_cells, seed, make_host_mesh(device="cpu"))
+
+
+def train_rank(rank, world, arch, params_np, batch_np, fsdp, opt_kw):
+    """One step of the reduced ``arch`` through ``build_train_step`` on a
+    (world, 1) mesh: the metrics and the updated parameters, gathered."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import ShardingRules, gather
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_map
+    cfg = get_reduced_config(arch)
+    B, S = batch_np["tokens"].shape
+    opt = AdamW(**opt_kw)
+    step = build_train_step(cfg, InputShape("t", S, B, "train"),
+                            mesh=make_host_mesh(device="cpu"), opt=opt,
+                            rules=ShardingRules(fsdp=fsdp))
+    params = lm_params_from_numpy(params_np, torch.device("cpu"))
+    placed, state = step.place(params, opt.init(params))
+    shards = tree_map(lambda x: tuple(x.to_local().shape), placed)
+    new, _, m = step(placed, state, {k: torch.from_numpy(v)
+                                     for k, v in batch_np.items()})
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "params": tree_map(lambda x: x.numpy(), gather(new)),
+            "shards": shards}

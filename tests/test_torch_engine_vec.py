@@ -235,3 +235,52 @@ def test_vectorized_cell_keeps_the_grant_trace(systems):
         sim.run(_trace(), option="split2")
         traces.append(ran.grant_trace)
     assert traces[0] and _same(traces[0], traces[1])
+
+
+# -- the cell axis over a mesh ---------------------------------------------------
+
+@pytest.mark.parametrize("pol,n_cells", [("pf", 8), ("rr", 8), ("edf", 3)])
+def test_multicell_vec_mac_over_two_ranks(tmp_path, pol, n_cells):
+    """``MultiCellVecMac(mesh=...)`` on two gloo ranks (a 2 x 1 mesh) gives
+    every rank the one-process MAC's reports bit for bit (grants, HARQ
+    counts, finish times), its RR pointers and PF EWMA, and leaves each
+    cell's generator where the one-process run leaves it on the rank that
+    steps the cell: 8 cells split four a rank (a one-rank mesh, as on one
+    card, runs the same path with every cell its own); 3 cells do not
+    divide, so each rank steps all three."""
+    from _torch_ranks import mac_rank, mac_run, spawn_ranks
+    want = mac_run(pol, n_cells, 5)
+    ranks = spawn_ranks(mac_rank, 2, tmp_path, pol, n_cells, 5)
+    mine = ([range(0, 4), range(4, 8)] if n_cells == 8
+            else [range(n_cells)] * 2)
+    for r, got in enumerate(ranks):
+        for s_got, s_want in zip(got["slots"], want["slots"]):
+            assert len(s_got) == len(s_want)
+            for a, b in zip(s_got, s_want):
+                assert sorted(a) == sorted(b)
+                for k in a:
+                    np.testing.assert_array_equal(a[k], b[k])
+        np.testing.assert_array_equal(got["rr"], want["rr"])
+        assert len(got["pf"]) == len(want["pf"])
+        for a, b in zip(got["pf"], want["pf"]):
+            np.testing.assert_array_equal(a, b)
+        for c in mine[r]:
+            assert got["gens"][c] == want["gens"][c]
+
+
+def test_multicell_vec_mac_over_a_one_rank_mesh(tmp_path):
+    """On a 1 x 1 mesh (one card) the cells split into one part: the same
+    path as over many ranks, and the one-process MAC's results."""
+    from _torch_ranks import mac_run, one_rank_group
+    from repro_torch.launch.mesh import make_host_mesh
+    with one_rank_group(tmp_path):
+        mesh = make_host_mesh(device="cpu")
+        got, want = mac_run("pf", 8, 9, mesh), mac_run("pf", 8, 9)
+    for s_got, s_want in zip(got["slots"], want["slots"]):
+        for a, b in zip(s_got, s_want):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+    for a, b in zip(got["pf"], want["pf"]):
+        np.testing.assert_array_equal(a, b)
+    assert got["gens"] == want["gens"]

@@ -8,6 +8,8 @@ different orders, so it is held at 2e-5 (the tolerance the JAX package's own
 kernel-vs-oracle tests use); bf16 outputs within one bf16 step of it.  The codec pair is integer-exact and is held
 bitwise: stream bytes and scale bits.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels import window_attention as jwa
 from repro.models.swin import pad_region_mask, shift_attn_mask
+from repro_torch.kernels import _build
 from repro_torch.kernels import codec as tcodec
 from repro_torch.kernels import window_attention as twa
 from repro_torch.kernels import ops
@@ -150,15 +153,23 @@ def test_codec_plain_rejects_unaligned_streams():
 
 def test_dispatch_goes_by_device_and_raises_off_cpu_and_cuda():
     """The wrapper picks the plain version because the tensor lies on the
-    CPU; a tensor elsewhere (here the meta device) is refused, never run on
-    the CPU."""
-    x = torch.zeros(256, device="meta")
+    CPU; on the meta device it returns empty outputs of the kernel's shapes
+    and dtypes and runs nothing (no launch, no plain version); a tensor on
+    any other device is refused, never run on the CPU."""
+    before = dict(ops.LAUNCHES)
+    stream, scales = ops.codec_encode(torch.zeros(256, device="meta"),
+                                      block=256, delta=True)
+    assert (stream.device.type, stream.dtype, tuple(stream.shape)) == (
+        "meta", torch.uint8, (256,))
+    assert scales.device.type == "meta" and tuple(scales.shape) == (1,)
+    out = ops.fused_window_attention(torch.zeros((1, 7, 7, 48), device="meta"),
+                                     torch.zeros((1, 49, 49)), window=7,
+                                     shift=0, n_heads=1)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 7, 7, 16)
+    assert dict(ops.LAUNCHES) == before
+    elsewhere = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.codec_encode(x, block=256)
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.fused_window_attention(torch.zeros((1, 7, 7, 48), device="meta"),
-                                   torch.zeros((1, 49, 49)), window=7,
-                                   shift=0, n_heads=1)
+        _build.route(elsewhere)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -261,8 +272,8 @@ def test_window_attention_refuses_what_the_kernel_does_not_take():
     t = [torch.from_numpy(x) for x in (q, k, v, bias)]
     with pytest.raises(ValueError, match="CUDA device"):
         twa.window_attention_cuda(*t)
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.window_attention(*(x.to("meta") for x in t[:3]), t[3])
+    out = ops.window_attention(*(x.to("meta") for x in t[:3]), t[3])
+    assert out.device.type == "meta" and out.shape == t[0].shape
     for shape in ((1, 145, 2, 32), (1, 49, 2, 48)):
         x = torch.zeros(shape)
         with pytest.raises(ValueError, match="w2"):

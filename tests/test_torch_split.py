@@ -163,7 +163,10 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.core.trace_export, repro_torch.runtime.failures, "
             "repro_torch.core.ran_vec, repro_torch.core.engine_vec, "
             "repro_torch.launch.train, repro_torch.checkpoint.store, "
-            "repro_torch.optim.adamw, repro_torch.data.tokens\n"
+            "repro_torch.optim.adamw, repro_torch.data.tokens, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.cost, repro_torch.launch.dryrun, "
+            "repro_torch.optim.compress\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
