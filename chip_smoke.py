@@ -222,7 +222,10 @@ when it fails:
     time, and Hymba's prefill with B5's part of it.  It runs last: after a
     profiler session, host-clock times later in the same process can read
     higher, and phases 6-15 and 17 time on the host clock;
-17. training, run before 16: (a) B5's backward kernels against
+17. training, run before 16: (a) B5's backward build: each
+    instantiation's HMMAs and atomics in its SASS and, when this run built
+    it, its ptxas registers and spills (a bf16 dK/dV or dQ kernel without
+    HMMA, any atomic, or a bf16 spill at hd <= 64 fails); its kernels against
     flash_attention_bwd_plain on the kernel's own forward output and
     log-sum-exp, in bf16 and f32 (the f32 cases at batch 2 at most), at
     smollm-360m's train shape (8, 2048, 15 over 5, hd 64), qwen3-1.7b's
@@ -571,19 +574,26 @@ def sass_ops(lib: Path, ops: tuple) -> dict:
     return counts
 
 
-def ptxas_registers(report: str) -> dict:
-    """{kernel: "N registers"} from nvcc's ``-Xptxas -v`` report of a build:
-    each "Used N registers" line belongs to the entry function compiled
-    last before it."""
-    regs, fn = {}, None
+def ptxas_usage(report: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from nvcc's
+    ``-Xptxas -v`` report of a build: each "Used N registers" line belongs
+    to the entry function compiled last before it, and each spill line to
+    the function whose properties it follows (None where none was seen)."""
+    usage, spills, fn, props = {}, {}, None, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props is not None:
+            spills[props] = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
-            regs[fn] = f"{m.group(1)} registers"
-    return regs
+            usage[fn] = (int(m.group(1)),) + spills.get(fn, (None, None))
+    return usage
 
 
 def host_ms(fn, runs: int = 3) -> float:
@@ -1283,7 +1293,48 @@ def moe_handoffs(dev) -> None:
                                  "logits disagree")
 
 
-def train_bwd_checks(dev) -> float:
+BWD_SASS_OPS = ("HMMA", "ATOM", "ATOMG", "ATOMS", "RED")
+
+
+def bwd_instantiation(fn: str) -> tuple:
+    """(entry, dtype, hd, capped) of a backward kernel's mangled name."""
+    entry = next(e for e in ("delta", "dkdv", "dq")
+                 if f"flash_attention_bwd_{e}" in fn)
+    args = fn.split("kernelI", 1)[1]
+    dtype = ("bf16" if "_tc_kernel" in fn or args.startswith("13__nv_bfloat16")
+             else "f32")
+    hd = int(re.search(r"Li(\d+)E", args).group(1))
+    return entry, dtype, hd, "Lb1E" in args
+
+
+def bwd_build_facts(report: str) -> dict:
+    """Phase 17 (a)'s build facts of B5's backward: for every instantiation
+    its SASS counts of BWD_SASS_OPS (cuobjdump) and, where this run built
+    the library, its ptxas registers and spills.  Fails on a bf16 dK/dV or
+    dQ kernel with no HMMA (its products off the tensor cores), on an
+    atomic in any backward kernel, and on a spill at hd <= 64 in bf16.
+    Returns {name: counts}."""
+    from repro_torch.kernels import _build
+    usage = ptxas_usage(report)
+    counts = sass_ops(_build.target("flash_attention_bwd"), BWD_SASS_OPS)
+    for fn, n in sorted(counts.items(), key=lambda kv: bwd_instantiation(kv[0])):
+        entry, dtype, hd, capped = bwd_instantiation(fn)
+        regs, st, ld = usage.get(fn, (None, None, None))
+        atomics = sum(n[op] for op in BWD_SASS_OPS[1:])
+        log(f"  SASS B5 bwd {entry}<{dtype}, hd {hd}{', cap' if capped else ''}>:"
+            f" {n['HMMA']} HMMA, {atomics} ATOM/RED; "
+            + (f"{regs} registers, {st} B spill stores, {ld} B spill loads"
+               if regs is not None else "ptxas report not in this run"))
+        if atomics:
+            raise AssertionError(f"{fn}: atomics in B5's backward")
+        if dtype == "bf16" and entry != "delta" and not n["HMMA"]:
+            raise AssertionError(f"{fn}: no HMMA in a bf16 backward kernel")
+        if dtype == "bf16" and hd <= 64 and (st or ld):
+            raise AssertionError(f"{fn}: spills {st} / {ld} B at hd {hd}")
+    return counts
+
+
+def train_bwd_checks(dev, report: str = "") -> float:
     """Phase 17 (a): B5's backward on the card against
     ``flash_attention_bwd_plain`` on the kernel's own forward output and
     log-sum-exp, dQ, dK and dV each within F32_TOL / BF16_TOL of the max |x|
@@ -1296,6 +1347,7 @@ def train_bwd_checks(dev) -> float:
     import torch
     from repro_torch.kernels import flash_attention as fa
 
+    bwd_build_facts(report)
     g = torch.Generator().manual_seed(SEED)
 
     def slice_err(out, ref):
@@ -1578,8 +1630,9 @@ def train_timing(dev, run) -> dict:
     return row
 
 
-def phase17(dev) -> tuple:
-    """Training on the card (module docstring, phase 17), each part timed.
+def phase17(dev, report: str = "") -> tuple:
+    """Training on the card (module docstring, phase 17), each part timed;
+    ``report``: nvcc's report of the backward's build, if this run built it.
     Returns (B5 backward's kernels-line row, the launch counts of (b)'s
     run)."""
     import torch
@@ -1588,7 +1641,7 @@ def phase17(dev) -> tuple:
     t_phase = time.perf_counter()
     secs = {}
     t0 = time.perf_counter()
-    err = train_bwd_checks(dev)
+    err = train_bwd_checks(dev, report)
     secs["a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     run = train_full_width()
@@ -2288,15 +2341,16 @@ def main() -> int:
     # f32: the loads of encode (B2) and quant (B4a), the stores of decode
     # (B3) and dequant (B4b)
     ldg, stg = "LDG.E.128", "STG.E.128"
-    regs = ptxas_registers(reports.get("codec", ""))
+    usage = ptxas_usage(reports.get("codec", ""))
     for fn_name, n in sass_ops(_build.target("codec"), (ldg, stg)).items():
         kernel, op = (("B4b", stg) if "dequant_kernel" in fn_name else
                       ("B4a", ldg) if "quant_kernel" in fn_name else
                       ("B2", ldg) if "codec_encode" in fn_name else ("B3", stg))
         if kernel in ("B2", "B3"):
             kernel += f"<delta {'true' if 'ILb1' in fn_name else 'false'}>"
+        regs = usage.get(fn_name)
         log(f"  SASS {kernel}: {n[ldg]} {ldg}, {n[stg]} {stg}, "
-            f"{regs.get(fn_name, 'registers not reported')}")
+            + (f"{regs[0]} registers" if regs else "registers not reported"))
         if not n[op]:
             raise AssertionError(f"{fn_name}: no {op} in its SASS")
 
@@ -3569,7 +3623,8 @@ def main() -> int:
     phase15(dev)
 
     # -- 17. training at full width (before 16: its host timings) ----------
-    rows["flash_attention_bwd"], train_launches = phase17(dev)
+    rows["flash_attention_bwd"], train_launches = phase17(
+        dev, reports.get("flash_attention_bwd", ""))
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd_dkdv"]
     rows["flash_attention"]["train_launches"] = train_launches["flash_attention"]
 

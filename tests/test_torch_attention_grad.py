@@ -130,3 +130,79 @@ def test_serving_takes_no_autograd_path():
     assert ops.flash_attention(*plain).grad_fn is None
     assert torch.equal(ops.flash_attention(*plain),
                        ops.flash_attention(tq, tk, tv).detach())
+
+
+# B5's backward in bf16 runs its products on the tensor cores
+# (csrc/flash_attention_bwd.cu): bf16 q, k, v and dO enter the products
+# exactly, every sum is f32, and the two f32 operands the kernels build in
+# registers, P (for dV = P^T dO) and dS (for dK = dS^T Q and dQ = dS K), are
+# each rounded to bf16 once.  chip_smoke.py's BF16_TOL, per (batch row,
+# head) slice's max |x|.
+BF16_TOL = 1e-2
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _tc_backward_model(q, k, v, o, lse, dout, w, cap):
+    """The bf16 body's arithmetic in plain torch (f32 tensors holding bf16
+    values): P = exp(s - LSE) in f32; dV = bf16(P)^T dO; dP = dO V^T; dS =
+    P (dP - D) (times 1 - t^2 under a cap) in f32; dK = bf16(dS)^T Q and
+    dQ = bf16(dS) K, times hd^-1/2; each output rounded to bf16."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.reshape(B, S, KV, G, hd)
+    dog = dout.reshape(B, S, KV, G, hd)
+    s = torch.einsum("bqngd,bknd->bngqk", qg, k) * scale
+    if cap:
+        t = torch.tanh(s / cap)
+        s = t * cap
+    p = torch.exp(s - lse.reshape(B, KV, G, S, 1))
+    p = p.masked_fill(fa.dead_pairs(S, S, w, "cpu"), 0.0)
+    delta = (dout * o).sum(-1).reshape(B, S, KV, G).permute(0, 2, 3, 1)
+    dv = torch.einsum("bngqk,bqngd->bknd", _bf16(p), dog)
+    ds = p * (torch.einsum("bqngd,bknd->bngqk", dog, v) - delta[..., None])
+    if cap:
+        ds = ds * (1.0 - t * t)
+    ds = _bf16(ds)
+    dq = torch.einsum("bngqk,bknd->bqngd", ds, k).reshape(B, S, H, hd) * scale
+    dk = torch.einsum("bngqk,bqngd->bknd", ds, qg) * scale
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+def _worst_slice(got, want, fallback: float) -> float:
+    """The worst (batch row, head) slice of |got - want|, relative to that
+    slice's max |want| (or ``fallback`` where the slice is 0 analytically:
+    with w = 1, dS cancels exactly)."""
+    d = np.abs(got - want).max(axis=(1, 3))
+    top = np.abs(want).max(axis=(1, 3))
+    return float((d / np.where(top > 0, top, fallback)).max())
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,w,cap", CASES)
+def test_bf16_tensor_core_rounding_matches_jax_grad(B, S, H, KV, hd, w, cap):
+    """The rounding model of the bf16 body (P and dS rounded to bf16 once,
+    f32 sums, bf16 outputs) against ``jax.grad`` of ``plain_attention`` in
+    f32 on the same bf16 values: dq, dk and dv within BF16_TOL of each
+    (batch row, head) slice's max, with D from the forward's output rounded
+    to bf16, as training hands it to the kernels, and with D from the f32
+    output, which leaves the kernels' own roundings alone.  The bf16 output
+    moves D for every backward, this one or the f32 body: it is most of dq's
+    error (0.0099 of the slice max at smollm's heads, 0.0048 without it)."""
+    q, k, v, g = (_bf16(torch.from_numpy(x)).numpy()
+                  for x in _inputs(S * 7 + hd + int(cap), B, S, H, KV, hd))
+    want = _jax_grads(lambda q, k, v: plain_attention(
+        q, k, v, causal=True, sliding_window=w, logit_softcap=cap), q, k, v, g)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = fa.flash_attention_plain(tq, tk, tv, True, w, cap, with_lse=True)
+    fallback = float(np.abs(want[2]).max())
+    for o_kind, o in (("bf16", _bf16(out)), ("f32", out)):
+        got = _tc_backward_model(tq, tk, tv, o, lse, tg, w, cap)
+        errs = [_worst_slice(a.numpy(), b, fallback) for a, b in zip(got, want)]
+        print(f"bf16 rounding model, case {(B, S, H, KV, hd, w, cap)}, {o_kind} "
+              f"forward output: worst slice dq {errs[0]:.3g}, dk {errs[1]:.3g}, "
+              f"dv {errs[2]:.3g} (tol {BF16_TOL})")
+        assert max(errs) <= BF16_TOL, (o_kind, errs)

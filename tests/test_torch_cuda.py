@@ -9,7 +9,8 @@ They import no JAX: the plain versions are held against the JAX package by
 the CPU tests, and here the kernels are held against the plain versions on
 the same inputs (window attention within 1e-4, both fp32 with sums in other
 orders; the codec pair and the quant pair bitwise; flash attention's backward
-kernels, and its log-sum-exp, which leaves its output bitwise; flash
+kernels (and their SASS: HMMAs in every bf16 dK/dV and dQ kernel, no
+atomic), and its log-sum-exp, which leaves its output bitwise; flash
 attention, with and
 without a sliding window or a logit soft-cap, and flash decode, with and
 without a cap, within 1e-5 of the output's max |x| in f32, sums in other
@@ -492,13 +493,16 @@ def test_dense32_bf16_on_the_card_matches_the_upcast(cuda, shape):
     assert _rel_err(got, L.dense32(x, w)) <= 1e-5
 
 
-def _slice_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+def _slice_err(out: torch.Tensor, ref: torch.Tensor, top=None) -> float:
     """The worst (batch row, head) slice of a (B, S, heads, hd) gradient,
-    relative to that slice's max |x|.  Per slice, not per row: a query's
-    dQ sums dS = P (dP - D), which cancels exactly for a row that sees one
-    key, so that row is rounding noise against rounding noise."""
+    relative to that slice's max |x| (or to ``top``).  Per slice, not per
+    row: a query's dQ sums dS = P (dP - D), which cancels exactly for a row
+    that sees one key, so that row is rounding noise against rounding
+    noise."""
     d = (out.double() - ref.double()).abs().amax(dim=(1, 3))
-    return float((d / ref.double().abs().amax(dim=(1, 3)).clamp_min(1e-30)).max())
+    if top is None:
+        top = ref.double().abs().amax(dim=(1, 3)).clamp_min(1e-30)
+    return float((d / top).max())
 
 
 BWD_CASES = [
@@ -509,6 +513,10 @@ BWD_CASES = [
     (2, 256, 4, 2, 32, 0, 50.0),        # Gemma 2's cap
     (2, 192, 24, 24, 64, 0, 0.0),       # musicgen's G = 1
     (2, 150, 4, 2, 64, 17, 1.0),        # window and cap across tile edges
+    (2, 1, 4, 2, 128, 4, 0.0),          # one row
+    (2, 15, 4, 2, 128, 4, 0.0),         # less than a warp's 16 rows
+    (2, 65, 4, 2, 128, 17, 0.0),        # one row past a 64-row tile
+    (2, 100, 4, 4, 16, 0, 1.0),         # one k-step, G = 1, a binding cap
 ]
 
 
@@ -532,10 +540,37 @@ def test_flash_attention_backward_matches_plain(cuda, dtype, B, S, H, KV, hd,
     ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True, w, cap)
     torch.cuda.synchronize()
     assert dict(ops.LAUNCHES) == {name: 2 for name in fa.BWD_KERNELS}
-    for a, b, c in zip(got, again, ref):
+    # at S = 1 each row sees one key, dS cancels exactly and dq, dk are
+    # rounding noise on both sides: they are held to dv's max, the size of
+    # the terms that cancel, as the CPU tests hold w = 1
+    top = float(ref[2].double().abs().max()) if S == 1 else None
+    for a, b, c, t in zip(got, again, ref, (top, top, None)):
         assert a.dtype == dtype and a.shape == c.shape
         assert torch.equal(a, b)
-        assert _slice_err(a, c) <= ATTN_KERNEL_TOL[dtype]
+        assert _slice_err(a, c, t) <= ATTN_KERNEL_TOL[dtype]
+
+
+def test_flash_attention_backward_sass(cuda):
+    """The built backward library's SASS, read with cuobjdump as
+    ``chip_smoke.py``'s phase 17 (a) reads it: every bf16 dK/dV and dQ
+    instantiation (hd 16-128, capped and not) runs HMMAs, and no backward
+    kernel holds an atomic."""
+    import sys
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as CS
+    fa._bwd_fns()                       # builds and loads the library
+    counts = CS.sass_ops(_build.target("flash_attention_bwd"), CS.BWD_SASS_OPS)
+    seen = set()
+    for fn, n in counts.items():
+        entry, dtype, hd, capped = CS.bwd_instantiation(fn)
+        seen.add((entry, dtype, hd, capped))
+        assert not any(n[op] for op in CS.BWD_SASS_OPS[1:]), (fn, n)
+        if dtype == "bf16" and entry != "delta":
+            assert n["HMMA"], fn
+    assert {(e, "bf16", hd, c) for e in ("dkdv", "dq")
+            for hd in fa.SUPPORTED_HEAD_DIMS for c in (False, True)} <= seen
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

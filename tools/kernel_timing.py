@@ -4,6 +4,7 @@ sizes ``chip_smoke.py`` times them.
 
     python3 tools/kernel_timing.py codec                  # this checkout
     python3 tools/kernel_timing.py attention --src build/parent/src
+    python3 tools/kernel_timing.py backward --src build/parent/src
 
 ``codec``: B2 (encode) and B3 (decode), then the quant pair B4a (quant) and
 B4b (dequant).  For each of ``chip_smoke.CODEC_LENGTHS`` (one split-1 UE
@@ -26,6 +27,15 @@ kv_len 2048), on normals from a torch generator seeded with 0: back to back
 (``chip_smoke.cuda_ms``), B6 also with each launch alone after a cold L2,
 and each kernel's own device time in a trace.  Where the checkout's
 wrappers take ``logit_softcap``, the same with a cap of 50.0.
+
+``backward``: B5's backward (its three kernels: D, dK/dV, dQ) at phase 17
+(e)'s shape, smollm-360m's train shape (q (8, 2048, 15, 64), kv 5 heads,
+bf16, causal), on normals from a torch generator seeded with 0 and the
+kernel's own forward output and log-sum-exp: the three back to back
+(``chip_smoke.cuda_ms``), each kernel's own device time from one trace,
+beside SDPA's backward through autograd at the same shape (the forward
+outside the timed window, as phase 17 (e) times it) and the bound (10 flop
+a live pair per hd at 989 TFLOP/s).
 
 To compare two checkouts, run both in turns in one call on one card
 (parent, change, change, parent): numbers from different calls may come
@@ -151,11 +161,52 @@ def attention(fa, da, dev, flush) -> dict:
     return results
 
 
+def backward(fa, dev, flush) -> dict:
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(CS.SEED)
+    B, S, H, KV, hd = CS.TRAIN_B, CS.TRAIN_S, 15, 5, 64
+    bf16 = torch.bfloat16
+    q, dout = (torch.randn((B, S, H, hd), generator=g).to(dev, bf16)
+               for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=g).to(dev, bf16)
+            for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    flops, nbytes = fa.backward_cost(q.shape, k.shape, q.element_size())
+    bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True)
+    r = {"ms": CS.cuda_ms(bwd),
+         "bound_ms": max(flops / CS.BF16_FLOP_PER_S,
+                         nbytes / CS.HBM_BYTES_PER_S) * 1e3}
+
+    def rounds():
+        for _ in range(ROUNDS):
+            bwd()
+    _, _, by_name = CS.traced_busy_ms("B5 backward", rounds)
+    for name in fa.BWD_KERNELS:
+        r[f"{name}_device_ms"] = sum(
+            ms for ev, ms in by_name.items() if name in ev) / ROUNDS
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    r["sdpa_ms"] = CS.cuda_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True))
+    print(f"B5 backward q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal: "
+          f"{r['ms']:.4f} ms back to back (3 kernels); device alone "
+          + ", ".join(f"{n.split('_')[-1]} {r[n + '_device_ms']:.4f} ms"
+                      for n in fa.BWD_KERNELS)
+          + f"; SDPA backward {r['sdpa_ms']:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms", flush=True)
+    return r
+
+
 # group -> (wrapper modules, passed to the timing function in order;
 #           csrc/*.cu sources to build; the timing function)
 GROUPS = {"codec": (("codec", "quant"), ("codec",), codec),
           "attention": (("flash_attention", "decode_attention"),
-                        ("flash_attention", "decode_attention"), attention)}
+                        ("flash_attention", "decode_attention"), attention),
+          "backward": (("flash_attention",),
+                       ("flash_attention", "flash_attention_bwd"), backward)}
 
 
 def main() -> int:
