@@ -10,14 +10,16 @@ when it fails:
  2. build the CUDA kernels of src/repro_torch/kernels/csrc with nvcc, one
     process per source, into build/kernels (listed in .gitignore); print the
     window-attention body's name and count the TF32 HMMAs (and FFMAs) in
-    the SASS of each B1/B7 instantiation (cuobjdump), failing on one with
-    none; count the 128-bit global loads of each B2 instantiation and of
+    the SASS of each B1/B7 instantiation, f32 and bf16 (cuobjdump), failing
+    on one with none, with each one's registers; count the 128-bit global loads of each B2 instantiation and of
     B4a and the 128-bit global stores of each B3 one and of B4b, failing
     on one with none, and print each codec-library kernel's registers;
  3. hold every kernel against its plain PyTorch version on the card at the
     main path's shapes: window attention at the four full-width Swin-T stage
     shapes, unshifted with and without the pad-strip mask and shifted by 3,
-    within ATTN_TOL, two launches on the same inputs bitwise equal; the
+    within ATTN_TOL, two launches on the same inputs bitwise equal, and the
+    same twelve cases on bf16 qkv, each output row within BF16_TOL of its
+    max |x|, two launches bitwise equal; the
     codec pair, delta on and off, bitwise, two launches bitwise equal, on
     the split-1..4 payload streams, on the codec's edge blocks
     (kernels.codec.codec_edge_blocks) at blocks 128, 256, 1024, 8192, 8320
@@ -63,22 +65,28 @@ when it fails:
     SwinSplitPlan.head_jitted + ActivationCodec.compress_head
     (int8_delta_zlib), then decompress_group and tail_batched(pad_to=4);
     detections must have the expected shapes, be finite, and every kernel
-    must have launched exactly as often as the path calls it;
+    must have launched exactly as often as the path calls it.  Then the same
+    path on the bf16 Swin-T (the same weights rounded to bf16, rel_bias
+    f32), its counters at 0 before and read after: the same launches (B1
+    132, B2 16, B3 4), bf16 payload leaves of half the f32 raw bytes, f32
+    detections;
  5. one frame at split 2 on the port's CPU path at the same width: the head
     output and the tail's detections (from the card's own payload) against
     the card's within CPU_TOL, and the CPU decode of the card's payload
-    bitwise equal to the card's;
+    bitwise equal to the card's; then the bf16 frame the same way within
+    BF16_CPU_TOL, f32's gap printed beside it;
  6. time each kernel (CUDA events), its plain version and, for window
     attention, one library call over the same windows (scaled dot-product
     attention with a float mask, never called by the port), beside the
     least time the card could take: B1 per frame (its 12 calls) at batch 1
-    and N_UES, back to back and with a cold L2 (kernel and SDPA), and the
-    host time of one wrapper call; B7 at the stage-0 partition; B2 and B3
+    and N_UES, f32 and bf16 (SDPA in the same dtype, its float mask too),
+    back to back and with a cold L2 (kernel and SDPA), and the host time of
+    one wrapper call; B7 at the stage-0 partition; B2 and B3
     at CODEC_LENGTHS (a split-1 stream, the LM handoff, an 8-UE split2
     group) back to back, each launch alone after a cold L2 and by the
     wrapper's host time a call; B4a/B4b over the split-1 payload's two
     leaves the same three ways and cold with the card held (HOLD_CYCLES)
-    after the flush, their plain versions read first; then the per-split head+encode, decode and batched-tail times; B5 and
+    after the flush, their plain versions read first; then the per-split head+encode, decode and batched-tail times, f32 and bf16; B5 and
     B6 at the full-width serving shapes with scaled dot-product attention as
     their yardstick, B6 and its yardstick also with a cold L2 (L2_FLUSH_BYTES
     written before each launch); B5 at Hymba's prefill shape, windowed and
@@ -210,7 +218,8 @@ when it fails:
     the split tail) for musicgen and the capped qwen3-1.7b cut to 4 layers
     and InternVL cut to 2 layers at batch 1 and a prompt of 264;
 16. a profiler trace of phase 6's head model and batched tail at each
-    split: the card's busy time and B1's part of it; then of one
+    split, and of the bf16 head model: the card's busy time and B1's part
+    of it; then of one
     compress_head, its device encode and copy alone, and one
     decompress_group at split 1: B2/B3 beside the copies and the eager
     kernels around them (pack, delta epilogue); then of one MAC drain of
@@ -293,6 +302,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import re
@@ -322,6 +332,13 @@ CPU_TOL = 1e-3
 # output
 F32_TOL = 1e-5
 BF16_TOL = 1e-2
+# the bf16 Swin-T, card vs CPU at full width, relative to each map's max |x|
+# (at least 1): the two round to bf16 after products summed in other orders
+# (cuBLAS/cuDNN against oneDNN), and a value that rounds the other way moves
+# everything computed from it, through up to 12 blocks and the FPN.  The
+# CPU test of the same model against the JAX package
+# (tests/test_torch_swin_bf16.py) holds 5e-2 of each leaf's max; 1.2% seen
+BF16_CPU_TOL = 5e-2
 # prefill -> decode consistency, relative to the max |logit|.  f32: sum
 # order only (readings 3.6e-6 at full width on the card, 1.9e-6 for the JAX
 # package at 4 layers), so a cache row written or read amiss shows.  bf16:
@@ -2327,14 +2344,16 @@ def main() -> int:
     # and the reciprocal's, not product loops)
     log(f"window attention body: {wa.BODY}")
     tf32 = "HMMA.1688.F32.TF32"
+    usage = ptxas_usage(reports.get("window_attention", ""))
     for fn_name, n in sass_ops(_build.target("window_attention"),
                                (tf32, "FFMA")).items():
         kernel = "B1" if "fused_window" in fn_name else "B7"
         args = fn_name.split("kernelI")[-1]
         args = ",".join(re.findall(r"Li(\d+)E", args)
-                        + (["bf16"] if "bfloat16" in args else
-                           ["f32"] if kernel == "B7" else []))
-        log(f"  SASS {kernel}<{args}>: {n[tf32]} {tf32}, {n['FFMA']} FFMA")
+                        + ["bf16" if "bfloat16" in args else "f32"])
+        regs = usage.get(fn_name)
+        log(f"  SASS {kernel}<{args}>: {n[tf32]} {tf32}, {n['FFMA']} FFMA, "
+            + (f"{regs[0]} registers" if regs else "registers not reported"))
         if not n[tf32]:
             raise AssertionError(f"{fn_name}: no {tf32} in its SASS")
     # the codec library's kernels move 16 bytes a thread where they move
@@ -2368,6 +2387,15 @@ def main() -> int:
     block = codec.quant_block
 
     # -- 3. every kernel against its plain version, main-path shapes ---------
+    def rel_err(out, ref):
+        """(max |out - ref|, the worst row's max |out - ref| over that row's
+        max |ref|), in float64; a row is one head's hd values at one
+        position, so a row that averages many keys is held to its own size
+        and not to the largest output of the tensor."""
+        d = (out.double() - ref.double()).abs().amax(-1)
+        top = ref.double().abs().amax(-1).clamp_min(1e-30)
+        return float(d.max()), float((d / top).max())
+
     attn_cases = []              # (stage, B, Hp, Wp, C, nh, shift, mask)
     for s in range(cfg.n_stages):
         H, W = cfg.stage_hw(s)
@@ -2412,6 +2440,32 @@ def main() -> int:
     if host_err > ATTN_TOL:
         raise AssertionError(f"window attention vs host plain: {host_err}")
     log(f"check B1 stage 3 shifted vs plain on the host: {host_err:.3g}")
+    # B1 on bf16 qkv (the bf16 Swin-T's): f32 inside and one rounding at the
+    # store, against the plain version's one rounding of its f32 result;
+    # each output row (one head's hd values at one pixel) within BF16_TOL of
+    # its max |x|, and two launches bitwise equal
+    attn_err16 = 0.0
+    for s, Hp, Wp, C, nh, shift, mask in attn_cases:
+        qkv = torch.randn((N_UES, Hp, Wp, 3 * C), generator=g).to(
+            device=dev, dtype=torch.bfloat16)
+        bias = torch.randn((nh, 49, 49), generator=g).to(dev)
+        kw = dict(window=cfg.window, shift=shift, n_heads=nh)
+        ref = wa.fused_window_attention_plain(qkv, bias, mask, **kw)
+        out = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+        again = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out.unflatten(-1, (nh, C // nh)),
+                           ref.unflatten(-1, (nh, C // nh)))
+        if not (out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+                and rel <= BF16_TOL and torch.equal(out, again)):
+            raise AssertionError(f"B1 bf16 stage {s} shift {shift} mask "
+                                 f"{mask is not None}: {out.dtype}, err {err}, "
+                                 f"rel {rel}, or two launches differ")
+        attn_err16 = max(attn_err16, err)
+        log(f"check B1 bf16 stage {s} ({N_UES},{Hp},{Wp},{C}) nh {nh} shift "
+            f"{shift} mask {'none' if mask is None else 'yes'}: max|kernel-"
+            f"plain| {err:.3g}, worst row {rel:.3g} of its max|out| (tol "
+            f"{BF16_TOL}); two launches bitwise equal")
 
     streams, head_trees = {}, {}
     for split in SPLITS:
@@ -2526,15 +2580,6 @@ def main() -> int:
 
     def rnd(shape, dtype):
         return torch.randn(shape, generator=g).to(device=dev, dtype=dtype)
-
-    def rel_err(out, ref):
-        """(max |out - ref|, the worst row's max |out - ref| over that row's
-        max |ref|), in float64; a row is one head's hd values at one
-        position, so a row that averages many keys is held to its own size
-        and not to the largest output of the tensor."""
-        d = (out.double() - ref.double()).abs().amax(-1)
-        top = ref.double().abs().amax(-1).clamp_min(1e-30)
-        return float(d.max()), float((d / top).max())
 
     attn_errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     flash_cases = [  # (B, Sq, Skv, H, KV, hd, dtype, causal)
@@ -2839,44 +2884,90 @@ def main() -> int:
                                                + n_blocks - head_blocks)
         expected["codec_encode"] += N_UES
         expected["codec_decode"] += 1
-    kept = {}
-    ops.LAUNCHES.clear()
-    with torch.no_grad():
-        for split in SPLITS:
-            opt = split_option(split)
-            producer = plan.head_jitted(opt)
-            payloads, heads = [], []
-            for i in range(N_UES):
-                comp, tree = codec.compress_head(producer, params,
-                                                 frames[i:i + 1])
-                payloads.append(comp)
-                heads.append(tree)
-            trees = codec.decompress_group(payloads)
-            outs = plan.tail_batched(trees, opt, pad_to=N_UES)
-            kept[split] = (payloads, heads, outs)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+
+    def main_path(plan_, params_):
+        """Splits 1-4, N_UES UEs each through the head producer and
+        compress_head, then decompress_group and one tail_batched, with
+        every launch counter at 0 before.  Returns ({split: (payloads,
+        heads, outs)}, the launch counts)."""
+        kept_ = {}
+        ops.LAUNCHES.clear()
+        with torch.no_grad():
+            for split in SPLITS:
+                opt = split_option(split)
+                producer = plan_.head_jitted(opt)
+                payloads, heads = [], []
+                for i in range(N_UES):
+                    comp, tree = codec.compress_head(producer, params_,
+                                                     frames[i:i + 1])
+                    payloads.append(comp)
+                    heads.append(tree)
+                trees = codec.decompress_group(payloads)
+                outs = plan_.tail_batched(trees, opt, pad_to=N_UES)
+                kept_[split] = (payloads, heads, outs)
+        torch.cuda.synchronize()
+        return kept_, dict(ops.LAUNCHES)
+
+    def check_main_path(kept_, plan_, what):
+        """Finite f32 detections of the expected shapes for every UE, and
+        each payload's raw bytes the plan's."""
+        for split, (payloads, _, outs) in kept_.items():
+            assert len(outs) == N_UES
+            for out in outs:
+                for lv, s in zip(out, range(cfg.n_stages)):
+                    H, W = cfg.stage_hw(s)
+                    for key, ch in (("cls", cfg.num_classes), ("box", 4),
+                                    ("ctr", 1)):
+                        t = lv[key]
+                        if (tuple(t.shape) != (1, H, W, ch)
+                                or t.dtype != torch.float32
+                                or not torch.isfinite(t).all()):
+                            raise AssertionError(
+                                f"{what} split {split} {key} level {s}: shape "
+                                f"{tuple(t.shape)}, {t.dtype} or not finite")
+            raw = payloads[0].raw_bytes
+            if raw != plan_.raw_payload_bytes(split_option(split)):
+                raise AssertionError(f"{what} split {split}: raw bytes {raw}")
+
+    kept, launches = main_path(plan, params)
     log(f"main path launches: {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError("the main path did not go through every kernel "
                              "as often as it calls it")
     launches["window_attention"] = win_launches["window_attention"]
-    for split, (payloads, _, outs) in kept.items():
-        assert len(outs) == N_UES
-        for out in outs:
-            for lv, s in zip(out, range(cfg.n_stages)):
-                H, W = cfg.stage_hw(s)
-                for key, ch in (("cls", cfg.num_classes), ("box", 4), ("ctr", 1)):
-                    t = lv[key]
-                    if tuple(t.shape) != (1, H, W, ch) or not torch.isfinite(t).all():
-                        raise AssertionError(f"split {split} {key} level {s}: "
-                                             f"shape {tuple(t.shape)} or not finite")
-        raw = payloads[0].raw_bytes
-        if raw != plan.raw_payload_bytes(split_option(split)):
-            raise AssertionError(f"split {split}: raw bytes {raw}")
-        comp_bytes = [p.compressed_bytes for p in payloads]
-        log(f"split {split}: detections ok for {N_UES} UEs; payload raw {raw} B, "
-            f"compressed {comp_bytes} B")
+    check_main_path(kept, plan, "f32")
+    for split, (payloads, _, _) in kept.items():
+        log(f"split {split}: detections ok for {N_UES} UEs; payload raw "
+            f"{payloads[0].raw_bytes} B, compressed "
+            f"{[p.compressed_bytes for p in payloads]} B")
+
+    # the same path on the bf16 Swin-T: phase 4's weights rounded to bf16
+    # (rel_bias kept f32), B1 on bf16 q/k/v, bf16 payload leaves (the codec
+    # quantises them upcast to f32), f32 detections
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    params16 = SW.cast_params(params, torch.bfloat16)
+    plan16 = SwinSplitPlan(cfg16, params16, device=dev)
+    kept16, launches16 = main_path(plan16, params16)
+    log(f"main path bf16 launches: {launches16} (expected {expected})")
+    if launches16 != expected:
+        raise AssertionError("the bf16 main path did not go through every "
+                             "kernel as often as it calls it")
+    check_main_path(kept16, plan16, "bf16")
+    for split, (payloads, heads, _) in kept16.items():
+        leaves = [x for h in heads for x in tree_leaves(h)]
+        if not (all(x.dtype == torch.bfloat16 for x in leaves)
+                and all(m.dtype == "bfloat16" for p in payloads
+                        for m in p.meta)):
+            raise AssertionError(f"bf16 split {split}: a payload leaf is not "
+                                 "bf16")
+        raw32 = kept[split][0][0].raw_bytes
+        if 2 * payloads[0].raw_bytes != raw32:
+            raise AssertionError(f"bf16 split {split}: raw bytes "
+                                 f"{payloads[0].raw_bytes}, f32's {raw32}")
+        log(f"split {split} bf16: detections ok for {N_UES} UEs; payload "
+            f"leaves bf16, raw {payloads[0].raw_bytes} B (f32 {raw32} B), "
+            f"compressed {[p.compressed_bytes for p in payloads]} B (f32 "
+            f"{[p.compressed_bytes for p in kept[split][0]]} B)")
 
     # -- 5. the port's CPU path against the card, one frame ------------------
     cpu = torch.device("cpu")
@@ -2912,6 +3003,34 @@ def main() -> int:
         f"{CPU_TOL}); CPU decode of the card's payload bitwise equal; "
         f"CPU-encoded stream differs in {int((s_gpu != s_cpu).sum())} of "
         f"{s_gpu.size} bytes")
+    # the bf16 frame the same way: phase 4's bf16 payload and detections of
+    # UE 0 against the port's CPU path on the same bf16 weights
+    params16_cpu = SW.cast_params(params_cpu, torch.bfloat16)
+    plan16_cpu = SwinSplitPlan(cfg16, params16_cpu, device=cpu)
+    payloads, heads, outs = kept16[CPU_SPLIT]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        head_cpu = plan16_cpu.head_jitted(opt)(params16_cpu, frames[:1].cpu())
+        dec_cpu = codec_cpu.decompress(payloads[0])
+        dec_gpu = codec.decompress(payloads[0])
+        out_cpu = plan16_cpu.tail(dec_cpu, opt)
+    for a, b in zip(tree_leaves(dec_cpu), tree_leaves(dec_gpu)):
+        if not (a.dtype == b.dtype == torch.bfloat16
+                and torch.equal(a.view(torch.int16), b.cpu().view(torch.int16))):
+            raise AssertionError("CPU decode of the card's bf16 payload differs")
+    cpu_err16 = 0.0
+    pairs = list(zip(tree_leaves(head_cpu), tree_leaves(heads[0])))
+    pairs += list(zip(tree_leaves(out_cpu), tree_leaves(outs[0])))
+    for a, b in pairs:
+        a, b = a.double(), b.double().cpu()
+        rel = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        cpu_err16 = max(cpu_err16, rel)
+    if not cpu_err16 <= BF16_CPU_TOL:
+        raise AssertionError(f"bf16 card vs CPU at split {CPU_SPLIT}: {cpu_err16}")
+    log(f"CPU path bf16, split {CPU_SPLIT}, one frame "
+        f"({time.perf_counter() - t0:.1f} s): head and detections within "
+        f"{cpu_err16:.3g} of the card (rel. tol {BF16_CPU_TOL}; f32's gap "
+        f"{cpu_err:.3g}); CPU decode of the card's bf16 payload bitwise equal")
 
     # -- 6. times ------------------------------------------------------------
     rows = {}
@@ -2925,7 +3044,13 @@ def main() -> int:
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     flush = lambda: l2_flush.fill_(1.0)
     cold = dict(before=flush)
-    for B in (1, N_UES):
+    b1_rows = {}                # f32 last: the host time below is f32's
+    for dt, B in itertools.product((torch.bfloat16, torch.float32),
+                                   (1, N_UES)):
+        name = str(dt).removeprefix("torch.")
+        # the operations at the peak rate of the inputs' type: f32 on the
+        # CUDA cores, bf16 on the tensor cores
+        rate = FP32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
         t = collections.Counter()
         flops_total = bytes_total = 0
         for s, Hp, Wp, C, nh, shift, mask in attn_cases:
@@ -2935,13 +3060,15 @@ def main() -> int:
             # blocks of this kind in one forward: even unshifted, odd shifted
             per_frame = (cfg.depths[s] // 2 if shift
                          else cfg.depths[s] - cfg.depths[s] // 2)
-            qkv = torch.randn((B, Hp, Wp, 3 * C), generator=g).to(dev)
+            qkv = torch.randn((B, Hp, Wp, 3 * C), generator=g).to(device=dev,
+                                                                  dtype=dt)
             bias = torch.randn((nh, w2, w2), generator=g).to(dev)
             kw = dict(window=w, shift=shift, n_heads=nh)
 
             def b1():
                 return wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
             # library yardstick: SDPA over the same windows with a float mask
+            # in the query's dtype
             hd = C // nh
             nW = (Hp // w) * (Wp // w)
             x = torch.roll(qkv, (-shift, -shift), dims=(1, 2)) if shift else qkv
@@ -2951,7 +3078,7 @@ def main() -> int:
             fmask = bias[None].expand(nW, nh, w2, w2).clone()
             if mask is not None:
                 fmask = fmask.masked_fill(~mask[:, None], -1e9)
-            fmask = fmask.repeat(B, 1, 1, 1)
+            fmask = fmask.repeat(B, 1, 1, 1).to(dt)
 
             def sdpa():
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=fmask)
@@ -2962,32 +3089,43 @@ def main() -> int:
                 plain=cuda_ms(lambda: wa.fused_window_attention_plain(
                     qkv, bias, mask, **kw)),
                 sdpa=cuda_ms(sdpa), sdpa_cold=cuda_ms(sdpa, **cold),
-                bound=max(nbytes / HBM_BYTES_PER_S,
-                          flops / FP32_FLOP_PER_S) * 1e3)
+                bound=max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3)
             del fmask, q, k, v, x
-            log(f"time B1 stage {s} ({B},{Hp},{Wp},{C}) shift {shift}: kernel "
-                f"{ts['kernel']:.4f} ms, {ts['kernel_cold']:.4f} cold L2; "
-                f"plain {ts['plain']:.4f} ms; sdpa {ts['sdpa']:.4f} ms, "
+            log(f"time B1 {name} stage {s} ({B},{Hp},{Wp},{C}) shift {shift}: "
+                f"kernel {ts['kernel']:.4f} ms, {ts['kernel_cold']:.4f} cold "
+                f"L2; plain {ts['plain']:.4f} ms; sdpa {ts['sdpa']:.4f} ms, "
                 f"{ts['sdpa_cold']:.4f} cold L2; bound {ts['bound']:.4f} ms "
                 f"({nbytes} B, {flops} flop), x{per_frame} per frame")
             for key, val in ts.items():
                 t[key] += per_frame * val
             bytes_total += per_frame * nbytes
             flops_total += per_frame * flops
-        log(f"time B1 per frame ({n_blocks} calls, batch {B}): kernel "
+        log(f"time B1 {name} per frame ({n_blocks} calls, batch {B}): kernel "
             f"{t['kernel']:.4f} ms, {t['kernel_cold']:.4f} cold L2; plain "
             f"{t['plain']:.4f} ms; sdpa {t['sdpa']:.4f} ms, {t['sdpa_cold']:.4f} "
-            f"cold L2; bound {t['bound']:.4f} ms; launches per UE frame "
-            f"{n_blocks}")
-        if B == 1:
-            rows["fused_window_attention"] = dict(
-                source="src/repro_torch/kernels/csrc/window_attention.cu",
-                replaces="src/repro/kernels/window_attention.py:156",
-                max_abs_err=attn_err, ms=t["kernel"], plain_ms=t["plain"],
-                bound_ms=t["bound"],
-                bound_by=("bytes" if bytes_total / HBM_BYTES_PER_S
-                          >= flops_total / FP32_FLOP_PER_S else "operations"),
-                library_ms=t["sdpa"])
+            f"cold L2; bound {t['bound']:.4f} ms ({bytes_total} B, "
+            f"{flops_total} flop); launches per UE frame {n_blocks}")
+        b1_rows[name, B] = dict(
+            ms=t["kernel"], cold_ms=t["kernel_cold"], plain_ms=t["plain"],
+            library_ms=t["sdpa"], library_cold_ms=t["sdpa_cold"],
+            bound_ms=t["bound"],
+            bound_by=("bytes" if bytes_total / HBM_BYTES_PER_S
+                      >= flops_total / rate else "operations"))
+    r = b1_rows["float32", 1]
+    rows["fused_window_attention"] = dict(
+        source="src/repro_torch/kernels/csrc/window_attention.cu",
+        replaces="src/repro/kernels/window_attention.py:156",
+        max_abs_err=attn_err, ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"])
+    # the bf16 frame's figures beside them: batch 1 under bf16_, batch
+    # N_UES under bf16_batch4_; its launches are phase 4's bf16 run's
+    for B, prefix in ((1, "bf16_"), (N_UES, f"bf16_batch{N_UES}_")):
+        rows["fused_window_attention"].update(
+            {prefix + key: val for key, val in b1_rows["bfloat16", B].items()})
+    rows["fused_window_attention"].update(
+        bf16_launches=launches16["fused_window_attention"],
+        bf16_max_abs_err=attn_err16)
     # back to back, a short call is held to the wrapper's host time: the
     # enqueue time of one call at stage 3 (no synchronize inside)
     log(f"time B1 wrapper on the host: {host_us(b1):.1f} us a call (stage 3, "
@@ -3235,6 +3373,7 @@ def main() -> int:
         f"decode step")
 
     swin_traces = []                       # traced in phase 16
+    split_ms = {}                          # f32's, beside bf16's below
     with torch.no_grad():
         for split in SPLITS:
             opt = split_option(split)
@@ -3285,6 +3424,30 @@ def main() -> int:
                 f"({stream0.size} B) per UE frame; host unzip {t_unzip:.2f} ms "
                 f"per {N_UES}-UE group; upload + device decode {t_dec0:.2f} ms "
                 f"per UE payload")
+            split_ms[split] = (t_head, t_model, t_dec, t_tail)
+    # the bf16 frame (phase 4's bf16 run): the same host-clock times, and
+    # its head model traced in phase 16
+    with torch.no_grad():
+        for split in SPLITS:
+            opt = split_option(split)
+            producer = plan16.head_jitted(opt)
+            payloads = kept16[split][0]
+            trees = codec.decompress_group(payloads)
+            t16 = (host_ms(lambda: codec.compress_head(producer, params16,
+                                                       frames[:1])),
+                   host_ms(lambda: producer(params16, frames[:1])),
+                   host_ms(lambda: codec.decompress_group(payloads)),
+                   host_ms(lambda: plan16.tail_batched(trees, opt,
+                                                       pad_to=N_UES)))
+            log(f"time split {split} bf16 (f32): head+encode {t16[0]:.2f} "
+                f"({split_ms[split][0]:.2f}) ms, of which the head model "
+                f"{t16[1]:.2f} ({split_ms[split][1]:.2f}) ms, per UE frame; "
+                f"decode {t16[2]:.2f} ({split_ms[split][2]:.2f}) ms and "
+                f"batched tail {t16[3]:.2f} ({split_ms[split][3]:.2f}) ms per "
+                f"{N_UES}-UE group (host clock)")
+            swin_traces.append(
+                (f"split {split} bf16 head model",
+                 functools.partial(producer, params16, frames[:1])))
 
     # -- 7. the codec's modes at full width --------------------------------
     log("phase 7: payloads of random weights on synthetic frames; bytes are "
@@ -3705,7 +3868,7 @@ def main() -> int:
                         **{k: v for k, v in r.items()
                            if k.startswith(("window_", "global_", "capped_",
                                             "internvl_", "musicgen_", "train_",
-                                            "launches_by_"))}})
+                                            "launches_by_", "bf16_"))}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,12 @@
 every leaf converted to numpy (``jax.tree.map(np.asarray, params)``) and
 returns the port's: the same nesting, dense weights kept (in, out), conv
 weights (the only 4-D leaves) turned from HWIO to the OIHW that
-``F.conv2d`` takes.  It serves the Swin-T tree of ``repro.models.swin.init``
-and the throughput estimator's parameter list (``[{"w": (a, b), "b":
-(b,)}, ...]``, 2-D and 1-D leaves, taken as they are).  No weight is
-re-drawn, so a model compared with the JAX package runs on exactly its
-weights.
+``F.conv2d`` takes.  bf16 leaves stay bf16 (a bf16 Swin-T's weights; its
+``rel_bias`` is float32 there and stays so); every other leaf comes out
+float32.  It serves the Swin-T tree of ``repro.models.swin.init`` and the
+throughput estimator's parameter list (``[{"w": (a, b), "b": (b,)},
+...]``, 2-D and 1-D leaves, taken as they are).  No weight is re-drawn, so
+a model compared with the JAX package runs on exactly its weights.
 
 ``lm_params_from_numpy`` takes the LM tree of ``repro.models.transformer.
 init`` and keeps every leaf's layout and dtype: the per-layer weights are
@@ -32,11 +33,20 @@ from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_map
 
 
+def _bf16_tensor(a: np.ndarray) -> torch.Tensor:
+    """An ``ml_dtypes`` bfloat16 array's bits as a torch bfloat16 tensor."""
+    return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+
+
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     device = resolve_device(device)
 
     def convert(leaf):
-        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        a = np.asarray(leaf)
+        if a.dtype.name == "bfloat16":
+            t = _bf16_tensor(a)
+        else:
+            t = torch.from_numpy(np.array(a, dtype=np.float32))
         if t.dim() == 4:                       # HWIO -> OIHW
             t = t.permute(3, 2, 0, 1).contiguous()
         return t.to(device)
@@ -50,8 +60,7 @@ def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
     def convert(leaf):
         a = np.asarray(leaf)
         if a.dtype.name == "bfloat16":
-            return (torch.from_numpy(a.view(np.uint16).copy())
-                    .view(torch.bfloat16).to(device))
+            return _bf16_tensor(a).to(device)
         return torch.from_numpy(a.copy()).to(device)
 
     return tree_map(convert, tree)

@@ -1,13 +1,15 @@
 // Swin window attention for Hopper (sm_90a): two kernels on one per-window
 // body, with the products on the tensor cores.
 //
-// B1, fused_window_attention_f32, replaces src/repro/kernels/
+// B1, fused_window_attention_fwd, replaces src/repro/kernels/
 // window_attention.py :: fused_window_attention_pallas (bodies
 // _fused_kernel_noshift / _fused_kernel_shift, math in _band_attention).
 // One launch covers the cyclic shift, the window partition, the biased and
 // masked softmax attention and the un-partition, reading the packed qkv
 // projection in image coordinates and writing the output back in image
-// coordinates.
+// coordinates, f32 or bf16 in and out (bf16 Swin-T): as the TPU kernel, it
+// takes f32 logits, softmax and P.V from bf16 q, k, v and rounds once, at
+// the store.
 //
 // B7, window_attention_fwd, replaces src/repro/kernels/window_attention.py ::
 // window_attention_pallas (body _window_kernel) behind ops.window_attention:
@@ -28,8 +30,11 @@
 //     mirror of this arithmetic and, on a card, this kernel against it;
 //     tests/test_torch_kernels.py holds the mirror against the JAX package
 //     and shows the single product missing).  q is multiplied by hd^-1/2 in
-//     f32 before its split, as the reference scales it.  B7's bf16 K and V are exact in
-//     TF32 (lo = 0), so their hi.lo product is skipped; q and P are split.
+//     f32 before its split, as the reference scales it.  bf16 K and V (B1's
+//     and B7's) are exact in TF32 (lo = 0), so their hi.lo product is
+//     skipped: two MMAs a product where f32 takes three.  The scaled q and
+//     P are f32 and still split, so a bf16 call computes what the
+//     reference computes in f32 from its bf16 inputs.
 //   - Tiles are padded in registers and shared memory only: query rows to a
 //     multiple of 16, keys to 8 NT (NT = 7 key tiles for w2 <= 56, Swin's
 //     49, else 18).  Padded key and value rows are zero in shared memory
@@ -48,15 +53,17 @@
 //     and the B fragment reads value rows 8j + 2t and 8j + 2t + 1.
 //   - Shared rows carry 16 bytes of padding, so the A and B fragment loads
 //     (8 rows x 4 columns, or 4 row pairs x 8 columns) fall on 32 banks.
-//   - Rows move 16 bytes a thread.  B1 gathers its rows from the image-
-//     layout qkv with modular indices (row + shift) % Hp, (col + shift) %
-//     Wp, computed once per token into a table in shared memory, so no roll
-//     is ever materialised and the store goes back to the same un-rolled
-//     pixel; each head's slice of a pixel is 64 or 128 contiguous bytes.  The
-//     TPU kernel's (shift, Wp, C) VMEM carry existed only because its grid
-//     runs in order, and CTAs here are independent.  B7 reads its window's
-//     rows in place.  Each warp writes its output rows back through its own
-//     query rows in shared memory.
+//   - Rows move 16 bytes a thread (4 f32 or 8 bf16 values).  B1 gathers its
+//     rows from the image-layout qkv with modular indices (row + shift) %
+//     Hp, (col + shift) % Wp, computed once per token into a table in
+//     shared memory, so no roll is ever materialised and the store goes
+//     back to the same un-rolled pixel; each head's slice of a pixel is 64
+//     or 128 contiguous bytes in f32, 32 or 64 in bf16, and starts at a
+//     multiple of 16 bytes (C = nh HD, HD 16 or 32).  The TPU kernel's
+//     (shift, Wp, C) VMEM carry existed only because its grid runs in
+//     order, and CTAs here are independent.  B7 reads its window's rows in
+//     place.  Each warp writes its output rows back through its own query
+//     rows in shared memory.
 //
 // The TPU op behind B7 pads w2 up to W2P = ceil(w2 / 64) * 64 with keys that
 // every real query sees masked (-1e9) and value rows of zero.  On a row
@@ -71,15 +78,16 @@
 // Bound on the H100.  Both read each input element once and write each
 // output once; the work is about 4 w2^2 hd flops per (window, head).  At the
 // Swin-T shapes (w2 = 49, hd = 32) that is 12 flops per byte of q, k, v and
-// out in f32, so bytes bound both (chip_smoke.py computes the bound of each
-// call): stage 0 of one frame moves 45 MB, 13 us at 3.35 TB/s.  3xTF32 on
+// out in f32 (24 in bf16), so bytes bound both (chip_smoke.py computes the
+// bound of each call): stage 0 of one frame moves 45 MB in f32, 13 us at
+// 3.35 TB/s, and half that in bf16.  3xTF32 on
 // the padded tiles issues 3 x 64 x 56 / 49^2 = 4.5x the reference's flops,
 // which the tensor cores take in a few us.  What is left above the bound
 // (PERF.md) is latency: Swin-T's stage 2-3 calls are one or two waves of
 // CTAs, each a chain of loads, 168 MMAs a warp and a store.  The shared tile
 // is 16 NT + 64 rows of HD values and their padding (B1 adds w2 ints):
-// 25.5 KB at w2 = 49, hd = 32 in f32, and 186 KB at w2 = 144, hd = 128,
-// under the 227 KB a CTA may have.  w2 is at most 144.
+// 25.5 KB at w2 = 49, hd = 32 in f32 (14.3 KB in bf16), and 186 KB at
+// w2 = 144, hd = 128, under the 227 KB a CTA may have.  w2 is at most 144.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -338,21 +346,23 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// B1: fused shift + partition + attention + un-partition, fp32
+// B1: fused shift + partition + attention + un-partition, fp32 or bf16 in and
+// out
 // ---------------------------------------------------------------------------
 
-template <int HD, int NT>
+template <int HD, int NT, typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_window_attention_kernel(const float* __restrict__ qkv,
+fused_window_attention_kernel(const T* __restrict__ qkv,
                               const float* __restrict__ bias,
                               const uint8_t* __restrict__ mask,
-                              float* __restrict__ out, int Hp, int Wp, int C,
+                              T* __restrict__ out, int Hp, int Wp, int C,
                               int window, int shift, float sm_scale) {
-  using Tl = Tile<HD, float>;
+  using Tl = Tile<HD, T>;
   constexpr int kLd = Tl::kLd;
   constexpr int kVec = Tl::kVec;
+  constexpr int kElems = Tl::kElems;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int w2 = window * window;
   const int nww = Wp / window;
   const int win = blockIdx.x;               // window index in rolled coordinates
@@ -362,9 +372,9 @@ fused_window_attention_kernel(const float* __restrict__ qkv,
   const int col0 = (win % nww) * window + shift;
   const size_t C3 = 3 * static_cast<size_t>(C);
 
-  float* k_s = smem;                        // (8 NT, kLd), zero past w2
-  float* v_s = k_s + 8 * NT * kLd;
-  float* q_s = v_s + 8 * NT * kLd;          // (kRunRows, kLd): q, then the output
+  T* k_s = smem;                            // (8 NT, kLd), zero past w2
+  T* v_s = k_s + 8 * NT * kLd;
+  T* q_s = v_s + 8 * NT * kLd;              // (kRunRows, kLd): q, then the output
   int* pix = reinterpret_cast<int*>(q_s + kRunRows * kLd);  // (w2) token -> pixel
 
   for (int t = threadIdx.x; t < w2; t += kThreads) {
@@ -376,9 +386,9 @@ fused_window_attention_kernel(const float* __restrict__ qkv,
 
   for (int idx = threadIdx.x; idx < 8 * NT * kVec; idx += kThreads) {
     const int t = idx / kVec;
-    const int c = (idx % kVec) * 4;
+    const int c = (idx % kVec) * kElems;
     const bool ok = t < w2;
-    const float* src = qkv + (ok ? pix[t] * C3 + h * HD + c : 0);
+    const T* src = qkv + (ok ? pix[t] * C3 + h * HD + c : 0);
     cp_async16(k_s + t * kLd + c, src + C, ok);
     cp_async16(v_s + t * kLd + c, src + 2 * C, ok);
   }
@@ -388,11 +398,11 @@ fused_window_attention_kernel(const float* __restrict__ qkv,
       mask != nullptr ? mask + static_cast<size_t>(win) * w2 * w2 : nullptr;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* q_w = q_s + 16 * warp * kLd;
+  T* q_w = q_s + 16 * warp * kLd;
   for (int r0 = 0; r0 < w2; r0 += kRunRows) {
     for (int idx = threadIdx.x; idx < kRunRows * kVec; idx += kThreads) {
       const int t = idx / kVec;
-      const int c = (idx % kVec) * 4;
+      const int c = (idx % kVec) * kElems;
       const bool ok = r0 + t < w2;
       cp_async16(q_s + t * kLd + c, qkv + (ok ? pix[r0 + t] * C3 + h * HD + c : 0), ok);
     }
@@ -406,42 +416,56 @@ fused_window_attention_kernel(const float* __restrict__ qkv,
       attend_warp<HD, NT>(s, dead, q_w, k_s, v_s, sm_scale, w2, 0.f);
       for (int idx = lane; idx < 16 * kVec; idx += 32) {
         const int t = idx / kVec;
-        const int c = (idx % kVec) * 4;
+        const int c = (idx % kVec) * kElems;
         if (m0 + t < w2)
-          *reinterpret_cast<float4*>(out + pix[m0 + t] * static_cast<size_t>(C) + h * HD + c) =
-              *reinterpret_cast<const float4*>(q_w + t * kLd + c);
+          *reinterpret_cast<uint4*>(out + pix[m0 + t] * static_cast<size_t>(C) + h * HD + c) =
+              *reinterpret_cast<const uint4*>(q_w + t * kLd + c);
       }
     }
     __syncthreads();                        // q_s is refilled by the next run
   }
 }
 
-template <int HD, int NT>
-cudaError_t launch_fused(const float* qkv, const float* bias, const uint8_t* mask,
-                         float* out, int B, int Hp, int Wp, int C, int n_heads,
+template <int HD, int NT, typename T>
+cudaError_t launch_fused(const T* qkv, const float* bias, const uint8_t* mask,
+                         T* out, int B, int Hp, int Wp, int C, int n_heads,
                          int window, int shift, float sm_scale, cudaStream_t stream) {
   const int w2 = window * window;
-  const size_t smem = smem_bytes<HD, NT, float>(w2 * sizeof(int));
-  const cudaError_t err = allow_smem(fused_window_attention_kernel<HD, NT>, smem);
+  const size_t smem = smem_bytes<HD, NT, T>(w2 * sizeof(int));
+  const cudaError_t err = allow_smem(fused_window_attention_kernel<HD, NT, T>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Hp / window) * (Wp / window), n_heads, B);
-  fused_window_attention_kernel<HD, NT><<<grid, kThreads, smem, stream>>>(
+  fused_window_attention_kernel<HD, NT, T><<<grid, kThreads, smem, stream>>>(
       qkv, bias, mask, out, Hp, Wp, C, window, shift, sm_scale);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t dispatch_fused(const float* qkv, const float* bias, const uint8_t* mask,
-                           float* out, int B, int Hp, int Wp, int C, int n_heads,
-                           int window, int shift, float sm_scale, cudaStream_t s) {
+template <int HD, typename T>
+cudaError_t launch_fused_nt(const T* qkv, const float* bias, const uint8_t* mask,
+                            T* out, int B, int Hp, int Wp, int C, int n_heads,
+                            int window, int shift, float sm_scale, cudaStream_t s) {
   const int w2 = window * window;
   if (w2 <= 8 * kSmallTiles)
     return launch_fused<HD, kSmallTiles>(qkv, bias, mask, out, B, Hp, Wp, C, n_heads, window,
-                               shift, sm_scale, s);
+                                         shift, sm_scale, s);
   if (w2 <= kMaxW2)
     return launch_fused<HD, kMaxW2 / 8>(qkv, bias, mask, out, B, Hp, Wp, C, n_heads, window,
-                                shift, sm_scale, s);
+                                        shift, sm_scale, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_fused(const void* qkv, const float* bias, const uint8_t* mask,
+                           void* out, int B, int Hp, int Wp, int C, int n_heads,
+                           int window, int shift, float sm_scale, cudaStream_t s) {
+  if (!aligned16(qkv) || !aligned16(out)) return cudaErrorMisalignedAddress;
+  const auto* q = static_cast<const T*>(qkv);
+  auto* o = static_cast<T*>(out);
+  switch (C / n_heads) {
+    case 16: return launch_fused_nt<16>(q, bias, mask, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
+    case 32: return launch_fused_nt<32>(q, bias, mask, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -558,28 +582,28 @@ cudaError_t dispatch_windows(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// qkv (B, Hp, Wp, 3C) f32; bias (n_heads, w2, w2) f32; mask (nW, w2, w2)
-// bytes (0 = masked) indexed by rolled window, or null; out (B, Hp, Wp, C).
-// All contiguous, qkv and out 16-byte aligned, w2 at most 144.  Returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int fused_window_attention_f32(const void* qkv, const void* bias,
+// qkv (B, Hp, Wp, 3C) and out (B, Hp, Wp, C) of one dtype (0 = f32, 1 =
+// bf16); bias (n_heads, w2, w2) f32; mask (nW, w2, w2) bytes (0 = masked)
+// indexed by rolled window, or null.  All contiguous, qkv and out 16-byte
+// aligned, C a multiple of 8 (so every row piece a thread moves is 16-byte
+// aligned in bf16 too), w2 at most 144.  Returns the cudaError_t of the
+// launch (0 = success).
+extern "C" int fused_window_attention_fwd(const void* qkv, const void* bias,
                                           const void* mask, void* out, int B,
                                           int Hp, int Wp, int C, int n_heads,
-                                          int window, int shift, float sm_scale,
-                                          void* stream) {
-  const auto* q = static_cast<const float*>(qkv);
+                                          int window, int shift, int dtype,
+                                          float sm_scale, void* stream) {
   const auto* bs = static_cast<const float*>(bias);
   const auto* m = static_cast<const uint8_t*>(mask);
-  auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (!aligned16(qkv) || !aligned16(out)) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err;
-  switch (C / n_heads) {
-    case 16:
-      err = dispatch_fused<16>(q, bs, m, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
+  switch (dtype) {
+    case 0:
+      err = dispatch_fused<float>(qkv, bs, m, out, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
       break;
-    case 32:
-      err = dispatch_fused<32>(q, bs, m, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
+    case 1:
+      err = dispatch_fused<__nv_bfloat16>(qkv, bs, m, out, B, Hp, Wp, C, n_heads, window, shift,
+                                          sm_scale, s);
       break;
     default:
       err = cudaErrorInvalidValue;

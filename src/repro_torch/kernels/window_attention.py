@@ -5,14 +5,18 @@ H100's tensor cores: one CTA of four warps per (window, head[, image])
 copies its key and value rows and a run of 64 query rows into shared
 memory, and each warp takes 16 query rows through Q.K^T, the biased and
 masked softmax and P.V without the logits leaving its registers.  Both
-products run on ``mma.sync.m16n8k8`` TF32 as 3xTF32: each f32 operand is
-split into a TF32 ``hi`` and the TF32 rounding of ``x - hi``, and a.b is
-taken as lo.hi + hi.lo + hi.hi, which keeps f32 parity where one TF32
-product would not (the source note gives the numbers; the CPU tests hold a
-mirror of this arithmetic against the JAX package).  Query rows are padded
-to 16 and keys to 8 in shared memory and registers only: padded keys score
--inf and weigh exactly 0, padded value rows are zero, padded query rows are
-never stored.  Bytes bound both kernels on the H100 (each input element read
+kernels take f32 or bf16 q, k and v and return their dtype; the logits, the
+softmax and P.V are f32 either way, and a bf16 output is rounded once, at
+the store, as the TPU kernels do.  Both products run on
+``mma.sync.m16n8k8`` TF32 as 3xTF32: each f32 operand is split into a TF32
+``hi`` and the TF32 rounding of ``x - hi``, and a.b is taken as lo.hi +
+hi.lo + hi.hi, which keeps f32 parity where one TF32 product would not (the
+source note gives the numbers; the CPU tests hold a mirror of this
+arithmetic against the JAX package).  A bf16 K or V value is exact in TF32
+(its ``lo`` is 0), so a bf16 call skips hi.lo: two MMAs a product.  Query
+rows are padded to 16 and keys to 8 in shared memory and registers only:
+padded keys score -inf and weigh exactly 0, padded value rows are zero,
+padded query rows are never stored.  Bytes bound both kernels on the H100 (each input element read
 once, each output written once).
 
 ``fused_window_attention`` (B1) replaces the TPU kernel
@@ -52,11 +56,14 @@ from repro_torch.kernels import _build
 NEG_INF = -1e9
 # what csrc/window_attention.cu's shared per-window body runs
 BODY = ("attend_warp: mma.sync.m16n8k8 TF32, 3xTF32 (lo.hi + hi.lo + hi.hi, "
-        "cvt.rna splits), f32 sums, softmax in registers")
+        "cvt.rna splits; bf16 K and V exact, hi.lo skipped), f32 sums, "
+        "softmax in registers; f32 or bf16 in and out")
+# B1: these head dims, f32 or bf16 qkv
 SUPPORTED_HEAD_DIMS = (16, 32)
 # B7: any w2 up to window 12, these head dims, f32 or bf16 q, k, v
 WINDOW_MAX_W2 = 144
 WINDOW_HEAD_DIMS = (16, 32, 64, 128)
+# the dtype codes of both kernels' C entries
 WINDOW_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -120,7 +127,7 @@ def windows_cost(q_shape, esize: int, masked: bool):
 def fused_window_attention_meta(qkv, bias, mask, *, window, shift, n_heads):
     """Shapes alone (meta tensors): the output, empty."""
     B, Hp, Wp, C3 = qkv.shape
-    return torch.empty((B, Hp, Wp, C3 // 3), dtype=torch.float32,
+    return torch.empty((B, Hp, Wp, C3 // 3), dtype=qkv.dtype,
                        device=qkv.device)
 
 
@@ -128,10 +135,10 @@ def window_attention_meta(q, k, v, bias, mask=None):
     return torch.empty_like(q)
 
 
-def _lib():
-    lib = _build.library("window_attention")
-    fn = lib.fused_window_attention_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+@functools.cache
+def _fused_fn():
+    fn = _build.library("window_attention").fused_window_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -141,15 +148,17 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                                 mask: Optional[torch.Tensor], *, window: int,
                                 shift: int, n_heads: int) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
-    the plain version; fp32 only, head dim 16 or 32, window up to 12."""
+    the plain version: f32 or bf16 qkv (the output in its dtype), f32 bias,
+    head dim 16 or 32, window up to 12."""
     B, Hp, Wp, C3 = qkv.shape
     C = C3 // 3
     w2 = window * window
     nW = (Hp // window) * (Wp // window)
     tensors = (qkv, bias) if mask is None else (qkv, bias, mask)
     _build.check_operands("fused_window_attention_cuda", *tensors)
-    if qkv.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError("fused_window_attention_cuda takes float32 qkv and bias")
+    if qkv.dtype not in WINDOW_DTYPE_CODES or bias.dtype != torch.float32:
+        raise TypeError("fused_window_attention_cuda takes float32 or bfloat16 "
+                        f"qkv and a float32 bias; got {qkv.dtype}, {bias.dtype}")
     if C % n_heads or C // n_heads not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {C / n_heads} not in {SUPPORTED_HEAD_DIMS}")
     if Hp % window or Wp % window or not 0 <= shift < window:
@@ -163,15 +172,15 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"mask must be bool {(nW, w2, w2)}")
     qkv, bias = qkv.contiguous(), bias.contiguous()
     mask = None if mask is None else mask.contiguous()
-    out = torch.empty((B, Hp, Wp, C), dtype=torch.float32, device=qkv.device)
+    out = torch.empty((B, Hp, Wp, C), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    fn = _lib()
-    rc = fn(qkv.data_ptr(), bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, Hp, Wp, C, n_heads, window, shift,
-            float(1.0 / math.sqrt(C // n_heads)),
-            torch.cuda.current_stream(qkv.device).cuda_stream)
+    rc = _fused_fn()(qkv.data_ptr(), bias.data_ptr(),
+                     None if mask is None else mask.data_ptr(), out.data_ptr(),
+                     B, Hp, Wp, C, n_heads, window, shift,
+                     WINDOW_DTYPE_CODES[qkv.dtype],
+                     float(1.0 / math.sqrt(C // n_heads)),
+                     torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "fused_window_attention")
     _build.LAUNCHES["fused_window_attention"] += 1
     return out

@@ -17,6 +17,13 @@ package gives its fused kernel path) goes through
 ``kernels.ops.fused_window_attention``, the hand-written CUDA kernel on the
 card and its plain version on the CPU; ``"xla"`` is the plain rolled and
 partitioned einsum path, kept as a cross-check.
+
+``cfg.dtype`` is "float32" or "bfloat16", and a bf16 model rounds where the
+JAX package's does: activations, residuals and weights are bf16 (products
+accumulate in f32 and round once, ``dense``), while ``rel_bias``, the
+attention logits and softmax, the MLP's GELU (``dense32``, the bias added in
+f32) and the detections ``cls``, ``box`` and ``ctr`` stay f32, and
+``layer_norm`` takes its statistics in f32.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.swin_t_detection import SwinConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense, init_dense, layer_norm
+from repro_torch.models.layers import (dense, dense32, dtype_of, einsum32,
+                                       init_dense, layer_norm)
 from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -110,12 +118,22 @@ def _block_init(cfg: SwinConfig, g: torch.Generator, dim: int, n_heads: int):
     }
 
 
+def cast_params(tree, dtype: torch.dtype):
+    """A parameter tree in ``dtype``, as the JAX package casts its draws:
+    every leaf but ``rel_bias``, which stays float32."""
+    if isinstance(tree, dict):
+        return {k: v if k == "rel_bias" else cast_params(v, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_params(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
 def init(cfg: SwinConfig, generator: torch.Generator, device="cuda"):
     """Random parameters with the JAX package's shapes, scales and nesting
-    (``repro/models/swin.py::init``), drawn from a CPU ``generator`` and
-    placed on ``device``.  ``rel_bias`` starts at zero, as there."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError("the port runs the fp32 configuration only")
+    (``repro/models/swin.py::init``), drawn in float32 from a CPU
+    ``generator``, cast to ``cfg.dtype`` as there (``rel_bias`` stays
+    float32 and starts at zero) and placed on ``device``."""
     device = resolve_device(device)
     g = generator
     C, fd, p = cfg.embed_dim, cfg.fpn_dim, cfg.patch_size
@@ -152,7 +170,7 @@ def init(cfg: SwinConfig, generator: torch.Generator, device="cuda"):
         "box_w": init_dense(g, (fd, 4)), "box_b": torch.zeros(4),
         "ctr_w": init_dense(g, (fd, 1)), "ctr_b": torch.zeros(1),
     }
-    return tree_map(lambda a: a.to(device), params)
+    return tree_map(lambda a: a.to(device), cast_params(params, dtype_of(cfg)))
 
 
 def spec(cfg: SwinConfig) -> Callable[[Any], Any]:
@@ -198,7 +216,7 @@ def window_attention(cfg: SwinConfig, p, x: torch.Tensor, Hp: int, Wp: int,
     qkv = dense(xw, p["qkv_w"]) + p["qkv_b"]
     qkv = qkv.reshape(-1, w2, 3, n_heads, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]       # (nB, w2, nh, hd)
-    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / math.sqrt(hd)
+    logits = einsum32("nqhd,nkhd->nhqk", q, k) / math.sqrt(hd)
     logits = logits + bias[None]
     if mask is not None:
         nW = mask.shape[0]
@@ -206,7 +224,8 @@ def window_attention(cfg: SwinConfig, p, x: torch.Tensor, Hp: int, Wp: int,
         lg = lg.masked_fill(~mask[None, :, None], -1e9)
         logits = lg.reshape(-1, n_heads, w2, w2)
     attn = torch.softmax(logits, dim=-1)
-    out = torch.einsum("nhqk,nkhd->nqhd", attn, v).reshape(-1, w2, C)
+    out = einsum32("nhqk,nkhd->nqhd", attn, v, out_dtype=x.dtype)
+    out = out.reshape(-1, w2, C)
     out = dense(out, p["proj_w"]) + p["proj_b"]
     out = out.reshape(B, nwh, nww, w, w, C).permute(0, 1, 3, 2, 4, 5)
     out = out.reshape(B, Hp, Wp, C)
@@ -232,8 +251,11 @@ def swin_block(cfg: SwinConfig, p, x: torch.Tensor, H: int, W: int,
     x = x + h[:, :H, :W]
     h2 = layer_norm(x, p["norm2_s"], p["norm2_b"], cfg.norm_eps)
     m = p["mlp"]
-    # jax.nn.gelu defaults to the tanh approximation
-    h2 = F.gelu(dense(h2, m["w1"]) + m["b1"], approximate="tanh")
+    # jax.nn.gelu defaults to the tanh approximation; it runs in f32 and
+    # rounds once, after the GELU (a bf16 bias is promoted exactly in the
+    # f32 add, with no cast of its own)
+    h2 = F.gelu(dense32(h2, m["w1"]) + m["b1"],
+                approximate="tanh").to(x.dtype)
     return x + (dense(h2, m["w2"]) + m["b2"])
 
 
@@ -244,9 +266,9 @@ def _nhwc_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 
 def patch_embed(cfg: SwinConfig, p, img: torch.Tensor) -> torch.Tensor:
-    """img: (B, H, W, 3) float in [0,1].  Returns (B, H/4, W/4, C).  A VALID
-    4x4 stride-4 conv, as the JAX package's."""
-    x = _nhwc_conv(img.float(), p["w"], cfg.patch_size, 0) + p["b"]
+    """img: (B, H, W, 3) float in [0,1], cast to ``cfg.dtype``.  Returns
+    (B, H/4, W/4, C).  A VALID 4x4 stride-4 conv, as the JAX package's."""
+    x = _nhwc_conv(img.to(dtype_of(cfg)), p["w"], cfg.patch_size, 0) + p["b"]
     return layer_norm(x, p["norm_s"], p["norm_b"], cfg.norm_eps)
 
 
@@ -358,10 +380,12 @@ def detection_head(cfg: SwinConfig, params, feats):
     for o in outs:
         h = torch.relu(_conv3(o, head["conv1"]))
         h = torch.relu(_conv3(h, head["conv2"]))
+        # the predictions are f32 whatever the model's dtype: the f32
+        # products promote a bf16 bias exactly
         levels.append({
-            "cls": dense(h, head["cls_w"]) + head["cls_b"],
-            "box": torch.relu(dense(h, head["box_w"]) + head["box_b"]),
-            "ctr": dense(h, head["ctr_w"]) + head["ctr_b"],
+            "cls": dense32(h, head["cls_w"]) + head["cls_b"],
+            "box": torch.relu(dense32(h, head["box_w"]) + head["box_b"]),
+            "ctr": dense32(h, head["ctr_w"]) + head["ctr_b"],
         })
     return levels
 

@@ -8,15 +8,17 @@ marked ``cuda`` and skip without one.  On a machine with a card:
 They import no JAX: the plain versions are held against the JAX package by
 the CPU tests, and here the kernels are held against the plain versions on
 the same inputs (window attention within 1e-4, both fp32 with sums in other
-orders; the codec pair and the quant pair bitwise; flash attention's backward
+orders, and on bf16 qkv within 1e-2 of each output row's max, one rounding
+of the output; the codec pair and the quant pair bitwise; flash attention's backward
 kernels (and their SASS: HMMAs in every bf16 dK/dV and dQ kernel, no
 atomic), and its log-sum-exp, which leaves its output bitwise; flash
 attention, with and
 without a sliding window or a logit soft-cap, and flash decode, with and
 without a cap, within 1e-5 of the output's max |x| in f32, sums in other
 orders, and 1e-2 in bf16, one rounding of the output; a window of w >= Skv
-and a cap of 0 bitwise the call without one), the frame loop on the card
-against the same loop on the CPU, and LM serving at the reduced size on the
+and a cap of 0 bitwise the call without one), the Swin-T slice in fp32 and
+in bf16 and the frame loop on the card against the same on the CPU, and
+LM serving at the reduced size on the
 card against the CPU path (xLSTM and Hymba too, past the ring's wrap;
 musicgen's frames and codebooks, InternVL's patches, soft-capped and not).  The MoE FFN and MLA run no kernel: one full-width
 layer of each on the card is held to the CPU path (routing equal).  The vectorized MAC has no kernel of its own: its
@@ -26,7 +28,7 @@ its lexsort to numpy's), with no host sync inside a step.  ``dense32`` and
 output have no derivative, which one case checks.
 """
 import argparse
-
+import dataclasses
 import json
 
 import numpy as np
@@ -196,6 +198,76 @@ def test_slice_on_the_card_matches_the_cpu_path(cuda):
             assert np.isfinite(a).all()
             scale = max(1.0, float(b.abs().max()))
             assert float(np.abs(a - b.numpy()).max()) <= 2e-3 * scale
+
+
+def test_bf16_slice_on_the_card_matches_the_cpu_path(cuda):
+    """The same slice on the bf16 Swin-T: bf16 payload leaves, f32
+    detections, every kernel launched, and the card within 5e-2 of each
+    map's max |x| of the CPU path (both round to bf16 after sums in other
+    orders, and a value rounded the other way moves all that follows; the
+    JAX package's bf16 model is held to the same bound on the CPU)."""
+    cfg = dataclasses.replace(reduced(), dtype="bfloat16")
+    g = torch.Generator().manual_seed(3)
+    params = SW.init(cfg, g, device="cpu")
+    for stage in params["stages"]:
+        for bp in stage["blocks"]:
+            bp["rel_bias"] = torch.randn(bp["rel_bias"].shape, generator=g)
+    imgs = torch.rand((3, 1, cfg.img_h, cfg.img_w, 3), generator=g)
+    outs = {}
+    ops.LAUNCHES.clear()
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(dev), params)
+        plan = SwinSplitPlan(cfg, p, device=dev)
+        codec = ActivationCodec(mode="int8_delta_zlib", device=dev)
+        opt = split_option(2)
+        heads = [codec.compress_head(plan.head_jitted(opt), p, img.to(dev))
+                 for img in imgs]
+        assert all(x.dtype == torch.bfloat16
+                   for _, tree in heads for x in tree_flatten(tree)[0])
+        outs[dev.type] = plan.tail_batched(
+            codec.decompress_group([c for c, _ in heads]), opt, pad_to=4)
+    assert ops.LAUNCHES["fused_window_attention"] == 3 * 2 + 3
+    assert ops.LAUNCHES["codec_encode"] == 3 and ops.LAUNCHES["codec_decode"] == 1
+    for a_tree, b_tree in zip(outs["cuda"], outs["cpu"]):
+        for a, b in zip(tree_flatten(a_tree)[0], tree_flatten(b_tree)[0]):
+            assert a.dtype == torch.float32
+            a = a.cpu().numpy()
+            assert np.isfinite(a).all()
+            scale = max(1.0, float(b.abs().max()))
+            assert float(np.abs(a - b.numpy()).max()) <= 5e-2 * scale
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "pad", "shifted"])
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("window", [4, 7, 9])
+def test_window_attention_bf16_tiles(cuda, window, hd, mask_kind):
+    """B1 on bf16 qkv: a bf16 output whose every row (one head's hd values
+    at one pixel) lies within 1e-2 of that row's max |x| of the plain
+    version (each side rounds its f32 result once), finite, and two
+    launches bitwise equal."""
+    g = torch.Generator().manual_seed(window * 100 + hd + 1)
+    nh, w2 = 2, window * window
+    Hp, Wp = 2 * window, 3 * window
+    qkv = torch.randn((2, Hp, Wp, 3 * nh * hd), generator=g).to(
+        device=cuda, dtype=torch.bfloat16)
+    bias = torch.randn((nh, w2, w2), generator=g).to(cuda)
+    shift, mask = 0, None
+    if mask_kind == "pad":
+        mask = SW.pad_region_mask(Hp, Wp, Hp - 1, Wp - 2, window)
+    elif mask_kind == "shifted":
+        shift = window // 2
+        mask = SW.shift_attn_mask(Hp, Wp, window, shift)
+    mask = None if mask is None else torch.as_tensor(mask, device=cuda)
+    kw = dict(window=window, shift=shift, n_heads=nh)
+    ref = wa.fused_window_attention_plain(qkv, bias, mask, **kw)
+    out = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+    again = wa.fused_window_attention_cuda(qkv, bias, mask, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    d = (out.double() - ref.double()).abs().unflatten(-1, (nh, hd)).amax(-1)
+    top = ref.double().abs().unflatten(-1, (nh, hd)).amax(-1).clamp_min(1e-30)
+    assert float((d / top).max()) <= 1e-2
+    assert torch.equal(out, again)
 
 
 def _int_bits(t: torch.Tensor) -> torch.Tensor:

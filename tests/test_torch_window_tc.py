@@ -14,7 +14,9 @@ The mirror documents the arithmetic; on the CPU it checks nothing of the
 kernel.  ``tests/test_torch_kernels.py`` holds it against the JAX package's
 Pallas kernels (and shows one TF32 product missing them); the ``cuda`` case
 here holds the kernels against it on the same inputs, so that a body that
-drifts from the mirror shows on the card.  This file imports no JAX.
+drifts from the mirror shows on the card.  A CPU case also checks B1's
+16-byte row pieces (the kernel's offset arithmetic) at every Swin-T stage
+width, in f32 and bf16.  This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -159,3 +161,29 @@ def test_b7_kernel_matches_the_mirror(cuda, w2, hd):
     out = twa.window_attention_cuda(
         *(torch.from_numpy(x).to(cuda) for x in (q, k, v, bias, mask)))
     assert _ulps_of_row_max(out.cpu().numpy(), exp) <= MIRROR_ULPS
+
+
+def _swin_stages():
+    from repro_torch.configs.swin_t_detection import CONFIG, reduced
+    return [(cfg.stage_dim(s), cfg.num_heads[s])
+            for cfg in (reduced(), CONFIG) for s in range(cfg.n_stages)]
+
+
+@pytest.mark.parametrize("C,nh", _swin_stages())
+def test_b1_row_pieces_are_16_byte_aligned(C, nh):
+    """B1 moves each head's slice of a pixel in 16-byte pieces (4 f32 or 8
+    bf16 values) with cp.async and 16-byte stores: at every Swin-T stage
+    width, reduced and full, each piece it gathers from qkv (B, Hp, Wp, 3C)
+    (q, k at +C, v at +2C) and each it stores into out (B, Hp, Wp, C) starts
+    at a multiple of 16 bytes, as the kernel computes the offsets."""
+    hd = C // nh
+    assert C % nh == 0 and hd in twa.SUPPORTED_HEAD_DIMS
+    for esize in (4, 2):
+        elems = 16 // esize
+        pieces = np.arange(hd // elems) * elems
+        for pix in (0, 1, 7, 12345):
+            for h in range(nh):
+                for part in (0, C, 2 * C):
+                    assert ((pix * 3 * C + part + h * hd + pieces) * esize
+                            % 16 == 0).all()
+                assert ((pix * C + h * hd + pieces) * esize % 16 == 0).all()
