@@ -274,13 +274,47 @@ when it fails:
     equal, B5's launches per step phase 17's, each step's host ms; (c)
     ``MultiCellVecMac(mesh=...)`` over phase 12 (b)'s city, bitwise its
     reports; (d) ``launch.dryrun`` over every (arch x shape) cell at full
-    size on the meta device, started before phase 13 in DRYRUN_JOBS
-    single-thread processes niced to 19 (so it takes cores the card's
-    phases leave idle), its wall time; every cell OK or SKIP by the JAX
-    dry-run's rule; smollm-360m's train step at 8 x 2048 and qwen3-1.7b's
-    prefill at 4 x 2048 estimated beside the peaks phases 17 (b) and 9
-    measured; B5's counted operations in that prefill equal to the bound's
-    formula.
+    size on the meta device, the train and prefill cells over the 16 x 16
+    production mesh (DRYRUN_MESH: each the mesh step on rank 0's view of a
+    stand-in group of 256 ranks, its collectives counted), the decode cells
+    at 1 x 1, started before phase 13 in DRYRUN_JOBS single-thread
+    processes niced to 19 (so it takes cores the card's phases leave
+    idle), its wall time; every cell OK or SKIP by the JAX dry-run's rule,
+    each cell's collective bytes, smollm-360m's and qwen3-1.7b's train_4k
+    per-device peak at 16 x 16; smollm-360m's train step at 8 x 2048 and
+    qwen3-1.7b's prefill at 4 x 2048 estimated at 1 x 1 beside the peaks
+    phases 17 (b) and 9 measured; B5's counted operations in that prefill
+    equal to the bound's formula.
+19. Tensor parallelism over a "model" axis (after 18): (a) B5 on head
+    shards at full width: each half of qwen3-1.7b's prefill heads (8 q
+    over 4 kv, bf16) bitwise the whole launch's columns; at smollm-360m's
+    train shape two q slices that share kv head 0, outputs and dQ bitwise
+    the whole launch's, dK/dV summed over the slices within BF16_TOL;
+    (b) two ranks spawned on the one card over gloo (NCCL refuses two ranks
+    on one device; both take card 0 as LOCAL_RANK 0), each first holding
+    every collective the mesh code issues on CUDA tensors in f32 and bf16,
+    then qwen3-1.7b's prefill at (data, model) = (1, 2), full width, batch
+    4, prompt 2048, bf16, through ``build_prefill(mesh=)``: the gathered
+    last-position logits within HANDOFF_BF16_TOL of max |logit| of the
+    (1, 1) prefill on the same weights and prompt, B5 once a layer on 8 q
+    over 4 kv heads, each rank's KV cache of 4 heads; (c) the same two
+    ranks, TP_STEPS train steps of smollm-360m at (1, 2), full width in
+    f32, phase 17's shape (its 15 heads do not split over two ranks, so
+    attention stays whole on each), against the mesh-free steps on the
+    same weights and batches: loss and gradient norm within TRAIN_CPU_TOL
+    relative, AdamW's moments within TRAIN_CPU_TOL of each leaf's max,
+    every parameter leaf within TRAIN_CPU_TOL of its max where the
+    one-process |g| is at least TP_FLAT_GRAD (the CPU tests' rule; there
+    within the first step's learning rate), B5's forward and backward
+    launches per step phase 17's; (d) the same two ranks, TP_STEPS train
+    steps of qwen3-1.7b in bf16 at full width cut to TP_BF16_LAYERS
+    layers, its heads split (8 q over 4 kv a rank): loss and gradient norm
+    within BF16_TOL relative of the mesh-free steps, the first step's
+    gradient (AdamW's first moment) within TP_BF16_TOL of each leaf's max,
+    the launches the mesh-free step's and B5's counted operations and
+    bytes, forward and backward, half of its; host ms of (b)-(d), which
+    are not TP speeds (gloo stages every collective through the host and
+    the two ranks share one card).
 
 Every profiler session starts after a synchronize and idles TRACE_PAD_S
 before and after its work: the profiler keeps only the device events whose
@@ -433,6 +467,21 @@ CITY_UES, CITY_CELLS, CITY_SLOTS = 4096, 8, 2
 # dry-run's worker processes
 MESH_STEPS = 3
 DRYRUN_JOBS = 4
+DRYRUN_MESH = (16, 16)             # the train and prefill cells' (data, model)
+# phase 19: tensor parallelism at (data, model) = (1, 2) on two gloo ranks
+# sharing the card: train steps; (c) the CPU tests' flat gradient, below
+# which AdamW's update of an element may turn with a rounding (100 x its
+# eps, tests/test_torch_tp_steps.py's FLAT_GRAD); (d) LM_ARCH in bf16 cut to
+# TP_BF16_LAYERS layers at TP_BF16_B x TRAIN_S tokens, each leaf of its
+# first gradient within TP_BF16_TOL of its max (bf16 keeps 8 bits: 5e-2 is
+# 13 roundings of the max, through two layers forward and back in two sum
+# orders) and the loss and gradient norm within BF16_TOL relative; the two
+# ranks' time limit
+TP_STEPS = 3
+TP_FLAT_GRAD = 1e-6
+TP_BF16_LAYERS, TP_BF16_B = 2, 4
+TP_BF16_TOL = 5e-2
+TP_TIMEOUT_S = 420
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
@@ -1858,11 +1907,28 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
         raise AssertionError(f"dry-run cells: {bad}")
     for r in records:
         if r["status"] == "OK":
-            log(f"dry-run {r['arch']} {r['shape']}: {r['flops']:.4e} flop "
+            log(f"dry-run {r['arch']} {r['shape']} {r['mesh']}: "
+                f"{r['flops']:.4e} flop a device "
                 f"(kernels {r['kernel_flops']:.4e}), arguments "
                 f"{r['memory']['argument_bytes'] / 2**30:.2f} GiB, peak "
                 f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB, fits the card "
-                f"{r['fits_card']}, {r['seconds']:.1f} s")
+                f"{r['fits_card']}, collectives "
+                f"{r['total_collective_bytes']:.4e} B ("
+                + ", ".join(f"{k} {r['collective_count'][k]} x, {v:.4e} B"
+                            for k, v in r["collective_bytes"].items() if v)
+                + f"), {r['seconds']:.1f} s")
+    mesh = "x".join(map(str, DRYRUN_MESH))
+    tp = [r for r in records[:-2] if r["kind"] != "decode"]
+    if not all(r["mesh"] == mesh for r in tp) or not all(
+            r["total_collective_bytes"] > 0 for r in tp if r["status"] == "OK"):
+        raise AssertionError(f"dry-run train and prefill cells not over "
+                             f"{mesh} with collectives")
+    for arch in (TRAIN_ARCH, LM_ARCH):
+        r = next(r for r in tp if r["arch"] == arch and r["kind"] == "train")
+        log(f"dry-run {arch} {r['shape']} over {mesh}: per-device peak "
+            f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{r['total_collective_bytes']:.4e} collective bytes a device "
+            f"a step (the JAX package's units)")
     n = collections.Counter(r["status"] for r in records)
     log(f"dry-run: {n['OK']} OK, {n['SKIP']} SKIP of {len(records)} cells at "
         f"full size on the meta device, {t_wall:.1f} s wall from its start "
@@ -1897,14 +1963,19 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
 
 def dryrun_start():
     """Phase 18 (d), started before phase 13: every dry-run cell at full
-    size, and phase 17's train step and phase 9's prefill, counted on the
-    meta device by DRYRUN_JOBS single-thread processes niced to 19, so that
-    they take cores the card's phases leave idle.  Returns (pool, futures,
-    start time)."""
-    from repro_torch.configs import ARCH_IDS
+    size, the train and prefill cells over DRYRUN_MESH (the production
+    16 x 16 layout, each on rank 0's view of a stand-in group of 256), the
+    decode cells on the card's 1 x 1 mesh (decode is not tensor-parallel
+    yet), and phase 17's train step and phase 9's prefill at 1 x 1, counted
+    on the meta device by DRYRUN_JOBS single-thread processes niced to 19,
+    so that they take cores the card's phases leave idle.  Returns (pool,
+    futures, start time)."""
+    from repro_torch.configs import ARCH_IDS, SHAPES_BY_NAME
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun as DR
-    todo = DR.cells(ARCH_IDS) + [
+    todo = [(a, n, {"mesh_shape": DRYRUN_MESH})
+            if SHAPES_BY_NAME[n].kind != "decode" else (a, n)
+            for a, n in DR.cells(ARCH_IDS)] + [
         (TRAIN_ARCH, InputShape("train", TRAIN_S, TRAIN_B, "train"),
          {"grad_accum": TRAIN_ACCUM}),
         (LM_ARCH, InputShape("prefill", LM_PROMPT, LM_BATCH, "prefill"))]
@@ -1934,6 +2005,566 @@ def phase18(dev, per_step: dict, city: dict, peaks: dict, dry) -> None:
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items())
         + "; (d) the wait for the dry-run after (c))")
+
+
+def tp_shard_checks(dev) -> dict:
+    """Phase 19 (a): B5 on head shards at full width, as the tensor-parallel
+    layers call it.  At LM_ARCH's prefill shape (16 q heads over 8 kv heads,
+    bf16) each half of the heads (8 q over 4 kv) is bitwise the matching
+    columns of the whole launch.  At TRAIN_ARCH's train shape (15 over 5,
+    bf16) two q slices that share kv head 0 (q heads 0 and 1-2, as ranks
+    that split a kv group read it): each slice's output bitwise the whole
+    launch's columns, its backward's dQ bitwise the whole backward's, and
+    dK and dV of the shared head, summed over the slices, within BF16_TOL
+    of each (batch row, head) slice's max of the whole backward's (each
+    slice rounds its own sum to bf16).  Returns the largest relative error
+    of the summed dK/dV."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(SEED)
+    bf16 = torch.bfloat16
+    q = torch.randn((LM_BATCH, LM_PROMPT, 16, 128), generator=g).to(dev, bf16)
+    k, v = (torch.randn((LM_BATCH, LM_PROMPT, 8, 128), generator=g).to(
+        dev, bf16) for _ in range(2))
+    whole = fa.flash_attention_cuda(q, k, v, True)
+    for h in range(2):
+        part = fa.flash_attention_cuda(
+            q[:, :, 8 * h:8 * h + 8].contiguous(),
+            k[:, :, 4 * h:4 * h + 4].contiguous(),
+            v[:, :, 4 * h:4 * h + 4].contiguous(), True)
+        if not torch.equal(part, whole[:, :, 8 * h:8 * h + 8]):
+            raise AssertionError(f"B5 on heads {8 * h}-{8 * h + 7} of "
+                                 f"{LM_ARCH}'s prefill differs from the "
+                                 "whole launch's columns")
+    log(f"check B5 on head shards, q {tuple(q.shape)} kv {tuple(k.shape)} "
+        f"bf16: each half (8 q over 4 kv heads) bitwise the whole launch's "
+        f"columns")
+    del q, k, v, whole
+    q, dout = (torch.randn((TRAIN_B, TRAIN_S, 15, 64), generator=g).to(
+        dev, bf16) for _ in range(2))
+    k, v = (torch.randn((TRAIN_B, TRAIN_S, 5, 64), generator=g).to(dev, bf16)
+            for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, True)
+    dk_sum = torch.zeros_like(dk[:, :, :1], dtype=torch.float32)
+    dv_sum = torch.zeros_like(dk_sum)
+    k0, v0 = k[:, :, :1].contiguous(), v[:, :, :1].contiguous()
+    for lo, hi in ((0, 1), (1, 3)):
+        qs, ds = q[:, :, lo:hi].contiguous(), dout[:, :, lo:hi].contiguous()
+        o_s, l_s = fa.flash_attention_cuda(qs, k0, v0, True, with_lse=True)
+        dq_s, dk_s, dv_s = fa.flash_attention_bwd_cuda(qs, k0, v0, o_s, l_s,
+                                                       ds, True)
+        if not (torch.equal(o_s, out[:, :, lo:hi])
+                and torch.equal(dq_s, dq[:, :, lo:hi])):
+            raise AssertionError(f"B5 on q heads {lo}-{hi - 1} over kv head "
+                                 "0: output or dQ differs from the whole "
+                                 "launch's columns")
+        dk_sum += dk_s.float()
+        dv_sum += dv_s.float()
+
+    def slice_err(a, ref):
+        d = (a.double() - ref.double()).abs().amax(dim=(1, 3))
+        return float((d / ref.double().abs().amax(dim=(1, 3)).clamp_min(
+            1e-30)).max())
+    errs = (slice_err(dk_sum, dk[:, :, :1]), slice_err(dv_sum, dv[:, :, :1]))
+    if not max(errs) <= BF16_TOL:
+        raise AssertionError(f"B5 backward on q slices sharing kv head 0: "
+                             f"summed dK/dV off by {errs} (tol {BF16_TOL})")
+    log(f"check B5 forward and backward on q slices that share a kv head, "
+        f"q {tuple(q.shape)} kv {tuple(k.shape)} bf16, q heads 0 and 1-2 "
+        f"over kv head 0: outputs and dQ bitwise the whole launch's columns; "
+        f"dK, dV summed over the slices within {errs[0]:.3g} / {errs[1]:.3g} "
+        f"of each (batch row, head) slice's max of the whole backward's (tol "
+        f"{BF16_TOL})")
+    return max(errs)
+
+
+def tp_rank(rank: int, world: int, tmp: str, port: int, tokens):
+    """A rank of phase 19 (b)-(d), spawned: joins a gloo group of ``world``
+    ranks as ``torchrun`` would start it (``env://`` on localhost:``port``),
+    every rank on card 0 (``LOCAL_RANK`` 0: NCCL refuses two ranks on one
+    device, gloo takes them), probes the collectives the mesh code issues
+    on CUDA tensors, runs LM_ARCH's prefill, TRAIN_ARCH's f32 train steps
+    and LM_ARCH's bf16 train steps at cut depth over a (1, world) mesh, and
+    saves what the parent checks to ``tmp``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import ensure_process_group
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0")
+    ensure_process_group("cuda", backend="gloo")
+    try:
+        out = {"probe": tp_probe(world), "prefill": tp_prefill(tokens)}
+        out["train"] = tp_train(rank)
+        out["train_bf16"] = tp_train_bf16(rank)
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_probe(world: int) -> dict:
+    """Each collective ``launch/collectives.py`` issues, once on a CUDA
+    tensor of each model dtype over the gloo group: "ok" where the values
+    came back right, else the error."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as C
+    got = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.full((4, 3), float(dist.get_rank() + 1), dtype=dt,
+                       device="cuda")
+        for what, fn, want in (
+                ("all_reduce sum", lambda: C.all_reduce(x.clone(),
+                                                        dist.group.WORLD),
+                 world * (world + 1) / 2),
+                ("all_reduce max", lambda: C.all_reduce(
+                    x.clone(), dist.group.WORLD, "max"), float(world)),
+                ("all_gather", lambda: C.all_gather(
+                    x, dist.group.WORLD)[::4], None)):
+            try:
+                y = fn().float().cpu()
+                ok = (torch.equal(y, torch.full_like(y, want)) if want
+                      else torch.equal(y[:, 0], torch.arange(
+                          1.0, world + 1)))
+                got[f"{what} {dt}"] = "ok" if ok else f"wrong values {y}"
+            except Exception as e:      # the probe's finding, logged
+                got[f"{what} {dt}"] = f"{type(e).__name__}: {e}"[:200]
+    return got
+
+
+def tp_prefill(tokens) -> dict:
+    """Phase 19 (b) on a rank: LM_ARCH at full width in bf16, weights from
+    SEED on the card, through ``build_prefill(mesh=)`` over (1, 2): the
+    gathered last-position logits, B5's launches and the host ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.models.registry import get_model
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(model_parallel=2, device=dev)
+    cfg = get_config(LM_ARCH)
+    pre = build_prefill(cfg, InputShape("p", LM_PROMPT, LM_BATCH, "prefill"),
+                        mesh=mesh)
+    placed = pre.place(get_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    torch.cuda.empty_cache()
+    batch = {"tokens": tokens.to(dev)}
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            ops.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = pre(placed, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"logits": logits.float().cpu(), "launches": dict(ops.LAUNCHES),
+            "ms": ms, "kv": tuple(caches[0]["attn"]["k"].shape),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def tp_cfg():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).replace(dtype="float32")
+
+
+def tp_bf16_cfg():
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH).replace(n_layers=TP_BF16_LAYERS)
+
+
+def tp_opt():
+    from repro_torch.optim.adamw import AdamW
+    return AdamW(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+
+
+def tp_train(rank: int) -> dict:
+    """Phase 19 (c) on a rank: TP_STEPS train steps of TRAIN_ARCH at full
+    width in f32 (phase 17's shape and micro-batches) through
+    ``build_train_step(mesh=)`` over (1, 2), weights from SEED; then rank
+    0 runs the mesh-free steps on the same weights and batches and holds
+    the gathered parameters and AdamW moments to them
+    (``tp_train_compare``)."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import gather
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model
+    dev = torch.device("cuda", 0)
+    cfg, opt = tp_cfg(), tp_opt()
+    mesh = make_host_mesh(model_parallel=2, device=dev)
+    step = build_train_step(cfg, InputShape("t", TRAIN_S, TRAIN_B, "train"),
+                            mesh=mesh, opt=opt, grad_accum=TRAIN_ACCUM)
+    p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    placed, st = step.place(p, opt.init(p))
+    del p
+    torch.cuda.empty_cache()
+    stream = TokenStream(cfg, seq_len=TRAIN_S, batch=TRAIN_B, seed=SEED)
+    metrics, ms, launches = [], [], []
+    for _ in range(TP_STEPS):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+        ops.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed, st, m = step(placed, st, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(ops.LAUNCHES))
+        metrics.append({k: float(v) for k, v in m.items()})
+    full = gather(placed)
+    moments = gather({"m": st.m, "v": st.v})
+    del placed, st
+    torch.cuda.empty_cache()
+    out = {"metrics": metrics, "ms": ms, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        out["compare"] = tp_train_compare(full, moments, metrics)
+    return out
+
+
+def tp_train_compare(tp_params, tp_moments, tp_metrics) -> dict:
+    """The mesh-free steps (``_loss_and_grads`` then ``opt.update``, what
+    ``build_train_step`` without a mesh runs) on the same weights and
+    batches, held as the CPU tests hold the mesh step
+    (``tests/test_torch_tp_steps.py``) but within TRAIN_CPU_TOL: each
+    step's loss and gradient norm relative; AdamW's moments after the last
+    step, every leaf within TRAIN_CPU_TOL of its max (m and v are sums of
+    the steps' gradients and their squares, so this holds every element's
+    gradient); every parameter leaf within TRAIN_CPU_TOL of its max where
+    the one-process gradient was at least TP_FLAT_GRAD at every step, and
+    elsewhere (flat: AdamW's update of such an element may turn with a
+    rounding of its gradient, by up to 2 lr a step, which the CPU tests
+    allow) within the first step's learning rate, so that no flat
+    element's update turned."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_leaves, tree_paths
+    dev = torch.device("cuda", 0)
+    cfg, opt = tp_cfg(), tp_opt()
+    p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    st = opt.init(p)
+    stream = TokenStream(cfg, seq_len=TRAIN_S, batch=TRAIN_B, seed=SEED)
+    flat, lrs, errs = None, [], {"loss": 0.0, "grad_norm": 0.0}
+    for i in range(TP_STEPS):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+        loss, grads = _loss_and_grads(cfg, p, b, TRAIN_ACCUM)
+        f = [g.abs() < TP_FLAT_GRAD for g in tree_leaves(grads)]
+        flat = f if flat is None else [a | c for a, c in zip(flat, f)]
+        del f
+        p, st, m = opt.update(grads, st, p)
+        del grads
+        lrs.append(float(m["lr"]))
+        for k, want in (("loss", float(loss)),
+                        ("grad_norm", float(m["grad_norm"]))):
+            errs[k] = max(errs[k], abs(tp_metrics[i][k] - want) / abs(want))
+    worst = {"leaf": 0.0, "flat": 0.0, "m": 0.0, "v": 0.0, "path": ""}
+    bad, n_flat, n = [], 0, 0
+    for path, a, c, fl in zip(tree_paths(p), tree_leaves(p),
+                              tree_leaves(tp_params), flat):
+        d = (a - c).abs()
+        e = (float(d[~fl].max()) / float(a.abs().max())
+             if bool((~fl).any()) else 0.0)
+        ef = float(d[fl].max()) if bool(fl.any()) else 0.0
+        if e > worst["leaf"]:
+            worst["leaf"], worst["path"] = e, path
+        worst["flat"] = max(worst["flat"], ef)
+        n_flat += int(fl.sum())
+        n += d.numel()
+        if not (e <= TRAIN_CPU_TOL and ef <= lrs[0]):
+            bad.append((path, e, ef))
+    for k in ("m", "v"):
+        mine = getattr(st, k)
+        for path, a, c in zip(tree_paths(mine), tree_leaves(mine),
+                              tree_leaves(tp_moments[k])):
+            e = float((a - c).abs().max()) / max(float(a.abs().max()), 1e-30)
+            worst[k] = max(worst[k], e)
+            if not e <= TRAIN_CPU_TOL:
+                bad.append((k + path, e))
+    return {"errs": errs, "worst": worst, "flat_share": n_flat / n,
+            "lr1": lrs[0], "bad": bad[:8]}
+
+
+def tp_bf16_steps(step, params, st, first_m) -> dict:
+    """TP_STEPS steps of ``step`` from (``params``, ``st``) on
+    TokenStream's batches for ``tp_bf16_cfg``: each step's metrics, host
+    ms, launches and B5's counted operations and bytes (forward and
+    backward), and ``first_m(st)`` after the first step."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    stream = TokenStream(tp_bf16_cfg(), seq_len=TRAIN_S, batch=TP_BF16_B,
+                         seed=SEED)
+    out = {"metrics": [], "ms": [], "launches": [], "costs": []}
+    for i in range(TP_STEPS):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+        ops.LAUNCHES.clear()
+        ops.COSTS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, m = step(params, st, b)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(dict(ops.LAUNCHES))
+        out["costs"].append({k: ops.COSTS[k] for k in ops.COSTS
+                             if k[0].startswith("flash_attention")})
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out["m"] = first_m(st)
+    return out
+
+
+def tp_train_bf16(rank: int) -> dict:
+    """Phase 19 (d) on a rank: TP_STEPS train steps of LM_ARCH in bf16 (its
+    config's dtype) at full width cut to TP_BF16_LAYERS layers, TP_BF16_B x
+    TRAIN_S tokens in TRAIN_ACCUM micro-batches, through
+    ``build_train_step(mesh=)`` over (1, 2), weights from SEED: its 16 q
+    heads over 8 kv heads split, 8 over 4 a rank.  AdamW's first moment
+    after the first step is (1 - b1) times the clipped gradient, gathered
+    whole.  Rank 0 then runs the mesh-free steps on the same weights and
+    batches (``tp_bf16_compare``)."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import gather
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model
+    dev = torch.device("cuda", 0)
+    cfg, opt = tp_bf16_cfg(), tp_opt()
+    shape = InputShape("t", TRAIN_S, TP_BF16_B, "train")
+    step = build_train_step(cfg, shape, opt=opt, grad_accum=TRAIN_ACCUM,
+                            mesh=make_host_mesh(model_parallel=2, device=dev))
+    p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    placed, st = step.place(p, opt.init(p))
+    del p
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = tp_bf16_steps(step, placed, st, lambda s: gather(s.m))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del placed, st
+    if rank == 0:
+        out["compare"] = tp_bf16_compare(out)
+    del out["m"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_bf16_compare(tp: dict) -> dict:
+    """The mesh-free bf16 steps (``build_train_step`` without a mesh) on
+    ``tp_train_bf16``'s weights and batches: each step's loss and gradient
+    norm against the TP step's, relative; the first step's first moment,
+    each leaf's largest difference over its max; the launches and B5's
+    counted operations and bytes of each step."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_leaves, tree_paths
+    dev = torch.device("cuda", 0)
+    cfg, opt = tp_bf16_cfg(), tp_opt()
+    step = build_train_step(cfg, InputShape("t", TRAIN_S, TP_BF16_B, "train"),
+                            opt=opt, grad_accum=TRAIN_ACCUM)
+    p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    one = tp_bf16_steps(step, p, opt.init(p), lambda s: s.m)
+    errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                   zip(tp["metrics"], one["metrics"]))
+            for k in ("loss", "grad_norm")}
+    grad = {path: float((a - c).abs().max()) / max(float(c.abs().max()),
+                                                   1e-30)
+            for path, a, c in zip(tree_paths(one["m"]), tree_leaves(tp["m"]),
+                                  tree_leaves(one["m"]))}
+    return {"errs": errs, "grad": grad, "metrics": one["metrics"],
+            "launches": one["launches"], "costs": one["costs"],
+            "ms": one["ms"]}
+
+
+def tp_two_ranks(dev, tokens) -> dict:
+    """Phase 19 (b)-(d): two ranks spawned on the one card over gloo
+    (NCCL refuses two ranks on one device; ``ensure_process_group``'s
+    ``backend``), each running ``tp_rank``;
+    their saved results, rank 0 first.  Fails, and ends the ranks, after
+    TP_TIMEOUT_S."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    (ROOT / "build").mkdir(exist_ok=True)
+    with socket.socket() as sock:          # a free port on this machine
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = mp.spawn(tp_rank, args=(2, tmp, port, tokens.cpu()), nprocs=2,
+                       join=False)
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"phase 19 ranks did not finish in "
+                                   f"{TP_TIMEOUT_S} s")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(2)]
+
+
+def phase19(dev, rows: dict) -> None:
+    """Tensor parallelism over a "model" axis (module docstring, phase
+    19): (a) B5 on head shards; (b) LM_ARCH's prefill, (c) TRAIN_ARCH's f32
+    train steps and (d) LM_ARCH's bf16 train steps at cut depth, at (1, 2)
+    on two gloo ranks sharing the card, against the one-process runs; B5's
+    launches on the TP path into ``rows``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    t_phase = time.perf_counter()
+    secs = {}
+    t0 = time.perf_counter()
+    tp_shard_checks(dev)
+    secs["a"] = time.perf_counter() - t0
+    # (b)'s reference: the (1, 1) prefill of phase 9's shape on the same
+    # weights and prompt
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        params = get_model(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        want, _ = T.prefill(cfg, params, {"tokens": tokens}, LM_PROMPT)
+        want = want.float().cpu()
+    del params
+    torch.cuda.empty_cache()
+    ranks = tp_two_ranks(dev, tokens)
+    secs["b-d"] = time.perf_counter() - t0
+    for k, v in ranks[0]["probe"].items():
+        log(f"gloo on CUDA tensors, two ranks on one card: {k}: {v}")
+    if any(v != "ok" for r in ranks for v in r["probe"].values()):
+        raise AssertionError("a collective of the mesh code failed on CUDA "
+                             "tensors over gloo")
+    # (b)
+    top = float(want.abs().max())
+    for r, got in enumerate(ranks):
+        pre = got["prefill"]
+        rel = float((pre["logits"] - want).abs().max()) / top
+        n_b5 = pre["launches"].get("flash_attention", 0)
+        if not (rel <= HANDOFF_BF16_TOL and n_b5 == cfg.n_layers
+                and pre["kv"][2] == cfg.n_kv_heads // 2):
+            raise AssertionError(f"TP prefill rank {r}: logits off by {rel} "
+                                 f"of max |logit| (tol {HANDOFF_BF16_TOL}), "
+                                 f"launches {pre['launches']}, KV cache "
+                                 f"{pre['kv']}")
+        log(f"TP prefill {LM_ARCH} full width bf16, batch {LM_BATCH}, prompt "
+            f"{LM_PROMPT}, (data, model) = (1, 2), rank {r} of two gloo ranks "
+            f"on one card: gathered last-position logits within {rel:.3g} of "
+            f"max |logit| {top:.4g} of the (1, 1) prefill (tol "
+            f"{HANDOFF_BF16_TOL}); B5 launches {n_b5} (one a layer, "
+            f"{cfg.n_heads // 2} q over {cfg.n_kv_heads // 2} kv heads), KV "
+            f"cache {pre['kv']}; host ms {', '.join(f'{t:.1f}' for t in pre['ms'])}"
+            f" (gloo stages every collective through the host: not a TP "
+            f"speed); peak {pre['peak_gib']:.2f} GiB")
+    rows["flash_attention"]["tp_prefill_launches"] = \
+        ranks[0]["prefill"]["launches"].get("flash_attention", 0)
+    # (c)
+    tr = [r["train"] for r in ranks]
+    cmp_ = tr[0]["compare"]
+    for i in range(TP_STEPS):
+        if tr[0]["metrics"][i] != tr[1]["metrics"][i]:
+            raise AssertionError(f"TP step {i}: the ranks' metrics differ")
+    per_step = tr[0]["launches"][-1]
+    want_launch = {"flash_attention": 2 * 2 * get_config(TRAIN_ARCH).n_layers,
+                   **{k: 2 * get_config(TRAIN_ARCH).n_layers
+                      for k in ("flash_attention_bwd_delta",
+                                "flash_attention_bwd_dkdv",
+                                "flash_attention_bwd_dq")}}
+    if not (max(cmp_["errs"].values()) <= TRAIN_CPU_TOL and not cmp_["bad"]
+            and all(lc == want_launch for lc in tr[0]["launches"])):
+        raise AssertionError(f"TP train steps against the (1, 1) steps: "
+                             f"{cmp_}, launches {tr[0]['launches']}")
+    w = cmp_["worst"]
+    log(f"TP train {TRAIN_ARCH} full width in f32, {TRAIN_B} x {TRAIN_S} in "
+        f"{TRAIN_ACCUM} micro-batches, {TP_STEPS} steps at (1, 2) on two gloo "
+        f"ranks on one card, against the mesh-free steps on the same weights "
+        f"and batches: loss and gradient norm within "
+        f"{cmp_['errs']['loss']:.3g} / {cmp_['errs']['grad_norm']:.3g} "
+        f"relative (tol {TRAIN_CPU_TOL}); AdamW's m and v within "
+        f"{w['m']:.3g} / {w['v']:.3g} of each leaf's max (tol "
+        f"{TRAIN_CPU_TOL}); every parameter leaf within {w['leaf']:.3g} of its "
+        f"max ({w['path']}; tol {TRAIN_CPU_TOL}) where the one-process |g| "
+        f"was at least "
+        f"{TP_FLAT_GRAD} at every step; below it at some step "
+        f"({100 * cmp_['flat_share']:.3f} % of the elements) within "
+        f"{w['flat']:.3g} (tol the first step's learning rate "
+        f"{cmp_['lr1']:.4g}); losses "
+        f"{', '.join(f'{m['loss']:.6f}' for m in tr[0]['metrics'])}; launches "
+        f"a step {per_step}; step ms rank 0 "
+        f"{', '.join(f'{t:.1f}' for t in tr[0]['ms'])}, rank 1 "
+        f"{', '.join(f'{t:.1f}' for t in tr[1]['ms'])} (gloo through the host"
+        f", two ranks sharing one card: not a TP speed); peak "
+        f"{tr[0]['peak_gib']:.2f} GiB")
+    rows["flash_attention"]["tp_train_f32_launches"] = \
+        per_step["flash_attention"]
+    rows["flash_attention_bwd"]["tp_train_f32_launches"] = \
+        per_step["flash_attention_bwd_dkdv"]
+    # (d): the heads split, in bf16
+    tb = [r["train_bf16"] for r in ranks]
+    cmp_ = tb[0]["compare"]
+    bcfg = tp_bf16_cfg()
+    worst_path = max(cmp_["grad"], key=cmp_["grad"].get)
+    half = all({k: 2 * v for k, v in c.items()} == o for c, o in
+               zip(tb[0]["costs"], cmp_["costs"]))
+    if not (all(tb[0]["metrics"][i] == tb[1]["metrics"][i]
+                for i in range(TP_STEPS))
+            and max(cmp_["errs"].values()) <= BF16_TOL
+            and cmp_["grad"][worst_path] <= TP_BF16_TOL
+            and tb[0]["launches"] == cmp_["launches"]
+            and all(lc.get("flash_attention", 0) > 0
+                    and lc.get("flash_attention_bwd_dkdv", 0) > 0
+                    for lc in tb[0]["launches"]) and half):
+        raise AssertionError(f"bf16 TP train steps against the (1, 1) steps: "
+                             f"errs {cmp_['errs']}, worst gradient leaf "
+                             f"{worst_path} {cmp_['grad'][worst_path]}, "
+                             f"launches {tb[0]['launches']} vs "
+                             f"{cmp_['launches']}, B5 costs {tb[0]['costs']} "
+                             f"vs {cmp_['costs']}")
+    per_step = tb[0]["launches"][-1]
+    log(f"TP train {LM_ARCH} full width in bf16 cut to {bcfg.n_layers} "
+        f"layers, {TP_BF16_B} x {TRAIN_S} in {TRAIN_ACCUM} micro-batches, "
+        f"{TP_STEPS} steps at (1, 2) on two gloo ranks on one card, against "
+        f"the mesh-free steps on the same weights and batches: loss and "
+        f"gradient norm within {cmp_['errs']['loss']:.3g} / "
+        f"{cmp_['errs']['grad_norm']:.3g} relative (tol {BF16_TOL}); the "
+        f"first step's gradient (AdamW's m) within "
+        f"{cmp_['grad'][worst_path]:.3g} of its leaf's max at worst "
+        f"({worst_path}; tol {TP_BF16_TOL}); losses "
+        f"{', '.join(f'{m['loss']:.6f}' for m in tb[0]['metrics'])} (mesh-"
+        f"free {', '.join(f'{m['loss']:.6f}' for m in cmp_['metrics'])}); "
+        f"launches a step {per_step}, the mesh-free step's too; B5's counted "
+        f"operations and bytes, forward and backward, half the mesh-free "
+        f"step's ({bcfg.n_heads // 2} q over {bcfg.n_kv_heads // 2} kv heads "
+        f"a rank); step ms rank 0 "
+        f"{', '.join(f'{t:.1f}' for t in tb[0]['ms'])}, rank 1 "
+        f"{', '.join(f'{t:.1f}' for t in tb[1]['ms'])} (not a TP speed), "
+        f"mesh-free {', '.join(f'{t:.1f}' for t in cmp_['ms'])}; peak "
+        f"{tb[0]['peak_gib']:.2f} GiB")
+    rows["flash_attention"]["tp_train_launches"] = per_step["flash_attention"]
+    rows["flash_attention_bwd"]["tp_train_launches"] = \
+        per_step["flash_attention_bwd_dkdv"]
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
+    ops.LAUNCHES.clear()
 
 
 def lm_against_cpu(cut, dev, S: int = 256, B: int = 2) -> None:
@@ -3797,6 +4428,9 @@ def main() -> int:
                    "serve": lm_peak_gib}, dry)
     del city
 
+    # -- 19. tensor parallelism over a model axis of two ranks --------------
+    phase19(dev, rows)
+
     # -- 16. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():
         for what, fn in swin_traces:
@@ -3868,7 +4502,7 @@ def main() -> int:
                         **{k: v for k, v in r.items()
                            if k.startswith(("window_", "global_", "capped_",
                                             "internvl_", "musicgen_", "train_",
-                                            "launches_by_", "bf16_"))}})
+                                            "launches_by_", "bf16_", "tp_"))}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -112,9 +112,11 @@ class MultiCellVecMac:
         """``_serve_cells`` on this rank's cells with the whole deployment's
         tape lanes, PF width and stopping chunk, then every rank's results
         gathered in cell order."""
-        import torch.distributed as dist
         from functools import partial
 
+        import torch.distributed as dist
+
+        from repro_torch.launch.collectives import all_gather_object
         from repro_torch.launch.mesh import all_ranks
         mine = list(self._mine)
         ue_max = max((int(np.max(b["ue"])) for b in batches if len(b["ue"])),
@@ -127,8 +129,7 @@ class MultiCellVecMac:
             self._rr_ptr[mine], [self._pf_avg[c] for c in mine], width,
             n_lanes=self.n_cells * width, pf_width=pf_width,
             all_stopped=partial(all_ranks, self.mesh))
-        parts = [None] * dist.get_world_size()
-        dist.all_gather_object(parts, (mine, got))
+        parts = all_gather_object((mine, got), dist.group.WORLD)
         rr = self._rr_ptr.copy()
         pfa, outs = list(self._pf_avg), [None] * self.n_cells
         for cells, (r_part, p_part, o_part) in parts:

@@ -1,0 +1,206 @@
+"""Every collective of the port's mesh code, over an explicit group, and
+the tensor-parallel operators the models call on the ``model`` axis.
+
+Plain collectives (``all_reduce``, ``all_gather``) take a process group or
+None; None, and a group of one rank, mean no collective at all (nothing is
+issued, so nothing is counted).  They go through ``torch.distributed``'s
+c10d operations, which ``launch/cost.py`` counts at dispatch, on the meta
+device too (the dry-run's stand-in process group).
+
+Tensor parallelism (Megatron-LM's scheme) keeps the residual stream whole
+and equal on every rank of the ``model`` group.  A layer whose weights the
+rules split over ``model`` runs on the rank's shard between two conjugate
+operators:
+
+* ``copy_to_model`` (Megatron's f): identity forward, an all-reduce of the
+  gradient backward.  It goes in front of every column-parallel input, and
+  on every replicated weight or activation that the rank then uses for its
+  own shard only, so that the partial gradients of the ranks are summed.
+* ``reduce_from_model`` (g): an all-reduce forward, identity backward.  It
+  goes after every row-parallel output, where the layer's result enters
+  the whole residual stream again.
+
+Inside a layer a value that is made whole and then used for the rank's
+shard again takes both (``reduce_mid``: an all-reduce each way), and an
+activation cut in the packed layout of a weight is gathered whole
+(``gather_from_model``, backward the rank's own chunk; ``gather_mid`` sums
+the gradients first).  ``model_parallel`` sets the group the models see;
+outside it, or on a group of one rank, every operator is the identity.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (or its maximum or minimum taken, ``op="max"`` or
+    ``"min"``) over the ranks of ``group``, in place; ``x`` itself."""
+    if group_size(group) > 1:
+        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX,
+                               "min": dist.ReduceOp.MIN}[op], group=group)
+    return x
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` of ``group``, concatenated along ``dim`` in rank
+    order (``x`` itself on a group of one rank)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_gather_object(obj, group) -> list:
+    """Every rank's picklable ``obj`` of ``group``, in rank order."""
+    n = group_size(group)
+    if n == 1:
+        return [obj]
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the model group the layers see
+# ---------------------------------------------------------------------------
+
+_MODEL: Optional[tuple] = None        # (group, rank in it, its size)
+_BATCH = None                         # the batch group, over one rank
+
+
+@contextlib.contextmanager
+def model_parallel(group, batch_group=None):
+    """While open, the models split their layers over ``group`` (the
+    mesh's ``model`` axis; None or one rank: no split), and statistics of
+    the whole batch (the MoE load-balance term) are summed over
+    ``batch_group`` (the ranks that hold the other rows)."""
+    global _MODEL, _BATCH
+    outer = _MODEL, _BATCH
+    n = group_size(group)
+    _MODEL = (group, dist.get_rank(group), n) if n > 1 else None
+    _BATCH = batch_group if group_size(batch_group) > 1 else None
+    try:
+        yield
+    finally:
+        _MODEL, _BATCH = outer
+
+
+def model_size() -> int:
+    return 1 if _MODEL is None else _MODEL[2]
+
+
+def model_rank() -> int:
+    return 0 if _MODEL is None else _MODEL[1]
+
+
+def split(local: int, full: int) -> bool:
+    """Whether a dim of ``full`` that a leaf holds ``local`` of is split
+    over the model group (the rules leave a dim whole where the group's
+    size does not divide it)."""
+    return _MODEL is not None and local != full
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """f: identity forward, the gradient summed over the model group."""
+    return x if _MODEL is None else _Copy.apply(x, _MODEL[0])
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """g: ``x`` summed over the model group, the gradient passed as it is
+    (the value goes on whole, so each rank's gradient is the whole one)."""
+    return x if _MODEL is None else _Reduce.apply(x, _MODEL[0])
+
+
+def reduce_mid(x: torch.Tensor) -> torch.Tensor:
+    """g then f: the sum over the model group of a value that the rank
+    then uses for its own shard again, so its gradient is summed too."""
+    return copy_to_model(reduce_from_model(x))
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Every rank's shard of ``x`` along ``dim``, whole; the gradient is
+    the whole one on every rank, and each takes its own chunk."""
+    if _MODEL is None:
+        return x
+    return _Gather.apply(x, _MODEL[0], dim % x.dim())
+
+
+def gather_mid(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``gather_from_model`` for a value that the rank then uses for its
+    own shard only: the ranks' gradients are summed before the chunk."""
+    return copy_to_model(gather_from_model(x, dim))
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def batch_ranks() -> int:
+    """The ranks that hold the batch's rows (1 outside a batch group)."""
+    return group_size(_BATCH)
+
+
+def sum_over_batch(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the batch group, and its gradient too: the
+    statistic enters every rank's loss whole, and the step averages the
+    ranks' gradients, so each rank's share is the sum of theirs."""
+    return x if _BATCH is None else _SumBoth.apply(x, _BATCH)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum over the model group (no gradient)."""
+    if _MODEL is None:
+        return x
+    return all_reduce(x.detach().contiguous().clone(), _MODEL[0], "max")

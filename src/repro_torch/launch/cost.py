@@ -18,6 +18,14 @@ meta device (shapes and dtypes, no storage, nothing computed):
   (the meta device keeps their sizes), so its peak is the most bytes live
   at once, the step's arguments included; the caching allocator's rounding
   and the kernels' scratch are not in it.
+* The collectives a step makes are counted where they dispatch, the
+  in-place ``c10d`` operations (``launch/collectives.py``) and the
+  functional ``_c10d_functional`` ones (DTensor's) alike, per kind in the
+  units of the JAX package's ``hlo_cost.py``: an all-reduce twice its
+  bytes (a ring goes both ways), an all-gather its output's bytes, a
+  reduce-scatter its input's, an all-to-all its bytes.  On the meta device
+  they run on a stand-in process group (the dry-run's), which moves
+  nothing.
 
 Python loops (a recurrent layer's time loop, grad_accum's micro-batches)
 and remat's recompute in the backward are counted as they run, which is
@@ -36,6 +44,59 @@ from repro_torch.kernels._build import COSTS
 from repro_torch.tree import tree_leaves
 
 MATMUL_OPS = ("mm", "bmm", "addmm", "baddbmm")
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# (kind, which bytes count, and how many times) of each collective op
+_COLLECTIVE_OPS = {
+    "allreduce_": ("all-reduce", "in", 2),
+    "allreduce_coalesced_": ("all-reduce", "in", 2),
+    "all_reduce": ("all-reduce", "in", 2),
+    "all_reduce_": ("all-reduce", "in", 2),
+    "all_reduce_coalesced": ("all-reduce", "in", 2),
+    "allgather_": ("all-gather", "out", 1),
+    "_allgather_base_": ("all-gather", "out", 1),
+    "allgather_into_tensor_coalesced_": ("all-gather", "out", 1),
+    "all_gather_into_tensor": ("all-gather", "out", 1),
+    "all_gather_into_tensor_coalesced": ("all-gather", "out", 1),
+    "reduce_scatter_": ("reduce-scatter", "in", 1),
+    "_reduce_scatter_base_": ("reduce-scatter", "in", 1),
+    "reduce_scatter_tensor": ("reduce-scatter", "in", 1),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", "in", 1),
+    "alltoall_": ("all-to-all", "in", 1),
+    "alltoall_base_": ("all-to-all", "in", 1),
+    "all_to_all_single": ("all-to-all", "in", 1),
+}
+
+
+def _tensor_bytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_tensor_bytes(a) for a in x)
+    return 0
+
+
+def collective_cost(func, args, out):
+    """(kind, bytes) of one collective operation in ``hlo_cost.py``'s
+    units, or None for any other operation.  The c10d in-place operations
+    take their outputs first and their inputs second (all-reduce: the
+    tensors), the functional ones their input first and return the
+    output."""
+    if func.namespace not in ("c10d", "_c10d_functional",
+                              "c10d_functional"):
+        return None
+    got = _COLLECTIVE_OPS.get(func._overloadpacket.__name__)
+    if got is None:
+        return None
+    kind, which, times = got
+    if func.namespace == "c10d":
+        if kind == "all-reduce":
+            ins = outs = args[0]
+        else:
+            outs, ins = args[0], args[1]
+    else:
+        ins, outs = args[0], out
+    return kind, times * _tensor_bytes(ins if which == "in" else outs)
 
 
 def _key(x):
@@ -101,6 +162,8 @@ class StepCounter(TorchDispatchMode):
         self._storages: "weakref.WeakKeyDictionary" = (
             weakref.WeakKeyDictionary())
         self._shapes: Dict[Any, Any] = {}
+        self.coll_bytes: Dict[str, int] = {k: 0 for k in COLLECTIVES}
+        self.coll_count: Dict[str, int] = {k: 0 for k in COLLECTIVES}
 
     def track(self, tree) -> None:
         for x in tree_leaves(tree):
@@ -139,6 +202,10 @@ class StepCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = self._run(func, args, kwargs)
+        coll = collective_cost(func, args, out)
+        if coll is not None:
+            self.coll_bytes[coll[0]] += coll[1]
+            self.coll_count[coll[0]] += 1
         packet = func._overloadpacket
         if packet in self.flop_registry:
             if func._overloadname == "dtype":
@@ -158,7 +225,8 @@ def count(fn, *args, track=None) -> Dict[str, Any]:
     (aten and kernels), "aten_flops", "matmul_flops" (aten's matrix
     products), "kernels": {name: {"flop", "bytes"}} from ``COSTS``,
     "kernel_flops", "peak_bytes" (live storages at most, ``track``'s trees
-    included), "out": fn's result}."""
+    included), "collective_bytes" and "collective_count" (per kind),
+    "total_collective_bytes", "out": fn's result}."""
     before = dict(COSTS)
     counter = StepCounter()
     counter.track(track if track is not None else args)
@@ -176,6 +244,9 @@ def count(fn, *args, track=None) -> Dict[str, Any]:
     return {"flops": aten + kflops, "aten_flops": aten,
             "matmul_flops": matmul, "kernels": kernels,
             "kernel_flops": kflops, "peak_bytes": int(counter.peak),
+            "collective_bytes": dict(counter.coll_bytes),
+            "collective_count": dict(counter.coll_count),
+            "total_collective_bytes": int(sum(counter.coll_bytes.values())),
             "out": out}
 
 

@@ -1,29 +1,35 @@
 """Dry-run: build every (arch x shape) step on the meta device and record
-what it costs one card, before any run.  The port of
+what it costs one card of a mesh, before any run.  The port of
 ``repro/launch/dryrun.py``, with ``launch/cost.py`` in place of compiling
 and reading HLO.
 
-For each cell the step (``build_step``) runs once on meta tensors: shapes
-and dtypes, no storage and nothing computed, so a full-size cell takes
-seconds and no device memory.  Per device it records the parameters and
-active parameters, the tokens, the FLOPs (aten's counted by
-``FlopCounterMode``, the hand-written kernels' from their own cost
-functions), the argument and output bytes from the shapes, the peak of
-live storages, and whether that peak fits the card (``launch/mesh.py``'s
-H100).  ``long_500k`` is built for the sub-quadratic families and skipped
-for the rest, as the JAX dry-run does; a failing cell keeps its error and
-traceback.
+For each cell the mesh step (``build_step(mesh=...)``'s ``local_fn``)
+runs once on meta tensors, with rank 0's view of a stand-in process group
+of every rank of the mesh (torch's ``"fake"`` backend: its collectives
+move nothing): its chunks of the parameters and AdamW's moments by the
+sharding rules, its rows of the batch.  Shapes and dtypes only, no storage
+and nothing computed, so a full-size cell takes seconds and no device
+memory.  Per device it records the parameters and active parameters, the
+tokens, the FLOPs (aten's counted by ``FlopCounterMode``, the hand-written
+kernels' from their own cost functions), the argument and output bytes
+from the shapes, the peak of live storages, whether that peak fits the
+card (``launch/mesh.py``'s H100), and the collectives the step makes, in
+the JAX dry-run's keys and units (``collective_bytes`` and
+``collective_count`` per kind, ``total_collective_bytes``).
+``long_500k`` is built for the sub-quadratic families and skipped for the
+rest, as the JAX dry-run does; a failing cell keeps its error and
+traceback.  A decode cell over a "model" axis over 1 fails with
+``build_step``'s ``ValueError`` (decode is not tensor-parallel yet: A9c(b)).
 
-``--mesh-shape data,model`` sets the mesh the numbers are per device of:
-a rank's rows of the batch and its shards of the parameters and AdamW's
-moments by the sharding rules.  The default is the card's own 1 x 1
-mesh; ``model`` must be 1 (the port runs data-parallel only).  No process
-group is started: the rules take the shape alone.
+``--mesh single|multi|both`` takes the production layouts, 16 x 16
+(data, model) and 2 x 16 x 16 (pod, data, model), as the JAX dry-run
+does; ``--mesh-shape`` any other (data,model or pod,data,model); without
+either the card's own 1 x 1 mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
         --jobs 4 --out build/dryrun.json
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
-        --shape train_4k --mesh-shape 8,1
+        --shape train_4k --mesh single
 """
 from __future__ import annotations
 
@@ -38,39 +44,64 @@ SKIP_REASON = ("full-attention arch at 524k decode is the quadratic regime "
                "the assignment excludes (DESIGN.md §4)")
 
 
-def _per_device_bytes(tree, specs, mesh) -> int:
-    """The bytes of a tree's leaves on one rank, each divided by the mesh
-    axes its spec shards it over."""
-    from repro_torch.launch.sharding import entry_axes
-    from repro_torch.tree import spec_map
-    sizes = []
-
-    def one(spec, x):
-        n = x.numel() * x.element_size()
-        for entry in spec:
-            for a in entry_axes(entry):
-                n //= mesh.shape[a]
-        sizes.append(n)
-    spec_map(one, specs, tree)
-    return int(sum(sizes))
+MESHES = {"single": (16, 16), "multi": (2, 16, 16)}
 
 
-def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, int] = (1, 1),
+def mesh_axes(shape: Tuple[int, ...]) -> Tuple[str, ...]:
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
+def _stand_in_mesh(shape: Tuple[int, ...]):
+    """The mesh ``shape`` over a stand-in process group of its ranks, seen
+    from rank 0 (torch's ``"fake"`` backend: collectives return at once and
+    move nothing), and whether a group was started (the caller destroys
+    it).  A mesh of one rank needs no group: every collective of its step
+    is skipped."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    axes = mesh_axes(shape)
+    n = 1
+    for d in shape:
+        n *= d
+    if n == 1:
+        return Mesh(None, axes, dict(zip(axes, shape))), False
+    if dist.is_initialized():
+        raise RuntimeError("the dry-run starts its own stand-in process "
+                           "group over a mesh of several ranks; this process "
+                           "has a group already (run the cell in a fresh "
+                           "process: run_cells with jobs > 1)")
+    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    return make_mesh(shape, axes, device="cpu"), True
+
+
+def _meta_like(tree):
+    """A fresh meta tensor (storage of its own size) for each leaf."""
+    import torch
+
+    from repro_torch.models.registry import META
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device=META), tree)
+
+
+def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, ...] = (1, 1),
              grad_accum: int = 1, fsdp: bool = True,
              reduced: bool = False) -> Dict[str, Any]:
     """One cell: ``shape`` an ``InputShape`` or its name in
-    ``SHAPES_BY_NAME``.  Returns the cell's record, status OK, SKIP or
-    FAIL."""
-    import torch
+    ``SHAPES_BY_NAME``; ``mesh_shape`` (data, model) or (pod, data,
+    model).  Returns the cell's record, status OK, SKIP or FAIL."""
+    import torch.distributed as dist
+
     from repro_torch.configs import (SHAPES_BY_NAME, count_active_params,
                                      count_params, get_config,
                                      get_reduced_config)
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import cost
-    from repro_torch.launch.mesh import HBM_BYTES, Mesh
+    from repro_torch.launch.mesh import HBM_BYTES, batch_ranks
     from repro_torch.launch.sharding import (ShardingRules, batch_shardings,
-                                             opt_state_shardings,
-                                             param_shardings)
+                                             param_shardings, shard)
     from repro_torch.launch.steps import build_step
     from repro_torch.models.registry import META, MetaGenerator, get_model
     from repro_torch.optim.adamw import AdamW
@@ -78,59 +109,56 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, int] = (1, 1),
     cfg = get_reduced_config(arch) if reduced else get_config(arch)
     if isinstance(shape, str):
         shape = SHAPES_BY_NAME[shape]
-    data, model_par = mesh_shape
+    mesh_shape = tuple(mesh_shape)
+    n_dev = 1
+    for d in mesh_shape:
+        n_dev *= d
     cell: Dict[str, Any] = {
-        "arch": arch, "shape": shape.name, "mesh": f"{data}x{model_par}",
+        "arch": arch, "shape": shape.name,
+        "mesh": "x".join(str(d) for d in mesh_shape),
         "kind": shape.kind, "status": "UNKNOWN", "grad_accum": grad_accum,
         "fsdp": fsdp, "reduced": reduced}
     if shape.name == "long_500k" and not cfg.sub_quadratic():
         cell.update(status="SKIP", reason=SKIP_REASON)
         return cell
     t0 = time.time()
+    started = False
     try:
-        if model_par != 1:
-            raise ValueError("the port runs data-parallel only: model must "
-                             "be 1")
-        # the rules read the axes' names and sizes only: no ranks
-        mesh = Mesh(None, ("data", "model"), {"data": data,
-                                              "model": model_par})
+        mesh, started = _stand_in_mesh(mesh_shape)
         rules = ShardingRules(fsdp=fsdp)
         model = get_model(cfg, META)
-        params = model.abstract_params()
-        pspecs = param_shardings(rules, model.spec(), params, mesh)
+        full = model.abstract_params()
+        pspecs = param_shardings(rules, model.spec(), full, mesh)
+        params = _meta_like(shard(full, pspecs, mesh))
+        del full
         bspecs = batch_shardings(mesh, model.train_inputs(shape))
         split = any(s and s[0] is not None for s in bspecs.values())
-        rows = shape.global_batch // data if split else shape.global_batch
+        rows = (shape.global_batch // batch_ranks(mesh) if split
+                else shape.global_batch)
         local = InputShape(shape.name, shape.seq_len, rows, shape.kind)
         gen = MetaGenerator()
         if shape.kind == "train":
             opt = AdamW()
             opt_state = opt.init(params)
-            ospecs = opt_state_shardings(rules, model.spec(), opt_state, mesh)
             batch = model.concrete(model.train_inputs(local), gen)
-            step = build_step(cfg, local, opt=opt, grad_accum=grad_accum)
+            step = build_step(cfg, shape, mesh=mesh, rules=rules, opt=opt,
+                              grad_accum=grad_accum)
             args = (params, opt_state, batch)
-            arg_bytes = (_per_device_bytes(params, pspecs, mesh)
-                         + _per_device_bytes(opt_state, ospecs, mesh)
-                         + cost.tree_bytes(batch))
             tokens = shape.global_batch * shape.seq_len
         elif shape.kind == "prefill":
             batch = model.concrete(model.prefill_inputs(local), gen)
-            step = build_step(cfg, local)
+            step = build_step(cfg, shape, mesh=mesh, rules=rules)
             args = (params, batch)
-            arg_bytes = (_per_device_bytes(params, pspecs, mesh)
-                         + cost.tree_bytes(batch))
             tokens = shape.global_batch * shape.seq_len
         else:
+            step = build_step(cfg, shape, mesh=mesh, rules=rules)
             caches = model.abstract_cache(rows, shape.seq_len)
             batch = model.concrete(model.decode_inputs(local), gen)
-            step = build_step(cfg, local)
             args = (params, caches, batch, shape.seq_len - 1)
-            arg_bytes = (_per_device_bytes(params, pspecs, mesh)
-                         + cost.tree_bytes(caches) + cost.tree_bytes(batch))
             tokens = shape.global_batch
-        got = cost.count(step, *args, track=args[:-1]
-                         if shape.kind == "decode" else args)
+        tracked = args[:-1] if shape.kind == "decode" else args
+        arg_bytes = cost.tree_bytes(tracked)
+        got = cost.count(step.local_fn, *args, track=tracked)
         out = got.pop("out")
         if shape.kind == "train":
             out_bytes = (arg_bytes - cost.tree_bytes(batch)
@@ -138,7 +166,7 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, int] = (1, 1),
         else:
             out_bytes = cost.tree_bytes(out)
         cell.update(
-            status="OK", seconds=round(time.time() - t0, 2), n_devices=data,
+            status="OK", seconds=round(time.time() - t0, 2), n_devices=n_dev,
             params=int(count_params(cfg)),
             active_params=int(count_active_params(cfg)),
             tokens=int(tokens), local_batch=rows,
@@ -148,11 +176,17 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, int] = (1, 1),
             memory={"argument_bytes": int(arg_bytes),
                     "output_bytes": int(out_bytes),
                     "peak_bytes": got["peak_bytes"]},
-            fits_card=bool(got["peak_bytes"] <= HBM_BYTES))
+            fits_card=bool(got["peak_bytes"] <= HBM_BYTES),
+            collective_bytes=got["collective_bytes"],
+            collective_count=got["collective_count"],
+            total_collective_bytes=got["total_collective_bytes"])
     except Exception as e:  # a failure here is a fault of the port
         cell.update(status="FAIL", error=f"{type(e).__name__}: {e}",
                     traceback=traceback.format_exc()[-2000:],
                     seconds=round(time.time() - t0, 2))
+    finally:
+        if started:
+            dist.destroy_process_group()
     return cell
 
 
@@ -198,10 +232,11 @@ def submit_cells(todo, jobs: int, nice: int = 0, **kw):
 
 
 def run_cells(todo, jobs: int = 1, **kw) -> List[Dict[str, Any]]:
-    """``run_cell`` on every (arch, shape) of ``todo``, in this process or
-    in a pool of ``jobs``; records in ``todo``'s order."""
+    """``run_cell`` on every (arch, shape[, keywords]) of ``todo``, in this
+    process or in a pool of ``jobs``; records in ``todo``'s order."""
     if jobs <= 1:
-        return [run_cell(*c, **kw) for c in todo]
+        return [run_cell(*c[:2], **{**kw, **(c[2] if len(c) > 2 else {})})
+                for c in todo]
     pool, futs = submit_cells(todo, jobs, **kw)
     with pool:
         return [f.result() for f in futs]
@@ -211,8 +246,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh-shape", default="1,1",
-                    help="data,model: the mesh the numbers are per device of")
+    ap.add_argument("--mesh", choices=["single", "multi", "both"],
+                    help="the production layouts: 16x16, 2x16x16, or both")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="data,model or pod,data,model: another mesh the "
+                         "numbers are per device of (default 1,1)")
     ap.add_argument("--out", default="build/dryrun.json")
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--no-fsdp", action="store_true")
@@ -221,19 +259,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.configs import ARCH_IDS
-    mesh_shape = tuple(int(x) for x in args.mesh_shape.split(","))
-    if len(mesh_shape) != 2:
-        ap.error("--mesh-shape takes data,model")
+    if args.mesh and args.mesh_shape:
+        ap.error("--mesh and --mesh-shape exclude each other")
+    if args.mesh:
+        meshes = [MESHES[m] for m in (("single", "multi")
+                                      if args.mesh == "both" else (args.mesh,))]
+    else:
+        meshes = [tuple(int(x) for x in (args.mesh_shape or "1,1").split(","))]
+    if any(len(m) not in (2, 3) for m in meshes):
+        ap.error("--mesh-shape takes data,model or pod,data,model")
     archs = list(ARCH_IDS) if args.arch == "all" else [args.arch]
-    todo = [(a, s) for a, s in cells(archs)
-            if args.shape in ("all", s)]
+    todo = [(a, s, {"mesh_shape": m}) for m in meshes
+            for a, s in cells(archs) if args.shape in ("all", s)]
     t0 = time.time()
-    results = run_cells(todo, args.jobs, mesh_shape=mesh_shape,
-                        grad_accum=args.grad_accum, fsdp=not args.no_fsdp)
+    results = run_cells(todo, args.jobs, grad_accum=args.grad_accum,
+                        fsdp=not args.no_fsdp)
     for cell in results:
         print(f"[{cell['status']:4s}] {cell['arch']:24s} {cell['shape']:12s} "
-              f"{cell['mesh']:6s} t={cell.get('seconds', 0):6.2f}s "
-              f"{cell.get('error', '')[:90]}", flush=True)
+              f"{cell['mesh']:8s} t={cell.get('seconds', 0):6.2f}s "
+              f"coll={cell.get('total_collective_bytes', 0):.3e}B "
+              f"{cell.get('error', '')[:80]}", flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)

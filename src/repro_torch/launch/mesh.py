@@ -10,16 +10,18 @@ works there too.
 
 Every function here starts from a process group: ``ensure_process_group``
 starts a one-rank group where none exists (NCCL on a card, gloo on the
-CPU, its rendezvous in a ``HashStore`` inside this process, so no network),
-or joins the group ``torchrun`` describes in its environment, each rank on
-the card ``LOCAL_RANK`` names.  Nothing is started when the module is
-imported.
+CPU, or the backend asked for; its rendezvous in a ``HashStore`` inside
+this process, so no network), or joins the group ``torchrun`` describes in
+its environment, each rank on the card ``LOCAL_RANK`` names.  A mesh also
+holds the groups its collectives run over (``Mesh.group``): one per axis,
+and ``"batch"``, the batch axes together.  Nothing is started when the
+module is imported.
 """
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.distributed as dist
@@ -33,6 +35,8 @@ PEAK_FLOPS_BF16 = 989e12          # FLOP/s on the tensor cores
 HBM_BW = 3.35e12                  # bytes/s of device memory
 HBM_BYTES = 80e9                  # bytes of device memory
 
+BATCH_AXES = ("pod", "data")      # the axes a batch's rows split over
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -40,6 +44,12 @@ class Mesh:
     device_mesh: object               # torch.distributed DeviceMesh
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
+    groups: Dict[str, Any] = field(default_factory=dict)
+
+    def group(self, name: str):
+        """The process group of axis ``name``, or of ``"batch"`` (the batch
+        axes together); None where it holds one rank."""
+        return self.groups.get(name)
 
     @property
     def device(self) -> torch.device:
@@ -49,23 +59,26 @@ class Mesh:
         return torch.device(self.device_mesh.device_type)
 
     def coordinate(self) -> Dict[str, int]:
-        """This rank's index on each axis."""
+        """This rank's index on each axis (0 on a stand-in of one rank,
+        which has no device mesh)."""
+        if self.device_mesh is None:
+            return {a: 0 for a in self.axis_names}
         return dict(zip(self.axis_names, self.device_mesh.get_coordinate()))
 
 
-def ensure_process_group(device="cuda") -> None:
+def ensure_process_group(device="cuda", backend=None) -> None:
     """Join or start the process group the meshes span.  Under ``torchrun``
     (``WORLD_SIZE`` in the environment) every rank joins its group through
-    ``env://`` and takes the card ``LOCAL_RANK`` names; otherwise, where no
-    group exists, a group of one rank starts here with a ``HashStore``.
-    The backend is NCCL for a CUDA device (which must exist: no card
-    raises) and gloo for the CPU.  A group that exists is kept."""
+    ``env://`` and takes the card ``LOCAL_RANK`` names; otherwise, where
+    no group exists, a group of one rank starts here with a ``HashStore``.  The backend is ``backend``, by default NCCL for a
+    CUDA device (which must exist: no card raises) and gloo for the CPU.
+    A group that exists is kept."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     if dist.is_initialized():
         return
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://")
         return
@@ -75,12 +88,34 @@ def ensure_process_group(device="cuda") -> None:
                             world_size=1)
 
 
+def _groups(dm, shape: Tuple[int, ...], axes: Tuple[str, ...]) -> dict:
+    """Each axis's group (the device mesh's), and ``"batch"``: the ranks
+    that share every other index, over the batch axes together (one axis
+    over one rank alone: its group).  Every rank makes every batch group,
+    in one order, as ``new_group`` asks; a group of one rank is left out
+    (``Mesh.group`` gives None)."""
+    import numpy as np
+    groups = {a: dm.get_group(a) for a, n in zip(axes, shape) if n > 1}
+    batch = [a for a in axes if a in BATCH_AXES and a in groups]
+    if len(batch) == 1:
+        groups["batch"] = groups[batch[0]]
+    elif batch:
+        rest = [i for i, a in enumerate(axes) if a not in BATCH_AXES]
+        ranks = np.moveaxis(np.arange(int(np.prod(shape))).reshape(shape),
+                            rest, list(range(len(axes) - len(rest),
+                                             len(axes))))
+        n_rest = int(np.prod([shape[i] for i in rest]))
+        groups["batch"], _ = dist.new_subgroups_by_enumeration(
+            [list(map(int, r)) for r in ranks.reshape(-1, n_rest).T])
+    return groups
+
+
 def _mesh(device, shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
     from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
     ensure_process_group(dev)
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
-    return Mesh(dm, axes, dict(zip(axes, shape)))
+    return Mesh(dm, axes, dict(zip(axes, shape)), _groups(dm, shape, axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False, strict: bool = False,
@@ -117,8 +152,15 @@ def make_host_mesh(model_parallel: int = 1, device="cuda") -> Mesh:
     return _mesh(device, (n // mp, mp), ("data", "model"))
 
 
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+              device="cuda") -> Mesh:
+    """The mesh ``shape`` over the process group's ranks, which must number
+    its product (the dry-run's stand-in group has as many as it names)."""
+    return _mesh(device, tuple(shape), tuple(axes))
+
+
 def batch_axes(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    return tuple(a for a in mesh.axis_names if a in BATCH_AXES)
 
 
 def batch_ranks(mesh) -> int:
@@ -142,6 +184,6 @@ def batch_index(mesh) -> Tuple[int, int]:
 def all_ranks(mesh, local: bool) -> bool:
     """True where ``local`` holds on every rank of the mesh (an all-reduce
     of one flag on the mesh's device)."""
+    from repro_torch.launch.collectives import all_reduce
     t = torch.tensor([int(local)], dtype=torch.int32, device=mesh.device)
-    dist.all_reduce(t, op=dist.ReduceOp.MIN)
-    return bool(t.item())
+    return bool(all_reduce(t, dist.group.WORLD, "min").item())

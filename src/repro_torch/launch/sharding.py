@@ -12,12 +12,18 @@ name).  The rules are pure Python on a mesh's ``axis_names`` and ``shape``
 (``launch/mesh.py``'s ``Mesh``, or any stand-in with those attributes).
 ``placements`` turns a spec into ``torch.distributed.tensor`` placements on
 a ``Mesh``; ``distribute`` and ``gather`` move trees in and out of them.
+The steps compute on plain tensors: ``shard`` cuts a rank's chunks of full
+trees by their specs, ``gather_batch`` makes them whole over the batch axes
+(FSDP's ``"embed"`` shards) and keeps the ``model`` shards, and
+``batch_chunk`` cuts the batch axes again.  Every collective goes through
+``launch/collectives.py``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.launch import collectives as C
 from repro_torch.launch.mesh import batch_axes, batch_ranks
 from repro_torch.tree import spec_map, tree_map
 
@@ -243,28 +249,68 @@ def distribute(tree, spec_tree, mesh):
     return spec_map(one, spec_tree, tree)
 
 
-def _whole(x):
-    """A DTensor's local tensor where it is the whole tensor (every axis
-    it is sharded over has size one), else None."""
+def _gather_dtensor(x):
+    """A DTensor's full tensor: its local chunk gathered over every mesh
+    axis that shards it, the last axis first (``local_chunk``'s inverse)."""
     from torch.distributed.tensor import Shard
     dm = x.device_mesh
-    if all(not isinstance(p, Shard) or dm.size(i) == 1
-           for i, p in enumerate(x.placements)):
-        return x.to_local()
-    return None
+    t = x.to_local()
+    for i in reversed(range(dm.ndim)):
+        p = x.placements[i]
+        if isinstance(p, Shard) and dm.size(i) > 1:
+            t = C.all_gather(t, dm.get_group(i), p.dim)
+    return t
 
 
 def gather(tree):
-    """Each ``DTensor`` of ``tree`` as its full tensor (an all-gather,
-    none on axes of size one); other leaves as they are."""
+    """Each ``DTensor`` of ``tree`` as its full tensor (all-gathers, none on
+    axes of size one); other leaves as they are."""
     from torch.distributed.tensor import DTensor
+    return tree_map(lambda x: _gather_dtensor(x) if isinstance(x, DTensor)
+                    else x, tree)
 
-    def one(x):
-        if not isinstance(x, DTensor):
-            return x
-        whole = _whole(x)
-        return whole if whole is not None else x.full_tensor()
-    return tree_map(one, tree)
+
+def gather_batch(tree, spec_tree, mesh):
+    """This rank's chunks of a tree (plain tensors) gathered whole over the
+    batch axes their specs name (FSDP's ``"embed"`` dims), innermost axis
+    first (``torch.chunk`` order's inverse), each rank keeping its
+    ``model`` shards.  A dim that a batch axis and "model" shard together
+    raises ``ValueError`` (the rules make none)."""
+    ba = batch_axes(mesh)
+
+    def one(spec, x):
+        for d, entry in enumerate(spec):
+            axes = [a for a in entry_axes(entry) if mesh.shape[a] > 1]
+            if any(a in ba for a in axes) and any(a not in ba for a in axes):
+                raise ValueError(f"{spec} shards a dim over batch and model "
+                                 "axes together")
+            for a in reversed([a for a in axes if a in ba]):
+                x = C.all_gather(x, mesh.group(a), d)
+        return x
+    return spec_map(one, spec_tree, tree)
+
+
+def _chunk(t, spec: Spec, mesh, keep) -> "torch.Tensor":
+    coord = mesh.coordinate()
+    for d, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            if keep(a) and mesh.shape[a] > 1:
+                t = t.chunk(mesh.shape[a], d)[coord[a]]
+    return t
+
+
+def batch_chunk(t, spec: Spec, mesh):
+    """This rank's chunk of ``t`` over the batch axes of ``spec`` (the
+    inverse of ``gather_batch``; a view)."""
+    ba = batch_axes(mesh)
+    return _chunk(t, spec, mesh, lambda a: a in ba)
+
+
+def shard(tree, spec_tree, mesh):
+    """This rank's chunk of each full tensor of ``tree`` by its spec, in
+    ``torch.chunk`` order (views)."""
+    return spec_map(lambda spec, t: _chunk(t, spec, mesh, lambda a: True),
+                    spec_tree, tree)
 
 
 def local(tree):

@@ -1,25 +1,35 @@
 """Step builders (``repro/launch/steps.py``): the train step, prefill and
-decode_step, on one device or data-parallel over a mesh.
+decode_step, on one device or over a (data, model) mesh.
 
 Without a mesh a builder returns the step function itself, run eagerly on
 the tensors' device.  With a mesh (``launch/mesh.py``) it returns a
-``BuiltStep``: the same computation on each rank's rows of the batch, the
-batch split over the mesh's batch axes as ``batch_shardings`` places it.
-The parameters and AdamW's moments are ``DTensor``s in the placements the
-rules give (FSDP: the "embed" dim over "data"; replicated with
-``ShardingRules(fsdp=False)``); ``BuiltStep.place`` puts full trees there
-and ``sharding.gather`` takes them back.  For the compute each rank
-gathers the whole parameters into plain tensors (the hand-written kernels
-take plain tensors, never a DTensor), so a gather on axes of size one is
-no copy.  A train step then averages the loss and the float32 gradients
-over the batch group (an all-reduce), clips by the norm of the whole
-averaged gradient and lets AdamW update each rank's shards.
+``BuiltStep``: the same computation on each rank's rows of the batch (the
+batch split over the mesh's batch axes as ``batch_shardings`` places it)
+and on its shards of the weights.  The parameters and AdamW's moments are
+``DTensor``s in the placements the rules give (FSDP: the "embed" dim over
+"data"; replicated with ``ShardingRules(fsdp=False)``; heads, MLP, expert
+hidden dims, vocab and SSM inner dims over "model"); ``BuiltStep.place``
+puts full trees there and ``sharding.gather`` takes them back.
+``BuiltStep.local_fn`` is the step on this rank's plain chunks (what the
+dry-run counts on the meta device).
 
-What a mesh does not do: a "model" axis over 1 (heads, MLP and vocab
-split over ranks) would need the kernels run under ``local_map`` on their
-shards; the builders raise ``ValueError`` for it.  On a 1 x 1 mesh every
-placement is whole on its rank, and the step computes the mesh-free
-step's numbers bit for bit.  Gradient compression
+For the compute each rank gathers its chunks whole over the batch axes
+(``gather_batch``; no copy on axes of size one) and keeps its ``model``
+shards: the layers run tensor-parallel on them inside
+``collectives.model_parallel`` (``models/layers.py``, ``models/ssm.py``,
+``models/transformer.py``), and the hand-written kernels get plain local
+tensors, a rank's heads, never a DTensor.  A train step then sums the loss
+and the float32 gradients over the batch group (an all-reduce) and divides
+by its size, clips by the norm of the whole averaged gradient (the squares
+of the model shards summed over the model group, a replicated leaf counted
+once) and lets AdamW update each rank's shards.  The prefill returns the
+logits whole (gathered over "model" by the unembedding, over the batch
+group here) and its caches as each rank computes them: its rows, its KV
+heads, its SSM inner channels; placing them as ``cache_shardings`` does is
+for decode over "model", which is not done yet (A9c(b)): a decode step
+over a "model" axis over 1 raises ``ValueError``.  On a 1 x 1 mesh every
+placement is whole on its rank, no collective runs, and the step computes
+the mesh-free step's numbers bit for bit.  Gradient compression
 (``optim/compress.py``) is a library function here as in the JAX package,
 wired into no step.
 """
@@ -29,18 +39,19 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch import collectives as C
 from repro_torch.launch.mesh import batch_axes, batch_index, batch_ranks
-from repro_torch.launch.sharding import (ShardingRules, batch_shardings,
-                                         distribute, fit_pspec, gather, local,
-                                         local_chunk,
-                                         opt_state_shardings, param_shardings)
+from repro_torch.launch.sharding import (ShardingRules, batch_chunk,
+                                         batch_shardings, distribute,
+                                         entry_axes, fit_pspec, gather_batch,
+                                         local, opt_state_shardings,
+                                         param_shardings)
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
 from repro_torch.optim.adamw import AdamW, AdamWState
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.tree import spec_map, tree_flatten, tree_map
 
 
 def logits_pspec(mesh, cfg: ModelConfig, batch: int, seq: int = 1):
@@ -95,12 +106,13 @@ def _loss_and_grads(cfg: ModelConfig, params, batch, grad_accum: int):
 # steps over a mesh
 # ---------------------------------------------------------------------------
 
-def _check_mesh(mesh) -> None:
-    if mesh.shape.get("model", 1) != 1:
+def _check_mesh(mesh, kind: str) -> None:
+    if kind == "decode" and mesh.shape.get("model", 1) != 1:
         raise ValueError(
-            f"a mesh with a model axis of {mesh.shape['model']}: the port "
-            "runs data-parallel only (tensor parallelism over 'model' needs "
-            "the kernels under local_map: ROADMAP.md, A9c)")
+            f"a decode step over a model axis of {mesh.shape['model']}: the "
+            "port runs train steps and prefill tensor-parallel, not decode "
+            "(its caches over 'model', B6 on a rank's sequence shard and "
+            "the combine across ranks: ROADMAP.md, A9c(b))")
 
 
 def _rows(mesh, batch, specs):
@@ -116,14 +128,9 @@ def _rows(mesh, batch, specs):
 
 
 def _gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``x``, in rank order (none to fetch from a
-    batch group of one)."""
-    n = batch_ranks(mesh)
-    if n == 1:
-        return x
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts)
+    """Every rank's rows of ``x`` over the batch group, in rank order (none
+    to fetch from a batch group of one)."""
+    return C.all_gather(x, mesh.group("batch"), 0)
 
 
 def _as_dtensors(local_tree, like_tree):
@@ -136,10 +143,13 @@ def _as_dtensors(local_tree, like_tree):
 @dataclass
 class BuiltStep:
     """A step over a mesh: ``fn`` with the specs of its placed arguments
-    (``in_specs``, one per argument, None where it is not placed)."""
+    (``in_specs``, one per argument, None where it is not placed), and
+    ``local_fn``, the same step on this rank's plain chunks of the placed
+    arguments and its rows of the batch."""
     fn: Callable
     mesh: Any
     in_specs: tuple
+    local_fn: Optional[Callable] = None
 
     def __call__(self, *args):
         return self.fn(*args)
@@ -157,6 +167,10 @@ def _param_specs(cfg: ModelConfig, mesh, rules: ShardingRules):
     return param_shardings(rules, model.spec(), model.abstract_params(), mesh)
 
 
+def _model_sharded(spec) -> bool:
+    return any("model" in entry_axes(e) for e in spec)
+
+
 def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
                      rules: Optional[ShardingRules] = None,
                      opt: Optional[AdamW] = None, grad_accum: int = 1):
@@ -167,10 +181,11 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
     divided by ``grad_accum``), then ``opt.update``.
 
     With ``mesh`` a ``BuiltStep``: each rank takes its rows of the global
-    batch, every rank's mean loss and float32 gradients are averaged over
-    the batch group, AdamW clips by the averaged gradient's global norm and
-    updates each rank's shards of the parameters and moments (DTensors in
-    the ``rules``' placements, ``BuiltStep.place``)."""
+    batch and computes on its model shards, every rank's mean loss and
+    float32 gradients are averaged over the batch group, AdamW clips by the
+    averaged gradient's global norm and updates each rank's shards of the
+    parameters and moments (DTensors in the ``rules``' placements,
+    ``BuiltStep.place``)."""
     opt = opt or AdamW()
     if shape.global_batch % grad_accum:
         raise ValueError(f"batch {shape.global_batch} does not split into "
@@ -182,7 +197,7 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
             return params, opt_state, dict(metrics, loss=loss)
         return train_step
 
-    _check_mesh(mesh)
+    _check_mesh(mesh, "train")
     rules = rules or ShardingRules()
     model = get_model(cfg, "cpu")
     pspecs = _param_specs(cfg, mesh, rules)
@@ -194,34 +209,42 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
             s and s[0] is not None for s in bspecs.values()):
         raise ValueError(f"a rank's {shape.global_batch // n} rows do not "
                          f"split into {grad_accum} micro-batches")
+    sharded = tree_flatten(spec_map(_model_sharded, pspecs))[0]
 
-    def train_step(params, opt_state, batch):
-        full = gather(params)
-        loss, grads = _loss_and_grads(cfg, full, _rows(mesh, batch, bspecs),
-                                      grad_accum)
+    def local_step(params, opt_state, rows):
+        """The step on this rank's chunks (plain tensors) and rows."""
+        full = gather_batch(params, pspecs, mesh)
+        with C.model_parallel(mesh.group("model"), mesh.group("batch")):
+            loss, grads = _loss_and_grads(cfg, full, rows, grad_accum)
         del full
         dev = loss.device
         grads, treedef = tree_flatten(tree_map(lambda g: g.float(), grads))
         for g in grads + [loss]:
-            dist.all_reduce(g)
+            C.all_reduce(g, mesh.group("batch"))
         ranks = torch.tensor(float(n), device=dev)
         loss = loss / ranks
         grads = [g / ranks for g in grads]
-        # the norm of the whole averaged gradient, before any shard is cut
-        g_norm = opt.global_norm(grads)
-        grads = tree_map(lambda g, p: local_chunk(g, p.placements,
-                                                  p.device_mesh),
-                         treedef.unflatten(grads), params)
-        new_p, new_s, metrics = opt.update(
-            grads, AdamWState(step=local(opt_state.step), m=local(opt_state.m),
-                              v=local(opt_state.v)),
-            local(params), grad_norm=g_norm)
+        # the norm of the whole averaged gradient, before any batch-axis
+        # chunk is cut
+        g_norm = opt.global_norm(grads, sharded, mesh.group("model"))
+        grads = spec_map(lambda sp, g: batch_chunk(g, sp, mesh), pspecs,
+                         treedef.unflatten(grads))
+        new_p, new_s, metrics = opt.update(grads, opt_state, params,
+                                           grad_norm=g_norm)
+        return new_p, new_s, dict(metrics, loss=loss)
+
+    def train_step(params, opt_state, batch):
+        new_p, new_s, metrics = local_step(
+            local(params), AdamWState(step=local(opt_state.step),
+                                      m=local(opt_state.m),
+                                      v=local(opt_state.v)),
+            _rows(mesh, batch, bspecs))
         new_s = AdamWState(step=_as_dtensors(new_s.step, opt_state.step),
                            m=_as_dtensors(new_s.m, opt_state.m),
                            v=_as_dtensors(new_s.v, opt_state.v))
-        return (_as_dtensors(new_p, params), new_s, dict(metrics, loss=loss))
+        return _as_dtensors(new_p, params), new_s, metrics
 
-    return BuiltStep(train_step, mesh, (pspecs, ospecs, None))
+    return BuiltStep(train_step, mesh, (pspecs, ospecs, None), local_step)
 
 
 def build_prefill(cfg: ModelConfig, shape: InputShape, *, mesh=None,
@@ -230,24 +253,30 @@ def build_prefill(cfg: ModelConfig, shape: InputShape, *, mesh=None,
     """prefill(params, batch) -> (last-position logits, decode caches of
     ``max_len`` rows, ``shape.seq_len`` by default).  With ``mesh`` a
     ``BuiltStep`` over placed parameters: each rank prefills its rows of
-    the batch; the logits come back whole (gathered over the batch group),
-    the caches hold the rank's rows (``cache_shardings``' batch dim)."""
+    the batch on its model shards; the logits come back whole (gathered
+    over "model" and over the batch group), the caches as the rank computed
+    them (its rows, its KV heads, its SSM inner channels)."""
     max_len = max_len or shape.seq_len
     if mesh is None:
         def prefill(params, batch):
             return T.prefill(cfg, params, batch, max_len)
         return prefill
 
-    _check_mesh(mesh)
+    _check_mesh(mesh, "prefill")
     rules = rules or ShardingRules()
     bspecs = batch_shardings(mesh, get_model(cfg, "cpu").prefill_inputs(shape))
+    pspecs = _param_specs(cfg, mesh, rules)
 
-    def prefill(params, batch):
-        logits, caches = T.prefill(cfg, gather(params),
-                                   _rows(mesh, batch, bspecs), max_len)
+    def local_prefill(params, rows):
+        full = gather_batch(params, pspecs, mesh)
+        with C.model_parallel(mesh.group("model")):
+            logits, caches = T.prefill(cfg, full, rows, max_len)
         return _gather_rows(mesh, logits), caches
 
-    return BuiltStep(prefill, mesh, (_param_specs(cfg, mesh, rules), None))
+    def prefill(params, batch):
+        return local_prefill(local(params), _rows(mesh, batch, bspecs))
+
+    return BuiltStep(prefill, mesh, (pspecs, None), local_prefill)
 
 
 def build_decode_step(cfg: ModelConfig, shape: Optional[InputShape] = None,
@@ -256,25 +285,30 @@ def build_decode_step(cfg: ModelConfig, shape: Optional[InputShape] = None,
     or (B, 1, ncb, V) with codebooks, caches): one new token against the
     caches ``build_prefill`` made.  With ``mesh`` (and the decode ``shape``)
     a ``BuiltStep``: each rank decodes its rows into its caches, and the
-    logits come back whole."""
+    logits come back whole.  A "model" axis over 1 raises (A9c(b))."""
     if mesh is None:
         def decode_step(params, caches, batch, cache_index: int):
             return T.decode_step(cfg, params, caches, batch, cache_index)
         return decode_step
 
-    _check_mesh(mesh)
+    _check_mesh(mesh, "decode")
     if shape is None:
         raise ValueError("a decode step over a mesh needs its shape")
     rules = rules or ShardingRules()
     bspecs = batch_shardings(mesh, get_model(cfg, "cpu").decode_inputs(shape))
+    pspecs = _param_specs(cfg, mesh, rules)
 
-    def decode_step(params, caches, batch, cache_index: int):
-        logits, caches = T.decode_step(cfg, gather(params), caches,
-                                       _rows(mesh, batch, bspecs), cache_index)
+    def local_decode(params, caches, rows, cache_index: int):
+        logits, caches = T.decode_step(cfg, gather_batch(params, pspecs, mesh),
+                                       caches, rows, cache_index)
         return _gather_rows(mesh, logits), caches
 
-    return BuiltStep(decode_step, mesh,
-                     (_param_specs(cfg, mesh, rules), None, None, None))
+    def decode_step(params, caches, batch, cache_index: int):
+        return local_decode(local(params), caches,
+                            _rows(mesh, batch, bspecs), cache_index)
+
+    return BuiltStep(decode_step, mesh, (pspecs, None, None, None),
+                     local_decode)
 
 
 BUILDERS = {

@@ -33,6 +33,18 @@ B6 reads its live rows as they lie.  A logit soft-cap
 (``attn_logit_softcap``) goes to B5 and B6 as their argument, on windowed
 layers and rings too; MLA ignores it, as the JAX package's ``mla_apply``
 does.
+
+Tensor parallelism (inside ``collectives.model_parallel``, from the mesh
+steps): a layer whose leaves the rules split over the ``model`` axis runs
+on the rank's shard, Megatron-style, between ``C.copy_to_model`` (f) and
+``C.reduce_from_model`` (g; a row-parallel product's partial sums in
+float32, rounded once after the sum, ``reduced_dense``).  Attention takes the rank's q heads and the kv
+heads they read (a replicated wk/wv sliced to them), MLA its heads over the
+whole latent, the SwiGLU and each expert their hidden columns; the MoE
+router stays whole, so every rank routes alike.  A replicated leaf that a
+rank uses for its shard only (a sliced wk, qk-norm scales, MLA's ``w_dkv``)
+goes through f, so its gradient is summed over the ranks.  Whether a leaf
+is split is read from its shape against the config's width.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch import collectives as C
 
 
 NEG_INF = -1e30
@@ -100,6 +113,17 @@ def dense32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+def reduced_dense(x: torch.Tensor, w: torch.Tensor,
+                  out_dtype: torch.dtype, mid: bool = False) -> torch.Tensor:
+    """``x @ w`` where a model group splits the contraction (a row-parallel
+    product): each rank's partial sums stay float32 through their sum over
+    the group (g; with ``mid`` an all-reduce each way, ``C.reduce_mid``) and
+    round once to ``out_dtype``, as the one-process product rounds its
+    whole sum."""
+    y = dense32(x, w)
+    return (C.reduce_mid(y) if mid else C.reduce_from_model(y)).to(out_dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -237,7 +261,15 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     on the order of the keys, so B6 reads the ring as it lies), built once
     per step by the caller for all layers, ``kv_rows`` the same on the
     host.  Returns (out, new_kv): the (k,
-    v) for cache construction, or the updated cache."""
+    v) for cache construction, or the updated cache.
+
+    Under a model group that splits the q heads, the rank computes its q
+    heads and the kv heads they read (``_tp_attn_weights``), B5 runs on
+    them, and ``wo``'s partial sums are reduced (g)."""
+    tp = C.split(p["wq"].shape[1], cfg.n_heads)
+    if tp:
+        x = C.copy_to_model(x)
+        p = _tp_attn_weights(cfg, p)
     q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
     k = einsum32("bsd,dnk->bsnk", x, p["wk"], out_dtype=x.dtype)
     v = einsum32("bsd,dnk->bsnk", x, p["wv"], out_dtype=x.dtype)
@@ -261,8 +293,43 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                                   sliding_window=sliding_window,
                                   logit_softcap=cfg.attn_logit_softcap)
         new_kv = {"k": k, "v": v}
-    y = einsum32("bshk,hkd->bsd", out, p["wo"], out_dtype=x.dtype)
+    if tp:
+        y = reduced_dense(out.reshape(*out.shape[:2], -1),
+                          p["wo"].reshape(-1, p["wo"].shape[-1]), x.dtype)
+    else:
+        y = einsum32("bshk,hkd->bsd", out, p["wo"], out_dtype=x.dtype)
     return y, new_kv
+
+
+def _tp_attn_weights(cfg, p: dict) -> dict:
+    """The weights a rank's q heads read: its shards of wq and wo; wk and
+    wv its shards where the kv heads are split too, else the replicated
+    tensors sliced to the kv heads its q heads map to (q head h reads kv
+    head h // (H / KV)), through f; qk-norm scales through f.  The local
+    group (q heads over kv heads) must be whole; a ``ValueError`` says
+    where it is not."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    Hl, KVl = p["wq"].shape[1], p["wk"].shape[1]
+    p = dict(p)
+    if KVl == KV:
+        G, r = H // KV, C.model_rank()
+        if Hl % G == 0:
+            k0, k1 = r * Hl // G, (r + 1) * Hl // G
+        elif G % Hl == 0:
+            k0 = r * Hl // G
+            k1 = k0 + 1
+        else:
+            raise ValueError(f"{Hl} q heads a rank over groups of {G}: the "
+                             "rank's q heads do not map to whole kv heads")
+        for name in ("wk", "wv"):
+            p[name] = C.copy_to_model(p[name])[:, k0:k1]
+        KVl = k1 - k0
+    if Hl % KVl:
+        raise ValueError(f"{Hl} q heads over {KVl} kv heads on a rank")
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = C.copy_to_model(p[name])
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -319,15 +386,24 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     through ``w_uk`` against the latent cache, plus q_rope . k_rope, the
     context back through ``w_uv``.  The new rows are written into the cache
     at ``cache_index`` in place.  Returns (out, new_cache): the (latent,
-    k_rope) for cache construction, or the updated cache."""
+    k_rope) for cache construction, or the updated cache.
+
+    Under a model group that splits the heads, the rank computes the whole
+    latent and rope key (``w_dkv`` and ``kv_norm`` replicated, through f)
+    and its heads of q, K and V, and ``wo``'s partial sums are reduced."""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = p["wq"].shape[1]
+    tp = C.split(H, cfg.n_heads)
+    w_dkv, kv_norm = p["w_dkv"], p["kv_norm"]
+    if tp:
+        x = C.copy_to_model(x)
+        w_dkv, kv_norm = C.copy_to_model(w_dkv), C.copy_to_model(kv_norm)
     r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
     q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    dkv = einsum32("bsd,dr->bsr", x, p["w_dkv"], out_dtype=x.dtype)
-    latent = rms_norm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    dkv = einsum32("bsd,dr->bsr", x, w_dkv, out_dtype=x.dtype)
+    latent = rms_norm(dkv[..., :r], kv_norm, cfg.norm_eps)
     k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
     if cache is not None:
         cl, cr = cache["latent"], cache["k_rope"]
@@ -349,7 +425,11 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
             B, S, H, k_rope.shape[-1])], dim=-1)
         out = mla_prefill_attention(torch.cat([q_nope, q_rope], dim=-1), k, v)
         new_cache = {"latent": latent, "k_rope": k_rope}
-    y = einsum32("bshv,hvd->bsd", out, p["wo"], out_dtype=x.dtype)
+    if tp:
+        y = reduced_dense(out.reshape(B, S, -1),
+                          p["wo"].reshape(-1, p["wo"].shape[-1]), x.dtype)
+    else:
+        y = einsum32("bshv,hvd->bsd", out, p["wo"], out_dtype=x.dtype)
     return y, new_cache
 
 
@@ -372,10 +452,20 @@ def mlp_spec(cfg) -> dict:
             "w_down": ("mlp", "embed")}
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU; SiLU runs on the float32 of the already-rounded gate."""
+def mlp_apply(p: dict, x: torch.Tensor, d_ff: Optional[int] = None,
+              reduce: bool = True) -> torch.Tensor:
+    """SwiGLU; SiLU runs on the float32 of the already-rounded gate.  Where
+    the hidden dim (``d_ff`` whole) is split over a model group, w_gate and
+    w_up are column-parallel (f before them) and w_down row-parallel, its
+    partial sums reduced in float32 (g, ``reduced_dense``), or left partial
+    in x's dtype with ``reduce=False``."""
+    tp = d_ff is not None and C.split(p["w_gate"].shape[-1], d_ff)
+    if tp:
+        x = C.copy_to_model(x)
     h = torch.nn.functional.silu(dense(x, p["w_gate"]).float()).to(x.dtype)
     h = h * dense(x, p["w_up"])
+    if tp and reduce:
+        return reduced_dense(h, p["w_down"], x.dtype)
     return dense(h, p["w_down"])
 
 
@@ -450,7 +540,14 @@ def moe_apply(cfg, p: dict, x: torch.Tensor):
     the scatter copies; the buffer lies expert-major, (E, B, cap), so each
     expert's rows of every batch row are one GEMM operand.  Gate and up
     products stay float32 through ``silu(g) * u`` and round once (unlike
-    ``mlp_apply``); the gather is weighted by ``keep * gate`` in x's dtype."""
+    ``mlp_apply``); the gather is weighted by ``keep * gate`` in x's dtype.
+
+    Where each expert's hidden dim is split over a model group, every rank
+    routes the whole batch with the replicated router (the same experts,
+    positions and drops everywhere), runs its columns of every expert on
+    f(x) and combines with f(gate), and one g sums the partial outputs
+    (with the shared experts' where they are split too).  The load-balance
+    term is every rank's, counted once."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     cap = moe_capacity(cfg, S)
@@ -459,6 +556,10 @@ def moe_apply(cfg, p: dict, x: torch.Tensor):
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[..., :k], idx[..., :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    tp = C.split(p["w_gate"].shape[-1], cfg.moe_d_ff)
+    xe = C.copy_to_model(x) if tp else x
+    if tp:
+        gate = C.copy_to_model(gate)
 
     idx_f = idx.reshape(B, S * k)
     pos_in_e = torch.nn.functional.one_hot(idx_f, E).cumsum(dim=1) - 1
@@ -473,7 +574,7 @@ def moe_apply(cfg, p: dict, x: torch.Tensor):
                                 E * cap).reshape(B, S, k)})
 
     buf = x.new_zeros((E * B * cap + 1, d))
-    buf[dest.reshape(-1)] = x.repeat_interleave(k, dim=1).reshape(-1, d)
+    buf[dest.reshape(-1)] = xe.repeat_interleave(k, dim=1).reshape(-1, d)
     buf = buf[:-1].view(E, B * cap, d)
     g = bmm32(buf, p["w_gate"])
     h = (torch.nn.functional.silu(g) * bmm32(buf, p["w_up"])).to(x.dtype)
@@ -483,14 +584,30 @@ def moe_apply(cfg, p: dict, x: torch.Tensor):
     got = got * (keep * gate.reshape(B, S * k)).to(x.dtype)[..., None]
     y = got.reshape(B, S, k, d).sum(dim=2)
     if cfg.n_shared_experts:
-        y = y + mlp_apply(p["shared"], x)
+        ff = cfg.n_shared_experts * cfg.moe_d_ff
+        if tp and C.split(p["shared"]["w_gate"].shape[-1], ff):
+            y = y + mlp_apply(p["shared"], x, ff, reduce=False)
+        else:
+            y = (C.reduce_from_model(y) if tp else y) + mlp_apply(
+                p["shared"], x, ff)
+            tp = False
+    if tp:
+        y = C.reduce_from_model(y)
     return y, moe_load_balance_loss(cfg, router_logits)
 
 
 def moe_load_balance_loss(cfg, router_logits: torch.Tensor) -> torch.Tensor:
     """E times the sum over experts of (mean router probability) x (share of
-    tokens whose first choice it is), float32."""
+    tokens whose first choice it is), float32, over the whole batch: under
+    a batch group both means take every rank's rows (their sums reduced
+    over the group)."""
     probs = torch.softmax(router_logits, dim=-1)
-    frac = probs.mean(dim=(0, 1))
     top1 = torch.nn.functional.one_hot(probs.argmax(-1), cfg.n_experts)
-    return cfg.n_experts * (frac * top1.float().mean(dim=(0, 1))).sum()
+    if C.batch_ranks() == 1:
+        frac = probs.mean(dim=(0, 1))
+        return cfg.n_experts * (frac * top1.float().mean(dim=(0, 1))).sum()
+    n = torch.tensor(float(probs.shape[0] * probs.shape[1]
+                           * C.batch_ranks()), device=probs.device)
+    frac = C.sum_over_batch(probs.sum(dim=(0, 1))) / n
+    share = C.sum_over_batch(top1.float().sum(dim=(0, 1)).detach()) / n
+    return cfg.n_experts * (frac * share).sum()

@@ -25,6 +25,19 @@ Every block has two forms:
 
 A block returns its new state, which the decoder writes back into the
 stacked decode caches (``transformer._run_layers``).
+
+Tensor parallelism (inside ``collectives.model_parallel``): where the rules
+split the inner dim over the model group, each block takes its input
+through f and runs its channels.  The packed projections (mamba's and
+mLSTM's [x | z], sLSTM's [i | f | z | o]) keep the rules' column chunks
+of the packed weight, which do not hold matching slices of the parts, so
+the projected activation is gathered whole over the group (an all-gather)
+and each rank takes its channels of each part.  A product that contracts
+over the inner dim (mamba's ``w_x``, mLSTM's q/k/v and gates) is partial
+and summed over the group in float32 (an all-reduce each way, as the rank
+then uses it for its own channels again), then rounded once.  mLSTM and sLSTM run the recurrence on
+the rank's heads where the rules split the heads, else on every head; the
+block's output is reduced (g) or, for sLSTM's heads, gathered.
 """
 from __future__ import annotations
 
@@ -34,7 +47,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dtype_of, einsum32, init_dense, rms_norm
+from repro_torch.launch import collectives as C
+from repro_torch.models.layers import (dtype_of, einsum32, init_dense,
+                                       reduced_dense, rms_norm)
 
 LOG_EPS = -30.0
 
@@ -76,6 +91,18 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     new_cache = (ctx[:, ctx.shape[1] - (K - 1):].clone() if K > 1
                  else x.new_zeros((x.shape[0], 0, x.shape[2])))
     return y.to(x.dtype), new_cache
+
+
+def _packed_parts(up: torch.Tensor, n_parts: int, tp: bool):
+    """The parts of a packed projection ``up`` (..., n_parts * width): on a
+    model group that splits it, ``up`` holds the rank's column chunk of the
+    packed layout, so it is gathered whole and the rank takes its chunk of
+    every part; else the parts as they lie."""
+    if not tp:
+        return up.chunk(n_parts, dim=-1)
+    whole = C.gather_mid(up, -1)
+    n, r = C.model_size(), C.model_rank()
+    return tuple(p.chunk(n, dim=-1)[r] for p in whole.chunk(n_parts, dim=-1))
 
 
 # ===========================================================================
@@ -217,18 +244,35 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     nh = cfg.n_heads
     di = cfg.ssm_expand * d
     hd = di // nh
+    tp = C.split(p["conv_w"].shape[1], di)
     h_in = rms_norm(x, p["norm"], cfg.norm_eps)
+    if tp:
+        h_in = C.copy_to_model(h_in)
     up = einsum32("bsd,de->bse", h_in, p["w_up"], out_dtype=x.dtype)
-    xm, z = up.chunk(2, dim=-1)
+    xm, z = _packed_parts(up, 2, tp)
     xc, new_conv = causal_conv1d(xm, p["conv_w"],
                                  None if cache is None else cache["conv"])
     xc = F.silu(xc.float()).to(x.dtype)
-    q = einsum32("bsd,de->bse", xc, p["wq"], out_dtype=x.dtype).reshape(B, S, nh, hd)
-    k = einsum32("bsd,de->bse", xc, p["wk"], out_dtype=x.dtype).reshape(B, S, nh, hd)
+    def proj(a, w):
+        if tp:
+            return reduced_dense(a, w, x.dtype, mid=True)
+        return einsum32("bsd,de->bse", a, w, out_dtype=x.dtype)
+    q = proj(xc, p["wq"]).reshape(B, S, nh, hd)
+    k = proj(xc, p["wk"]).reshape(B, S, nh, hd)
     k = _div_weak(k, math.sqrt(hd))        # and q / sqrt(hd) in the cell, as there
-    v = einsum32("bsd,de->bse", xm, p["wv"], out_dtype=x.dtype).reshape(B, S, nh, hd)
-    gates = einsum32("bsd,dg->bsg", xm, p["w_if"]) + p["b_if"]
+    v = proj(xm, p["wv"]).reshape(B, S, nh, hd)
+    gates = einsum32("bsd,dg->bsg", xm, p["w_if"])
+    gates = (C.reduce_mid(gates) if tp else gates) + (
+        C.copy_to_model(p["b_if"]) if tp else p["b_if"])
     i_raw, f_raw = gates.chunk(2, dim=-1)            # (B, S, nh) each
+    gn = p["gn"]
+    if tp and C.split(gn.shape[0], nh):
+        # the rank's heads: its channels of the inner dim
+        h0 = C.model_rank() * gn.shape[0]
+        q, k, v, i_raw, f_raw = (t[:, :, h0:h0 + gn.shape[0]]
+                                 for t in (q, k, v, i_raw, f_raw))
+    elif tp:
+        gn = C.copy_to_model(gn)
 
     if cache is not None and S == 1:
         h, new_state = mlstm_cell_step(q[:, 0], k[:, 0], v[:, 0], i_raw[:, 0],
@@ -237,9 +281,13 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     else:
         h, new_state = mlstm_sequence(q, k, v, i_raw, f_raw,
                                       None if cache is None else cache["state"])
-    h = group_norm(h.to(x.dtype), p["gn"], cfg.norm_eps).reshape(B, S, di)
+    h = group_norm(h.to(x.dtype), gn, cfg.norm_eps).reshape(B, S, -1)
+    if tp and h.shape[-1] == di:
+        # every head on every rank: the rank's channels of them
+        h = h.chunk(C.model_size(), dim=-1)[C.model_rank()]
     h = h * F.silu(z.float()).to(x.dtype)
-    y = einsum32("bsd,de->bse", h, p["w_down"], out_dtype=x.dtype)
+    y = (reduced_dense(h, p["w_down"], x.dtype) if tp else
+         einsum32("bsd,de->bse", h, p["w_down"], out_dtype=x.dtype))
     return x + y, {"conv": new_conv, "state": new_state}
 
 
@@ -313,13 +361,28 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     B, S, d = x.shape
     nh = cfg.n_heads
     hd = d // nh
+    tp = C.split(p["w_gates"].shape[1], 4 * d)
+    heads = C.split(p["r_gates"].shape[0], nh)     # the rank's heads only
+    if heads and not tp:
+        raise ValueError("sLSTM heads split over a model group whose size "
+                         "does not divide the gate width")
     h_in = rms_norm(x, p["norm"], cfg.norm_eps)
+    if tp:
+        h_in = C.copy_to_model(h_in)
     wx = einsum32("bsd,dg->bsg", h_in, p["w_gates"])            # (B, S, 4d) f32
+    if tp:
+        # the rules' column chunk of the packed [i | f | z | o], made whole
+        wx = (C.gather_mid if heads else C.gather_from_model)(wx, -1)
     # [i(d), f(d), z(d), o(d)] -> per head [i, f, z, o] (hd each)
     wx = wx.reshape(B, S, 4, nh, hd).transpose(2, 3).reshape(B, S, nh, 4 * hd)
-    b_h = p["b_gates"].reshape(4, nh, hd).transpose(0, 1).reshape(nh, 4 * hd)
+    b_gates = C.copy_to_model(p["b_gates"]) if heads else p["b_gates"]
+    b_h = b_gates.reshape(4, nh, hd).transpose(0, 1).reshape(nh, 4 * hd)
+    if heads:
+        h0 = C.model_rank() * p["r_gates"].shape[0]
+        wx = wx[:, :, h0:h0 + p["r_gates"].shape[0]]
+        b_h = b_h[h0:h0 + p["r_gates"].shape[0]]
     r = p["r_gates"].float()
-    state = (slstm_state_init(cfg, B, x.device) if cache is None
+    state = (slstm_state_init(cfg, B, x.device, r.shape[0]) if cache is None
              else cache)["state"]
     carry = tuple(state[k] for k in ("h", "c", "n", "m"))
     hs = []
@@ -327,19 +390,28 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
         carry, h_t = _slstm_step(r, b_h, carry, wx[:, t])
         hs.append(h_t)
     y = group_norm(torch.stack(hs, dim=1).to(x.dtype), p["gn"],
-                   cfg.norm_eps).reshape(B, S, d)
+                   cfg.norm_eps).reshape(B, S, -1)
+    if heads:
+        y = C.gather_from_model(y, -1)
     x = x + y
     hf = rms_norm(x, p["norm"], cfg.norm_eps)
+    f_up = int(d * 4 / 3)
+    ffn_tp = C.split(p["w_up1"].shape[1], f_up)
+    if ffn_tp:
+        hf = C.copy_to_model(hf)
     up = F.gelu(einsum32("bsd,df->bsf", hf, p["w_up1"]),
                 approximate="tanh").to(x.dtype)
     up = up * einsum32("bsd,df->bsf", hf, p["w_up2"], out_dtype=x.dtype)
-    x = x + einsum32("bsf,fd->bsd", up, p["w_down"], out_dtype=x.dtype)
+    x = x + (reduced_dense(up, p["w_down"], x.dtype) if ffn_tp else
+             einsum32("bsf,fd->bsd", up, p["w_down"], out_dtype=x.dtype))
     return x, {"state": dict(zip(("h", "c", "n", "m"), carry))}
 
 
-def slstm_state_init(cfg, B: int, device) -> dict:
+def slstm_state_init(cfg, B: int, device, heads: Optional[int] = None
+                     ) -> dict:
+    """The zero state of ``heads`` heads (the config's by default)."""
     nh = cfg.n_heads
-    shape = (B, nh, cfg.d_model // nh)
+    shape = (B, heads or nh, cfg.d_model // nh)
     z = lambda: torch.zeros(shape, dtype=torch.float32, device=device)
     return {"state": {"h": z(), "c": z(), "n": z(),
                       "m": torch.full(shape, LOG_EPS, dtype=torch.float32,
@@ -426,13 +498,18 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     B, S, d = x.shape
     N = cfg.ssm_state
     dt_rank = p["w_x"].shape[1] - 2 * N
+    tp = C.split(p["conv_w"].shape[1], cfg.ssm_expand * d)
+    if tp:
+        x = C.copy_to_model(x)
 
     up = einsum32("bsd,de->bse", x, p["w_in"], out_dtype=x.dtype)
-    xm, z = up.chunk(2, dim=-1)
+    xm, z = _packed_parts(up, 2, tp)
     u, new_conv = causal_conv1d(xm, p["conv_w"],
                                 None if cache is None else cache["conv"])
     u = F.silu(u.float())                                         # (B, S, di)
     xproj = einsum32("bsd,dr->bsr", u.to(x.dtype), p["w_x"])      # float32
+    if tp:
+        xproj = C.reduce_mid(xproj)
     dt_in, Bc, Cc = xproj.split([dt_rank, N, N], dim=-1)
     dt = F.softplus(dt_in @ p["w_dt"] + p["b_dt"])                # (B, S, di)
     A = -torch.exp(p["A_log"])                                    # (di, N)
@@ -453,7 +530,11 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
         del hs
     y = y + p["D"] * u
     y = y * F.silu(z.float())
-    out = einsum32("bsd,de->bse", y.to(x.dtype), p["w_out"], out_dtype=x.dtype)
+    if tp:
+        out = reduced_dense(y.to(x.dtype), p["w_out"], x.dtype)
+    else:
+        out = einsum32("bsd,de->bse", y.to(x.dtype), p["w_out"],
+                       out_dtype=x.dtype)
     return out, {"conv": new_conv, "state": new_state}
 
 

@@ -48,6 +48,16 @@ layer, B5's forward included); ``lm_loss`` is the chunked cross-entropy over
 backward as there.  GQA attention then runs B5 through its autograd
 function, whose backward is B5's backward kernel on the card.  MoE routing
 is not recorded in training (a recompute would record it twice).
+
+Tensor parallelism (inside ``collectives.model_parallel``): the layers
+split as ``models/layers.py`` and ``models/ssm.py`` say; where the rules
+split the vocabulary over the model group the embedding lookup is
+vocab-parallel (each rank looks up the tokens in its range, zeros
+elsewhere, then g; per codebook, so the sum keeps its order), the
+unembedding gives the rank's vocab columns (gathered whole for the
+prefill's logits), and the chunked cross-entropy reduces the maximum, the
+sum of exponentials and the target logit over the group.  The prefill
+caches hold what the rank computed (its kv heads, its SSM channels).
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.tree import spec_map, tree_flatten, tree_map
@@ -196,7 +207,7 @@ def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
     if kind.ffn == "moe":
         fy, aux = L.moe_apply(cfg, p["ffn"], h2)
     else:
-        fy, aux = L.mlp_apply(p["ffn"], h2), None
+        fy, aux = L.mlp_apply(p["ffn"], h2, cfg.d_ff), None
     return x + fy, new_cache, aux
 
 
@@ -298,14 +309,35 @@ def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
         return batch["frames"].to(dt)
     tokens = batch["tokens"]
     if cfg.n_codebooks:
-        h = params["embed"][0][tokens[..., 0]]
+        h = _lookup(cfg, params["embed"][0], tokens[..., 0])
         for c in range(1, cfg.n_codebooks):
-            h = h + params["embed"][c][tokens[..., c]]
+            h = h + _lookup(cfg, params["embed"][c], tokens[..., c])
     else:
-        h = params["embed"][tokens]
+        h = _lookup(cfg, params["embed"], tokens)
     if "patches" in batch:
         h = torch.cat([batch["patches"].to(dt), h.to(dt)], dim=1)
     return h.to(dt)
+
+
+def _vocab_range(cfg: ModelConfig, rows: int):
+    """The first vocabulary id of this rank's rows of a (V, ...) table of
+    ``rows`` rows, and whether the table is split over a model group."""
+    tp = C.split(rows, cfg.vocab_size)
+    return (C.model_rank() * rows if tp else 0), tp
+
+
+def _lookup(cfg: ModelConfig, table: torch.Tensor,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; on a vocab shard the rank's rows, zeros for the
+    tokens outside its range, summed over the model group (g)."""
+    v0, tp = _vocab_range(cfg, table.shape[0])
+    if not tp:
+        return table[tokens]
+    local = tokens - v0
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return C.reduce_from_model(torch.where(mine[..., None], rows,
+                                           rows.new_zeros(())))
 
 
 def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
@@ -415,10 +447,25 @@ def train_forward(cfg: ModelConfig, params, h: torch.Tensor,
 
 def _chunk_loss(cfg: ModelConfig, params, h: torch.Tensor,
                 labels: torch.Tensor):
-    """Summed cross-entropy of one chunk and its count of labels >= 0."""
-    logits = unembed(cfg, params, h)                  # (B, Lc, [ncb,] V) f32
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    """Summed cross-entropy of one chunk and its count of labels >= 0.  On
+    a vocab shard the log-sum-exp takes the maximum and the sum of
+    exponentials over the model group, and the target logit comes from the
+    rank whose range holds it."""
+    logits = local_logits(cfg, params, h)             # (B, Lc, [ncb,] V) f32
+    lab = labels.clamp_min(0).long()
+    v0, tp = _vocab_range(cfg, logits.shape[-1])
+    if tp:
+        m = C.max_over_model(logits.detach().amax(dim=-1, keepdim=True))
+        lse = m[..., 0] + torch.log(C.reduce_from_model(
+            torch.exp(logits - m).sum(dim=-1)))
+        lab = lab - v0
+        mine = (lab >= 0) & (lab < logits.shape[-1])
+        got = logits.gather(-1, lab.clamp(0, logits.shape[-1] - 1)[..., None])
+        picked = C.reduce_from_model(torch.where(mine, got[..., 0],
+                                                 got.new_zeros(())))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, lab[..., None])[..., 0]
     w = (labels >= 0).float()
     return ((lse - picked) * w).sum(), w.sum()
 
@@ -459,13 +506,28 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     return loss
 
 
-def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+def local_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     """h: (B, S, d) -> float32 logits (B, S, V); tied: ``embed.T``; with
-    codebooks (B, S, ncb, V), one head each."""
+    codebooks (B, S, ncb, V), one head each.  On a vocab shard the rank's
+    columns of them (h through f)."""
     if cfg.n_codebooks:
-        return L.einsum32("bsd,cdv->bscv", h, params["lm_head"])
+        w = params["lm_head"]
+        if C.split(w.shape[-1], cfg.vocab_size):
+            h = C.copy_to_model(h)
+        return L.einsum32("bsd,cdv->bscv", h, w)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if C.split(w.shape[-1], cfg.vocab_size):
+        h = C.copy_to_model(h)
     return L.dense32(h, w)
+
+
+def unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """``local_logits``, gathered whole over the model group where the
+    vocabulary is split."""
+    logits = local_logits(cfg, params, h)
+    if C.split(logits.shape[-1], cfg.vocab_size):
+        logits = C.gather_from_model(logits, -1)
+    return logits
 
 
 def positions_for(h: torch.Tensor, start: int = 0) -> torch.Tensor:
@@ -495,34 +557,41 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
     the decode caches.  Returns (last-position logits (B, 1, V), or
     (B, 1, ncb, V) with codebooks, float32, caches)."""
     h = embed_inputs(cfg, params, batch)
-    B, Sq = h.shape[:2]
+    Sq = h.shape[1]
     if max_len < Sq:
         raise ValueError(f"max_len {max_len} is shorter than the prompt {Sq}")
     h, seq_caches, _ = forward(cfg, params, h, positions_for(h))
-    caches = cache_init(cfg, B, max_len, h.device)
-    out = [_merge_prefill_cache(cfg, kind, dec, got, Sq)
-           for (kind, _), dec, got in zip(layer_runs(cfg), caches, seq_caches)]
+    out = [_merge_prefill_cache(kind, got, Sq, max_len)
+           for (kind, _), got in zip(layer_runs(cfg), seq_caches)]
     return unembed(cfg, params, h[:, -1:]), out
 
 
-def _merge_prefill_cache(cfg: ModelConfig, kind: LayerKind, dec, got, Sq: int):
-    """Write the prompt's rows into the decode cache, in place: MLA's
-    (layers, B, Sq, r) latent and (layers, B, Sq, dr) rope key as they lie
-    into the first Sq rows; GQA's (layers, B, Sq, KV, hd) k and v turned
-    KV-major into the first Sq rows, or on a ring of w rows with Sq >= w the
-    last w rows rolled by Sq % w, so that position p sits in slot p % w.
-    Recurrent states are taken as they come."""
+def _merge_prefill_cache(kind: LayerKind, got, Sq: int, max_len: int):
+    """The decode cache of a run, zeroed (as ``cache_init`` lays it out,
+    in the heads the prompt's rows carry) with the prompt's rows written
+    in: MLA's (layers, B, Sq, r) latent and (layers, B, Sq, dr) rope key as
+    they lie into the first Sq of max_len rows; GQA's (layers, B, Sq, KV,
+    hd) k and v turned KV-major into the first Sq rows, or on a ring of w
+    rows with Sq >= w the last w rows rolled by Sq % w, so that position p
+    sits in slot p % w.  Recurrent states are taken as they come."""
     if kind.block in ("mlstm", "slstm"):
         return got
     w = kind.sliding_window
+    dec: Dict[str, Any] = {"attn": {}}
     for name, rows in got["attn"].items():
         if kind.attn == "mla":
-            dec["attn"][name][:, :, :Sq] = rows
-        elif w and Sq >= w:
-            dec["attn"][name].copy_(torch.roll(
-                rows[:, :, Sq - w:].transpose(2, 3), Sq % w, dims=3))
+            n, B, _, r = rows.shape
+            c = rows.new_zeros((n, B, max_len, r))
+            c[:, :, :Sq] = rows
         else:
-            dec["attn"][name][:, :, :, :Sq] = rows.transpose(2, 3)
+            n, B, _, KV, hd = rows.shape
+            c = rows.new_zeros((n, B, KV, w or max_len, hd))
+            if w and Sq >= w:
+                c.copy_(torch.roll(rows[:, :, Sq - w:].transpose(2, 3),
+                                   Sq % w, dims=3))
+            else:
+                c[:, :, :, :Sq] = rows.transpose(2, 3)
+        dec["attn"][name] = c
     if kind.block == "hymba":
         dec["mamba"] = got["mamba"]
     return dec

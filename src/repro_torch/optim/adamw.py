@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -69,9 +69,21 @@ class AdamW:
                           m=zeros(params), v=zeros(params))
 
     @staticmethod
-    def global_norm(g32) -> torch.Tensor:
-        """The float32 norm of a list of float32 gradients, as a whole."""
-        return torch.sqrt(sum(torch.sum(g * g) for g in g32))
+    def global_norm(g32, model_sharded: Sequence[bool] = (),
+                    group=None) -> torch.Tensor:
+        """The float32 norm of a list of float32 gradients, as a whole.
+        With ``group`` (a mesh's ``model`` group) the leaves flagged in
+        ``model_sharded`` are this rank's shards: their squares are summed
+        over the group, and every other leaf, whole on each rank, is
+        counted once."""
+        if group is None or not any(model_sharded):
+            return torch.sqrt(sum(torch.sum(g * g) for g in g32))
+        from repro_torch.launch.collectives import all_reduce
+        sq = [torch.sum(g * g) for g in g32]
+        mine = all_reduce(sum(q for q, s in zip(sq, model_sharded) if s),
+                          group)
+        return torch.sqrt(mine + sum(q for q, s in zip(sq, model_sharded)
+                                     if not s))
 
     def update(self, grads, state: AdamWState, params,
                grad_norm: Optional[torch.Tensor] = None

@@ -29,6 +29,7 @@ from typing import Any, List, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.collectives import all_reduce
 from repro_torch.tree import tree_flatten, tree_map
 
 BLOCK = 8192
@@ -63,6 +64,7 @@ def compressed_psum(grads, err_state, group=None) -> Tuple[Any, Any]:
     (the default group if None).  ``err_state``: one flat float32 buffer
     per leaf (``init_error_state``).  Returns (mean grads in each leaf's
     dtype and shape, new error state); every rank gets the same mean."""
+    group = dist.group.WORLD if group is None else group
     n_dev = dist.get_world_size(group)
     flat_g, treedef = tree_flatten(grads)
     flat_e = tree_flatten(err_state)[0]
@@ -71,7 +73,7 @@ def compressed_psum(grads, err_state, group=None) -> Tuple[Any, Any]:
     parts: List[torch.Tensor] = [_blocks(g, e) for g, e in zip(flat_g, flat_e)]
     blocks = torch.cat(parts) if len(parts) > 1 else parts[0]
     absmax = blocks.abs().amax(dim=1)
-    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    all_reduce(absmax, group, "max")
     scale = shared_scale(absmax)
     q = quantize(blocks, scale)
     # the residual rounded once, as XLA's fused multiply-add rounds it: the
@@ -79,7 +81,7 @@ def compressed_psum(grads, err_state, group=None) -> Tuple[Any, Any]:
     # difference from a value within half a step of it
     residual = (blocks.double() - q.double() * scale.double()[:, None]).float()
     qs = q.to(torch.int32)
-    dist.all_reduce(qs, op=dist.ReduceOp.SUM, group=group)
+    all_reduce(qs, group)
     ranks = torch.tensor(float(n_dev), dtype=torch.float32,
                          device=blocks.device)
     mean = qs.float() * scale[:, None] / ranks

@@ -134,3 +134,94 @@ def train_rank(rank, world, arch, params_np, batch_np, fsdp, opt_kw):
     return {"metrics": {k: float(v) for k, v in m.items()},
             "params": tree_map(lambda x: x.numpy(), gather(new)),
             "shards": shards}
+
+
+def tp_train_rank(rank, world, cases, opt_kw):
+    """One step of ``build_train_step`` for each case (arch, (data,
+    model), weights, batch, fsdp) on a mesh of that shape over these
+    ranks: the metrics and the updated parameters, gathered."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import ShardingRules, gather
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_map
+    torch.set_num_threads(1)
+    out = []
+    for arch, (data, model), params_np, batch_np, fsdp in cases:
+        cfg = get_reduced_config(arch)
+        B, S = batch_np["tokens"].shape
+        opt = AdamW(**opt_kw)
+        mesh = make_host_mesh(model_parallel=model, device="cpu")
+        assert mesh.shape == {"data": data, "model": model}
+        step = build_train_step(cfg, InputShape("t", S, B, "train"),
+                                mesh=mesh, opt=opt,
+                                rules=ShardingRules(fsdp=fsdp))
+        params = lm_params_from_numpy(params_np, torch.device("cpu"))
+        placed, state = step.place(params, opt.init(params))
+        new, _, m = step(placed, state, {k: torch.from_numpy(v)
+                                         for k, v in batch_np.items()})
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "params": tree_map(lambda x: x.numpy(), gather(new))})
+    return out
+
+
+def _unshard(tree, spec_tree, mesh):
+    """Each leaf of ``tree`` (this rank's chunk by its spec) gathered whole
+    over every axis its spec names, innermost first."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.sharding import entry_axes
+    from repro_torch.tree import spec_map
+
+    def one(spec, x):
+        for d, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                x = C.all_gather(x, mesh.group(a), d)
+        return x
+    return spec_map(one, spec_tree, tree)
+
+
+def tp_forward_rank(rank, world, cases):
+    """For each case (arch, weights, batch, labels or None) on a (1, world)
+    mesh: the prefill's last-position logits (labels None), or the loss
+    and every gradient leaf of ``value_and_grad`` on the rank's shards,
+    gathered whole; and the rank's chunk of every leaf."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (ShardingRules, param_shardings,
+                                             shard)
+    from repro_torch.launch.steps import build_prefill, value_and_grad
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_map
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(model_parallel=world, device="cpu")
+    out = []
+    for arch, params_np, batch_np in cases:
+        cfg = get_reduced_config(arch)
+        params = lm_params_from_numpy(params_np, torch.device("cpu"))
+        model = get_model(cfg, "cpu")
+        specs = param_shardings(ShardingRules(), model.spec(),
+                                model.abstract_params(), mesh)
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        mine = shard(params, specs, mesh)
+        got = {"chunks": tree_map(lambda x: x.numpy().copy(), mine)}
+        if "labels" in batch:
+            with C.model_parallel(mesh.group("model")):
+                loss, grads = value_and_grad(cfg, mine, batch)
+            got.update(loss=float(loss), grads=tree_map(
+                lambda g: g.numpy(), _unshard(grads, specs, mesh)))
+        else:
+            B = next(iter(batch.values())).shape[0]
+            S = sum(v.shape[1] for v in batch.values())
+            pre = build_prefill(cfg, InputShape("p", S, B, "prefill"),
+                                mesh=mesh)
+            logits, caches = pre.local_fn(mine, batch)
+            got.update(logits=logits.numpy(),
+                       caches=tree_map(lambda c: tuple(c.shape), caches))
+        out.append(got)
+    return out

@@ -21,7 +21,7 @@ against the mesh-free step and the JAX package's step on a 2 x 1 mesh.
   there is lr eps / (|g| + eps)^2, so a rounding of such a g (a sum that
   cancels) moves the update by up to twice the learning rate, the bound
   held there.
-* A mesh whose "model" axis is over 1 raises.
+* A decode step over a "model" axis over 1 raises (A9c(b)).
 """
 import os
 import subprocess
@@ -188,12 +188,16 @@ def test_two_ranks_match_one_process_and_the_jax_package(tmp_path, fsdp,
 
 
 def test_a_model_axis_over_one_raises():
+    """Decode over a "model" axis over 1 is refused (A9c(b)); the train
+    step and the prefill build there (tests/test_torch_tp_*.py run them)."""
+    from repro_torch.launch.steps import build_step
     cfg = get_reduced_config("smollm-360m")
     mesh = Mesh(None, ("data", "model"), {"data": 1, "model": 2})
-    for kind in ("train", "prefill", "decode"):
-        with pytest.raises(ValueError, match="model axis"):
-            from repro_torch.launch.steps import build_step
-            build_step(cfg, InputShape("t", S, B, kind), mesh=mesh)
+    with pytest.raises(ValueError, match=r"model axis of 2.*A9c\(b\)"):
+        build_step(cfg, InputShape("t", S, B, "decode"), mesh=mesh)
+    for kind in ("train", "prefill"):
+        assert build_step(cfg, InputShape("t", S, B, kind),
+                          mesh=mesh).local_fn is not None
 
 
 def test_meshes_over_one_rank(one_rank):
