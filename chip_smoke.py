@@ -50,7 +50,13 @@ when it fails:
     and at musicgen's G = 1; a cap of 0 bitwise the call without one; each
     output row (one head's hd values at one position) within F32_TOL /
     BF16_TOL of that row's max |x|, two launches on the
-    same inputs bitwise equal; per-window attention (B7) through its entry
+    same inputs bitwise equal; B6's partial mode (out in f32 and each
+    row's log-sum-exp) on each half of the full-width decode cache (two
+    halves of 1040 rows, live rows B6_LENS: full, partial and none) in
+    bf16 and f32, out and lse within ATTN_TOL of the plain version, -inf
+    and zeros on a half with no live row, two launches bitwise equal, the
+    halves merged as the ranks merge them within F32_TOL / BF16_TOL of each
+    row's max of the whole default launch; per-window attention (B7) through its entry
     point, ops.window_attention, at the four Swin-T stage partitions of 4 images
     with the shifted-region mask and without one (B7's own path: its launch
     counter at 0 before, read after), then at w2 64 with hd 64, w2 81
@@ -93,7 +99,10 @@ when it fails:
     global, beside SDPA with the same boolean mask and its bound (the live
     pairs' operations); B5 and B6 soft-capped at 50.0 at the serving shapes
     (no single PyTorch call takes a cap), and B5 at InternVL's and
-    musicgen's prefill shapes beside SDPA;
+    musicgen's prefill shapes beside SDPA; B6's partial mode on half the
+    cache beside the default mode on the whole, back to back, with its
+    plain version and bound (no PyTorch call returns a masked cache's
+    log-sum-exp);
  7. the codec's modes at full width: for splits 1-4, one frame's head
     payload through raw, zlib, int8, int8_zlib and int8_delta_zlib, each
     int8 mode fused and legacy (per-tensor, the quant pair).  Every payload
@@ -274,10 +283,12 @@ when it fails:
     equal, B5's launches per step phase 17's, each step's host ms; (c)
     ``MultiCellVecMac(mesh=...)`` over phase 12 (b)'s city, bitwise its
     reports; (d) ``launch.dryrun`` over every (arch x shape) cell at full
-    size on the meta device, the train and prefill cells over the 16 x 16
-    production mesh (DRYRUN_MESH: each the mesh step on rank 0's view of a
-    stand-in group of 256 ranks, its collectives counted), the decode cells
-    at 1 x 1, started before phase 13 in DRYRUN_JOBS single-thread
+    size on the meta device over the 16 x 16 production mesh (DRYRUN_MESH:
+    each the mesh step on rank 0's view of a stand-in group of 256 ranks,
+    its collectives counted; decode on the rank's cache chunks as
+    ``cache_shardings`` places them, B6's partial mode counted on its
+    rows, every decode cell with all-gathers), started before phase 13 in
+    DRYRUN_JOBS single-thread
     processes niced to 19 (so it takes cores the card's phases leave
     idle), its wall time; every cell OK or SKIP by the JAX dry-run's rule,
     each cell's collective bytes, smollm-360m's and qwen3-1.7b's train_4k
@@ -294,10 +305,12 @@ when it fails:
     on one device; both take card 0 as LOCAL_RANK 0), each first holding
     every collective the mesh code issues on CUDA tensors in f32 and bf16,
     then qwen3-1.7b's prefill at (data, model) = (1, 2), full width, batch
-    4, prompt 2048, bf16, through ``build_prefill(mesh=)``: the gathered
-    last-position logits within HANDOFF_BF16_TOL of max |logit| of the
-    (1, 1) prefill on the same weights and prompt, B5 once a layer on 8 q
-    over 4 kv heads, each rank's KV cache of 4 heads; (c) the same two
+    4, prompt 2048, bf16, through ``build_prefill(mesh=)`` into caches of
+    2080 rows: the gathered last-position logits within HANDOFF_BF16_TOL
+    of max |logit| of the (1, 1) prefill on the same weights and prompt,
+    B5 once a layer on 8 q over 4 kv heads, each rank's KV cache chunk
+    (28, 4, 8, 1040, 128), the rows of every kv head as
+    ``cache_shardings`` places them; (c) the same two
     ranks, TP_STEPS train steps of smollm-360m at (1, 2), full width in
     f32, phase 17's shape (its 15 heads do not split over two ranks, so
     attention stays whole on each), against the mesh-free steps on the
@@ -312,9 +325,19 @@ when it fails:
     within BF16_TOL relative of the mesh-free steps, the first step's
     gradient (AdamW's first moment) within TP_BF16_TOL of each leaf's max,
     the launches the mesh-free step's and B5's counted operations and
-    bytes, forward and backward, half of its; host ms of (b)-(d), which
-    are not TP speeds (gloo stages every collective through the host and
-    the two ranks share one card).
+    bytes, forward and backward, half of its; (e) the same two ranks
+    decode (b)'s caches LM_GEN steps through ``build_decode_step(mesh=)``,
+    teacher-forced on the greedy tokens of the (1, 1) decode: each step's
+    gathered logits within HANDOFF_BF16_TOL of max |logit| of the (1, 1)
+    step, both ranks' bitwise equal, B6 in its partial mode 28 times a
+    step a rank and never in its default mode; then qwen3-1.7b cut to 4
+    layers in f32 the same way within HANDOFF_F32_TOL; (f) hymba-1.5b cut
+    to 4 layers (RECURRENT_CUTS) in f32, batch 2, prompt RECURRENT_PROMPT
+    (past the window), 8 steps within HANDOFF_F32_TOL, its rings and
+    global caches cut on their rows and its mamba states on their
+    channels (TP_DECODE_CUTS); host ms of (b)-(f), which are not TP
+    speeds (gloo stages every collective through the host and the two
+    ranks share one card).
 
 Every profiler session starts after a synchronize and idles TRACE_PAD_S
 before and after its work: the profiler keeps only the device events whose
@@ -482,6 +505,19 @@ TP_FLAT_GRAD = 1e-6
 TP_BF16_LAYERS, TP_BF16_B = 2, 4
 TP_BF16_TOL = 5e-2
 TP_TIMEOUT_S = 420
+# phase 19 (e), (f): decode at (1, 2) of cuts in f32 against the (1, 1)
+# decode, (arch, config changes, batch, prompt, decode steps): LM_ARCH at 4
+# layers (every cache cut on its rows) and hymba-1.5b at RECURRENT_CUTS'
+# 4 layers, a prompt past its window of 1024 (its rings of 1024 rows and
+# its global caches cut on their rows, its mamba states on their channels)
+TP_DECODE_CUTS = {
+    "qwen_f32": (LM_ARCH, dict(n_layers=4), LM_BATCH, LM_PROMPT, LM_GEN),
+    "hymba_f32": ("hymba-1.5b", RECURRENT_CUTS["hymba-1.5b"], 2,
+                  RECURRENT_PROMPT, 8)}
+# B6's partial mode (phases 3 and 6): the live rows of phase 6's cache per
+# batch row, live in both halves, in the second in part, in the first only,
+# and none
+B6_LENS = [2080, 1500, 700, 0]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
@@ -1918,11 +1954,22 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
                             for k, v in r["collective_bytes"].items() if v)
                 + f"), {r['seconds']:.1f} s")
     mesh = "x".join(map(str, DRYRUN_MESH))
-    tp = [r for r in records[:-2] if r["kind"] != "decode"]
+    tp = records[:-2]
     if not all(r["mesh"] == mesh for r in tp) or not all(
             r["total_collective_bytes"] > 0 for r in tp if r["status"] == "OK"):
-        raise AssertionError(f"dry-run train and prefill cells not over "
-                             f"{mesh} with collectives")
+        raise AssertionError(f"dry-run cells not over {mesh} with "
+                             f"collectives")
+    dec = [r for r in tp if r["kind"] == "decode" and r["status"] == "OK"]
+    if not all(r["collective_count"]["all-gather"] > 0 for r in dec):
+        raise AssertionError("a decode cell over "
+                             f"{mesh} without its all-gathers")
+    log(f"dry-run decode cells over {mesh}: {len(dec)} OK, each on the "
+        f"rank's chunks of the caches as cache_shardings places them; B6's "
+        f"partial mode counted in "
+        + ", ".join(f"{r['arch']} {r['shape']} "
+                    f"({r['kernels']['decode_attention_lse']['flop']:.4e} "
+                    f"flop a device)" for r in dec
+                    if "decode_attention_lse" in r["kernels"]))
     for arch in (TRAIN_ARCH, LM_ARCH):
         r = next(r for r in tp if r["arch"] == arch and r["kind"] == "train")
         log(f"dry-run {arch} {r['shape']} over {mesh}: per-device peak "
@@ -1963,18 +2010,16 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
 
 def dryrun_start():
     """Phase 18 (d), started before phase 13: every dry-run cell at full
-    size, the train and prefill cells over DRYRUN_MESH (the production
-    16 x 16 layout, each on rank 0's view of a stand-in group of 256), the
-    decode cells on the card's 1 x 1 mesh (decode is not tensor-parallel
-    yet), and phase 17's train step and phase 9's prefill at 1 x 1, counted
+    size over DRYRUN_MESH (the production 16 x 16 layout, each on rank 0's
+    view of a stand-in group of 256; decode on the rank's cache chunks),
+    and phase 17's train step and phase 9's prefill at 1 x 1, counted
     on the meta device by DRYRUN_JOBS single-thread processes niced to 19,
     so that they take cores the card's phases leave idle.  Returns (pool,
     futures, start time)."""
-    from repro_torch.configs import ARCH_IDS, SHAPES_BY_NAME
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun as DR
     todo = [(a, n, {"mesh_shape": DRYRUN_MESH})
-            if SHAPES_BY_NAME[n].kind != "decode" else (a, n)
             for a, n in DR.cells(ARCH_IDS)] + [
         (TRAIN_ARCH, InputShape("train", TRAIN_S, TRAIN_B, "train"),
          {"grad_accum": TRAIN_ACCUM}),
@@ -2079,14 +2124,134 @@ def tp_shard_checks(dev) -> dict:
     return max(errs)
 
 
-def tp_rank(rank: int, world: int, tmp: str, port: int, tokens):
-    """A rank of phase 19 (b)-(d), spawned: joins a gloo group of ``world``
+def b6_partial_inputs(dev, dt):
+    """Phase 6's B6 shape (LM_ARCH's heads, a cache of LM_PROMPT + LM_GEN
+    rows) in dtype ``dt``, cut into two halves of its rows as two ranks of
+    a (1, 2) mesh hold it: q, K, V, the whole cache's live rows B6_LENS (a
+    row live in both halves, one live in part of the second, one in the
+    first only, one with none) and each half's (start, its live rows)."""
+    import torch
+    cfg = __import__("repro_torch.configs", fromlist=["get_config"]
+                     ).get_config(LM_ARCH)
+    g = torch.Generator().manual_seed(SEED + 6)
+    S = LM_PROMPT + LM_GEN
+    q = torch.randn((LM_BATCH, 1, cfg.n_heads, cfg.head_dim),
+                    generator=g).to(dev, dt)
+    ck, cv = (torch.randn((LM_BATCH, cfg.n_kv_heads, S, cfg.head_dim),
+                          generator=g).to(dev, dt) for _ in range(2))
+    lens = torch.tensor(B6_LENS, dtype=torch.int32, device=dev)
+    half = S // 2
+    halves = [(h * half, (lens - h * half).clamp(0, half).to(torch.int32))
+              for h in range(2)]
+    return q, ck, cv, lens, halves
+
+
+def b6_partial_check(dev) -> float:
+    """Phase 3: B6's partial mode (``return_lse``) on each half of phase
+    6's cache, in bf16 and f32: out (float32) and lse against the plain
+    version within ATTN_TOL, -inf and zeros where a half holds no live row,
+    two launches bitwise equal; the halves merged
+    (``collectives.merge_partials``, rounded once to q's dtype) against
+    the whole default launch, each output row within F32_TOL / BF16_TOL of
+    its max.  Returns the largest |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.collectives import merge_partials
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q, ck, cv, lens, halves = b6_partial_inputs(dev, dt)
+        whole = da.decode_attention_cuda(q, ck, cv, lens)
+        outs, lses, errs = [], [], []
+        for start, live in halves:
+            n = ck.shape[2] // 2
+            k_, v_ = (c[:, :, start:start + n].contiguous() for c in (ck, cv))
+            out, lse = da.decode_attention_cuda(q, k_, v_, live, 0.0, True)
+            again = da.decode_attention_cuda(q, k_, v_, live, 0.0, True)
+            ref, ref_lse = da.decode_attention_plain(q, k_, v_, live, 0.0,
+                                                     True)
+            torch.cuda.synchronize()
+            empty = live == 0
+            fin = ~empty
+            err = max(float((out - ref).abs().max()),
+                      float((lse[fin] - ref_lse[fin]).abs().max()))
+            if not (out.dtype == lse.dtype == torch.float32
+                    and err <= ATTN_TOL and torch.equal(out, again[0])
+                    and torch.equal(lse, again[1])
+                    and bool(torch.isneginf(lse[empty]).all())
+                    and not out[empty].any()
+                    and bool(torch.isfinite(lse[fin]).all())):
+                raise AssertionError(f"B6 partial mode {dt} rows {start}+: "
+                                     f"err {err}, -inf/zeros on empty rows, "
+                                     "or two launches differ")
+            worst = max(worst, err)
+            errs.append(err)
+            outs.append(out)
+            lses.append(lse[:, None])
+        merged = merge_partials(torch.stack(outs), torch.stack(lses), dt)
+        d = (merged.double() - whole.double()).abs().amax(-1)
+        rel = float((d / whole.double().abs().amax(-1).clamp_min(
+            1e-30)).max())
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        if not (merged.dtype == dt and rel <= tol):
+            raise AssertionError(f"B6 partial halves merged {dt}: worst row "
+                                 f"{rel} of its max (tol {tol})")
+        log(f"check B6 partial mode q {tuple(q.shape)} on two halves of "
+            f"{tuple(ck.shape)} ({ck.shape[2] // 2} rows each), kv_len "
+            f"{B6_LENS} -> halves {[h[1].tolist() for h in halves]} "
+            f"{str(dt).removeprefix('torch.')}: out and lse max|kernel-plain| "
+            f"{errs[0]:.3g} / {errs[1]:.3g} (tol {ATTN_TOL}), -inf and zeros "
+            f"where a half holds no live row, two launches bitwise equal; the "
+            f"halves merged within {rel:.3g} of each row's max of the whole "
+            f"launch (tol {tol})")
+    return worst
+
+
+def b6_partial_times(dev, err: float) -> dict:
+    """Phase 6: B6's partial mode on one half of phase 6's bf16 cache (the
+    first, live rows B6_LENS' share) beside the default mode on the whole
+    cache, back to back; its plain version; its bound (K and V of each
+    batch row's live rows, q, the float32 out and lse); no single PyTorch
+    call returns a log-sum-exp over a masked cache, so no library time."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    q, ck, cv, lens, halves = b6_partial_inputs(dev, torch.bfloat16)
+    n = ck.shape[2] // 2
+    start, live = halves[0]
+    k_, v_ = (c[:, :, start:start + n].contiguous() for c in (ck, cv))
+    flops, nbytes = da.cost(q.shape, k_.shape, q.element_size(),
+                            live.tolist(), True)
+    r = dict(source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:64",
+             max_abs_err=err,
+             ms=cuda_ms(lambda: da.decode_attention_cuda(q, k_, v_, live, 0.0,
+                                                         True)),
+             plain_ms=cuda_ms(lambda: da.decode_attention_plain(
+                 q, k_, v_, live, 0.0, True)),
+             bound_ms=max(flops / BF16_FLOP_PER_S,
+                          nbytes / HBM_BYTES_PER_S) * 1e3,
+             bound_by=("operations" if flops / BF16_FLOP_PER_S
+                       >= nbytes / HBM_BYTES_PER_S else "bytes"),
+             library_ms=None,
+             tp_default_whole_ms=cuda_ms(lambda: da.decode_attention_cuda(
+                 q, ck, cv, lens)))
+    log(f"time B6 partial mode q {tuple(q.shape)} on the first half "
+        f"{tuple(k_.shape)} of the cache, live rows {live.tolist()} bf16: "
+        f"kernel {r['ms']:.4f} ms b2b, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({nbytes} B, {r['bound_by']}); the default "
+        f"mode on the whole cache, live rows {lens.tolist()}: "
+        f"{r['tp_default_whole_ms']:.4f} ms b2b")
+    return r
+
+
+def tp_rank(rank: int, world: int, tmp: str, port: int, ins: dict):
+    """A rank of phase 19 (b)-(f), spawned: joins a gloo group of ``world``
     ranks as ``torchrun`` would start it (``env://`` on localhost:``port``),
     every rank on card 0 (``LOCAL_RANK`` 0: NCCL refuses two ranks on one
     device, gloo takes them), probes the collectives the mesh code issues
-    on CUDA tensors, runs LM_ARCH's prefill, TRAIN_ARCH's f32 train steps
-    and LM_ARCH's bf16 train steps at cut depth over a (1, world) mesh, and
-    saves what the parent checks to ``tmp``."""
+    on CUDA tensors, serves LM_ARCH (prefill, then decode teacher-forced on
+    ``ins``' tokens), runs TRAIN_ARCH's f32 train steps and LM_ARCH's bf16
+    train steps at cut depth, then the f32 decode cuts, over a (1, world)
+    mesh, and saves what the parent checks to ``tmp``."""
     import os
 
     import torch
@@ -2096,9 +2261,12 @@ def tp_rank(rank: int, world: int, tmp: str, port: int, tokens):
                       WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0")
     ensure_process_group("cuda", backend="gloo")
     try:
-        out = {"probe": tp_probe(world), "prefill": tp_prefill(tokens)}
+        out = {"probe": tp_probe(world)}
+        out["serve"] = tp_serve(tp_serve_cfg(None), *ins[None])
         out["train"] = tp_train(rank)
         out["train_bf16"] = tp_train_bf16(rank)
+        for name in TP_DECODE_CUTS:
+            out[name] = tp_serve(tp_serve_cfg(name), *ins[name])
         torch.save(out, Path(tmp) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2134,38 +2302,79 @@ def tp_probe(world: int) -> dict:
     return got
 
 
-def tp_prefill(tokens) -> dict:
-    """Phase 19 (b) on a rank: LM_ARCH at full width in bf16, weights from
-    SEED on the card, through ``build_prefill(mesh=)`` over (1, 2): the
-    gathered last-position logits, B5's launches and the host ms."""
-    import torch
+def tp_serve_cfg(name):
+    """LM_ARCH's config (None), or one of TP_DECODE_CUTS: cut and in
+    f32."""
     from repro_torch.configs import get_config
+    if name is None:
+        return get_config(LM_ARCH)
+    arch, over = TP_DECODE_CUTS[name][:2]
+    return get_config(arch).replace(**over, dtype="float32")
+
+
+def tp_decode_sizes(name):
+    """(batch, prompt, decode steps) of LM_ARCH's serving (None) or a
+    cut of TP_DECODE_CUTS."""
+    if name is None:
+        return LM_BATCH, LM_PROMPT, LM_GEN
+    return TP_DECODE_CUTS[name][2:]
+
+
+def tp_serve(cfg, tokens, dec) -> dict:
+    """Phase 19 (b), (e), (f) on a rank: ``cfg`` at full width (or cut),
+    weights from SEED on the card, through ``build_prefill(mesh=)`` of
+    ``tokens`` into caches of prompt + len(``dec``) rows over (1, 2), then
+    one ``build_decode_step(mesh=)`` per token of ``dec`` (teacher-forced):
+    the gathered logits of the prefill and of each step, each part's
+    launches (counters at 0 before), the shapes of this rank's cache
+    chunks and the host ms."""
+    import torch
     from repro_torch.configs.base import InputShape
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import build_prefill
+    from repro_torch.launch.sharding import local
+    from repro_torch.launch.steps import build_decode_step, build_prefill
     from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_map
     dev = torch.device("cuda", 0)
     mesh = make_host_mesh(model_parallel=2, device=dev)
-    cfg = get_config(LM_ARCH)
-    pre = build_prefill(cfg, InputShape("p", LM_PROMPT, LM_BATCH, "prefill"),
-                        mesh=mesh)
+    B, S = tokens.shape
+    max_len = S + len(dec)
+    pre = build_prefill(cfg, InputShape("p", S, B, "prefill"), mesh=mesh,
+                        max_len=max_len)
+    step = build_decode_step(cfg, InputShape("d", max_len, B, "decode"),
+                             mesh=mesh)
     placed = pre.place(get_model(cfg, dev).init(
         torch.Generator(device=dev).manual_seed(SEED)))
     torch.cuda.empty_cache()
-    batch = {"tokens": tokens.to(dev)}
-    ms = []
+    torch.cuda.reset_peak_memory_stats()
+    out = {"ms": [], "logits": []}
+    t_part = time.perf_counter()
     with torch.no_grad():
-        for _ in range(2):
-            ops.LAUNCHES.clear()
+        ops.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = pre(placed, {"tokens": tokens.to(dev)})
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill_launches"] = dict(ops.LAUNCHES)
+        out["prefill"] = logits.float().cpu()
+        out["chunks"] = tree_map(lambda c: tuple(c.shape), local(caches))
+        ops.LAUNCHES.clear()
+        for i, tok in enumerate(dec):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = pre(placed, batch)
+            logits, caches = step(placed, caches, {"tokens": tok.to(dev)},
+                                  S + i)
             torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-    return {"logits": logits.float().cpu(), "launches": dict(ops.LAUNCHES),
-            "ms": ms, "kv": tuple(caches[0]["attn"]["k"].shape),
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(logits.float().cpu())
+        out["launches"] = dict(ops.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t_part
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del placed, caches
+    torch.cuda.empty_cache()
+    return out
 
 
 def tp_cfg():
@@ -2388,7 +2597,7 @@ def tp_bf16_compare(tp: dict) -> dict:
             "ms": one["ms"]}
 
 
-def tp_two_ranks(dev, tokens) -> dict:
+def tp_two_ranks(dev, ins: dict) -> dict:
     """Phase 19 (b)-(d): two ranks spawned on the one card over gloo
     (NCCL refuses two ranks on one device; ``ensure_process_group``'s
     ``backend``), each running ``tp_rank``;
@@ -2404,7 +2613,7 @@ def tp_two_ranks(dev, tokens) -> dict:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        ctx = mp.spawn(tp_rank, args=(2, tmp, port, tokens.cpu()), nprocs=2,
+        ctx = mp.spawn(tp_rank, args=(2, tmp, port, ins), nprocs=2,
                        join=False)
         deadline = time.monotonic() + TP_TIMEOUT_S
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -2417,66 +2626,171 @@ def tp_two_ranks(dev, tokens) -> dict:
                 for r in range(2)]
 
 
-def phase19(dev, rows: dict) -> None:
+def tp_decode_refs(dev, name) -> tuple:
+    """The (1, 1) run that phase 19 (b), (e) or (f) holds the (1, 2) run
+    to: ``tp_serve_cfg(name)`` on the same weights (SEED), a prompt from
+    SEED + 19, ``T.prefill`` into prompt + steps rows, then greedy
+    ``T.decode_step``s.  Returns (the ranks' inputs: prompt and the decode
+    tokens, on the host; the prefill's logits and each step's)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    cfg = tp_serve_cfg(name)
+    B, S, n = tp_decode_sizes(name)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        params = get_model(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        logits, caches = T.prefill(cfg, params, {"tokens": tokens}, S + n)
+        want, dec = [logits.float().cpu()], []
+        for i in range(n):
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            dec.append(tok.cpu())
+            logits, caches = T.decode_step(cfg, params, caches,
+                                           {"tokens": tok}, S + i)
+            want.append(logits.float().cpu())
+    del params, caches
+    torch.cuda.empty_cache()
+    return (tokens.cpu(), dec), want
+
+
+def tp_decode_check(name, ranks, want, tol) -> dict:
+    """Phase 19 (b), (e), (f): each rank's prefill and decode steps
+    (``tp_serve``) against the (1, 1) run's logits, each within ``tol`` of
+    that step's max |logit|; B6 in its partial mode only, once a global
+    attention layer a step a rank; both ranks' logits bitwise equal (the
+    combine merges in rank order on every rank).  Returns the figures."""
+    cfg = tp_serve_cfg(name)
+    key = "serve" if name is None else name
+    n_attn = cfg.n_layers          # every layer's cache is cut on its rows
+    errs = []
+    for r, got in enumerate(ranks):
+        run = got[key]
+        steps = [run["prefill"]] + run["logits"]
+        errs.append([float((a - b).abs().max()) / float(b.abs().max())
+                     for a, b in zip(steps, want)])
+        lse = run["launches"].get("decode_attention_lse", 0)
+        if not (len(steps) == len(want) and max(errs[-1]) <= tol
+                and lse == n_attn * len(run["logits"])
+                and run["launches"].get("decode_attention", 0) == 0):
+            raise AssertionError(
+                f"TP decode {key} rank {r}: logits off by up to "
+                f"{max(errs[-1])} of max |logit| (tol {tol}), launches "
+                f"{run['launches']}")
+    for a, b in zip([ranks[0][key]["prefill"]] + ranks[0][key]["logits"],
+                    [ranks[1][key]["prefill"]] + ranks[1][key]["logits"]):
+        if not bool((a == b).all()):
+            raise AssertionError(f"TP decode {key}: the ranks' logits differ")
+    return {"errs": errs[0], "worst": max(max(e) for e in errs)}
+
+
+def phase19(dev, rows: dict) -> int:
     """Tensor parallelism over a "model" axis (module docstring, phase
-    19): (a) B5 on head shards; (b) LM_ARCH's prefill, (c) TRAIN_ARCH's f32
-    train steps and (d) LM_ARCH's bf16 train steps at cut depth, at (1, 2)
-    on two gloo ranks sharing the card, against the one-process runs; B5's
-    launches on the TP path into ``rows``."""
+    19): (a) B5 on head shards; (b) LM_ARCH's prefill and (e) its decode,
+    (c) TRAIN_ARCH's f32 train steps, (d) LM_ARCH's bf16 train steps at
+    cut depth and (e)-(f) f32 decode cuts, at (1, 2) on two gloo ranks
+    sharing the card, against the one-process runs; B5's launches on the
+    TP path into ``rows``.  Returns B6's partial-mode launches in (e)'s
+    full-width decode on rank 0."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
-    from repro_torch.models.registry import get_model
     t_phase = time.perf_counter()
     secs = {}
     t0 = time.perf_counter()
     tp_shard_checks(dev)
     secs["a"] = time.perf_counter() - t0
-    # (b)'s reference: the (1, 1) prefill of phase 9's shape on the same
-    # weights and prompt
+    # the (1, 1) runs the ranks are held to, on the same weights and
+    # prompts; their greedy tokens feed the ranks' decode steps
     t0 = time.perf_counter()
+    ins, refs = {}, {}
+    for name in (None,) + tuple(TP_DECODE_CUTS):
+        ins[name], refs[name] = tp_decode_refs(dev, name)
+    secs["refs"] = time.perf_counter() - t0
     cfg = get_config(LM_ARCH)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
-                           generator=gen, device=dev, dtype=torch.int32)
-    with torch.no_grad():
-        params = get_model(cfg, dev).init(
-            torch.Generator(device=dev).manual_seed(SEED))
-        want, _ = T.prefill(cfg, params, {"tokens": tokens}, LM_PROMPT)
-        want = want.float().cpu()
-    del params
-    torch.cuda.empty_cache()
-    ranks = tp_two_ranks(dev, tokens)
-    secs["b-d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = tp_two_ranks(dev, ins)
+    secs["b-f"] = time.perf_counter() - t0
     for k, v in ranks[0]["probe"].items():
         log(f"gloo on CUDA tensors, two ranks on one card: {k}: {v}")
     if any(v != "ok" for r in ranks for v in r["probe"].values()):
         raise AssertionError("a collective of the mesh code failed on CUDA "
                              "tensors over gloo")
-    # (b)
+    # (b): the prefill, its caches placed by cache_shardings (the rows of
+    # every kv head, half a rank)
+    want = refs[None][0]
     top = float(want.abs().max())
+    max_len = LM_PROMPT + LM_GEN
+    kv_want = (cfg.n_layers, LM_BATCH, cfg.n_kv_heads, max_len // 2,
+               cfg.head_dim)
     for r, got in enumerate(ranks):
-        pre = got["prefill"]
-        rel = float((pre["logits"] - want).abs().max()) / top
-        n_b5 = pre["launches"].get("flash_attention", 0)
+        pre = got["serve"]
+        rel = float((pre["prefill"] - want).abs().max()) / top
+        n_b5 = pre["prefill_launches"].get("flash_attention", 0)
+        kv = pre["chunks"][0]["attn"]["k"]
         if not (rel <= HANDOFF_BF16_TOL and n_b5 == cfg.n_layers
-                and pre["kv"][2] == cfg.n_kv_heads // 2):
+                and kv == kv_want):
             raise AssertionError(f"TP prefill rank {r}: logits off by {rel} "
                                  f"of max |logit| (tol {HANDOFF_BF16_TOL}), "
-                                 f"launches {pre['launches']}, KV cache "
-                                 f"{pre['kv']}")
+                                 f"launches {pre['prefill_launches']}, KV "
+                                 f"cache chunk {kv} (want {kv_want})")
         log(f"TP prefill {LM_ARCH} full width bf16, batch {LM_BATCH}, prompt "
-            f"{LM_PROMPT}, (data, model) = (1, 2), rank {r} of two gloo ranks "
-            f"on one card: gathered last-position logits within {rel:.3g} of "
-            f"max |logit| {top:.4g} of the (1, 1) prefill (tol "
-            f"{HANDOFF_BF16_TOL}); B5 launches {n_b5} (one a layer, "
-            f"{cfg.n_heads // 2} q over {cfg.n_kv_heads // 2} kv heads), KV "
-            f"cache {pre['kv']}; host ms {', '.join(f'{t:.1f}' for t in pre['ms'])}"
-            f" (gloo stages every collective through the host: not a TP "
-            f"speed); peak {pre['peak_gib']:.2f} GiB")
+            f"{LM_PROMPT} into {max_len} rows, (data, model) = (1, 2), rank "
+            f"{r} of two gloo ranks on one card: gathered last-position "
+            f"logits within {rel:.3g} of max |logit| {top:.4g} of the (1, 1) "
+            f"prefill (tol {HANDOFF_BF16_TOL}); B5 launches {n_b5} (one a "
+            f"layer, {cfg.n_heads // 2} q over {cfg.n_kv_heads // 2} kv "
+            f"heads), KV cache chunk {kv} (cache_shardings: the rows of every "
+            f"kv head, half a rank); host ms {pre['prefill_ms']:.1f} (gloo "
+            f"stages every collective through the host: not a TP speed); "
+            f"peak {pre['peak_gib']:.2f} GiB")
     rows["flash_attention"]["tp_prefill_launches"] = \
-        ranks[0]["prefill"]["launches"].get("flash_attention", 0)
+        ranks[0]["serve"]["prefill_launches"].get("flash_attention", 0)
+    # (e), (f): decode at (1, 2) against the (1, 1) decode
+    for name, tol in ((None, HANDOFF_BF16_TOL), ("qwen_f32", HANDOFF_F32_TOL),
+                      ("hymba_f32", HANDOFF_F32_TOL)):
+        c = tp_decode_check(name, ranks, refs[name], tol)
+        run = ranks[0]["serve" if name is None else name]
+        ccfg = tp_serve_cfg(name)
+        B, S, n = tp_decode_sizes(name)
+        chunks = run["chunks"]
+        if name == "hymba_f32":
+            ring = next(ch["attn"]["k"] for ch in chunks
+                        if ch["attn"]["k"][3] == ccfg.sliding_window // 2)
+            glob = chunks[0]["attn"]["k"]
+            mamba = chunks[0]["mamba"]["state"]
+            inner = ccfg.ssm_expand * ccfg.d_model
+            if not (glob[3] == (S + n) // 2 and mamba[2] == inner // 2):
+                raise AssertionError(f"TP decode hymba chunks {chunks}")
+            shapes = (f"ring chunk {ring} (its {ccfg.sliding_window} rows, "
+                      f"half a rank), global cache chunk {glob}, mamba state "
+                      f"chunk {mamba} (its {inner} channels, half a rank)")
+        else:
+            shapes = f"KV cache chunk {chunks[0]['attn']['k']}"
+        label = ("(e) " + LM_ARCH + " full width bf16" if name is None else
+                 f"({'e' if name == 'qwen_f32' else 'f'}) "
+                 f"{TP_DECODE_CUTS[name][0]} cut to {ccfg.n_layers} layers "
+                 f"in f32")
+        ms = run["ms"]
+        log(f"TP decode {label}, batch {B}, prompt {S}, {n} steps "
+            f"teacher-forced on the (1, 1) run's greedy tokens, (data, "
+            f"model) = (1, 2) on two gloo ranks on one card: each step's "
+            f"gathered logits within {max(c['errs'][1:]):.3g} of max |logit| "
+            f"of the (1, 1) decode at worst (tol {tol}; by step "
+            f"{', '.join(f'{e:.2g}' for e in c['errs'][1:])}), both ranks' "
+            f"bitwise equal; B6 partial mode "
+            f"{run['launches'].get('decode_attention_lse', 0)} launches a "
+            f"rank ({run['launches'].get('decode_attention_lse', 0) // n} a "
+            f"step), the default mode none; {shapes}; host ms a step median "
+            f"{statistics.median(ms):.1f} (min {min(ms):.1f}, max "
+            f"{max(ms):.1f}; "
+            f"gloo through the host, two ranks sharing one card: not a TP "
+            f"speed); {run['seconds']:.1f} s for the prefill and the steps")
+    lse_launches = ranks[0]["serve"]["launches"].get("decode_attention_lse", 0)
+    rows["decode_attention_lse"]["tp_decode_ms"] = \
+        statistics.median(ranks[0]["serve"]["ms"])
     # (c)
     tr = [r["train"] for r in ranks]
     cmp_ = tr[0]["compare"]
@@ -2565,6 +2879,7 @@ def phase19(dev, rows: dict) -> None:
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
     ops.LAUNCHES.clear()
+    return lse_launches
 
 
 def lm_against_cpu(cut, dev, S: int = 256, B: int = 2) -> None:
@@ -3325,6 +3640,12 @@ def main() -> int:
                 f"{'kv_len 0 gives zeros; ' if lens[0] == 0 else ''}two "
                 f"launches bitwise equal")
 
+    # B6's partial mode, the rows of phase 6's cache cut in halves as two
+    # ranks hold them
+    t0 = time.perf_counter()
+    b6_lse_err = b6_partial_check(dev)
+    log(f"B6 partial mode checks: {time.perf_counter() - t0:.1f} s")
+
     # B5 with a logit soft-cap, in both bodies: qwen3-1.7b's prefill shape
     # and InternVL's heads (48 over 8, hd 128) at each of SOFTCAPS (a cap of
     # 1.0 binds on most scores, so a cap taken in the bf16 body's base-2
@@ -4002,6 +4323,7 @@ def main() -> int:
         f"{r['library_ms']:.4f} ms warm, {cold_sdpa:.4f} ms cold L2; bound "
         f"{r['bound_ms']:.4f} ms ({nbytes} B); launches {lm_cfg.n_layers} per "
         f"decode step")
+    rows["decode_attention_lse"] = b6_partial_times(dev, b6_lse_err)
 
     swin_traces = []                       # traced in phase 16
     split_ms = {}                          # f32's, beside bf16's below
@@ -4429,7 +4751,7 @@ def main() -> int:
     del city
 
     # -- 19. tensor parallelism over a model axis of two ranks --------------
-    phase19(dev, rows)
+    launches["decode_attention_lse"] = phase19(dev, rows)
 
     # -- 16. the Swin path's device time, and B1's part of it ---------------
     with torch.no_grad():

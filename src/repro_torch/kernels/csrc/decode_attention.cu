@@ -37,6 +37,15 @@
 //   Both passes run from the one C entry point on the caller's stream.  G is
 //   at most 16 (kMaxG); the kernel is instantiated for G up to 2, 4, 8, 16.
 //
+// Partial mode (decode_attention_lse_fwd), for a cache cut on its rows over
+// several ranks (flash decode across ranks): the same pass 1, and a combine
+// that writes out in f32, not rounded to q's dtype, and the log-sum-exp of
+// the row's scores, lse = m* + log l, from the same partials.  A row whose
+// kv_len is 0 (a rank whose rows hold no live key yet) has l = 0 and gets
+// out = 0, lse = -inf.  The caller merges the ranks' (out, lse) with weights
+// e^(lse_r - max lse) and rounds once.  The default mode's kernels and
+// arithmetic are untouched by it.
+//
 // Bound on the H100.  Bytes: at the full-width decode shape (4, 1, 16, 128)
 // q against a (4, 8, 2080, 128) bf16 cache at kv_len 2048, the kernel must
 // read 33.5 MB of K and V, 0.010 ms at 3.35 TB/s; it does 4 flops per cached
@@ -265,10 +274,11 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// one CTA per (query head, batch row), one thread per output column
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
-                                      int n_splits) {
+// one CTA per (query head, batch row), one thread per output column; with
+// kLse the output is f32 and the row's log-sum-exp goes to lse
+template <typename TO, bool kLse>
+__global__ void decode_combine_kernel(const float* __restrict__ part, TO* __restrict__ o,
+                                      float* __restrict__ lse, int n_splits) {
   const int hd = blockDim.x;
   const int d = threadIdx.x;
   const float* pb = part + static_cast<size_t>(blockIdx.x) * n_splits * (hd + 2);
@@ -282,11 +292,14 @@ __global__ void decode_combine_kernel(const float* __restrict__ part, T* __restr
     acc += p[2 + d] * w;
   }
   store1(o + static_cast<size_t>(blockIdx.x) * hd + d, acc / fmaxf(l, 1e-30f));
+  if constexpr (kLse) {
+    if (d == 0) lse[blockIdx.x] = l > 0.f ? m_star + logf(l) : __int_as_float(0xff800000);  // -inf
+  }
 }
 
 template <typename T, int HD, int GM>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-           void* part, int B, int S, int H, int KV, int chunk, int n_splits,
+           void* lse, void* part, int B, int S, int H, int KV, int chunk, int n_splits,
            float softcap, float sm_scale, cudaStream_t stream) {
   const int bytes = partial_smem_bytes(H / KV, HD, chunk);
   auto kernel = softcap != 0.f ? decode_partial_kernel<T, HD, GM, true>
@@ -300,44 +313,68 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len, void
       softcap, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<B * H, HD, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(o), n_splits);
+  if (lse != nullptr)
+    decode_combine_kernel<float, true><<<B * H, HD, 0, stream>>>(
+        static_cast<const float*>(part), static_cast<float*>(o), static_cast<float*>(lse),
+        n_splits);
+  else
+    decode_combine_kernel<T, false><<<B * H, HD, 0, stream>>>(
+        static_cast<const float*>(part), static_cast<T*>(o), nullptr, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int dispatch_g(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-               void* part, int B, int S, int H, int KV, int chunk, int n_splits,
+               void* lse, void* part, int B, int S, int H, int KV, int chunk, int n_splits,
                float softcap, float sm_scale, cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 2)
-    return launch<T, HD, 2>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+    return launch<T, HD, 2>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk, n_splits,
                                 softcap, sm_scale, stream);
   if (G <= 4)
-    return launch<T, HD, 4>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+    return launch<T, HD, 4>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk, n_splits,
                                 softcap, sm_scale, stream);
   if (G <= 8)
-    return launch<T, HD, 8>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+    return launch<T, HD, 8>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk, n_splits,
                                 softcap, sm_scale, stream);
-  return launch<T, HD, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
+  return launch<T, HD, 16>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk, n_splits,
                                 softcap, sm_scale, stream);
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* kv_len,
-                void* o, void* part, int B, int S, int H, int KV, int chunk, int n_splits,
+                void* o, void* lse, void* part, int B, int S, int H, int KV, int chunk, int n_splits,
                 float softcap, float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return dispatch_g<T, 16>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+    case 16: return dispatch_g<T, 16>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk,
                                           n_splits, softcap, sm_scale, stream);
-    case 32: return dispatch_g<T, 32>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+    case 32: return dispatch_g<T, 32>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk,
                                           n_splits, softcap, sm_scale, stream);
-    case 64: return dispatch_g<T, 64>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+    case 64: return dispatch_g<T, 64>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk,
                                           n_splits, softcap, sm_scale, stream);
-    case 128: return dispatch_g<T, 128>(q, k, v, kv_len, o, part, B, S, H, KV, chunk,
+    case 128: return dispatch_g<T, 128>(q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk,
                                           n_splits, softcap, sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+namespace {
+
+int entry(const void* q, const void* k, const void* v, const void* kv_len, void* o, void* lse,
+          void* part, int B, int S, int H, int KV, int hd, int chunk, int n_splits, int dtype,
+          float sm_scale, float softcap, void* cuda_stream) {
+  cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  if (H % KV != 0 || H / KV > kMaxG || chunk < 1 || n_splits < 1 || !(softcap >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return dispatch_hd<float>(hd, q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk, n_splits,
+                              softcap, sm_scale, stream);
+  if (dtype == 1)
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_len, o, lse, part, B, S, H, KV, chunk,
+                                      n_splits, softcap, sm_scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -355,14 +392,18 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     int S, int H, int KV, int hd, int chunk,
                                     int n_splits, int dtype, float sm_scale,
                                     float softcap, void* cuda_stream) {
-  cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  if (H % KV != 0 || H / KV > kMaxG || chunk < 1 || n_splits < 1 || !(softcap >= 0.f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, kv_len, o, part, B, S, H, KV, chunk, n_splits,
-                              softcap, sm_scale, stream);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_len, o, part, B, S, H, KV, chunk,
-                                      n_splits, softcap, sm_scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return entry(q, k, v, kv_len, o, nullptr, part, B, S, H, KV, hd, chunk, n_splits, dtype,
+               sm_scale, softcap, cuda_stream);
+}
+
+// The partial mode: as decode_attention_fwd, but o (B, 1, H, hd) is f32
+// whatever q's dtype, and lse (B, H) f32 gets each row's log-sum-exp (-inf
+// where kv_len is 0, with o = 0).
+extern "C" int decode_attention_lse_fwd(const void* q, const void* k, const void* v,
+                                        const void* kv_len, void* o, void* lse, void* part,
+                                        int B, int S, int H, int KV, int hd, int chunk,
+                                        int n_splits, int dtype, float sm_scale,
+                                        float softcap, void* cuda_stream) {
+  return entry(q, k, v, kv_len, o, lse, part, B, S, H, KV, hd, chunk, n_splits, dtype,
+               sm_scale, softcap, cuda_stream);
 }

@@ -23,6 +23,16 @@ in a fixed order.  The grid depends on S and hd only, never on the values of
 bytes of the cache it reads (the source note gives the numbers).
 ``kernels/ops.py`` takes the plain version only for tensors on the CPU;
 ``chip_smoke.py`` holds the kernel against it on the card.
+
+``return_lse=True`` is the partial mode, for a cache whose rows are cut over
+several ranks (``models/layers.py``'s decode on a sequence shard): the same
+first pass, and a combine that writes the output in float32, not rounded to
+q's dtype, beside each row's log-sum-exp ``lse`` (B, H) float32, m + log l of
+the scaled (capped) logits over the live rows.  A row with ``kv_len = 0``
+gives out = 0 and lse = -inf, so a rank whose rows hold no live key yet
+weighs nothing when ``launch/collectives.py::combine_partials`` merges the
+ranks' outputs and rounds them once.  It counts as
+``decode_attention_lse`` in ``ops.LAUNCHES`` and ``ops.COSTS``.
 """
 from __future__ import annotations
 
@@ -51,28 +61,38 @@ def split_plan(S: int, hd: int) -> Tuple[int, int]:
     return chunk, max(1, -(-S // chunk))
 
 
-def cost(q_shape, cache_shape, esize: int, rows=None):
+def cost(q_shape, cache_shape, esize: int, rows=None, return_lse=False):
     """(flop, bytes) of B6 over ``rows`` live cache rows of every batch row
-    (the cache's capacity if unknown): 4 hd flop a row and query head; the
-    live K and V rows, q and the output, and kv_len moved once."""
+    (the cache's capacity if unknown), or over a sequence of each batch
+    row's: 4 hd flop a row and query head; the live K and V rows, q and the
+    output (float32, and the float32 lse, in the partial mode), and kv_len
+    moved once."""
     B, _, H, hd = q_shape
     KV, S = cache_shape[1], cache_shape[2]
     rows = S if rows is None else rows
-    flop = 4 * B * H * rows * hd
-    return flop, esize * (2 * B * KV * rows * hd + 2 * B * H * hd) + 4 * B
+    total = sum(rows) if hasattr(rows, "__len__") else B * rows
+    flop = 4 * H * total * hd
+    out = 4 * B * H * (hd + 1) if return_lse else esize * B * H * hd
+    return flop, esize * (2 * KV * total * hd + B * H * hd) + out + 4 * B
 
 
-def decode_attention_meta(q, ck, cv, kv_len, logit_softcap=0.0):
-    """Shapes alone (meta tensors): the output, empty."""
+def decode_attention_meta(q, ck, cv, kv_len, logit_softcap=0.0,
+                          return_lse=False):
+    """Shapes alone (meta tensors): the output (and lse), empty."""
+    if return_lse:
+        B, _, H, _ = q.shape
+        return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                torch.empty((B, H), dtype=torch.float32, device=q.device))
     return torch.empty_like(q)
 
 
 def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            kv_len: torch.Tensor,
-                           logit_softcap: float = 0.0) -> torch.Tensor:
+                           logit_softcap: float = 0.0, return_lse: bool = False):
     """q (B, 1, H, hd); ck, cv (B, KV, S, hd); kv_len (B,) -> (B, 1, H, hd)
     in q's dtype: the masked softmax over the live rows, zeros where
-    ``kv_len`` is 0."""
+    ``kv_len`` is 0.  With ``return_lse`` (out in float32, lse (B, H)
+    float32, -inf where ``kv_len`` is 0)."""
     check_softcap(logit_softcap)
     B, _, H, hd = q.shape
     KV, S = ck.shape[1], ck.shape[2]
@@ -85,22 +105,35 @@ def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     m = logits.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(logits - m)
     out = torch.einsum("bngk,bnkd->bngd", p, cv.float())
-    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    l = p.sum(dim=-1, keepdim=True)
+    out = out / l.clamp_min(1e-30)
+    if return_lse:
+        lse = torch.where(l > 0, m + torch.log(l), -torch.inf)
+        return out.reshape(B, 1, H, hd), lse.reshape(B, H)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-@functools.cache
-def _fn():
-    fn = _build.library("decode_attention").decode_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+def _bind(entry: str, n_out: int):
+    fn = getattr(_build.library("decode_attention"), entry)
+    fn.argtypes = [ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _fn():
+    return _bind("decode_attention_fwd", 2)       # o, part
+
+
+@functools.cache
+def _fn_lse():
+    return _bind("decode_attention_lse_fwd", 3)   # o, lse, part
+
+
 def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                           kv_len: torch.Tensor,
-                          logit_softcap: float = 0.0) -> torch.Tensor:
+                          logit_softcap: float = 0.0, return_lse: bool = False):
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
     the plain version; at most ``MAX_GROUP`` query heads per kv head."""
     _build.check_operands("decode_attention_cuda", q, ck, cv, kv_len)
@@ -120,17 +153,23 @@ def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,):
         raise TypeError("kv_len must be (B,) int32")
     kv_len = kv_len.contiguous()
-    out = torch.empty_like(q)
+    if return_lse:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+        fn, outs, name = _fn_lse, (out.data_ptr(), lse.data_ptr()), \
+            "decode_attention_lse"
+    else:
+        out = torch.empty_like(q)
+        fn, outs, name = _fn, (out.data_ptr(),), "decode_attention"
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     chunk, n_splits = split_plan(S, hd)
     part = torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
                        device=q.device)
-    rc = _fn()(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-               kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), B, S, H,
-               KV, hd, chunk, n_splits, DTYPE_CODES[q.dtype],
-               1.0 / math.sqrt(hd), float(logit_softcap),
-               torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "decode_attention")
-    _build.LAUNCHES["decode_attention"] += 1
-    return out
+    rc = fn()(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), kv_len.data_ptr(),
+              *outs, part.data_ptr(), B, S, H, KV, hd, chunk, n_splits,
+              DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd), float(logit_softcap),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    _build.LAUNCHES[name] += 1
+    return (out, lse) if return_lse else out

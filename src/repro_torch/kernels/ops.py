@@ -99,12 +99,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention_kv_major(q: torch.Tensor, ck: torch.Tensor,
                               cv: torch.Tensor, kv_len: torch.Tensor, *,
                               logit_softcap: float = 0.0,
-                              kv_rows: Optional[int] = None) -> torch.Tensor:
+                              kv_rows: Optional[int] = None,
+                              return_lse: bool = False):
     """``decode_attention`` on a KV-major cache, ck and cv (B, KV, S, hd):
-    no transpose."""
-    count("decode_attention", _da.cost(q.shape, ck.shape, q.element_size(),
-                                       kv_rows))
-    return DECODE[route(q)](q, ck, cv, kv_len, logit_softcap)
+    no transpose.  ``return_lse``: B6's partial mode, (out (B, 1, H, hd)
+    float32, lse (B, H) float32; -inf and zeros where ``kv_len`` is 0), for
+    a rank's rows of a cache cut over several ranks."""
+    count("decode_attention_lse" if return_lse else "decode_attention",
+          _da.cost(q.shape, ck.shape, q.element_size(), kv_rows, return_lse))
+    return DECODE[route(q)](q, ck, cv, kv_len, logit_softcap, return_lse)
 
 
 def fused_window_attention(qkv: torch.Tensor, bias: torch.Tensor,

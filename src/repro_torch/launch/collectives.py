@@ -26,11 +26,22 @@ activation cut in the packed layout of a weight is gathered whole
 (``gather_from_model``, backward the rank's own chunk; ``gather_mid`` sums
 the gradients first).  ``model_parallel`` sets the group the models see;
 outside it, or on a group of one rank, every operator is the identity.
+
+Decode over a mesh (flash decode across ranks): a cache leaf placed as
+``sharding.cache_shardings`` places it is cut on one dim over the ranks of
+a group (``Cut``: its dim, the group, this rank's chunk).  A rank's rows of
+a sequence-cut cache give a partial attention, (out in float32, its
+log-sum-exp); ``combine_partials`` all-gathers them over the cut's group
+and ``merge_partials`` merges them in rank order, the same order on every
+rank, so the replicated activations stay bitwise equal across the ranks.
+``to_local`` and ``to_placed`` move a recurrent state between its placed
+chunk and the chunk a layer computes on (its model shard or the whole).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -204,3 +215,100 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     if _MODEL is None:
         return x
     return all_reduce(x.detach().contiguous().clone(), _MODEL[0], "max")
+
+
+# ---------------------------------------------------------------------------
+# caches cut over a group: flash decode across ranks
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Cut:
+    """Where this rank's chunk of a cache leaf lies: dim ``dim`` of the
+    layer's leaf (batch rows at 0; the stacked layer dim not counted) cut
+    into ``n`` equal chunks over ``group`` (the mesh axes ``axes``, in
+    chunk order), this rank's the ``index``-th, ``size`` long."""
+    dim: int
+    axes: Tuple[str, ...]
+    group: Any
+    index: int
+    n: int
+    size: int
+
+    @property
+    def start(self) -> int:
+        return self.index * self.size
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's chunk, whole (in chunk order)."""
+        return all_gather(x, self.group, self.dim)
+
+    def chunk(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of the whole ``x`` (a view)."""
+        return x.narrow(self.dim, self.start, self.size)
+
+    def model_shard(self, dim: Optional[int]) -> bool:
+        """Whether the chunk is the model group's shard of ``dim``."""
+        return (dim == self.dim and self.axes == ("model",)
+                and self.n == model_size())
+
+
+def merge_partials(outs: torch.Tensor, lses: torch.Tensor,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Partial attentions over disjoint key sets merged into the attention
+    over their union: ``outs`` (n, ..., d) float32, each normalized over its
+    keys, ``lses`` (n, ...) their log-sum-exps (-inf: no key, weight 0).
+    With M = max lse, out = sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M),
+    summed in index order; rounded once to ``dtype`` (float32 if None)."""
+    top = lses.amax(0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lses - top)                       # e^-inf = 0
+    num, den = outs[0] * w[0, ..., None], w[0]
+    for r in range(1, outs.shape[0]):
+        num = num + outs[r] * w[r, ..., None]
+        den = den + w[r]
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out if dtype is None else out.to(dtype)
+
+
+def combine_partials(out: torch.Tensor, lse: torch.Tensor, group,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The attention over every rank's keys of ``group`` from this rank's
+    partial (``out`` (..., d) float32, ``lse`` (...) float32): one
+    all-gather of (out, lse) over the group, then ``merge_partials`` in
+    rank order, every rank the same bits; rounded once to ``dtype``."""
+    packed = torch.cat([out.float(), lse.float()[..., None]], dim=-1)
+    parts = all_gather(packed[None], group, 0)
+    return merge_partials(parts[..., :-1], parts[..., -1], dtype)
+
+
+def model_chunk(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim`` over the model group (``x``
+    where ``dim`` is None or no group splits)."""
+    if dim is None or _MODEL is None:
+        return x
+    return x.chunk(_MODEL[2], dim)[_MODEL[1]]
+
+
+def to_local(x: torch.Tensor, cut: Optional[Cut],
+             dim: Optional[int]) -> torch.Tensor:
+    """A placed chunk ``x`` (``cut``; None: whole) as the chunk a layer
+    computes on: its model shard along ``dim``, or whole where ``dim`` is
+    None.  As it is where the placement is that shard; else gathered whole
+    over the cut's group and cut to the layer's shard."""
+    if (cut is None and (dim is None or _MODEL is None)) or (
+            cut is not None and cut.model_shard(dim)):
+        return x
+    return model_chunk(x if cut is None else cut.gather(x), dim)
+
+
+def to_placed(y: torch.Tensor, cut: Optional[Cut],
+              dim: Optional[int]) -> torch.Tensor:
+    """``to_local``'s inverse: the layer's chunk ``y`` (its model shard
+    along ``dim``, or whole) as the placed chunk, gathered whole over the
+    model group where it is a shard and cut as ``cut`` cuts it."""
+    if (cut is None and (dim is None or _MODEL is None)) or (
+            cut is not None and cut.model_shard(dim)):
+        return y
+    whole = y if dim is None or _MODEL is None else all_gather(
+        y, _MODEL[0], dim)
+    return whole if cut is None else cut.chunk(whole)

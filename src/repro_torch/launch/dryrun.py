@@ -18,8 +18,10 @@ the JAX dry-run's keys and units (``collective_bytes`` and
 ``collective_count`` per kind, ``total_collective_bytes``).
 ``long_500k`` is built for the sub-quadratic families and skipped for the
 rest, as the JAX dry-run does; a failing cell keeps its error and
-traceback.  A decode cell over a "model" axis over 1 fails with
-``build_step``'s ``ValueError`` (decode is not tensor-parallel yet: A9c(b)).
+traceback.  A decode cell takes the rank's chunks of the caches as
+``cache_shardings`` places them (over "model", an attention cache on its
+rows, so B6's partial mode counts the rank's rows and the combine its
+all-gather).
 
 ``--mesh single|multi|both`` takes the production layouts, 16 x 16
 (data, model) and 2 x 16 x 16 (pod, data, model), as the JAX dry-run
@@ -101,7 +103,8 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, ...] = (1, 1),
     from repro_torch.launch import cost
     from repro_torch.launch.mesh import HBM_BYTES, batch_ranks
     from repro_torch.launch.sharding import (ShardingRules, batch_shardings,
-                                             param_shardings, shard)
+                                             cache_shardings, param_shardings,
+                                             shard)
     from repro_torch.launch.steps import build_step
     from repro_torch.models.registry import META, MetaGenerator, get_model
     from repro_torch.optim.adamw import AdamW
@@ -152,7 +155,11 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, ...] = (1, 1),
             tokens = shape.global_batch * shape.seq_len
         else:
             step = build_step(cfg, shape, mesh=mesh, rules=rules)
-            caches = model.abstract_cache(rows, shape.seq_len)
+            full_caches = model.abstract_cache(shape.global_batch,
+                                               shape.seq_len)
+            caches = _meta_like(shard(full_caches, cache_shardings(
+                mesh, full_caches), mesh))
+            del full_caches
             batch = model.concrete(model.decode_inputs(local), gen)
             args = (params, caches, batch, shape.seq_len - 1)
             tokens = shape.global_batch

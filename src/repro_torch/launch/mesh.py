@@ -48,8 +48,27 @@ class Mesh:
 
     def group(self, name: str):
         """The process group of axis ``name``, or of ``"batch"`` (the batch
-        axes together); None where it holds one rank."""
+        axes together) or ``"mesh"`` (every rank); None where it holds one
+        rank."""
         return self.groups.get(name)
+
+    def group_over(self, axes) -> Any:
+        """The group of the ranks that share every index but those on
+        ``axes``, in the order ``torch.chunk`` deals a dim cut over them
+        (the axes' sizes over one count): one axis's group, the batch axes'
+        together, or every rank; None where they hold one rank (or on a
+        stand-in mesh, which holds no groups)."""
+        live = tuple(a for a in self.axis_names
+                     if a in tuple(axes) and self.shape[a] > 1)
+        if not live:
+            return None
+        if len(live) == 1:
+            return self.group(live[0])
+        if live == tuple(a for a in self.axis_names if self.shape[a] > 1):
+            return self.group("mesh")
+        if all(a in BATCH_AXES for a in live):
+            return self.group("batch")
+        raise ValueError(f"no group over the axes {axes} of {self.shape}")
 
     @property
     def device(self) -> torch.device:
@@ -89,13 +108,16 @@ def ensure_process_group(device="cuda", backend=None) -> None:
 
 
 def _groups(dm, shape: Tuple[int, ...], axes: Tuple[str, ...]) -> dict:
-    """Each axis's group (the device mesh's), and ``"batch"``: the ranks
+    """Each axis's group (the device mesh's), ``"mesh"`` (every rank, where
+    two axes or more are over one), and ``"batch"``: the ranks
     that share every other index, over the batch axes together (one axis
     over one rank alone: its group).  Every rank makes every batch group,
     in one order, as ``new_group`` asks; a group of one rank is left out
     (``Mesh.group`` gives None)."""
     import numpy as np
     groups = {a: dm.get_group(a) for a, n in zip(axes, shape) if n > 1}
+    if len(groups) > 1:
+        groups["mesh"] = dist.group.WORLD      # the mesh spans every rank
     batch = [a for a in axes if a in BATCH_AXES and a in groups]
     if len(batch) == 1:
         groups["batch"] = groups[batch[0]]

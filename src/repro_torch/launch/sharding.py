@@ -16,7 +16,9 @@ The steps compute on plain tensors: ``shard`` cuts a rank's chunks of full
 trees by their specs, ``gather_batch`` makes them whole over the batch axes
 (FSDP's ``"embed"`` shards) and keeps the ``model`` shards, and
 ``batch_chunk`` cuts the batch axes again.  Every collective goes through
-``launch/collectives.py``.
+``launch/collectives.py``.  ``cache_cuts`` reads a decode cache's placement
+for the layers: where each leaf's chunk lies on the dim ``cache_shardings``
+cuts beside the batch rows, and over which group.
 """
 from __future__ import annotations
 
@@ -184,6 +186,31 @@ def cache_shardings(mesh, abstract_caches):
         return tuple(spec)
 
     return tree_map(one, abstract_caches)
+
+
+def cache_cuts(mesh, cache_specs, abstract_caches):
+    """Each stacked cache leaf's ``collectives.Cut`` on this rank, from its
+    ``cache_shardings`` spec and its global shape: the dim cut beside the
+    batch rows (dim 1, whose chunk is the rank's rows of the batch), counted
+    in the layer's leaf (the stacked dim 0 dropped), over the group of the
+    mesh axes its entry names (``Mesh.group_over``), this rank's chunk in
+    ``torch.chunk`` order; None where no such dim is cut over a group of
+    more than one rank."""
+    coord = mesh.coordinate()
+
+    def one(spec, leaf):
+        for d, entry in enumerate(spec):
+            axes = tuple(a for a in entry_axes(entry) if mesh.shape[a] > 1)
+            if d < 2 or not axes:
+                continue
+            n, index = 1, 0
+            for a in axes:
+                n *= mesh.shape[a]
+                index = index * mesh.shape[a] + coord[a]
+            return C.Cut(dim=d - 1, axes=axes, group=mesh.group_over(axes),
+                         index=index, n=n, size=leaf.shape[d] // n)
+        return None
+    return spec_map(one, cache_specs, abstract_caches)
 
 
 @dataclass(frozen=True)

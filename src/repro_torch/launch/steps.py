@@ -24,10 +24,17 @@ by its size, clips by the norm of the whole averaged gradient (the squares
 of the model shards summed over the model group, a replicated leaf counted
 once) and lets AdamW update each rank's shards.  The prefill returns the
 logits whole (gathered over "model" by the unembedding, over the batch
-group here) and its caches as each rank computes them: its rows, its KV
-heads, its SSM inner channels; placing them as ``cache_shardings`` does is
-for decode over "model", which is not done yet (A9c(b)): a decode step
-over a "model" axis over 1 raises ``ValueError``.  On a 1 x 1 mesh every
+group here) and its caches placed as ``cache_shardings`` places them for
+``max_len`` rows (the JAX package's ``out_shardings``): each leaf's rows of
+the batch and its chunk of the dim the rule cuts (an attention cache's
+sequence, or its head_dim where that is longer; a recurrent state's widest
+inner dim), as ``DTensor``s, ``local_fn`` giving the plain chunks.  The
+decode step takes and returns the caches in that placement for its shape
+(``in_specs`` carry their specs, so ``BuiltStep.place`` and
+``sharding.gather`` move whole caches in and out), and runs under the model
+group too: attention on a rank's rows with B6's partial mode and a combine
+across the ranks that hold the others (flash decode), as
+``models/layers.py`` and ``models/ssm.py`` say.  On a 1 x 1 mesh every
 placement is whole on its rank, no collective runs, and the step computes
 the mesh-free step's numbers bit for bit.  Gradient compression
 (``optim/compress.py``) is a library function here as in the JAX package,
@@ -44,10 +51,11 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import collectives as C
 from repro_torch.launch.mesh import batch_axes, batch_index, batch_ranks
 from repro_torch.launch.sharding import (ShardingRules, batch_chunk,
-                                         batch_shardings, distribute,
+                                         batch_shardings, cache_cuts,
+                                         cache_shardings, distribute,
                                          entry_axes, fit_pspec, gather_batch,
                                          local, opt_state_shardings,
-                                         param_shardings)
+                                         param_shardings, placements)
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
 from repro_torch.optim.adamw import AdamW, AdamWState
@@ -106,15 +114,6 @@ def _loss_and_grads(cfg: ModelConfig, params, batch, grad_accum: int):
 # steps over a mesh
 # ---------------------------------------------------------------------------
 
-def _check_mesh(mesh, kind: str) -> None:
-    if kind == "decode" and mesh.shape.get("model", 1) != 1:
-        raise ValueError(
-            f"a decode step over a model axis of {mesh.shape['model']}: the "
-            "port runs train steps and prefill tensor-parallel, not decode "
-            "(its caches over 'model', B6 on a rank's sequence shard and "
-            "the combine across ranks: ROADMAP.md, A9c(b))")
-
-
 def _rows(mesh, batch, specs):
     """This rank's rows of each batch leaf that its spec splits."""
     r, n = batch_index(mesh)
@@ -127,10 +126,22 @@ def _rows(mesh, batch, specs):
     return out
 
 
-def _gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``x`` over the batch group, in rank order (none
-    to fetch from a batch group of one)."""
+def _gather_rows(mesh, x: torch.Tensor, specs) -> torch.Tensor:
+    """Every rank's rows of ``x`` over the batch group, in rank order, where
+    the batch's specs split its rows (none to fetch from a batch group of
+    one, nor where every rank holds every row)."""
+    if not any(s and s[0] is not None for s in specs.values()):
+        return x
     return C.all_gather(x, mesh.group("batch"), 0)
+
+
+def _cache_placement(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """(the specs ``cache_shardings`` gives the caches of ``batch`` rows and
+    ``max_len`` rows, this rank's ``Cut`` of each leaf, the global
+    caches on the meta device)."""
+    abstract = get_model(cfg, "cpu").abstract_cache(batch, max_len)
+    specs = cache_shardings(mesh, abstract)
+    return specs, cache_cuts(mesh, specs, abstract), abstract
 
 
 def _as_dtensors(local_tree, like_tree):
@@ -138,6 +149,15 @@ def _as_dtensors(local_tree, like_tree):
     return tree_map(lambda x, like: DTensor.from_local(
         x, like.device_mesh, like.placements, run_check=False,
         shape=like.shape, stride=like.stride()), local_tree, like_tree)
+
+
+def _placed_dtensors(mesh, local_tree, specs, abstract):
+    """This rank's chunks as ``DTensor``s in their specs' placements, of
+    the global shapes ``abstract`` (meta tensors) gives."""
+    from torch.distributed.tensor import DTensor
+    return spec_map(lambda sp, x, like: DTensor.from_local(
+        x, mesh.device_mesh, placements(sp, mesh), run_check=False,
+        shape=like.shape, stride=like.stride()), specs, local_tree, abstract)
 
 
 @dataclass
@@ -197,7 +217,6 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
             return params, opt_state, dict(metrics, loss=loss)
         return train_step
 
-    _check_mesh(mesh, "train")
     rules = rules or ShardingRules()
     model = get_model(cfg, "cpu")
     pspecs = _param_specs(cfg, mesh, rules)
@@ -254,27 +273,31 @@ def build_prefill(cfg: ModelConfig, shape: InputShape, *, mesh=None,
     ``max_len`` rows, ``shape.seq_len`` by default).  With ``mesh`` a
     ``BuiltStep`` over placed parameters: each rank prefills its rows of
     the batch on its model shards; the logits come back whole (gathered
-    over "model" and over the batch group), the caches as the rank computed
-    them (its rows, its KV heads, its SSM inner channels)."""
+    over "model" and over the batch group), the caches placed as
+    ``cache_shardings`` places them for ``max_len`` rows (DTensors;
+    ``local_fn`` gives this rank's plain chunks)."""
     max_len = max_len or shape.seq_len
     if mesh is None:
         def prefill(params, batch):
             return T.prefill(cfg, params, batch, max_len)
         return prefill
 
-    _check_mesh(mesh, "prefill")
     rules = rules or ShardingRules()
     bspecs = batch_shardings(mesh, get_model(cfg, "cpu").prefill_inputs(shape))
     pspecs = _param_specs(cfg, mesh, rules)
+    cspecs, cuts, abstract = _cache_placement(cfg, mesh, shape.global_batch,
+                                              max_len)
 
     def local_prefill(params, rows):
         full = gather_batch(params, pspecs, mesh)
         with C.model_parallel(mesh.group("model")):
-            logits, caches = T.prefill(cfg, full, rows, max_len)
-        return _gather_rows(mesh, logits), caches
+            logits, caches = T.prefill(cfg, full, rows, max_len, cuts=cuts)
+        return _gather_rows(mesh, logits, bspecs), caches
 
     def prefill(params, batch):
-        return local_prefill(local(params), _rows(mesh, batch, bspecs))
+        logits, caches = local_prefill(local(params),
+                                       _rows(mesh, batch, bspecs))
+        return logits, _placed_dtensors(mesh, caches, cspecs, abstract)
 
     return BuiltStep(prefill, mesh, (pspecs, None), local_prefill)
 
@@ -283,31 +306,38 @@ def build_decode_step(cfg: ModelConfig, shape: Optional[InputShape] = None,
                       *, mesh=None, rules: Optional[ShardingRules] = None):
     """decode_step(params, caches, batch, cache_index) -> (logits (B, 1, V),
     or (B, 1, ncb, V) with codebooks, caches): one new token against the
-    caches ``build_prefill`` made.  With ``mesh`` (and the decode ``shape``)
-    a ``BuiltStep``: each rank decodes its rows into its caches, and the
-    logits come back whole.  A "model" axis over 1 raises (A9c(b))."""
+    caches ``build_prefill`` made.  With ``mesh`` (and the decode ``shape``,
+    whose ``seq_len`` is the caches' rows) a ``BuiltStep``: the caches come
+    in and go out placed as ``cache_shardings`` places them (DTensors; in
+    ``local_fn`` this rank's plain chunks, updated in place), each rank
+    decodes its rows on its model shards, and the logits come back
+    whole."""
     if mesh is None:
         def decode_step(params, caches, batch, cache_index: int):
             return T.decode_step(cfg, params, caches, batch, cache_index)
         return decode_step
 
-    _check_mesh(mesh, "decode")
     if shape is None:
         raise ValueError("a decode step over a mesh needs its shape")
     rules = rules or ShardingRules()
     bspecs = batch_shardings(mesh, get_model(cfg, "cpu").decode_inputs(shape))
     pspecs = _param_specs(cfg, mesh, rules)
+    cspecs, cuts, abstract = _cache_placement(cfg, mesh, shape.global_batch,
+                                              shape.seq_len)
 
     def local_decode(params, caches, rows, cache_index: int):
-        logits, caches = T.decode_step(cfg, gather_batch(params, pspecs, mesh),
-                                       caches, rows, cache_index)
-        return _gather_rows(mesh, logits), caches
+        full = gather_batch(params, pspecs, mesh)
+        with C.model_parallel(mesh.group("model"), mesh.group("batch")):
+            logits, caches = T.decode_step(cfg, full, caches, rows,
+                                           cache_index, cuts=cuts)
+        return _gather_rows(mesh, logits, bspecs), caches
 
     def decode_step(params, caches, batch, cache_index: int):
-        return local_decode(local(params), caches,
-                            _rows(mesh, batch, bspecs), cache_index)
+        logits, new = local_decode(local(params), local(caches),
+                                   _rows(mesh, batch, bspecs), cache_index)
+        return logits, _placed_dtensors(mesh, new, cspecs, abstract)
 
-    return BuiltStep(decode_step, mesh, (pspecs, None, None, None),
+    return BuiltStep(decode_step, mesh, (pspecs, cspecs, None, None),
                      local_decode)
 
 

@@ -247,7 +247,8 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                cache_index: Optional[int] = None,
                kv_len: Optional[torch.Tensor] = None,
                kv_rows: Optional[int] = None,
-               sliding_window: int = 0):
+               sliding_window: int = 0,
+               cuts: Optional[dict] = None):
     """GQA attention with qk-norm before RoPE; with ``sliding_window`` w a
     query at position i sees keys i - w < j <= i; the config's
     ``attn_logit_softcap`` caps the scaled logits in prefill and decode.
@@ -265,34 +266,57 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
     Under a model group that splits the q heads, the rank computes its q
     heads and the kv heads they read (``_tp_attn_weights``), B5 runs on
-    them, and ``wo``'s partial sums are reduced (g)."""
+    them, and ``wo``'s partial sums are reduced (g).
+
+    ``cuts`` (a mesh step's, ``{"k": Cut or None, "v": ...}``): the cache is
+    placed as ``sharding.cache_shardings`` places it, whatever the heads'
+    split, and the layer works on every kv head.  A prefill runs B5 on the
+    rank's kv heads as above and returns the cache of every kv head: on a
+    cache cut on its rows only the rank's rows of it (``_prefill_rows``: k
+    and v at the prompt positions those rows hold), else k and v at every
+    position.  A decode step gathers q over the model group and
+    forms the new row's k and v for every kv head, then runs ``_decode`` on
+    the placed chunk.  The rank's q heads then go through ``wo`` as
+    above."""
     tp = C.split(p["wq"].shape[1], cfg.n_heads)
+    cut = None if cuts is None else cuts["k"]
+    placed = cuts is not None and (tp or cut is not None)
+    whole = p
     if tp:
         x = C.copy_to_model(x)
-        p = _tp_attn_weights(cfg, p)
+        p = _tp_attn_weights(cfg, p, whole_kv=placed and cache is not None)
     q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
-    k = einsum32("bsd,dnk->bsnk", x, p["wk"], out_dtype=x.dtype)
-    v = einsum32("bsd,dnk->bsnk", x, p["wv"], out_dtype=x.dtype)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = _kv(cfg, p, x, positions)
     if cache is not None:
-        ck, cv = cache["k"], cache["v"]
-        S = x.shape[1]
-        at = cache_index % ck.shape[2] if sliding_window else cache_index
-        ck[:, :, at:at + S] = k.transpose(1, 2).to(ck.dtype)
-        cv[:, :, at:at + S] = v.transpose(1, 2).to(cv.dtype)
-        out = cache_attention(q, ck, cv, kv_len,
-                              logit_softcap=cfg.attn_logit_softcap,
-                              kv_rows=kv_rows)
+        Hl = q.shape[2]
+        if placed and k.shape[2] != cfg.n_kv_heads:
+            # the model group splits the kv heads: every rank's, whole
+            k, v = C.gather_from_model(k, 2), C.gather_from_model(v, 2)
+        out = _decode(cfg, C.gather_from_model(q, 2) if placed and tp else q,
+                      k, v, cache, cut, cache_index, kv_len, kv_rows,
+                      sliding_window, x.dtype)
+        if placed and tp:
+            out = out[:, :, C.model_rank() * Hl:(C.model_rank() + 1) * Hl]
         new_kv = cache
     else:
         out = ops.flash_attention(q, k, v, causal=True,
                                   sliding_window=sliding_window,
                                   logit_softcap=cfg.attn_logit_softcap)
         new_kv = {"k": k, "v": v}
+        if placed:
+            mine = (k, v) if k.shape[2] == cfg.n_kv_heads else None
+            if mine is None and whole["wk"].shape[1] != cfg.n_kv_heads:
+                whole = dict(whole, wk=C.gather_from_model(whole["wk"], 1),
+                             wv=C.gather_from_model(whole["wv"], 1))
+            if cut is not None and cut.dim == 2:
+                k, v = _prefill_rows(cfg, whole, x, positions, cut,
+                                     sliding_window, mine)
+            elif mine is None:
+                k, v = _kv(cfg, whole, x, positions)
+            new_kv = {"k": k, "v": v}
     if tp:
         y = reduced_dense(out.reshape(*out.shape[:2], -1),
                           p["wo"].reshape(-1, p["wo"].shape[-1]), x.dtype)
@@ -301,13 +325,94 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     return y, new_kv
 
 
-def _tp_attn_weights(cfg, p: dict) -> dict:
+def _kv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    """k (normed where the config norms it, RoPE at ``positions``) and v of
+    ``x`` (B, S, d) through ``p``'s wk and wv: (B, S, KV, hd) each."""
+    k = einsum32("bsd,dnk->bsnk", x, p["wk"], out_dtype=x.dtype)
+    v = einsum32("bsd,dnk->bsnk", x, p["wv"], out_dtype=x.dtype)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return apply_rope(k, positions, cfg.rope_theta), v
+
+
+def chunk_positions(cut, prompt: int, window: int, device):
+    """The prompt position each row of a prefilled cache chunk holds (the
+    ``cut.size`` rows from ``cut.start`` of a cache of ``cut.n * cut.size``
+    rows): row r holds position r, and on a ring of w rows that the prompt
+    has filled, slot s the position p of the last w with p % w == s.
+    Returns (the positions (rows,), clamped to the prompt, and whether each
+    row holds one: a row past the prompt holds none)."""
+    rows = torch.arange(cut.start, cut.start + cut.size, device=device)
+    if window and prompt >= window:
+        return prompt - window + (rows - prompt) % window, rows >= 0
+    return rows.clamp(max=prompt - 1), rows < prompt
+
+
+def _prefill_rows(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  cut, sliding_window: int, kv=None):
+    """The rank's rows (``cut``, on dim 2) of the prefilled KV-major cache
+    of every kv head: k and v at the prompt positions those rows hold
+    (``chunk_positions``), zero where they hold none; taken from ``kv``
+    (every kv head's k and v at every position) where the layer has them,
+    else projected there through ``p``'s whole wk and wv.  Returns k and v
+    (B, KV, cut.size, hd)."""
+    pos, live = chunk_positions(cut, x.shape[1], sliding_window, x.device)
+    if kv is None:
+        kv = _kv(cfg, p, x[:, pos], positions[:, pos])
+    else:
+        kv = tuple(t[:, pos] for t in kv)
+    keep = live[None, :, None, None]
+    return tuple(torch.where(keep, t, t.new_zeros(())).transpose(1, 2)
+                 for t in kv)
+
+
+def _decode(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cache: dict, cut, cache_index: int, kv_len: torch.Tensor,
+            kv_rows: Optional[int], sliding_window: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    """One decode step of q's heads (q (B, 1, H, hd), the new row's k and
+    v (B, 1, KV, hd)) against the cache, or its chunk as ``cut`` places it:
+    the new row written where the rows hold its slot (``cache_index``, on
+    a ring of w rows ``cache_index % w``).  Whole (``cut`` None): B6 on the
+    cache.  Cut on its rows (dim 2): B6's partial mode over the rank's rows
+    (``kv_len``: their live rows, a clamp of the whole cache's: a ring's
+    live slots are a prefix) and the partials of the cut's group combined
+    in rank order, rounded once to ``dtype``.  Cut on another dim (head_dim,
+    where the rows are fewer than it): the chunks gathered whole over its
+    group for the step, B6 on every head, and the rank's chunk kept after
+    the write; that route is correct before it is fast, and no full-width
+    cache takes it (their rows are the largest dim).  Returns (B, 1, H,
+    hd)."""
+    ck, cv = cache["k"], cache["v"]
+    rows = ck.shape[2] * (cut.n if cut is not None and cut.dim == 2 else 1)
+    at = cache_index % rows if sliding_window else cache_index
+    cap = cfg.attn_logit_softcap
+    if cut is not None and cut.dim == 2:
+        if cut.start <= at < cut.start + cut.size:
+            ck[:, :, at - cut.start] = k[:, 0].to(ck.dtype)
+            cv[:, :, at - cut.start] = v[:, 0].to(cv.dtype)
+        out, lse = ops.decode_attention_kv_major(
+            q, ck, cv, kv_len, logit_softcap=cap, kv_rows=kv_rows,
+            return_lse=True)
+        return C.combine_partials(out, lse[:, None], cut.group, dtype)
+    ckw, cvw = (c if cut is None else cut.gather(c) for c in (ck, cv))
+    ckw[:, :, at] = k[:, 0].to(ckw.dtype)
+    cvw[:, :, at] = v[:, 0].to(cvw.dtype)
+    out = cache_attention(q, ckw, cvw, kv_len, logit_softcap=cap,
+                          kv_rows=kv_rows)
+    if cut is not None:
+        ck.copy_(cut.chunk(ckw))
+        cv.copy_(cut.chunk(cvw))
+    return out
+
+
+def _tp_attn_weights(cfg, p: dict, whole_kv: bool = False):
     """The weights a rank's q heads read: its shards of wq and wo; wk and
     wv its shards where the kv heads are split too, else the replicated
     tensors sliced to the kv heads its q heads map to (q head h reads kv
-    head h // (H / KV)), through f; qk-norm scales through f.  The local
-    group (q heads over kv heads) must be whole; a ``ValueError`` says
-    where it is not."""
+    head h // (H / KV)), through f, or whole with ``whole_kv``; qk-norm
+    scales through f.  The local group (q heads over kv heads) must be
+    whole; a ``ValueError`` says where it is not."""
     H, KV = cfg.n_heads, cfg.n_kv_heads
     Hl, KVl = p["wq"].shape[1], p["wk"].shape[1]
     p = dict(p)
@@ -322,7 +427,9 @@ def _tp_attn_weights(cfg, p: dict) -> dict:
             raise ValueError(f"{Hl} q heads a rank over groups of {G}: the "
                              "rank's q heads do not map to whole kv heads")
         for name in ("wk", "wv"):
-            p[name] = C.copy_to_model(p[name])[:, k0:k1]
+            p[name] = C.copy_to_model(p[name])
+            if not whole_kv:
+                p[name] = p[name][:, k0:k1]
         KVl = k1 - k0
     if Hl % KVl:
         raise ValueError(f"{Hl} q heads over {KVl} kv heads on a rank")
@@ -379,7 +486,8 @@ def mla_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
 def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
               cache: Optional[dict] = None,
-              cache_index: Optional[int] = None):
+              cache_index: Optional[int] = None,
+              cuts: Optional[dict] = None):
     """MLA.  The cache holds only the normed latent (B, S_cache, r) and the
     shared rope key (B, S_cache, dr).  Prefill (``cache`` None) materialises
     per-head K and V from the latent; decode takes the absorbed form: q_nope
@@ -390,7 +498,14 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
     Under a model group that splits the heads, the rank computes the whole
     latent and rope key (``w_dkv`` and ``kv_norm`` replicated, through f)
-    and its heads of q, K and V, and ``wo``'s partial sums are reduced."""
+    and its heads of q, K and V, and ``wo``'s partial sums are reduced.
+
+    ``cuts`` (a mesh step's): the cache is placed as
+    ``sharding.cache_shardings`` places it.  A prefill returns a leaf cut on
+    its rows as the rank's rows of it (zero past the prompt), the others
+    at every position; a decode step runs ``_mla_decode`` on the placed
+    chunks, and takes its heads of the context through ``w_uv``.  Plain
+    PyTorch, as in the JAX package."""
     B, S, _ = x.shape
     H = p["wq"].shape[1]
     tp = C.split(H, cfg.n_heads)
@@ -406,16 +521,9 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     latent = rms_norm(dkv[..., :r], kv_norm, cfg.norm_eps)
     k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
     if cache is not None:
-        cl, cr = cache["latent"], cache["k_rope"]
-        cl[:, cache_index:cache_index + S] = latent.to(cl.dtype)
-        cr[:, cache_index:cache_index + S] = k_rope.to(cr.dtype)
-        q_abs = einsum32("bshk,rhk->bshr", q_nope, p["w_uk"])
-        logits = einsum32("bshr,btr->bhst", q_abs.to(x.dtype), cl)
-        logits = logits + einsum32("bshk,btk->bhst", q_rope, cr)
-        logits = logits * (1.0 / math.sqrt(q.shape[-1]))
-        dead = torch.arange(cl.shape[1], device=x.device) >= cache_index + S
-        pr = torch.softmax(logits.masked_fill(dead, NEG_INF), dim=-1)
-        ctx = einsum32("bhst,btr->bshr", pr, cl)
+        q_abs = einsum32("bshk,rhk->bshr", q_nope, p["w_uk"]).to(x.dtype)
+        ctx = _mla_decode(q_abs, q_rope, latent, k_rope, cache, cuts,
+                          cache_index, tp, q.shape[-1])
         out = einsum32("bshr,rhv->bshv", ctx, p["w_uv"], out_dtype=x.dtype)
         new_cache = cache
     else:
@@ -425,12 +533,70 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
             B, S, H, k_rope.shape[-1])], dim=-1)
         out = mla_prefill_attention(torch.cat([q_nope, q_rope], dim=-1), k, v)
         new_cache = {"latent": latent, "k_rope": k_rope}
+        for n, cut in (cuts or {}).items():
+            if cut is not None and cut.dim == 1:
+                pos, live = chunk_positions(cut, S, 0, x.device)
+                rows = new_cache[n][:, pos]
+                new_cache[n] = torch.where(live[:, None], rows,
+                                           rows.new_zeros(()))
     if tp:
         y = reduced_dense(out.reshape(B, S, -1),
                           p["wo"].reshape(-1, p["wo"].shape[-1]), x.dtype)
     else:
         y = einsum32("bshv,hvd->bsd", out, p["wo"], out_dtype=x.dtype)
     return y, new_cache
+
+
+def _mla_decode(q_abs, q_rope, latent, k_rope, cache, cuts, cache_index,
+                tp, dqk):
+    """MLA's absorbed decode (``mla_apply``): the float32 context (B, 1,
+    Hl, r) of q's heads against the latent and rope-key cache, or its
+    chunks as ``cuts`` place them.  Whole: the new rows written at
+    ``cache_index``, logits masked at NEG_INF past ``cache_index`` + 1, their
+    softmax.  Cut on its rows (both leaves): the absorbed query and q_rope
+    of every head gathered over the model group, the rows written on the
+    rank that holds them, the softmax over the rank's rows with its
+    log-sum-exp (-inf where none is live yet), and the ranks' contexts
+    combined in rank order (``collectives.combine_partials``).  Cut on
+    another dim: the leaves gathered whole for the step and the rank's
+    chunks kept after the write."""
+    cuts = cuts or {"latent": None, "k_rope": None}
+    rows_cut = all(c is not None and c.dim == 1 for c in cuts.values())
+    cut = cuts["latent"] if rows_cut else None
+    Hl, S = q_abs.shape[2], latent.shape[1]
+    if rows_cut and tp:
+        q_abs, q_rope = (C.gather_from_model(t, 2) for t in (q_abs, q_rope))
+    if rows_cut:
+        cl, cr, start = cache["latent"], cache["k_rope"], cut.start
+    else:
+        cl, cr = (cache[n] if cuts[n] is None else cuts[n].gather(cache[n])
+                  for n in ("latent", "k_rope"))
+        start = 0
+    if 0 <= cache_index - start < cl.shape[1]:
+        at = cache_index - start
+        cl[:, at:at + S] = latent.to(cl.dtype)
+        cr[:, at:at + S] = k_rope.to(cr.dtype)
+    logits = einsum32("bshr,btr->bhst", q_abs, cl)
+    logits = logits + einsum32("bshk,btk->bhst", q_rope, cr)
+    logits = logits * (1.0 / math.sqrt(dqk))
+    dead = (torch.arange(start, start + cl.shape[1], device=cl.device)
+            >= cache_index + S)
+    logits = logits.masked_fill(dead, NEG_INF)
+    ctx = einsum32("bhst,btr->bshr", torch.softmax(logits, dim=-1), cl)
+    if not rows_cut:
+        for n, whole in (("latent", cl), ("k_rope", cr)):
+            if cuts[n] is not None:
+                cache[n].copy_(cuts[n].chunk(whole))
+        return ctx
+    if cache_index + S <= cut.start:            # no live row here yet
+        lse = torch.full(ctx.shape[:-1], -torch.inf, device=ctx.device)
+        ctx = torch.zeros_like(ctx)
+    else:
+        lse = torch.logsumexp(logits, dim=-1).transpose(1, 2)   # (B, S, H)
+    ctx = C.combine_partials(ctx, lse, cut.group)
+    if tp:
+        ctx = ctx[:, :, C.model_rank() * Hl:(C.model_rank() + 1) * Hl]
+    return ctx
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,21 @@ and summed over the group in float32 (an all-reduce each way, as the rank
 then uses it for its own channels again), then rounded once.  mLSTM and sLSTM run the recurrence on
 the rank's heads where the rules split the heads, else on every head; the
 block's output is reduced (g) or, for sLSTM's heads, gathered.
+
+Decode over a mesh (``cuts``, a mesh step's ``collectives.Cut`` of each
+state leaf): the states come in, and go back out, placed as
+``sharding.cache_shardings`` places them, on their widest inner dim.  Where
+that chunk is the layer's own model shard it is computed on as it is:
+mamba's conv and state on its inner channels (contiguous in rank order),
+and mLSTM's conv on its channels and ``m`` on its heads where the rules
+split the heads.  Every other leaf is resharded around the step
+(``collectives.to_local`` / ``to_placed``: all-gathered over the placed
+group, stepped on the layer's shard or whole, its placed chunk kept):
+mLSTM's ``C`` and ``n`` (cut on their last dim), sLSTM's ``h``, ``c``,
+``n`` and ``m`` (cut on head_dim), mLSTM's ``m`` where the heads stay
+whole, and any leaf cut over the batch axes and "model" together (a batch
+of one), which no layer splits that way.  A prefill returns its states so
+placed.
 """
 from __future__ import annotations
 
@@ -91,6 +106,16 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     new_cache = (ctx[:, ctx.shape[1] - (K - 1):].clone() if K > 1
                  else x.new_zeros((x.shape[0], 0, x.shape[2])))
     return y.to(x.dtype), new_cache
+
+
+def _states(tree, cuts, dims, move):
+    """``move`` (``C.to_local`` or ``C.to_placed``) on each leaf of a state
+    tree (nested dicts) with its cut and the dim the layer splits over the
+    model group (None: whole); the tree as it is without ``cuts``."""
+    if tree is None or cuts is None:
+        return tree
+    return {k: (_states(v, cuts[k], dims[k], move) if isinstance(v, dict)
+                else move(v, cuts[k], dims[k])) for k, v in tree.items()}
 
 
 def _packed_parts(up: torch.Tensor, n_parts: int, tp: bool):
@@ -236,15 +261,21 @@ def mlstm_block_spec(cfg) -> dict:
             "gn": ("heads", "head_dim"), "w_down": ("inner", "embed")}
 
 
-def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
+def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
+                      cuts=None):
     """x: (B, S, d).  cache: None or dict(conv, state).  The step form runs
     for one token against a cache, the chunkwise form otherwise.  Returns
-    (x + y, the new dict(conv, state))."""
+    (x + y, the new dict(conv, state)); with ``cuts`` the states placed
+    (module docstring)."""
     B, S, d = x.shape
     nh = cfg.n_heads
     di = cfg.ssm_expand * d
     hd = di // nh
     tp = C.split(p["conv_w"].shape[1], di)
+    heads = tp and C.split(p["gn"].shape[0], nh)
+    dims = {"conv": 2 if tp else None,
+            "state": {k: 1 if heads else None for k in ("C", "n", "m")}}
+    cache = _states(cache, cuts, dims, C.to_local)
     h_in = rms_norm(x, p["norm"], cfg.norm_eps)
     if tp:
         h_in = C.copy_to_model(h_in)
@@ -266,7 +297,7 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
         C.copy_to_model(p["b_if"]) if tp else p["b_if"])
     i_raw, f_raw = gates.chunk(2, dim=-1)            # (B, S, nh) each
     gn = p["gn"]
-    if tp and C.split(gn.shape[0], nh):
+    if heads:
         # the rank's heads: its channels of the inner dim
         h0 = C.model_rank() * gn.shape[0]
         q, k, v, i_raw, f_raw = (t[:, :, h0:h0 + gn.shape[0]]
@@ -288,7 +319,8 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     h = h * F.silu(z.float()).to(x.dtype)
     y = (reduced_dense(h, p["w_down"], x.dtype) if tp else
          einsum32("bsd,de->bse", h, p["w_down"], out_dtype=x.dtype))
-    return x + y, {"conv": new_conv, "state": new_state}
+    return x + y, _states({"conv": new_conv, "state": new_state}, cuts, dims,
+                          C.to_placed)
 
 
 def mlstm_cache_init(cfg, B: int, device) -> dict:
@@ -354,10 +386,12 @@ def _slstm_step(r_gates: torch.Tensor, b_h: torch.Tensor, carry, wx_t):
     return (h_new, c_new, n_new, m_new), h_new
 
 
-def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
+def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
+                      cuts=None):
     """x: (B, S, d); a Python loop over time (sLSTM is serial), then the
     post-FFN, a GELU GLU of width 4/3 d (GELU's tanh form, ``jax.nn.gelu``'s
-    default).  Returns (x, dict(state))."""
+    default).  Returns (x, dict(state)); with ``cuts`` the state placed
+    (module docstring)."""
     B, S, d = x.shape
     nh = cfg.n_heads
     hd = d // nh
@@ -366,6 +400,8 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     if heads and not tp:
         raise ValueError("sLSTM heads split over a model group whose size "
                          "does not divide the gate width")
+    dims = {"state": {k: 1 if heads else None for k in ("h", "c", "n", "m")}}
+    cache = _states(cache, cuts, dims, C.to_local)
     h_in = rms_norm(x, p["norm"], cfg.norm_eps)
     if tp:
         h_in = C.copy_to_model(h_in)
@@ -404,7 +440,8 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     up = up * einsum32("bsd,df->bsf", hf, p["w_up2"], out_dtype=x.dtype)
     x = x + (reduced_dense(up, p["w_down"], x.dtype) if ffn_tp else
              einsum32("bsf,fd->bsd", up, p["w_down"], out_dtype=x.dtype))
-    return x, {"state": dict(zip(("h", "c", "n", "m"), carry))}
+    return x, _states({"state": dict(zip(("h", "c", "n", "m"), carry))},
+                      cuts, dims, C.to_placed)
 
 
 def slstm_state_init(cfg, B: int, device, heads: Optional[int] = None
@@ -492,13 +529,16 @@ def _affine_scan(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
+def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None, cuts=None):
     """Selective SSM.  x: (B, S, d) -> (B, S, d).  cache: dict(conv, state)
-    or None.  Returns (out, dict(conv, state (B, d_inner, N) float32))."""
+    or None.  Returns (out, dict(conv, state (B, d_inner, N) float32)); with
+    ``cuts`` the states placed (module docstring)."""
     B, S, d = x.shape
     N = cfg.ssm_state
     dt_rank = p["w_x"].shape[1] - 2 * N
     tp = C.split(p["conv_w"].shape[1], cfg.ssm_expand * d)
+    dims = {"conv": 2 if tp else None, "state": 1 if tp else None}
+    cache = _states(cache, cuts, dims, C.to_local)
     if tp:
         x = C.copy_to_model(x)
 
@@ -535,7 +575,8 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None):
     else:
         out = einsum32("bsd,de->bse", y.to(x.dtype), p["w_out"],
                        out_dtype=x.dtype)
-    return out, {"conv": new_conv, "state": new_state}
+    return out, _states({"conv": new_conv, "state": new_state}, cuts, dims,
+                        C.to_placed)
 
 
 def mamba_cache_init(cfg, B: int, device) -> dict:

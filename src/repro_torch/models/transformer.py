@@ -56,8 +56,16 @@ vocab-parallel (each rank looks up the tokens in its range, zeros
 elsewhere, then g; per codebook, so the sum keeps its order), the
 unembedding gives the rank's vocab columns (gathered whole for the
 prefill's logits), and the chunked cross-entropy reduces the maximum, the
-sum of exponentials and the target logit over the group.  The prefill
-caches hold what the rank computed (its kv heads, its SSM channels).
+sum of exponentials and the target logit over the group.
+
+Over a mesh (``cuts``: each stacked cache leaf's ``collectives.Cut``, from
+``sharding.cache_cuts``) the caches are placed as
+``sharding.cache_shardings`` places them: ``prefill`` returns each leaf's
+chunk (the attention rows of every kv head, cut on the dim the rule picks;
+the recurrent states on theirs) and ``decode_step`` takes and returns them
+so.  The layers say how they compute on a chunk (``layers.attn_apply``,
+``layers.mla_apply``, ``ssm``); the live-row tensors of a step are the
+rank's own, its rows' share of the cache's live rows.
 """
 from __future__ import annotations
 
@@ -167,35 +175,41 @@ def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
                 positions: torch.Tensor, *, cache=None,
                 cache_index: Optional[int] = None,
                 kv_len: Optional[torch.Tensor] = None,
-                kv_rows: Optional[int] = None):
+                kv_rows: Optional[int] = None, cuts=None):
     """One layer.  ``attn_ffn``: pre-norm attention and FFN with residuals;
     ``hymba``: attention (windowed or global, ``kind.sliding_window``) and
     mamba on the same normed input, each output rms-normed, weighted by
     beta and averaged in float32, then the FFN; ``mlstm``/``slstm``: the
     recurrent block.  ``kv_len`` (B,) int32: the live rows of this layer's
     attention cache in a decode step, ``kv_rows`` the same count on the
-    host (every row's; for the kernel's cost count).  Returns (x, new_cache, aux): aux is
-    the MoE layer's load-balance term, None otherwise."""
+    host (every row's; for the kernel's cost count).  ``cuts``: the layer's
+    cache cuts over a mesh (the layers compute on placed chunks).  Returns
+    (x, new_cache, aux): aux is the MoE layer's load-balance term, None
+    otherwise."""
     if kind.block == "mlstm":
-        x, c = SSM.mlstm_block_apply(cfg, p, x, cache=cache)
+        x, c = SSM.mlstm_block_apply(cfg, p, x, cache=cache, cuts=cuts)
         return x, c, None
     if kind.block == "slstm":
-        x, c = SSM.slstm_block_apply(cfg, p, x, cache=cache)
+        x, c = SSM.slstm_block_apply(cfg, p, x, cache=cache, cuts=cuts)
         return x, c, None
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_cache = None if cache is None else cache["attn"]
+    attn_cuts = None if cuts is None else cuts["attn"]
     if kind.attn == "mla":
         ay, new_attn = L.mla_apply(cfg, p["attn"], h, positions,
-                                   cache=attn_cache, cache_index=cache_index)
+                                   cache=attn_cache, cache_index=cache_index,
+                                   cuts=attn_cuts)
     else:
         ay, new_attn = L.attn_apply(cfg, p["attn"], h, positions,
                                     cache=attn_cache, cache_index=cache_index,
                                     kv_len=kv_len, kv_rows=kv_rows,
-                                    sliding_window=kind.sliding_window)
+                                    sliding_window=kind.sliding_window,
+                                    cuts=attn_cuts)
     new_cache: Dict[str, Any] = {"attn": new_attn}
     if kind.block == "hymba":
         my, new_cache["mamba"] = SSM.mamba_apply(
-            cfg, p["mamba"], h, cache=None if cache is None else cache["mamba"])
+            cfg, p["mamba"], h, cache=None if cache is None else cache["mamba"],
+            cuts=None if cuts is None else cuts["mamba"])
         fused = 0.5 * (p["beta_attn"] * L.rms_norm(ay, p["norm_attn"],
                                                    cfg.norm_eps).float()
                        + p["beta_ssm"] * L.rms_norm(my, p["norm_ssm"],
@@ -340,27 +354,44 @@ def _lookup(cfg: ModelConfig, table: torch.Tensor,
                                            rows.new_zeros(())))
 
 
+def _live_rows(kind: LayerKind, cuts, n: int):
+    """(a key for the live-row tensor, the live rows) of a run's GQA cache
+    in a step that makes ``n`` rows live: ``n`` (on a ring of w rows at
+    most w), or on a chunk cut on its rows, their share of them."""
+    w = kind.sliding_window
+    live = min(n, w) if w else n
+    cut = cuts["attn"]["k"] if cuts is not None and kind.attn == "gqa" else None
+    if cut is None or cut.dim != 2:
+        return (w, 0, 0), live
+    return (w, cut.start, cut.size), min(max(live - cut.start, 0), cut.size)
+
+
 def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
                 positions: torch.Tensor, lo: int, hi: int, caches,
-                cache_index: Optional[int]):
+                cache_index: Optional[int], cuts=None):
     """Layers [lo, hi), across runs.  With ``caches`` (one stacked tree per
     run) each layer decodes into its slice in place (attention rows, and
     the new recurrent states copied over the old) and the new caches are
     views of them; without, the new caches stack the layers' (k, v),
     (latent, k_rope) or states.  A run outside [lo, hi) adds no cache.
-    Returns (h, new_caches, the MoE layers' aux summed in float32)."""
+    ``cuts`` (one tree per run): the caches are placed chunks (module
+    docstring).  Returns (h, new_caches, the MoE layers' aux summed in
+    float32)."""
     runs = layer_runs(cfg)
     new_caches = []
-    live, rows = {}, {}
+    live, made = {}, {}
     if caches is not None:
         # the live rows of an attention cache, one (B,) tensor per step and
-        # window: cache_index + S, or on a ring of w rows at most w
+        # window (and rank's rows): cache_index + S, or on a ring of w rows
+        # at most w, or their share of a chunk's rows
         B, S = h.shape[:2]
-        n = cache_index + S
-        rows = {w: min(n, w) if w else n
-                for w in {kind.sliding_window for kind, _ in runs}}
-        live = {w: torch.full((B,), r, dtype=torch.int32, device=h.device)
-                for w, r in rows.items()}
+        for ri, (kind, _) in enumerate(runs):
+            key, rows = _live_rows(kind, None if cuts is None else cuts[ri],
+                                   cache_index + S)
+            if key not in made:
+                made[key] = (torch.full((B,), rows, dtype=torch.int32,
+                                        device=h.device), rows)
+            live[ri] = made[key]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     start = 0
     for ri, (kind, count) in enumerate(runs):
@@ -369,14 +400,16 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor,
         if s < e:
             rp = params["runs"][ri]
             rc = None if caches is None else caches[ri]
+            rcut = None if cuts is None else cuts[ri]
+            kv_len, kv_rows = live.get(ri, (None, None))
             got = []
             for i in range(s - start, e - start):
                 c_i = None if rc is None else tree_map(lambda a: a[i], rc)
                 h, c, a = block_apply(cfg, kind, tree_map(lambda a: a[i], rp),
                                       h, positions, cache=c_i,
                                       cache_index=cache_index,
-                                      kv_len=live.get(kind.sliding_window),
-                                      kv_rows=rows.get(kind.sliding_window))
+                                      kv_len=kv_len, kv_rows=kv_rows,
+                                      cuts=rcut)
                 if a is not None:
                     aux = aux + a
                 if c_i is not None:
@@ -399,11 +432,11 @@ def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 def forward(cfg: ModelConfig, params, h: torch.Tensor, positions: torch.Tensor,
-            *, caches=None, cache_index: Optional[int] = None):
+            *, caches=None, cache_index: Optional[int] = None, cuts=None):
     """Every layer, then the final norm.  h: (B, S, d).  Returns (h,
     new_caches, aux)."""
     h, new_caches, aux = _run_layers(cfg, params, h, positions, 0,
-                                     cfg.n_layers, caches, cache_index)
+                                     cfg.n_layers, caches, cache_index, cuts)
     return L.rms_norm(h, params["final_norm"], cfg.norm_eps), new_caches, aux
 
 
@@ -552,33 +585,45 @@ def cache_init(cfg: ModelConfig, B: int, max_len: int, device="cuda"):
     return caches
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int):
+def prefill(cfg: ModelConfig, params, batch, max_len: int, cuts=None):
     """Process the prompt (tokens, frames, or patches and tokens) and build
     the decode caches.  Returns (last-position logits (B, 1, V), or
-    (B, 1, ncb, V) with codebooks, float32, caches)."""
+    (B, 1, ncb, V) with codebooks, float32, caches); with ``cuts`` (a mesh
+    step's) each cache leaf as its placed chunk."""
     h = embed_inputs(cfg, params, batch)
     Sq = h.shape[1]
     if max_len < Sq:
         raise ValueError(f"max_len {max_len} is shorter than the prompt {Sq}")
-    h, seq_caches, _ = forward(cfg, params, h, positions_for(h))
-    out = [_merge_prefill_cache(kind, got, Sq, max_len)
-           for (kind, _), got in zip(layer_runs(cfg), seq_caches)]
+    h, seq_caches, _ = forward(cfg, params, h, positions_for(h), cuts=cuts)
+    out = [_merge_prefill_cache(kind, got, Sq, max_len,
+                                None if cuts is None else cuts[ri])
+           for ri, ((kind, _), got) in enumerate(zip(layer_runs(cfg),
+                                                     seq_caches))]
     return unembed(cfg, params, h[:, -1:]), out
 
 
-def _merge_prefill_cache(kind: LayerKind, got, Sq: int, max_len: int):
+def _merge_prefill_cache(kind: LayerKind, got, Sq: int, max_len: int,
+                         cuts=None):
     """The decode cache of a run, zeroed (as ``cache_init`` lays it out,
     in the heads the prompt's rows carry) with the prompt's rows written
     in: MLA's (layers, B, Sq, r) latent and (layers, B, Sq, dr) rope key as
     they lie into the first Sq of max_len rows; GQA's (layers, B, Sq, KV,
     hd) k and v turned KV-major into the first Sq rows, or on a ring of w
     rows with Sq >= w the last w rows rolled by Sq % w, so that position p
-    sits in slot p % w.  Recurrent states are taken as they come."""
+    sits in slot p % w.  Recurrent states are taken as they come.  With
+    ``cuts`` each attention leaf's placed chunk of it (the stacked layer
+    dim leads the leaf, so each cut's dim moves up by one): a leaf cut on
+    its rows the layers made as that chunk already, and it is taken as it
+    comes."""
     if kind.block in ("mlstm", "slstm"):
         return got
     w = kind.sliding_window
     dec: Dict[str, Any] = {"attn": {}}
     for name, rows in got["attn"].items():
+        cut = None if cuts is None else cuts["attn"][name]
+        if cut is not None and cut.dim == (1 if kind.attn == "mla" else 2):
+            dec["attn"][name] = rows
+            continue
         if kind.attn == "mla":
             n, B, _, r = rows.shape
             c = rows.new_zeros((n, B, max_len, r))
@@ -591,19 +636,23 @@ def _merge_prefill_cache(kind: LayerKind, got, Sq: int, max_len: int):
                                    Sq % w, dims=3))
             else:
                 c[:, :, :, :Sq] = rows.transpose(2, 3)
+        if cut is not None:
+            c = c.narrow(cut.dim + 1, cut.start, cut.size).clone()
         dec["attn"][name] = c
     if kind.block == "hymba":
         dec["mamba"] = got["mamba"]
     return dec
 
 
-def decode_step(cfg: ModelConfig, params, caches, batch, cache_index: int):
+def decode_step(cfg: ModelConfig, params, caches, batch, cache_index: int,
+                cuts=None):
     """One-token decode.  batch: tokens (B, 1), or (B, 1, ncb) with
     codebooks, or frames (B, 1, d); cache_index: the new token's position
     (a prompt's patches count).  Returns (logits (B, 1, V), or (B, 1, ncb,
-    V), float32, caches updated in place)."""
+    V), float32, caches updated in place); with ``cuts`` (a mesh step's)
+    the caches are placed chunks."""
     cache_index = int(cache_index)
     h = embed_inputs(cfg, params, batch)
     h, caches, _ = forward(cfg, params, h, positions_for(h, cache_index),
-                           caches=caches, cache_index=cache_index)
+                           caches=caches, cache_index=cache_index, cuts=cuts)
     return unembed(cfg, params, h), caches

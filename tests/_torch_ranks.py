@@ -185,7 +185,8 @@ def _unshard(tree, spec_tree, mesh):
 
 def tp_forward_rank(rank, world, cases):
     """For each case (arch, weights, batch, labels or None) on a (1, world)
-    mesh: the prefill's last-position logits (labels None), or the loss
+    mesh: the prefill's last-position logits (labels None) and this rank's
+    chunk of every cache leaf with its mesh coordinate, or the loss
     and every gradient leaf of ``value_and_grad`` on the rank's shards,
     gathered whole; and the rank's chunk of every leaf."""
     from repro_torch.bridge import lm_params_from_numpy
@@ -221,7 +222,51 @@ def tp_forward_rank(rank, world, cases):
             pre = build_prefill(cfg, InputShape("p", S, B, "prefill"),
                                 mesh=mesh)
             logits, caches = pre.local_fn(mine, batch)
-            got.update(logits=logits.numpy(),
-                       caches=tree_map(lambda c: tuple(c.shape), caches))
+            got.update(logits=logits.numpy(), coord=mesh.coordinate(),
+                       caches=tree_map(lambda c: c.numpy(), caches))
+        out.append(got)
+    return out
+
+
+def tp_decode_rank(rank, world, cases):
+    """For each case (arch, config overrides, (data, model), weights,
+    prompt, decode batches, max_len) on a mesh of that shape over these
+    ranks: ``build_prefill(mesh=)`` of the prompt into caches of max_len
+    rows, then one ``build_decode_step(mesh=)`` per decode batch at the
+    positions after the prompt.  Returns per case the prefill's and each
+    step's gathered logits, this rank's chunk of every cache leaf after the
+    prefill and after the last step, and its mesh coordinate."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import local
+    from repro_torch.launch.steps import build_decode_step, build_prefill
+    from repro_torch.tree import tree_map
+    torch.set_num_threads(1)
+    out = []
+    for arch, over, (data, model), params_np, prompt_np, steps_np, max_len \
+            in cases:
+        cfg = get_reduced_config(arch).replace(**over)
+        mesh = make_host_mesh(model_parallel=model, device="cpu")
+        assert mesh.shape == {"data": data, "model": model}
+        B = next(iter(prompt_np.values())).shape[0]
+        S = sum(v.shape[1] for v in prompt_np.values())
+        pre = build_prefill(cfg, InputShape("p", S, B, "prefill"), mesh=mesh,
+                            max_len=max_len)
+        dec = build_decode_step(cfg, InputShape("d", max_len, B, "decode"),
+                                mesh=mesh)
+        params = pre.place(lm_params_from_numpy(params_np,
+                                                torch.device("cpu")))
+        logits, caches = pre(params, {k: torch.from_numpy(v)
+                                      for k, v in prompt_np.items()})
+        got = {"prefill": logits.numpy(), "coord": mesh.coordinate(),
+               "chunks0": tree_map(lambda c: c.numpy().copy(),
+                                   local(caches)), "logits": []}
+        for i, b in enumerate(steps_np):
+            logits, caches = dec(params, caches, {
+                k: torch.from_numpy(v) for k, v in b.items()}, S + i)
+            got["logits"].append(logits.numpy())
+        got["chunks"] = tree_map(lambda c: c.numpy().copy(), local(caches))
         out.append(got)
     return out

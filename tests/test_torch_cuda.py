@@ -552,6 +552,42 @@ def test_decode_attention_softcap_matches_plain(cuda, dtype, S, H, KV, hd,
             assert not out[b].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S,H,KV,hd,lens,cap", [
+    (1040, 16, 8, 128, (1040, 460, 0, 1), 0.0),     # half of qwen3's cache
+    (1040, 16, 8, 128, (1040, 0), 1.0),
+    (512, 25, 5, 64, (512, 1, 0), 0.0),            # half of Hymba's ring
+    (300, 24, 24, 64, (0, 300, 7), 0.0),            # musicgen's G = 1
+])
+def test_decode_attention_partial_mode_matches_plain(cuda, dtype, S, H, KV,
+                                                     hd, lens, cap):
+    """B6's partial mode: out (float32 whatever q's dtype) and lse within
+    tolerance of the plain version, lse -inf and out zeros where kv_len is
+    0, two launches bitwise equal, its out rounded to q's dtype within one
+    rounding of the default mode's, which stays bitwise what it is."""
+    g = torch.Generator().manual_seed(26)
+    B = len(lens)
+    q = torch.randn((B, 1, H, hd), generator=g).to(cuda, dtype)
+    ck_ = torch.randn((B, KV, S, hd), generator=g).to(cuda, dtype)
+    cv_ = torch.randn((B, KV, S, hd), generator=g).to(cuda, dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out, lse = da.decode_attention_cuda(q, ck_, cv_, kv_len, cap, True)
+    again = da.decode_attention_cuda(q, ck_, cv_, kv_len, cap, True)
+    ref, ref_lse = da.decode_attention_plain(q, ck_, cv_, kv_len, cap, True)
+    default = da.decode_attention_cuda(q, ck_, cv_, kv_len, cap)
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32
+    assert _rel_err(out, ref) <= ATTN_KERNEL_TOL[torch.float32]
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    live = kv_len > 0
+    assert torch.isinf(lse[~live]).all() and (lse[~live] < 0).all()
+    assert not out[~live].any()
+    assert float((lse[live] - ref_lse[live]).abs().max()) <= 1e-4
+    assert _rel_err(out.to(dtype), default) <= ATTN_KERNEL_TOL[dtype]
+    assert torch.equal(default, da.decode_attention_cuda(q, ck_, cv_, kv_len,
+                                                         cap))
+
+
 @pytest.mark.parametrize("shape", [(2, 1, 256), (3, 5, 256)])
 def test_dense32_bf16_on_the_card_matches_the_upcast(cuda, shape):
     """The tied unembedding's bf16 GEMM with a float32 output on the card

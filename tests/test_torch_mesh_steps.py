@@ -21,7 +21,9 @@ against the mesh-free step and the JAX package's step on a 2 x 1 mesh.
   there is lr eps / (|g| + eps)^2, so a rounding of such a g (a sum that
   cancels) moves the update by up to twice the learning rate, the bound
   held there.
-* A decode step over a "model" axis over 1 raises (A9c(b)).
+* Every kind of step (train, prefill, decode) builds over a "model" axis
+  of 2; decode's takes its caches in ``cache_shardings``' placement
+  (``tests/test_torch_tp_decode.py`` runs it).
 """
 import os
 import subprocess
@@ -188,16 +190,22 @@ def test_two_ranks_match_one_process_and_the_jax_package(tmp_path, fsdp,
 
 
 def test_a_model_axis_over_one_raises():
-    """Decode over a "model" axis over 1 is refused (A9c(b)); the train
-    step and the prefill build there (tests/test_torch_tp_*.py run them)."""
+    """Nothing is refused over a "model" axis over 1 any more: every kind
+    of step builds there (tests/test_torch_tp_*.py run them), and the
+    decode step's placed arguments are the parameters and the caches, the
+    latter in ``cache_shardings``' placement for its shape (the name is
+    kept from when decode there raised)."""
+    from repro_torch.launch.sharding import cache_shardings
     from repro_torch.launch.steps import build_step
+    from repro_torch.models.registry import get_model
     cfg = get_reduced_config("smollm-360m")
     mesh = Mesh(None, ("data", "model"), {"data": 1, "model": 2})
-    with pytest.raises(ValueError, match=r"model axis of 2.*A9c\(b\)"):
-        build_step(cfg, InputShape("t", S, B, "decode"), mesh=mesh)
-    for kind in ("train", "prefill"):
-        assert build_step(cfg, InputShape("t", S, B, kind),
-                          mesh=mesh).local_fn is not None
+    for kind in ("train", "prefill", "decode"):
+        step = build_step(cfg, InputShape("t", S, B, kind), mesh=mesh)
+        assert step.local_fn is not None
+    want = cache_shardings(mesh, get_model(cfg, "cpu").abstract_cache(B, S))
+    assert step.in_specs[1] == want and step.in_specs[2:] == (None, None)
+    assert "model" in want[0]["attn"]["k"]
 
 
 def test_meshes_over_one_rank(one_rank):

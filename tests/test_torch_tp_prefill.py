@@ -13,7 +13,8 @@ the same numpy trees, the port on them through
 * The prefill's last-position logits, gathered whole over "model", within
   LM_TOL of their max |x| of the one-process prefill (the tolerance of
   ``tests/test_torch_lm.py``: float32 with sums in other orders); each
-  rank's KV caches hold its kv heads.
+  rank's chunk of every cache leaf is its chunk of the one-process cache
+  in ``cache_shardings``' placement, within LM_TOL of the leaf's max.
 * ``value_and_grad`` on the rank's shards inside ``model_parallel``: the
   loss within LOSS_TOL relative and every gradient leaf, gathered whole,
   within LEAF_TOL of its max |g| of the one-process gradient: the
@@ -24,6 +25,17 @@ the same numpy trees, the port on them through
   same weights and inputs, within the tolerances that hold the
   one-process port to it (``tests/test_torch_lm.py``'s LM_TOL,
   ``tests/test_torch_train.py``'s LOSS_TOL and GRAD_TOL).
+* The reduced xlstm-350m on the JAX package's own init (``PRNGKey(8)``),
+  where the (1, 2) gradients of mLSTM's ``b_if`` and ``gn`` differ from
+  the one-process port's by more than LEAF_TOL (up to 1.37e-5 of the
+  leaf's max): both float32 gradients against the port's gradient in
+  float64 (the weights and inputs cast, float32 pins turned to float64 in
+  the test only).  Each leaf of either within F64_TOL of the float64
+  leaf's max, and the (1, 2) error within twice the one-process error plus
+  LEAF_TOL: the split is float32 rounding (sums in another order on a
+  gradient that is small beside the terms it sums, ``b_if`` of the last
+  mLSTM run 6.08e-5 one-process, 7.45e-5 at (1, 2);
+  this case prints every leaf's under ``pytest -s``), not a fault.
 * The packed projections (mamba's ``w_in``, mLSTM's ``w_up``, sLSTM's
   ``w_gates``) are held by each rank as the rules' column chunk of the
   packed weight in the JAX package's layout, bitwise: the activation is
@@ -40,6 +52,7 @@ from repro.models import transformer as JT
 from repro_torch.bridge import lm_params_from_numpy
 from repro_torch.configs import get_reduced_config
 from repro_torch.configs.base import InputShape
+from repro_torch.launch.sharding import cache_shardings, shard
 from repro_torch.launch.steps import value_and_grad
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
@@ -51,6 +64,8 @@ LM_TOL = 2e-5
 LOSS_TOL = 2e-6
 LEAF_TOL = 1.1e-5
 GRAD_TOL = 5e-5             # the port against the JAX package's gradients
+F64_TOL = 1e-4              # float32 gradients against float64, per leaf
+JAX_INIT = ("xlstm-350m", 8)  # the arch and PRNGKey of the float64 case
 S, B = 20, 2
 CPU = torch.device("cpu")
 
@@ -83,14 +98,26 @@ def cases():
 
 
 @pytest.fixture(scope="module")
-def ranks(cases, tmp_path_factory):
+def jax_init(cases):
+    """JAX_INIT's arch on the JAX package's init, its train batch."""
+    arch, key = JAX_INIT
+    params = jax.tree.map(np.asarray, JT.init(jreduced(arch),
+                                              jax.random.PRNGKey(key)))
+    return dict(params=params, train=cases[arch]["train"])
+
+
+@pytest.fixture(scope="module")
+def ranks(cases, jax_init, tmp_path_factory):
     todo = [(arch, cases[arch]["params"], cases[arch][what])
             for arch in ARCHS for what in ("prompt", "train")]
+    todo.append((JAX_INIT[0], jax_init["params"], jax_init["train"]))
     got = spawn_ranks(tp_forward_rank, 2, tmp_path_factory.mktemp("tpfwd"),
                       todo, timeout=240)
-    return {(arch, what): [r[2 * i + j] for r in got]
-            for i, arch in enumerate(ARCHS)
-            for j, what in enumerate(("prompt", "train"))}
+    out = {(arch, what): [r[2 * i + j] for r in got]
+           for i, arch in enumerate(ARCHS)
+           for j, what in enumerate(("prompt", "train"))}
+    out["jax_init"] = [r[-1] for r in got]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -111,6 +138,19 @@ def jax_side(cases):
     return out
 
 
+class _StandIn:
+    """A (1, 2) mesh's axes, sizes and one rank's coordinate, for the
+    sharding rules."""
+    axis_names = ("data", "model")
+    shape = {"data": 1, "model": 2}
+
+    def __init__(self, coord):
+        self._coord = coord
+
+    def coordinate(self):
+        return self._coord
+
+
 def _torch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
@@ -127,14 +167,16 @@ def test_prefill_over_two_model_ranks_matches_one_process(arch, cases,
     for got in ranks[(arch, "prompt")]:
         assert got["logits"].shape == want.shape
         assert float(np.abs(got["logits"] - want).max()) <= lim
-    # GQA caches (layers, B, KV, S, hd): the rank's kv heads where the rules
-    # split them
-    for run_one, run_tp in zip(caches, ranks[(arch, "prompt")][0]["caches"]):
-        if isinstance(run_one, dict) and "k" in run_one.get("attn", {}):
-            full = tuple(run_one["attn"]["k"].shape)
-            kv = cfg.n_kv_heads
-            want_kv = kv // 2 if kv % 2 == 0 else kv
-            assert run_tp["attn"]["k"] == full[:2] + (want_kv,) + full[3:]
+    # every cache leaf: the rank's chunk in cache_shardings' placement
+    for got in ranks[(arch, "prompt")]:
+        mesh = _StandIn(got["coord"])
+        want_chunks = shard(caches, cache_shardings(mesh, caches), mesh)
+        for path, a, b in zip(tree_paths(caches), tree_leaves(got["caches"]),
+                              tree_leaves(want_chunks)):
+            b = b.numpy()
+            lim = LM_TOL * max(float(np.abs(b).max()), 1e-30)
+            assert a.shape == b.shape, path
+            assert float(np.abs(a - b).max()) <= lim, path
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -203,3 +245,46 @@ def test_packed_projections_keep_the_rules_chunks(arch, leaf, cases, ranks):
             assert mine.dtype == half.dtype
             assert np.array_equal(mine, half)
     assert seen
+
+
+def _grads_f64(cfg, params, batch, monkeypatch):
+    """The one-process port's loss and gradients in float64: the weights
+    cast, the config's dtype float64, and the float32 the code pins
+    (``Tensor.float``, the recurrent states' init) turned to float64."""
+    from repro_torch.models import ssm as SSM
+    init_m, init_s = SSM.mlstm_state_init, SSM.slstm_state_init
+
+    def f64(fn):
+        return lambda *a, **k: tree_map(lambda t: t.double(), fn(*a, **k))
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "float", torch.Tensor.double)
+        m.setattr(SSM, "mlstm_state_init", f64(init_m))
+        m.setattr(SSM, "slstm_state_init", f64(init_s))
+        loss, grads = value_and_grad(cfg.replace(dtype="float64"), tree_map(
+            lambda a: a.double(), params), batch)
+    assert all(g.dtype == torch.float64 for g in tree_leaves(grads))
+    return loss, grads
+
+
+def test_xlstm_gradients_on_jax_init_weights_are_f32_rounding(
+        jax_init, ranks, monkeypatch):
+    cfg = get_reduced_config(JAX_INIT[0])
+    params = lm_params_from_numpy(jax_init["params"], CPU)
+    batch = _torch(jax_init["train"])
+    _, one = value_and_grad(cfg, params, batch)
+    _, ref = _grads_f64(cfg, params, batch, monkeypatch)
+    for got in ranks["jax_init"]:
+        readings = []
+        for path, a, b, c in zip(tree_paths(one), tree_leaves(one),
+                                 tree_leaves(ref), tree_leaves(got["grads"])):
+            b = b.numpy()
+            top = max(float(np.abs(b).max()), 1e-300)
+            readings.append((path, float(np.abs(a.double().numpy() - b).max())
+                             / top, float(np.abs(c - b).max()) / top))
+        # every leaf's errors of the one-process and the (1, 2) float32
+        # gradient against float64 (shown with ``pytest -s``)
+        for path, e_one, e_tp in readings:
+            print(f"{path}: e_one {e_one:.3g}, e_tp {e_tp:.3g}")
+        for path, e_one, e_tp in readings:
+            assert e_one <= F64_TOL and e_tp <= F64_TOL, (path, e_one, e_tp)
+            assert e_tp <= 2 * e_one + LEAF_TOL, (path, e_one, e_tp)
