@@ -287,7 +287,9 @@ when it fails:
     each the mesh step on rank 0's view of a stand-in group of 256 ranks,
     its collectives counted; decode on the rank's cache chunks as
     ``cache_shardings`` places them, B6's partial mode counted on its
-    rows, every decode cell with all-gathers), started before phase 13 in
+    rows, every decode cell with all-gathers; every train cell the
+    default, sequence-parallel step, ``seq_shard`` logged, with the
+    all-gathers and reduce-scatters of its layers), started before phase 13 in
     DRYRUN_JOBS single-thread
     processes niced to 19 (so it takes cores the card's phases leave
     idle), its wall time; every cell OK or SKIP by the JAX dry-run's rule,
@@ -303,7 +305,8 @@ when it fails:
     the whole launch's, dK/dV summed over the slices within BF16_TOL;
     (b) two ranks spawned on the one card over gloo (NCCL refuses two ranks
     on one device; both take card 0 as LOCAL_RANK 0), each first holding
-    every collective the mesh code issues on CUDA tensors in f32 and bf16,
+    every collective the mesh code issues on CUDA tensors in f32 and bf16
+    (the reduce-scatter of sequence parallelism too),
     then qwen3-1.7b's prefill at (data, model) = (1, 2), full width, batch
     4, prompt 2048, bf16, through ``build_prefill(mesh=)`` into caches of
     2080 rows: the gathered last-position logits within HANDOFF_BF16_TOL
@@ -312,8 +315,11 @@ when it fails:
     (28, 4, 8, 1040, 128), the rows of every kv head as
     ``cache_shardings`` places them; (c) the same two
     ranks, TP_STEPS train steps of smollm-360m at (1, 2), full width in
-    f32, phase 17's shape (its 15 heads do not split over two ranks, so
-    attention stays whole on each), against the mesh-free steps on the
+    f32, phase 17's shape, through the default step, sequence-parallel
+    (``seq_shard=True``: the residual stream each rank's half of the
+    sequence between layers; its 15 heads do not split over two ranks, so
+    attention runs whole on each over the gathered sequence and its
+    output is cut), against the mesh-free steps on the
     same weights and batches: loss and gradient norm within TRAIN_CPU_TOL
     relative, AdamW's moments within TRAIN_CPU_TOL of each leaf's max,
     every parameter leaf within TRAIN_CPU_TOL of its max where the
@@ -321,11 +327,13 @@ when it fails:
     within the first step's learning rate), B5's forward and backward
     launches per step phase 17's; (d) the same two ranks, TP_STEPS train
     steps of qwen3-1.7b in bf16 at full width cut to TP_BF16_LAYERS
-    layers, its heads split (8 q over 4 kv a rank): loss and gradient norm
-    within BF16_TOL relative of the mesh-free steps, the first step's
-    gradient (AdamW's first moment) within TP_BF16_TOL of each leaf's max,
-    the launches the mesh-free step's and B5's counted operations and
-    bytes, forward and backward, half of its; (e) the same two ranks
+    layers, its heads split (8 q over 4 kv a rank), once sequence-parallel
+    and once with ``seq_shard=False`` (Megatron-TP alone), each: loss and
+    gradient norm within BF16_TOL relative of the mesh-free steps, the
+    first step's gradient (AdamW's first moment) within TP_BF16_TOL of each
+    leaf's max, the launches the mesh-free step's and B5's counted
+    operations and bytes, forward and backward, half of its; (e) the same
+    two ranks
     decode (b)'s caches LM_GEN steps through ``build_decode_step(mesh=)``,
     teacher-forced on the greedy tokens of the (1, 1) decode: each step's
     gathered logits within HANDOFF_BF16_TOL of max |logit| of the (1, 1)
@@ -1933,7 +1941,9 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
     ``long_500k`` of a family that is not sub-quadratic); the estimated
     peaks of phase 17's train step and phase 9's prefill beside the peaks
     the card measured; B5's counted operations in phase 9's prefill equal
-    to the bound's formula."""
+    to the bound's formula; every train cell over the mesh the
+    sequence-parallel step (``seq_shard``), with all-gathers and
+    reduce-scatters over "model"."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     bad = [r for r in records if r["status"] == "FAIL" or (
@@ -1952,7 +1962,7 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
                 f"{r['total_collective_bytes']:.4e} B ("
                 + ", ".join(f"{k} {r['collective_count'][k]} x, {v:.4e} B"
                             for k, v in r["collective_bytes"].items() if v)
-                + f"), {r['seconds']:.1f} s")
+                + f"), seq_shard {r['seq_shard']}, {r['seconds']:.1f} s")
     mesh = "x".join(map(str, DRYRUN_MESH))
     tp = records[:-2]
     if not all(r["mesh"] == mesh for r in tp) or not all(
@@ -1963,6 +1973,12 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
     if not all(r["collective_count"]["all-gather"] > 0 for r in dec):
         raise AssertionError("a decode cell over "
                              f"{mesh} without its all-gathers")
+    train = [r for r in tp if r["kind"] == "train" and r["status"] == "OK"]
+    if not all(r["seq_shard"] and r["collective_count"]["reduce-scatter"] > 0
+               and r["collective_count"]["all-gather"] > 0 for r in train):
+        raise AssertionError(
+            f"a train cell over {mesh} not sequence-parallel: "
+            f"{[(r['arch'], r['seq_shard']) for r in train]}")
     log(f"dry-run decode cells over {mesh}: {len(dec)} OK, each on the "
         f"rank's chunks of the caches as cache_shardings places them; B6's "
         f"partial mode counted in "
@@ -1972,10 +1988,13 @@ def dryrun_report(records, t_wall: float, peaks: dict) -> None:
                     if "decode_attention_lse" in r["kernels"]))
     for arch in (TRAIN_ARCH, LM_ARCH):
         r = next(r for r in tp if r["arch"] == arch and r["kind"] == "train")
-        log(f"dry-run {arch} {r['shape']} over {mesh}: per-device peak "
+        log(f"dry-run {arch} {r['shape']} over {mesh}, seq_shard "
+            f"{r['seq_shard']}: per-device peak "
             f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB, "
             f"{r['total_collective_bytes']:.4e} collective bytes a device "
-            f"a step (the JAX package's units)")
+            f"a step (the JAX package's units: "
+            + ", ".join(f"{k} {v:.4e}" for k, v in
+                        r["collective_bytes"].items() if v) + ")")
     n = collections.Counter(r["status"] for r in records)
     log(f"dry-run: {n['OK']} OK, {n['SKIP']} SKIP of {len(records)} cells at "
         f"full size on the meta device, {t_wall:.1f} s wall from its start "
@@ -2249,9 +2268,10 @@ def tp_rank(rank: int, world: int, tmp: str, port: int, ins: dict):
     every rank on card 0 (``LOCAL_RANK`` 0: NCCL refuses two ranks on one
     device, gloo takes them), probes the collectives the mesh code issues
     on CUDA tensors, serves LM_ARCH (prefill, then decode teacher-forced on
-    ``ins``' tokens), runs TRAIN_ARCH's f32 train steps and LM_ARCH's bf16
-    train steps at cut depth, then the f32 decode cuts, over a (1, world)
-    mesh, and saves what the parent checks to ``tmp``."""
+    ``ins``' tokens), runs TRAIN_ARCH's f32 train steps (sequence-parallel)
+    and LM_ARCH's bf16 train steps at cut depth (sequence-parallel, then
+    Megatron-TP alone), then the f32 decode cuts, over a (1, world) mesh,
+    and saves what the parent checks to ``tmp``."""
     import os
 
     import torch
@@ -2264,7 +2284,15 @@ def tp_rank(rank: int, world: int, tmp: str, port: int, ins: dict):
         out = {"probe": tp_probe(world)}
         out["serve"] = tp_serve(tp_serve_cfg(None), *ins[None])
         out["train"] = tp_train(rank)
-        out["train_bf16"] = tp_train_bf16(rank)
+        runs = {sq: tp_train_bf16(sq) for sq in (True, False)}
+        if rank == 0:
+            one = tp_bf16_one()
+            for run in runs.values():
+                run["compare"] = tp_bf16_compare(run, one)
+            del one
+        for run in runs.values():
+            del run["m"]
+        out["train_bf16"], out["train_bf16_tp"] = runs[True], runs[False]
         for name in TP_DECODE_CUTS:
             out[name] = tp_serve(tp_serve_cfg(name), *ins[name])
         torch.save(out, Path(tmp) / f"rank{rank}.pt")
@@ -2289,6 +2317,8 @@ def tp_probe(world: int) -> dict:
                  world * (world + 1) / 2),
                 ("all_reduce max", lambda: C.all_reduce(
                     x.clone(), dist.group.WORLD, "max"), float(world)),
+                ("reduce_scatter", lambda: C.reduce_scatter(
+                    x.clone(), dist.group.WORLD), world * (world + 1) / 2),
                 ("all_gather", lambda: C.all_gather(
                     x, dist.group.WORLD)[::4], None)):
             try:
@@ -2395,23 +2425,25 @@ def tp_opt():
 def tp_train(rank: int) -> dict:
     """Phase 19 (c) on a rank: TP_STEPS train steps of TRAIN_ARCH at full
     width in f32 (phase 17's shape and micro-batches) through
-    ``build_train_step(mesh=)`` over (1, 2), weights from SEED; then rank
-    0 runs the mesh-free steps on the same weights and batches and holds
-    the gathered parameters and AdamW moments to them
-    (``tp_train_compare``)."""
+    ``build_train_step(mesh=)`` over (1, 2), its default
+    ``seq_shard=True`` (whether the step cut the sequence in "seq"),
+    weights from SEED; then rank 0 runs the mesh-free steps on the same
+    weights and batches and holds the gathered parameters and AdamW
+    moments to them (``tp_train_compare``)."""
     import torch
     from repro_torch.configs.base import InputShape
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import gather
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_train_step, seq_cut
     from repro_torch.models.registry import get_model
     dev = torch.device("cuda", 0)
     cfg, opt = tp_cfg(), tp_opt()
     mesh = make_host_mesh(model_parallel=2, device=dev)
-    step = build_train_step(cfg, InputShape("t", TRAIN_S, TRAIN_B, "train"),
-                            mesh=mesh, opt=opt, grad_accum=TRAIN_ACCUM)
+    shape = InputShape("t", TRAIN_S, TRAIN_B, "train")
+    step = build_train_step(cfg, shape, mesh=mesh, opt=opt,
+                            grad_accum=TRAIN_ACCUM)
     p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
     placed, st = step.place(p, opt.init(p))
     del p
@@ -2433,7 +2465,8 @@ def tp_train(rank: int) -> dict:
     del placed, st
     torch.cuda.empty_cache()
     out = {"metrics": metrics, "ms": ms, "launches": launches,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "seq": seq_cut(mesh, cfg, shape, TRAIN_ACCUM)}
     if rank == 0:
         out["compare"] = tp_train_compare(full, moments, metrics)
     return out
@@ -2533,26 +2566,26 @@ def tp_bf16_steps(step, params, st, first_m) -> dict:
     return out
 
 
-def tp_train_bf16(rank: int) -> dict:
+def tp_train_bf16(seq_shard: bool) -> dict:
     """Phase 19 (d) on a rank: TP_STEPS train steps of LM_ARCH in bf16 (its
     config's dtype) at full width cut to TP_BF16_LAYERS layers, TP_BF16_B x
     TRAIN_S tokens in TRAIN_ACCUM micro-batches, through
-    ``build_train_step(mesh=)`` over (1, 2), weights from SEED: its 16 q
-    heads over 8 kv heads split, 8 over 4 a rank.  AdamW's first moment
-    after the first step is (1 - b1) times the clipped gradient, gathered
-    whole.  Rank 0 then runs the mesh-free steps on the same weights and
-    batches (``tp_bf16_compare``)."""
+    ``build_train_step(mesh=, seq_shard=)`` over (1, 2), weights from SEED:
+    its 16 q heads over 8 kv heads split, 8 over 4 a rank.  AdamW's first
+    moment after the first step is (1 - b1) times the clipped gradient,
+    gathered whole ("m"); "seq" whether the step cut the sequence."""
     import torch
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import gather
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_train_step, seq_cut
     from repro_torch.models.registry import get_model
     dev = torch.device("cuda", 0)
     cfg, opt = tp_bf16_cfg(), tp_opt()
     shape = InputShape("t", TRAIN_S, TP_BF16_B, "train")
+    mesh = make_host_mesh(model_parallel=2, device=dev)
     step = build_train_step(cfg, shape, opt=opt, grad_accum=TRAIN_ACCUM,
-                            mesh=make_host_mesh(model_parallel=2, device=dev))
+                            mesh=mesh, seq_shard=seq_shard)
     p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
     placed, st = step.place(p, opt.init(p))
     del p
@@ -2560,31 +2593,37 @@ def tp_train_bf16(rank: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     out = tp_bf16_steps(step, placed, st, lambda s: gather(s.m))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seq"] = seq_cut(mesh, cfg, shape, TRAIN_ACCUM, seq_shard)
     del placed, st
-    if rank == 0:
-        out["compare"] = tp_bf16_compare(out)
-    del out["m"]
     torch.cuda.empty_cache()
     return out
 
 
-def tp_bf16_compare(tp: dict) -> dict:
+def tp_bf16_one() -> dict:
     """The mesh-free bf16 steps (``build_train_step`` without a mesh) on
-    ``tp_train_bf16``'s weights and batches: each step's loss and gradient
-    norm against the TP step's, relative; the first step's first moment,
-    each leaf's largest difference over its max; the launches and B5's
-    counted operations and bytes of each step."""
+    ``tp_train_bf16``'s weights and batches (``tp_bf16_steps``)."""
     import torch
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.registry import get_model
-    from repro_torch.tree import tree_leaves, tree_paths
     dev = torch.device("cuda", 0)
     cfg, opt = tp_bf16_cfg(), tp_opt()
     step = build_train_step(cfg, InputShape("t", TRAIN_S, TP_BF16_B, "train"),
                             opt=opt, grad_accum=TRAIN_ACCUM)
     p = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(SEED))
-    one = tp_bf16_steps(step, p, opt.init(p), lambda s: s.m)
+    out = tp_bf16_steps(step, p, opt.init(p), lambda s: s.m)
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_bf16_compare(tp: dict, one: dict) -> dict:
+    """A mesh run of ``tp_train_bf16`` against the mesh-free run ``one``
+    (``tp_bf16_one``): each step's loss and gradient norm, relative; the
+    first step's first moment, each leaf's largest difference over its
+    max; the mesh-free run's metrics, launches, B5's counted operations
+    and bytes and host ms."""
+    from repro_torch.tree import tree_leaves, tree_paths
     errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
                    zip(tp["metrics"], one["metrics"]))
             for k in ("loss", "grad_norm")}
@@ -2689,8 +2728,9 @@ def tp_decode_check(name, ranks, want, tol) -> dict:
 def phase19(dev, rows: dict) -> int:
     """Tensor parallelism over a "model" axis (module docstring, phase
     19): (a) B5 on head shards; (b) LM_ARCH's prefill and (e) its decode,
-    (c) TRAIN_ARCH's f32 train steps, (d) LM_ARCH's bf16 train steps at
-    cut depth and (e)-(f) f32 decode cuts, at (1, 2) on two gloo ranks
+    (c) TRAIN_ARCH's f32 train steps (sequence-parallel), (d) LM_ARCH's
+    bf16 train steps at cut depth (with and without ``seq_shard``) and
+    (e)-(f) f32 decode cuts, at (1, 2) on two gloo ranks
     sharing the card, against the one-process runs; B5's launches on the
     TP path into ``rows``.  Returns B6's partial-mode launches in (e)'s
     full-width decode on rank 0."""
@@ -2796,7 +2836,7 @@ def phase19(dev, rows: dict) -> int:
     cmp_ = tr[0]["compare"]
     for i in range(TP_STEPS):
         if tr[0]["metrics"][i] != tr[1]["metrics"][i]:
-            raise AssertionError(f"TP step {i}: the ranks' metrics differ")
+            raise AssertionError(f"SP step {i}: the ranks' metrics differ")
     per_step = tr[0]["launches"][-1]
     want_launch = {"flash_attention": 2 * 2 * get_config(TRAIN_ARCH).n_layers,
                    **{k: 2 * get_config(TRAIN_ARCH).n_layers
@@ -2804,13 +2844,17 @@ def phase19(dev, rows: dict) -> int:
                                 "flash_attention_bwd_dkdv",
                                 "flash_attention_bwd_dq")}}
     if not (max(cmp_["errs"].values()) <= TRAIN_CPU_TOL and not cmp_["bad"]
+            and all(r["seq"] for r in tr)
             and all(lc == want_launch for lc in tr[0]["launches"])):
-        raise AssertionError(f"TP train steps against the (1, 1) steps: "
-                             f"{cmp_}, launches {tr[0]['launches']}")
+        raise AssertionError(f"SP train steps against the (1, 1) steps: "
+                             f"{cmp_}, sequence cut {[r['seq'] for r in tr]}, "
+                             f"launches {tr[0]['launches']}")
     w = cmp_["worst"]
-    log(f"TP train {TRAIN_ARCH} full width in f32, {TRAIN_B} x {TRAIN_S} in "
+    log(f"SP train {TRAIN_ARCH} full width in f32, {TRAIN_B} x {TRAIN_S} in "
         f"{TRAIN_ACCUM} micro-batches, {TP_STEPS} steps at (1, 2) on two gloo "
-        f"ranks on one card, against the mesh-free steps on the same weights "
+        f"ranks on one card, seq_shard=True (each rank's {TRAIN_S // 2} "
+        f"positions between layers; attention whole on the gathered "
+        f"sequence), against the mesh-free steps on the same weights "
         f"and batches: loss and gradient norm within "
         f"{cmp_['errs']['loss']:.3g} / {cmp_['errs']['grad_norm']:.3g} "
         f"relative (tol {TRAIN_CPU_TOL}); AdamW's m and v within "
@@ -2828,35 +2872,58 @@ def phase19(dev, rows: dict) -> int:
         f"{', '.join(f'{t:.1f}' for t in tr[1]['ms'])} (gloo through the host"
         f", two ranks sharing one card: not a TP speed); peak "
         f"{tr[0]['peak_gib']:.2f} GiB")
-    rows["flash_attention"]["tp_train_f32_launches"] = \
+    rows["flash_attention"]["sp_train_f32_launches"] = \
         per_step["flash_attention"]
-    rows["flash_attention_bwd"]["tp_train_f32_launches"] = \
+    rows["flash_attention_bwd"]["sp_train_f32_launches"] = \
         per_step["flash_attention_bwd_dkdv"]
-    # (d): the heads split, in bf16
-    tb = [r["train_bf16"] for r in ranks]
+    # (d): the heads split, in bf16, sequence-parallel and Megatron-TP alone
+    for key, sq in (("train_bf16", True), ("train_bf16_tp", False)):
+        per_step = tp_bf16_check([r[key] for r in ranks], sq)
+        name = "sp_train_launches" if sq else "tp_train_launches"
+        rows["flash_attention"][name] = per_step["flash_attention"]
+        rows["flash_attention_bwd"][name] = \
+            per_step["flash_attention_bwd_dkdv"]
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
+    ops.LAUNCHES.clear()
+    return lse_launches
+
+
+def tp_bf16_check(tb, seq_shard: bool) -> dict:
+    """Phase 19 (d): both ranks' ``tp_train_bf16`` run with ``seq_shard``
+    against the mesh-free steps (rank 0's "compare"): the ranks' metrics
+    equal, loss and gradient norm within BF16_TOL, the first gradient
+    within TP_BF16_TOL of each leaf's max, the launches the mesh-free
+    step's and B5's counted operations and bytes half of its; the
+    sequence cut where ``seq_shard`` asks for it.  Logs the figures and
+    returns the launches of the last step."""
     cmp_ = tb[0]["compare"]
     bcfg = tp_bf16_cfg()
     worst_path = max(cmp_["grad"], key=cmp_["grad"].get)
     half = all({k: 2 * v for k, v in c.items()} == o for c, o in
                zip(tb[0]["costs"], cmp_["costs"]))
+    what = "SP" if seq_shard else "TP"
     if not (all(tb[0]["metrics"][i] == tb[1]["metrics"][i]
                 for i in range(TP_STEPS))
+            and all(r["seq"] == seq_shard for r in tb)
             and max(cmp_["errs"].values()) <= BF16_TOL
             and cmp_["grad"][worst_path] <= TP_BF16_TOL
             and tb[0]["launches"] == cmp_["launches"]
             and all(lc.get("flash_attention", 0) > 0
                     and lc.get("flash_attention_bwd_dkdv", 0) > 0
                     for lc in tb[0]["launches"]) and half):
-        raise AssertionError(f"bf16 TP train steps against the (1, 1) steps: "
-                             f"errs {cmp_['errs']}, worst gradient leaf "
-                             f"{worst_path} {cmp_['grad'][worst_path]}, "
+        raise AssertionError(f"bf16 {what} train steps against the (1, 1) "
+                             f"steps: errs {cmp_['errs']}, worst gradient "
+                             f"leaf {worst_path} {cmp_['grad'][worst_path]}, "
+                             f"sequence cut {[r['seq'] for r in tb]}, "
                              f"launches {tb[0]['launches']} vs "
                              f"{cmp_['launches']}, B5 costs {tb[0]['costs']} "
                              f"vs {cmp_['costs']}")
     per_step = tb[0]["launches"][-1]
-    log(f"TP train {LM_ARCH} full width in bf16 cut to {bcfg.n_layers} "
+    log(f"{what} train {LM_ARCH} full width in bf16 cut to {bcfg.n_layers} "
         f"layers, {TP_BF16_B} x {TRAIN_S} in {TRAIN_ACCUM} micro-batches, "
-        f"{TP_STEPS} steps at (1, 2) on two gloo ranks on one card, against "
+        f"{TP_STEPS} steps at (1, 2) on two gloo ranks on one card, "
+        f"seq_shard={seq_shard}, against "
         f"the mesh-free steps on the same weights and batches: loss and "
         f"gradient norm within {cmp_['errs']['loss']:.3g} / "
         f"{cmp_['errs']['grad_norm']:.3g} relative (tol {BF16_TOL}); the "
@@ -2873,13 +2940,7 @@ def phase19(dev, rows: dict) -> int:
         f"{', '.join(f'{t:.1f}' for t in tb[1]['ms'])} (not a TP speed), "
         f"mesh-free {', '.join(f'{t:.1f}' for t in cmp_['ms'])}; peak "
         f"{tb[0]['peak_gib']:.2f} GiB")
-    rows["flash_attention"]["tp_train_launches"] = per_step["flash_attention"]
-    rows["flash_attention_bwd"]["tp_train_launches"] = \
-        per_step["flash_attention_bwd_dkdv"]
-    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s ("
-        + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
-    ops.LAUNCHES.clear()
-    return lse_launches
+    return per_step
 
 
 def lm_against_cpu(cut, dev, S: int = 256, B: int = 2) -> None:
@@ -4824,7 +4885,8 @@ def main() -> int:
                         **{k: v for k, v in r.items()
                            if k.startswith(("window_", "global_", "capped_",
                                             "internvl_", "musicgen_", "train_",
-                                            "launches_by_", "bf16_", "tp_"))}})
+                                            "launches_by_", "bf16_", "tp_",
+                                            "sp_"))}})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

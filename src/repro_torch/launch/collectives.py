@@ -27,6 +27,29 @@ activation cut in the packed layout of a weight is gathered whole
 the gradients first).  ``model_parallel`` sets the group the models see;
 outside it, or on a group of one rank, every operator is the identity.
 
+Sequence parallelism (Megatron-SP; ``model_parallel(..., seq=True)``, the
+train step's default): the residual stream between layers is each rank's
+chunk of the sequence (dim 1, in ``torch.chunk`` order), and the conjugate
+pair moves to the sequence:
+
+* ``gather_seq``: an all-gather of the chunks forward, a reduce-scatter of
+  the gradient backward.  It takes f's place at the entry of a layer split
+  over ``model``, whose gradient of its input is a partial sum on each rank.
+* ``scatter_seq``: a reduce-scatter forward (the partial sums summed, each
+  rank keeping its chunk), an all-gather of the gradient backward.  It
+  takes g's place after a row-parallel product.
+* A layer whole on every rank (its heads do not divide the group) computes
+  the same whole gradient on each: its input comes through
+  ``gather_seq_whole`` (backward the rank's own chunk) and its output goes
+  back through ``split_seq`` (the rank's chunk; backward an all-gather).
+  A reduce-scatter there would count the gradient once a rank.
+* ``seq_weight``: f on a replicated weight used on the rank's chunk (the
+  norms between layers), whose gradient is a sum over the rank's positions.
+
+``layer_in`` and ``layer_out`` pick a layer's pair from whether it splits,
+under either scheme.  The sequence operators are the identity unless the
+sequence is cut (``seq_sharded``).
+
 Decode over a mesh (flash decode across ranks): a cache leaf placed as
 ``sharding.cache_shardings`` places it is cut on one dim over the ranks of
 a group (``Cut``: its dim, the group, this rank's chunk).  A rank's rows of
@@ -73,6 +96,26 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+# torch's name for it where it has one (``reduce_scatter_tensor``, its
+# older name, warns that it is deprecated there)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group``, and this rank's chunk of
+    the sum along ``dim`` (``torch.chunk``'s order; ``x`` itself on a group
+    of one rank)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    parts = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    out = parts.new_empty(parts.shape[1:])
+    # the chunks concatenated on dim 0, the layout every backend takes
+    _REDUCE_SCATTER(out, parts.contiguous().flatten(0, 1), group=group)
+    return out
+
+
 def all_gather_object(obj, group) -> list:
     """Every rank's picklable ``obj`` of ``group``, in rank order."""
     n = group_size(group)
@@ -89,23 +132,32 @@ def all_gather_object(obj, group) -> list:
 
 _MODEL: Optional[tuple] = None        # (group, rank in it, its size)
 _BATCH = None                         # the batch group, over one rank
+_SEQ = False                          # the residual cut on its sequence
 
 
 @contextlib.contextmanager
-def model_parallel(group, batch_group=None):
+def model_parallel(group, batch_group=None, seq: bool = False):
     """While open, the models split their layers over ``group`` (the
-    mesh's ``model`` axis; None or one rank: no split), and statistics of
-    the whole batch (the MoE load-balance term) are summed over
-    ``batch_group`` (the ranks that hold the other rows)."""
-    global _MODEL, _BATCH
-    outer = _MODEL, _BATCH
+    mesh's ``model`` axis; None or one rank: no split), statistics of the
+    whole batch (the MoE load-balance term) are summed over
+    ``batch_group`` (the ranks that hold the other rows), and with ``seq``
+    the residual stream between layers is the rank's chunk of the
+    sequence (over a group of one rank it stays whole)."""
+    global _MODEL, _BATCH, _SEQ
+    outer = _MODEL, _BATCH, _SEQ
     n = group_size(group)
     _MODEL = (group, dist.get_rank(group), n) if n > 1 else None
     _BATCH = batch_group if group_size(batch_group) > 1 else None
+    _SEQ = seq and _MODEL is not None
     try:
         yield
     finally:
-        _MODEL, _BATCH = outer
+        _MODEL, _BATCH, _SEQ = outer
+
+
+def seq_sharded() -> bool:
+    """Whether the residual stream is the rank's chunk of the sequence."""
+    return _SEQ
 
 
 def model_size() -> int:
@@ -185,6 +237,99 @@ def gather_mid(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """``gather_from_model`` for a value that the rank then uses for its
     own shard only: the ranks' gradients are summed before the chunk."""
     return copy_to_model(gather_from_model(x, dim))
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = group_size(group)
+        # a copy: a view would keep the whole tensor alive wherever the
+        # chunk is saved (remat keeps each layer's input)
+        return x.chunk(n, dim)[dist.get_rank(group)].clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence from every rank's chunk of ``x`` (B, S/n, ...):
+    an all-gather forward, and backward a reduce-scatter, which sums the
+    partial gradients of a layer split over the model group and gives each
+    rank its chunk.  The identity unless the sequence is cut."""
+    return _GatherSeq.apply(x, _MODEL[0], 1) if _SEQ else x
+
+
+def scatter_seq(x: torch.Tensor) -> torch.Tensor:
+    """The rank's chunk of the sequence of the sum over the model group of
+    ``x`` (B, S, ...), the partial sums of a row-parallel product: a
+    reduce-scatter forward, an all-gather of the gradient backward.  The
+    identity unless the sequence is cut."""
+    return _ScatterSeq.apply(x, _MODEL[0], 1) if _SEQ else x
+
+
+def gather_seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """``gather_seq`` for a value that every rank then uses whole and
+    alike: the gradient is the whole one on every rank, and each takes its
+    own chunk of it (no reduction)."""
+    return _Gather.apply(x, _MODEL[0], 1) if _SEQ else x
+
+
+def split_seq(x: torch.Tensor) -> torch.Tensor:
+    """The rank's chunk of the sequence of ``x`` (B, S, ...), whole and
+    equal on every rank; backward the chunks' gradients all-gathered.  The
+    identity unless the sequence is cut."""
+    return _SplitSeq.apply(x, _MODEL[0], 1) if _SEQ else x
+
+
+def seq_weight(w: torch.Tensor) -> torch.Tensor:
+    """A replicated weight used on the rank's chunk of the sequence (a norm
+    between layers): f, so that the gradients of the ranks' positions are
+    summed.  As it is unless the sequence is cut."""
+    return _Copy.apply(w, _MODEL[0]) if _SEQ else w
+
+
+def layer_in(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """A layer's input ``x`` from the residual stream, whole along the
+    sequence: ``split`` (the layer runs on the rank's shard of its
+    weights) f, or ``gather_seq`` where the sequence is cut; a layer whole
+    on every rank takes ``x`` as it is, or ``gather_seq_whole``."""
+    if _SEQ:
+        return gather_seq(x) if split else gather_seq_whole(x)
+    return copy_to_model(x) if split else x
+
+
+def layer_out(y: torch.Tensor, split: bool) -> torch.Tensor:
+    """A layer's output ``y`` (whole along the sequence) into the residual
+    stream: ``split`` (partial sums of the ranks) g, or ``scatter_seq``
+    where the sequence is cut; a whole output as it is, or ``split_seq``."""
+    if _SEQ:
+        return scatter_seq(y) if split else split_seq(y)
+    return reduce_from_model(y) if split else y
 
 
 class _SumBoth(torch.autograd.Function):

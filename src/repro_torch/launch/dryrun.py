@@ -23,6 +23,13 @@ traceback.  A decode cell takes the rank's chunks of the caches as
 rows, so B6's partial mode counts the rank's rows and the combine its
 all-gather).
 
+A train cell counts the JAX package's default step, sequence-parallel
+over "model" (``seq_shard``, recorded in the cell): each layer's
+all-gather of the sequence at its entry and reduce-scatter at its exit,
+and their conjugates in the backward, remat's replays included;
+``--no-seq-shard`` counts the Megatron-TP step (the all-reduces of f and
+g) instead.
+
 ``--mesh single|multi|both`` takes the production layouts, 16 x 16
 (data, model) and 2 x 16 x 16 (pod, data, model), as the JAX dry-run
 does; ``--mesh-shape`` any other (data,model or pod,data,model); without
@@ -89,11 +96,12 @@ def _meta_like(tree):
 
 
 def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, ...] = (1, 1),
-             grad_accum: int = 1, fsdp: bool = True,
+             grad_accum: int = 1, seq_shard: bool = True, fsdp: bool = True,
              reduced: bool = False) -> Dict[str, Any]:
     """One cell: ``shape`` an ``InputShape`` or its name in
     ``SHAPES_BY_NAME``; ``mesh_shape`` (data, model) or (pod, data,
-    model).  Returns the cell's record, status OK, SKIP or FAIL."""
+    model); ``seq_shard`` the train step's (``build_train_step``).
+    Returns the cell's record, status OK, SKIP or FAIL."""
     import torch.distributed as dist
 
     from repro_torch.configs import (SHAPES_BY_NAME, count_active_params,
@@ -120,7 +128,7 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, ...] = (1, 1),
         "arch": arch, "shape": shape.name,
         "mesh": "x".join(str(d) for d in mesh_shape),
         "kind": shape.kind, "status": "UNKNOWN", "grad_accum": grad_accum,
-        "fsdp": fsdp, "reduced": reduced}
+        "seq_shard": seq_shard, "fsdp": fsdp, "reduced": reduced}
     if shape.name == "long_500k" and not cfg.sub_quadratic():
         cell.update(status="SKIP", reason=SKIP_REASON)
         return cell
@@ -145,7 +153,7 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, ...] = (1, 1),
             opt_state = opt.init(params)
             batch = model.concrete(model.train_inputs(local), gen)
             step = build_step(cfg, shape, mesh=mesh, rules=rules, opt=opt,
-                              grad_accum=grad_accum)
+                              grad_accum=grad_accum, seq_shard=seq_shard)
             args = (params, opt_state, batch)
             tokens = shape.global_batch * shape.seq_len
         elif shape.kind == "prefill":
@@ -260,6 +268,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "numbers are per device of (default 1,1)")
     ap.add_argument("--out", default="build/dryrun.json")
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--no-seq-shard", action="store_true",
+                    help="train cells without sequence parallelism (the "
+                         "residual whole on each rank of \"model\")")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells counted at once, one process each")
@@ -280,6 +291,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             for a, s in cells(archs) if args.shape in ("all", s)]
     t0 = time.time()
     results = run_cells(todo, args.jobs, grad_accum=args.grad_accum,
+                        seq_shard=not args.no_seq_shard,
                         fsdp=not args.no_fsdp)
     for cell in results:
         print(f"[{cell['status']:4s}] {cell['arch']:24s} {cell['shape']:12s} "

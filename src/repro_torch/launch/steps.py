@@ -18,11 +18,16 @@ For the compute each rank gathers its chunks whole over the batch axes
 shards: the layers run tensor-parallel on them inside
 ``collectives.model_parallel`` (``models/layers.py``, ``models/ssm.py``,
 ``models/transformer.py``), and the hand-written kernels get plain local
-tensors, a rank's heads, never a DTensor.  A train step then sums the loss
-and the float32 gradients over the batch group (an all-reduce) and divides
-by its size, clips by the norm of the whole averaged gradient (the squares
-of the model shards summed over the model group, a replicated leaf counted
-once) and lets AdamW update each rank's shards.  The prefill returns the
+tensors, a rank's heads, never a DTensor.  The train step's default
+(``seq_shard=True``, the JAX package's) is sequence parallelism where the
+residual's spec (``ActivationShardings.for_mesh``) keeps "model" on its
+sequence: between layers each rank holds its chunk of the sequence, and
+each layer gathers it at its entry and reduce-scatters at its exit
+(``collectives.model_parallel(..., seq=True)``).  A train step then sums
+the loss and the float32 gradients over the batch group (an all-reduce)
+and divides by its size, clips by the norm of the whole averaged gradient
+(the squares of the model shards summed over the model group, a replicated
+leaf counted once) and lets AdamW update each rank's shards.  The prefill returns the
 logits whole (gathered over "model" by the unembedding, over the batch
 group here) and its caches placed as ``cache_shardings`` places them for
 ``max_len`` rows (the JAX package's ``out_shardings``): each leaf's rows of
@@ -50,8 +55,9 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import collectives as C
 from repro_torch.launch.mesh import batch_axes, batch_index, batch_ranks
-from repro_torch.launch.sharding import (ShardingRules, batch_chunk,
-                                         batch_shardings, cache_cuts,
+from repro_torch.launch.sharding import (ActivationShardings, ShardingRules,
+                                         batch_chunk, batch_shardings,
+                                         cache_cuts,
                                          cache_shardings, distribute,
                                          entry_axes, fit_pspec, gather_batch,
                                          local, opt_state_shardings,
@@ -191,9 +197,22 @@ def _model_sharded(spec) -> bool:
     return any("model" in entry_axes(e) for e in spec)
 
 
+def seq_cut(mesh, cfg: ModelConfig, shape: InputShape, grad_accum: int = 1,
+            seq_shard: bool = True) -> bool:
+    """Whether the train step over ``mesh`` cuts the residual stream on its
+    sequence over "model": the spec ``ActivationShardings.for_mesh`` gives
+    a micro-batch's (B, S, d) keeps "model" on S (``fit_pspec`` drops it
+    where S does not divide), as the JAX package's step constrains it."""
+    act = ActivationShardings.for_mesh(
+        mesh, shape.global_batch // grad_accum, shape.seq_len, cfg.d_model,
+        seq_shard=seq_shard)
+    return "model" in entry_axes(act.residual[1])
+
+
 def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
                      rules: Optional[ShardingRules] = None,
-                     opt: Optional[AdamW] = None, grad_accum: int = 1):
+                     opt: Optional[AdamW] = None, grad_accum: int = 1,
+                     seq_shard: bool = True):
     """train_step(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm", "lr"}): the loss and gradients of the batch (with
     ``grad_accum`` > 1 its leading axis split into that many micro-batches,
@@ -205,7 +224,11 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
     float32 gradients are averaged over the batch group, AdamW clips by the
     averaged gradient's global norm and updates each rank's shards of the
     parameters and moments (DTensors in the ``rules``' placements,
-    ``BuiltStep.place``)."""
+    ``BuiltStep.place``).  ``seq_shard`` (the JAX package's default): the
+    residual stream between layers is each rank's chunk of the sequence
+    over "model" where the sequence divides (``seq_cut``); otherwise, and
+    with ``seq_shard=False``, whole on each rank (Megatron-TP alone).  Over
+    a "model" axis of one rank both are the same step."""
     opt = opt or AdamW()
     if shape.global_batch % grad_accum:
         raise ValueError(f"batch {shape.global_batch} does not split into "
@@ -229,11 +252,13 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *, mesh=None,
         raise ValueError(f"a rank's {shape.global_batch // n} rows do not "
                          f"split into {grad_accum} micro-batches")
     sharded = tree_flatten(spec_map(_model_sharded, pspecs))[0]
+    seq = seq_cut(mesh, cfg, shape, grad_accum, seq_shard)
 
     def local_step(params, opt_state, rows):
         """The step on this rank's chunks (plain tensors) and rows."""
         full = gather_batch(params, pspecs, mesh)
-        with C.model_parallel(mesh.group("model"), mesh.group("batch")):
+        with C.model_parallel(mesh.group("model"), mesh.group("batch"),
+                              seq=seq):
             loss, grads = _loss_and_grads(cfg, full, rows, grad_accum)
         del full
         dev = loss.device

@@ -45,6 +45,18 @@ router stays whole, so every rank routes alike.  A replicated leaf that a
 rank uses for its shard only (a sliced wk, qk-norm scales, MLA's ``w_dkv``)
 goes through f, so its gradient is summed over the ranks.  Whether a leaf
 is split is read from its shape against the config's width.
+
+Sequence parallelism (the train step's default over a mesh): each layer
+gets the residual stream as the rank's chunk of the sequence and gives its
+output back so.  Its input comes whole through ``C.layer_in`` (the
+all-gather of ``C.gather_seq`` in f's place where the layer splits, else
+``C.gather_seq_whole``), attention takes RoPE at the gathered sequence's
+positions, and its output goes back through ``C.layer_out`` (the
+row-parallel partial sums reduce-scattered in float32 in g's place, else
+the rank's chunk cut).  The MoE routes the gathered tokens: the router
+runs on the rank's chunk (its weight through ``C.seq_weight``) and its
+logits are gathered whole, so that capacity, drops and the load-balance
+term see every token of the batch row alike on every rank.
 """
 from __future__ import annotations
 
@@ -119,11 +131,12 @@ def reduced_dense(x: torch.Tensor, w: torch.Tensor,
                   out_dtype: torch.dtype, mid: bool = False) -> torch.Tensor:
     """``x @ w`` where a model group splits the contraction (a row-parallel
     product): each rank's partial sums stay float32 through their sum over
-    the group (g; with ``mid`` an all-reduce each way, ``C.reduce_mid``) and
-    round once to ``out_dtype``, as the one-process product rounds its
-    whole sum."""
+    the group (a layer's exit, ``C.layer_out``: g, or the reduce-scatter of
+    ``C.scatter_seq`` where the sequence is cut; with ``mid`` an all-reduce
+    each way inside a layer, ``C.reduce_mid``) and round once to
+    ``out_dtype``, as the one-process product rounds its whole sum."""
     y = dense32(x, w)
-    return (C.reduce_mid(y) if mid else C.reduce_from_model(y)).to(out_dtype)
+    return (C.reduce_mid(y) if mid else C.layer_out(y, True)).to(out_dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -266,7 +279,10 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
     Under a model group that splits the q heads, the rank computes its q
     heads and the kv heads they read (``_tp_attn_weights``), B5 runs on
-    them, and ``wo``'s partial sums are reduced (g).
+    them, and ``wo``'s partial sums are reduced (g).  Where the sequence is
+    cut (training), ``x`` is the rank's chunk and the output too
+    (``C.layer_in`` / ``C.layer_out``); ``positions`` are the whole
+    sequence's.
 
     ``cuts`` (a mesh step's, ``{"k": Cut or None, "v": ...}``): the cache is
     placed as ``sharding.cache_shardings`` places it, whatever the heads'
@@ -282,8 +298,8 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     cut = None if cuts is None else cuts["k"]
     placed = cuts is not None and (tp or cut is not None)
     whole = p
+    x = C.layer_in(x, tp)
     if tp:
-        x = C.copy_to_model(x)
         p = _tp_attn_weights(cfg, p, whole_kv=placed and cache is not None)
     q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
     if cfg.qk_norm:
@@ -321,7 +337,8 @@ def attn_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
         y = reduced_dense(out.reshape(*out.shape[:2], -1),
                           p["wo"].reshape(-1, p["wo"].shape[-1]), x.dtype)
     else:
-        y = einsum32("bshk,hkd->bsd", out, p["wo"], out_dtype=x.dtype)
+        y = C.layer_out(einsum32("bshk,hkd->bsd", out, p["wo"],
+                                 out_dtype=x.dtype), False)
     return y, new_kv
 
 
@@ -499,6 +516,8 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     Under a model group that splits the heads, the rank computes the whole
     latent and rope key (``w_dkv`` and ``kv_norm`` replicated, through f)
     and its heads of q, K and V, and ``wo``'s partial sums are reduced.
+    Where the sequence is cut, ``x`` and the output are the rank's chunk
+    (``C.layer_in`` / ``C.layer_out``).
 
     ``cuts`` (a mesh step's): the cache is placed as
     ``sharding.cache_shardings`` places it.  A prefill returns a leaf cut on
@@ -506,12 +525,12 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     at every position; a decode step runs ``_mla_decode`` on the placed
     chunks, and takes its heads of the context through ``w_uv``.  Plain
     PyTorch, as in the JAX package."""
-    B, S, _ = x.shape
     H = p["wq"].shape[1]
     tp = C.split(H, cfg.n_heads)
     w_dkv, kv_norm = p["w_dkv"], p["kv_norm"]
+    x = C.layer_in(x, tp)
+    B, S, _ = x.shape
     if tp:
-        x = C.copy_to_model(x)
         w_dkv, kv_norm = C.copy_to_model(w_dkv), C.copy_to_model(kv_norm)
     r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
     q = einsum32("bsd,dhk->bshk", x, p["wq"], out_dtype=x.dtype)
@@ -543,7 +562,8 @@ def mla_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
         y = reduced_dense(out.reshape(B, S, -1),
                           p["wo"].reshape(-1, p["wo"].shape[-1]), x.dtype)
     else:
-        y = einsum32("bshv,hvd->bsd", out, p["wo"], out_dtype=x.dtype)
+        y = C.layer_out(einsum32("bshv,hvd->bsd", out, p["wo"],
+                                 out_dtype=x.dtype), False)
     return y, new_cache
 
 
@@ -622,17 +642,20 @@ def mlp_apply(p: dict, x: torch.Tensor, d_ff: Optional[int] = None,
               reduce: bool = True) -> torch.Tensor:
     """SwiGLU; SiLU runs on the float32 of the already-rounded gate.  Where
     the hidden dim (``d_ff`` whole) is split over a model group, w_gate and
-    w_up are column-parallel (f before them) and w_down row-parallel, its
-    partial sums reduced in float32 (g, ``reduced_dense``), or left partial
-    in x's dtype with ``reduce=False``."""
+    w_up are column-parallel (their input through ``C.layer_in``: f, or the
+    sequence's all-gather where it is cut) and w_down row-parallel, its
+    partial sums reduced in float32 (``reduced_dense``), or left partial
+    and whole along the sequence in x's dtype with ``reduce=False``.  A
+    whole layer's output goes out through ``C.layer_out``."""
     tp = d_ff is not None and C.split(p["w_gate"].shape[-1], d_ff)
-    if tp:
-        x = C.copy_to_model(x)
+    x = C.layer_in(x, tp)
     h = torch.nn.functional.silu(dense(x, p["w_gate"]).float()).to(x.dtype)
     h = h * dense(x, p["w_up"])
-    if tp and reduce:
+    if not reduce:
+        return dense(h, p["w_down"])
+    if tp:
         return reduced_dense(h, p["w_down"], x.dtype)
-    return dense(h, p["w_down"])
+    return C.layer_out(dense(h, p["w_down"]), False)
 
 
 def moe_init(cfg, generator: torch.Generator) -> dict:
@@ -713,17 +736,24 @@ def moe_apply(cfg, p: dict, x: torch.Tensor):
     positions and drops everywhere), runs its columns of every expert on
     f(x) and combines with f(gate), and one g sums the partial outputs
     (with the shared experts' where they are split too).  The load-balance
-    term is every rank's, counted once."""
-    B, S, d = x.shape
+    term is every rank's, counted once.
+
+    Where the sequence is cut, ``x`` is the rank's chunk: the router runs
+    on it (its weight through ``C.seq_weight``) and its logits are
+    gathered whole (``C.gather_seq_whole``), so every rank routes every
+    token of its batch rows alike; the experts take the gathered tokens
+    (``C.layer_in``) and their output goes back as the rank's chunk
+    (``C.layer_out``)."""
     E, k = cfg.n_experts, cfg.moe_top_k
+    router_logits = C.gather_seq_whole(dense32(x, C.seq_weight(p["router"])))
+    tp = C.split(p["w_gate"].shape[-1], cfg.moe_d_ff)
+    xin, x = x, C.layer_in(x, tp)
+    B, S, d = x.shape
     cap = moe_capacity(cfg, S)
-    router_logits = dense32(x, p["router"])
     probs = torch.softmax(router_logits, dim=-1)
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[..., :k], idx[..., :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    tp = C.split(p["w_gate"].shape[-1], cfg.moe_d_ff)
-    xe = C.copy_to_model(x) if tp else x
     if tp:
         gate = C.copy_to_model(gate)
 
@@ -740,7 +770,7 @@ def moe_apply(cfg, p: dict, x: torch.Tensor):
                                 E * cap).reshape(B, S, k)})
 
     buf = x.new_zeros((E * B * cap + 1, d))
-    buf[dest.reshape(-1)] = xe.repeat_interleave(k, dim=1).reshape(-1, d)
+    buf[dest.reshape(-1)] = x.repeat_interleave(k, dim=1).reshape(-1, d)
     buf = buf[:-1].view(E, B * cap, d)
     g = bmm32(buf, p["w_gate"])
     h = (torch.nn.functional.silu(g) * bmm32(buf, p["w_up"])).to(x.dtype)
@@ -752,14 +782,11 @@ def moe_apply(cfg, p: dict, x: torch.Tensor):
     if cfg.n_shared_experts:
         ff = cfg.n_shared_experts * cfg.moe_d_ff
         if tp and C.split(p["shared"]["w_gate"].shape[-1], ff):
-            y = y + mlp_apply(p["shared"], x, ff, reduce=False)
+            y = y + mlp_apply(p["shared"], xin, ff, reduce=False)
         else:
-            y = (C.reduce_from_model(y) if tp else y) + mlp_apply(
-                p["shared"], x, ff)
-            tp = False
-    if tp:
-        y = C.reduce_from_model(y)
-    return y, moe_load_balance_loss(cfg, router_logits)
+            y = C.layer_out(y, tp) + mlp_apply(p["shared"], xin, ff)
+            return y, moe_load_balance_loss(cfg, router_logits)
+    return C.layer_out(y, tp), moe_load_balance_loss(cfg, router_logits)
 
 
 def moe_load_balance_loss(cfg, router_logits: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,14 @@ then uses it for its own channels again), then rounded once.  mLSTM and sLSTM ru
 the rank's heads where the rules split the heads, else on every head; the
 block's output is reduced (g) or, for sLSTM's heads, gathered.
 
+Sequence parallelism (the train step's default over a mesh): a block gets
+the residual stream as the rank's chunk of the sequence.  Its norm (the
+weight through ``C.seq_weight``) and residual adds run on the chunk; the
+normed input comes whole through ``C.layer_in`` (an all-gather), so the
+scans and convolutions take the whole sequence, and the output goes back
+through ``C.layer_out`` (a reduce-scatter of the partial sums, or the
+rank's chunk of a whole output).
+
 Decode over a mesh (``cuts``, a mesh step's ``collectives.Cut`` of each
 state leaf): the states come in, and go back out, placed as
 ``sharding.cache_shardings`` places them, on their widest inner dim.  Where
@@ -267,7 +275,7 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
     for one token against a cache, the chunkwise form otherwise.  Returns
     (x + y, the new dict(conv, state)); with ``cuts`` the states placed
     (module docstring)."""
-    B, S, d = x.shape
+    d = x.shape[-1]
     nh = cfg.n_heads
     di = cfg.ssm_expand * d
     hd = di // nh
@@ -276,9 +284,8 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
     dims = {"conv": 2 if tp else None,
             "state": {k: 1 if heads else None for k in ("C", "n", "m")}}
     cache = _states(cache, cuts, dims, C.to_local)
-    h_in = rms_norm(x, p["norm"], cfg.norm_eps)
-    if tp:
-        h_in = C.copy_to_model(h_in)
+    h_in = C.layer_in(rms_norm(x, C.seq_weight(p["norm"]), cfg.norm_eps), tp)
+    B, S = h_in.shape[:2]
     up = einsum32("bsd,de->bse", h_in, p["w_up"], out_dtype=x.dtype)
     xm, z = _packed_parts(up, 2, tp)
     xc, new_conv = causal_conv1d(xm, p["conv_w"],
@@ -317,8 +324,8 @@ def mlstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
         # every head on every rank: the rank's channels of them
         h = h.chunk(C.model_size(), dim=-1)[C.model_rank()]
     h = h * F.silu(z.float()).to(x.dtype)
-    y = (reduced_dense(h, p["w_down"], x.dtype) if tp else
-         einsum32("bsd,de->bse", h, p["w_down"], out_dtype=x.dtype))
+    y = (reduced_dense(h, p["w_down"], x.dtype) if tp else C.layer_out(
+        einsum32("bsd,de->bse", h, p["w_down"], out_dtype=x.dtype), False))
     return x + y, _states({"conv": new_conv, "state": new_state}, cuts, dims,
                           C.to_placed)
 
@@ -392,7 +399,7 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
     post-FFN, a GELU GLU of width 4/3 d (GELU's tanh form, ``jax.nn.gelu``'s
     default).  Returns (x, dict(state)); with ``cuts`` the state placed
     (module docstring)."""
-    B, S, d = x.shape
+    d = x.shape[-1]
     nh = cfg.n_heads
     hd = d // nh
     tp = C.split(p["w_gates"].shape[1], 4 * d)
@@ -402,9 +409,9 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
                          "does not divide the gate width")
     dims = {"state": {k: 1 if heads else None for k in ("h", "c", "n", "m")}}
     cache = _states(cache, cuts, dims, C.to_local)
-    h_in = rms_norm(x, p["norm"], cfg.norm_eps)
-    if tp:
-        h_in = C.copy_to_model(h_in)
+    norm = C.seq_weight(p["norm"])
+    h_in = C.layer_in(rms_norm(x, norm, cfg.norm_eps), tp)
+    B, S = h_in.shape[:2]
     wx = einsum32("bsd,dg->bsg", h_in, p["w_gates"])            # (B, S, 4d) f32
     if tp:
         # the rules' column chunk of the packed [i | f | z | o], made whole
@@ -429,17 +436,16 @@ def slstm_block_apply(cfg, p: dict, x: torch.Tensor, *, cache=None,
                    cfg.norm_eps).reshape(B, S, -1)
     if heads:
         y = C.gather_from_model(y, -1)
-    x = x + y
-    hf = rms_norm(x, p["norm"], cfg.norm_eps)
+    x = x + C.layer_out(y, False)
     f_up = int(d * 4 / 3)
     ffn_tp = C.split(p["w_up1"].shape[1], f_up)
-    if ffn_tp:
-        hf = C.copy_to_model(hf)
+    hf = C.layer_in(rms_norm(x, norm, cfg.norm_eps), ffn_tp)
     up = F.gelu(einsum32("bsd,df->bsf", hf, p["w_up1"]),
                 approximate="tanh").to(x.dtype)
     up = up * einsum32("bsd,df->bsf", hf, p["w_up2"], out_dtype=x.dtype)
     x = x + (reduced_dense(up, p["w_down"], x.dtype) if ffn_tp else
-             einsum32("bsf,fd->bsd", up, p["w_down"], out_dtype=x.dtype))
+             C.layer_out(einsum32("bsf,fd->bsd", up, p["w_down"],
+                                  out_dtype=x.dtype), False))
     return x, _states({"state": dict(zip(("h", "c", "n", "m"), carry))},
                       cuts, dims, C.to_placed)
 
@@ -533,14 +539,13 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None, cuts=None):
     """Selective SSM.  x: (B, S, d) -> (B, S, d).  cache: dict(conv, state)
     or None.  Returns (out, dict(conv, state (B, d_inner, N) float32)); with
     ``cuts`` the states placed (module docstring)."""
-    B, S, d = x.shape
     N = cfg.ssm_state
     dt_rank = p["w_x"].shape[1] - 2 * N
-    tp = C.split(p["conv_w"].shape[1], cfg.ssm_expand * d)
+    tp = C.split(p["conv_w"].shape[1], cfg.ssm_expand * x.shape[-1])
     dims = {"conv": 2 if tp else None, "state": 1 if tp else None}
     cache = _states(cache, cuts, dims, C.to_local)
-    if tp:
-        x = C.copy_to_model(x)
+    x = C.layer_in(x, tp)
+    S = x.shape[1]
 
     up = einsum32("bsd,de->bse", x, p["w_in"], out_dtype=x.dtype)
     xm, z = _packed_parts(up, 2, tp)
@@ -573,8 +578,8 @@ def mamba_apply(cfg, p: dict, x: torch.Tensor, *, cache=None, cuts=None):
     if tp:
         out = reduced_dense(y.to(x.dtype), p["w_out"], x.dtype)
     else:
-        out = einsum32("bsd,de->bse", y.to(x.dtype), p["w_out"],
-                       out_dtype=x.dtype)
+        out = C.layer_out(einsum32("bsd,de->bse", y.to(x.dtype), p["w_out"],
+                                   out_dtype=x.dtype), False)
     return out, _states({"conv": new_conv, "state": new_state}, cuts, dims,
                         C.to_placed)
 

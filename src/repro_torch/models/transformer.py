@@ -58,6 +58,18 @@ unembedding gives the rank's vocab columns (gathered whole for the
 prefill's logits), and the chunked cross-entropy reduces the maximum, the
 sum of exponentials and the target logit over the group.
 
+Sequence parallelism (the train step's default over a mesh,
+``collectives.model_parallel(..., seq=True)``): the residual stream between
+layers is the rank's chunk of the sequence.  ``embed_inputs`` gives that
+chunk (a vocab-parallel lookup's partial rows reduce-scattered, any whole
+stream cut), the blocks' norms, residual adds and Hymba's fuse run on it
+(each replicated norm and gate through ``collectives.seq_weight``), each
+layer gathers the sequence at its entry and gives its chunk back
+(``layers.py``, ``ssm.py``), a remat checkpoint keeps only the chunk, and
+the final norm runs on it before ``lm_loss`` gathers the sequence: the
+vocab-parallel cross-entropy needs the same positions on every rank.
+RoPE takes the whole sequence's positions.
+
 Over a mesh (``cuts``: each stacked cache leaf's ``collectives.Cut``, from
 ``sharding.cache_cuts``) the caches are placed as
 ``sharding.cache_shardings`` places them: ``prefill`` returns each leaf's
@@ -192,7 +204,7 @@ def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
     if kind.block == "slstm":
         x, c = SSM.slstm_block_apply(cfg, p, x, cache=cache, cuts=cuts)
         return x, c, None
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = L.rms_norm(x, C.seq_weight(p["ln1"]), cfg.norm_eps)
     attn_cache = None if cache is None else cache["attn"]
     attn_cuts = None if cuts is None else cuts["attn"]
     if kind.attn == "mla":
@@ -210,14 +222,16 @@ def block_apply(cfg: ModelConfig, kind: LayerKind, p, x: torch.Tensor,
         my, new_cache["mamba"] = SSM.mamba_apply(
             cfg, p["mamba"], h, cache=None if cache is None else cache["mamba"],
             cuts=None if cuts is None else cuts["mamba"])
-        fused = 0.5 * (p["beta_attn"] * L.rms_norm(ay, p["norm_attn"],
+        w = {k: C.seq_weight(p[k]) for k in ("beta_attn", "norm_attn",
+                                              "beta_ssm", "norm_ssm")}
+        fused = 0.5 * (w["beta_attn"] * L.rms_norm(ay, w["norm_attn"],
                                                    cfg.norm_eps).float()
-                       + p["beta_ssm"] * L.rms_norm(my, p["norm_ssm"],
+                       + w["beta_ssm"] * L.rms_norm(my, w["norm_ssm"],
                                                     cfg.norm_eps).float())
         x = x + fused.to(x.dtype)
     else:
         x = x + ay
-    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = L.rms_norm(x, C.seq_weight(p["ln2"]), cfg.norm_eps)
     if kind.ffn == "moe":
         fy, aux = L.moe_apply(cfg, p["ffn"], h2)
     else:
@@ -317,7 +331,10 @@ def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """Raw inputs -> the (B, S, d) residual stream in the config's dtype:
     ``frames`` (B, S, d) as they are; token ids (B, S), or with codebooks
     (B, S, ncb) whose embeddings are summed in codebook order in the
-    config's dtype; ``patches`` (B, P, d) prepended to the tokens'."""
+    config's dtype; ``patches`` (B, P, d) prepended to the tokens'.  Where
+    the sequence is cut, the rank's chunk of it (``_embed_chunk``)."""
+    if C.seq_sharded():
+        return _embed_chunk(cfg, params, batch)
     dt = L.dtype_of(cfg)
     if "frames" in batch:
         return batch["frames"].to(dt)
@@ -333,6 +350,40 @@ def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
     return h.to(dt)
 
 
+def _embed_chunk(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """``embed_inputs`` where the sequence is cut over the model group: the
+    rank's chunk of the stream.  On a vocab shard each lookup's partial
+    rows (zeros for the tokens outside the rank's range, with the patches
+    prepended on the first rank and zeros on the others) are summed and
+    cut in one reduce-scatter (``C.scatter_seq``), a codebook at a time,
+    the chunks summed in codebook order; a whole stream (frames, a
+    replicated table's rows after the patches) is cut
+    (``C.split_seq``)."""
+    dt = L.dtype_of(cfg)
+    if "frames" in batch:
+        return C.split_seq(batch["frames"].to(dt))
+    tokens = batch["tokens"]
+    table = params["embed"]
+    tp = _vocab_range(cfg, table.shape[-2])[1]
+    patches = batch.get("patches")
+
+    def chunk(tab, tok):
+        h = _lookup(cfg, tab, tok, reduce=False)
+        if patches is not None:
+            pre = patches.to(dt)
+            if tp and C.model_rank():
+                pre = torch.zeros_like(pre)
+            h = torch.cat([pre, h], dim=1)
+        return C.scatter_seq(h) if tp else C.split_seq(h)
+
+    if not cfg.n_codebooks:
+        return chunk(table, tokens)
+    h = chunk(table[0], tokens[..., 0])
+    for c in range(1, cfg.n_codebooks):
+        h = h + chunk(table[c], tokens[..., c])
+    return h.to(dt)
+
+
 def _vocab_range(cfg: ModelConfig, rows: int):
     """The first vocabulary id of this rank's rows of a (V, ...) table of
     ``rows`` rows, and whether the table is split over a model group."""
@@ -341,17 +392,18 @@ def _vocab_range(cfg: ModelConfig, rows: int):
 
 
 def _lookup(cfg: ModelConfig, table: torch.Tensor,
-            tokens: torch.Tensor) -> torch.Tensor:
+            tokens: torch.Tensor, reduce: bool = True) -> torch.Tensor:
     """``table[tokens]``; on a vocab shard the rank's rows, zeros for the
-    tokens outside its range, summed over the model group (g)."""
+    tokens outside its range, summed over the model group (g), or left so
+    with ``reduce=False``."""
     v0, tp = _vocab_range(cfg, table.shape[0])
     if not tp:
         return table[tokens]
     local = tokens - v0
     mine = (local >= 0) & (local < table.shape[0])
     rows = table[local.clamp(0, table.shape[0] - 1)]
-    return C.reduce_from_model(torch.where(mine[..., None], rows,
-                                           rows.new_zeros(())))
+    rows = torch.where(mine[..., None], rows, rows.new_zeros(()))
+    return C.reduce_from_model(rows) if reduce else rows
 
 
 def _live_rows(kind: LayerKind, cuts, n: int):
@@ -475,16 +527,18 @@ def train_forward(cfg: ModelConfig, params, h: torch.Tensor,
                 h, a = _train_block(cfg, kind, p, h, positions)
             if a is not None:
                 aux = aux + a
-    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), aux
+    return L.rms_norm(h, C.seq_weight(params["final_norm"]),
+                      cfg.norm_eps), aux
 
 
 def _chunk_loss(cfg: ModelConfig, params, h: torch.Tensor,
-                labels: torch.Tensor):
+                labels: torch.Tensor, gathered: bool = False):
     """Summed cross-entropy of one chunk and its count of labels >= 0.  On
     a vocab shard the log-sum-exp takes the maximum and the sum of
     exponentials over the model group, and the target logit comes from the
-    rank whose range holds it."""
-    logits = local_logits(cfg, params, h)             # (B, Lc, [ncb,] V) f32
+    rank whose range holds it.  ``gathered``: h came through
+    ``C.gather_seq`` (``local_logits``)."""
+    logits = local_logits(cfg, params, h, gathered)   # (B, Lc, [ncb,] V) f32
     lab = labels.clamp_min(0).long()
     v0, tp = _vocab_range(cfg, logits.shape[-1])
     if tp:
@@ -510,7 +564,14 @@ def lm_loss(cfg: ModelConfig, params, h: torch.Tensor,
     positions (the last padded with ignored labels), each chunk's float32
     logits made under ``checkpoint`` and recomputed in the backward, so the
     (B, S, V) logits never exist at once.  The sum over the chunks in order
-    divided by the count of labels, at least 1."""
+    divided by the count of labels, at least 1.  Where the sequence is cut,
+    ``h`` is the rank's chunk and is gathered whole first (``C.gather_seq``
+    where the vocabulary is split, its backward summing the ranks' partial
+    gradients in f's place; else ``C.gather_seq_whole``)."""
+    gathered = C.seq_sharded()
+    if gathered:
+        h = (C.gather_seq if _vocab_split(cfg, params)
+             else C.gather_seq_whole)(h)
     S = h.shape[1]
     Lc = min(cfg.loss_chunk, S)
     pad = (-S) % Lc
@@ -522,7 +583,8 @@ def lm_loss(cfg: ModelConfig, params, h: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S + pad, Lc):
         s, n = checkpoint(_chunk_loss, cfg, params, h[:, c0:c0 + Lc],
-                          labels[:, c0:c0 + Lc], use_reentrant=False)
+                          labels[:, c0:c0 + Lc], gathered,
+                          use_reentrant=False)
         tot, cnt = tot + s, cnt + n
     return tot / cnt.clamp_min(1.0)
 
@@ -532,25 +594,38 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     ``labels``): ``lm_loss`` after ``train_forward``, plus 0.01 times the
     MoE load-balance term over the layers for a MoE config."""
     h = embed_inputs(cfg, params, batch)
-    h, aux = train_forward(cfg, params, h, positions_for(h))
+    # the whole sequence's positions (h may be the rank's chunk of it)
+    h, aux = train_forward(cfg, params, h, positions_for(batch["labels"]))
     loss = lm_loss(cfg, params, h, batch["labels"])
     if cfg.n_experts:
         loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
     return loss
 
 
-def local_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+def _unembedding(cfg: ModelConfig, params) -> torch.Tensor:
+    """The unembedding weight: (d, V), tied ``embed.T``; (ncb, d, V) with
+    codebooks."""
+    if cfg.n_codebooks or not cfg.tie_embeddings:
+        return params["lm_head"]
+    return params["embed"].T
+
+
+def _vocab_split(cfg: ModelConfig, params) -> bool:
+    """Whether the unembedding holds the rank's vocab columns only."""
+    return C.split(_unembedding(cfg, params).shape[-1], cfg.vocab_size)
+
+
+def local_logits(cfg: ModelConfig, params, h: torch.Tensor,
+                 gathered: bool = False) -> torch.Tensor:
     """h: (B, S, d) -> float32 logits (B, S, V); tied: ``embed.T``; with
     codebooks (B, S, ncb, V), one head each.  On a vocab shard the rank's
-    columns of them (h through f)."""
-    if cfg.n_codebooks:
-        w = params["lm_head"]
-        if C.split(w.shape[-1], cfg.vocab_size):
-            h = C.copy_to_model(h)
-        return L.einsum32("bsd,cdv->bscv", h, w)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if C.split(w.shape[-1], cfg.vocab_size):
+    columns of them (h through f, unless it was ``gathered`` through
+    ``C.gather_seq``, whose backward sums the gradients already)."""
+    w = _unembedding(cfg, params)
+    if _vocab_split(cfg, params) and not gathered:
         h = C.copy_to_model(h)
+    if cfg.n_codebooks:
+        return L.einsum32("bsd,cdv->bscv", h, w)
     return L.dense32(h, w)
 
 

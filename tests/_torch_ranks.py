@@ -125,7 +125,7 @@ def train_rank(rank, world, arch, params_np, batch_np, fsdp, opt_kw):
     opt = AdamW(**opt_kw)
     step = build_train_step(cfg, InputShape("t", S, B, "train"),
                             mesh=make_host_mesh(device="cpu"), opt=opt,
-                            rules=ShardingRules(fsdp=fsdp))
+                            rules=ShardingRules(fsdp=fsdp), seq_shard=False)
     params = lm_params_from_numpy(params_np, torch.device("cpu"))
     placed, state = step.place(params, opt.init(params))
     shards = tree_map(lambda x: tuple(x.to_local().shape), placed)
@@ -136,10 +136,10 @@ def train_rank(rank, world, arch, params_np, batch_np, fsdp, opt_kw):
             "shards": shards}
 
 
-def tp_train_rank(rank, world, cases, opt_kw):
-    """One step of ``build_train_step`` for each case (arch, (data,
-    model), weights, batch, fsdp) on a mesh of that shape over these
-    ranks: the metrics and the updated parameters, gathered."""
+def tp_train_rank(rank, world, cases, opt_kw, seq_shard):
+    """One step of ``build_train_step`` (with ``seq_shard``) for each case
+    (arch, (data, model), weights, batch, fsdp) on a mesh of that shape
+    over these ranks: the metrics and the updated parameters, gathered."""
     from repro_torch.bridge import lm_params_from_numpy
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.base import InputShape
@@ -158,13 +158,79 @@ def tp_train_rank(rank, world, cases, opt_kw):
         assert mesh.shape == {"data": data, "model": model}
         step = build_train_step(cfg, InputShape("t", S, B, "train"),
                                 mesh=mesh, opt=opt,
-                                rules=ShardingRules(fsdp=fsdp))
+                                rules=ShardingRules(fsdp=fsdp),
+                                seq_shard=seq_shard)
         params = lm_params_from_numpy(params_np, torch.device("cpu"))
         placed, state = step.place(params, opt.init(params))
         new, _, m = step(placed, state, {k: torch.from_numpy(v)
                                          for k, v in batch_np.items()})
         out.append({"metrics": {k: float(v) for k, v in m.items()},
                     "params": tree_map(lambda x: x.numpy(), gather(new))})
+    return out
+
+
+def sp_train_rank(rank, world, cases, opt_kw):
+    """One step of ``build_train_step(mesh=..., seq_shard=...)`` for each
+    case (arch, config changes, (data, model), weights, batch, seq_shard)
+    on a mesh of that shape over these ranks: the metrics, the updated
+    parameters gathered, and whether the step cut the sequence."""
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import gather
+    from repro_torch.launch.steps import build_train_step, seq_cut
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_map
+    torch.set_num_threads(1)
+    out = []
+    for arch, over, (data, model), params_np, batch_np, seq_shard in cases:
+        cfg = get_reduced_config(arch).replace(**over)
+        B, S = batch_np["labels"].shape[:2]
+        shape = InputShape("t", S, B, "train")
+        opt = AdamW(**opt_kw)
+        mesh = make_host_mesh(model_parallel=model, device="cpu")
+        assert mesh.shape == {"data": data, "model": model}
+        step = build_train_step(cfg, shape, mesh=mesh, opt=opt,
+                                seq_shard=seq_shard)
+        params = lm_params_from_numpy(params_np, torch.device("cpu"))
+        placed, state = step.place(params, opt.init(params))
+        new, _, m = step(placed, state, {k: torch.from_numpy(v)
+                                         for k, v in batch_np.items()})
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "params": tree_map(lambda x: x.numpy(), gather(new)),
+                    "seq": seq_cut(mesh, cfg, shape, seq_shard=seq_shard)})
+    return out
+
+
+def seq_ops_rank(rank, world, x_np, g_np):
+    """The sequence operators of ``collectives`` on this rank's chunk (or,
+    for the whole-input ones, the whole) of ``x_np`` (B, S, d), each with
+    this rank's upstream gradient ``g_np[rank]`` (the output's shape):
+    under ``model_parallel(seq=True)`` the outputs and the input gradients,
+    and outside it (the identity) whether each returned its input."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model_parallel=world, device="cpu")
+    whole = torch.from_numpy(x_np)
+    mine = whole.chunk(world, 1)[rank]
+    ops = {"gather_seq": (C.gather_seq, mine),
+           "gather_seq_whole": (C.gather_seq_whole, mine),
+           "scatter_seq": (C.scatter_seq, whole),
+           "split_seq": (C.split_seq, whole),
+           "seq_weight": (C.seq_weight, whole[0, 0])}
+    out = {}
+    with C.model_parallel(mesh.group("model"), seq=True):
+        assert C.seq_sharded()
+        for name, (fn, x) in ops.items():
+            x = x.clone().requires_grad_(True)
+            y = fn(x)
+            g = torch.from_numpy(g_np[name][rank])
+            y.backward(g)
+            out[name] = (y.detach().numpy(), x.grad.numpy())
+    with C.model_parallel(mesh.group("model")):
+        out["tp_identity"] = all(fn(x) is x for fn, x in ops.values())
+    out["outside_identity"] = all(fn(x) is x for fn, x in ops.values())
     return out
 
 

@@ -4,7 +4,9 @@ against the mesh-free step and the JAX package's step on a 2 x 1 mesh.
 * On a 1 x 1 mesh (a one-rank gloo group) three steps of the reduced
   smollm-360m and granite-moe-3b-a800m, with two micro-batches, are bit
   for bit the mesh-free step's: loss, gradient norm, learning rate, every
-  parameter and moment.
+  parameter and moment.  The mesh steps here are built with
+  ``seq_shard=False``; ``tests/test_torch_tp_seq.py`` holds the default
+  (sequence-parallel) step on a 1 x 1 mesh the same way.
 * On two gloo ranks (a (2, 1) mesh; ``torch.multiprocessing`` over a
   ``FileStore``), one step of the reduced smollm-360m with FSDP (the
   "embed" dims sharded over "data") and with ``fsdp=False`` matches the
@@ -105,7 +107,7 @@ def test_one_by_one_mesh_is_the_mesh_free_step(one_rank, arch):
     opt = AdamW(**OPT)
     free = build_train_step(cfg, shape, opt=opt, grad_accum=2)
     meshed = build_train_step(cfg, shape, mesh=make_host_mesh(device="cpu"),
-                              opt=opt, grad_accum=2)
+                              opt=opt, grad_accum=2, seq_shard=False)
     p = get_model(cfg, CPU).init(torch.Generator().manual_seed(3))
     st = opt.init(p)
     pp, sp = meshed.place(p, st)

@@ -15,6 +15,10 @@ JAX package's six (arch, kind) pairs, reduced, at seq 16 and batch 8:
 * at 1 x 1 every cell is OK, decode included, with no collective;
 * at 2 x 2 x 2 (pod, data, model) a train cell counts what 4 x 2 counts:
   the pod and data axes together are its batch group.
+
+The train cells count Megatron-TP's step (``seq_shard=False``, the
+dry-run's ``--no-seq-shard``); ``tests/test_torch_tp_seq.py`` counts the
+default, sequence-parallel one.
 """
 import pytest
 
@@ -30,7 +34,7 @@ GRIDS = ((4, 2), (1, 1), (2, 2, 2))
 @pytest.fixture(scope="module")
 def records():
     todo = [(arch, InputShape("t", 16, 8, kind),
-             {"mesh_shape": grid, "reduced": True})
+             {"mesh_shape": grid, "reduced": True, "seq_shard": False})
             for grid in GRIDS for arch, kind in PAIRS
             if grid != (2, 2, 2) or arch == "smollm-360m"]
     got = run_cells(todo, jobs=3)

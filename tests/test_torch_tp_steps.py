@@ -1,7 +1,10 @@
 """The port's train step tensor-parallel over a "model" axis
 (``launch/steps.py`` with ``mesh=``, the layers inside
 ``collectives.model_parallel``) against the one-process step and the JAX
-package's step, and the collectives the dry-run counts for it.
+package's step, and the collectives the dry-run counts for it.  Every mesh
+step here is Megatron-TP alone (``seq_shard=False``: the residual stream
+whole on each rank); ``tests/test_torch_tp_seq.py`` holds the default,
+sequence-parallel step.
 
 * Gloo ranks on the CPU (``tests/_torch_ranks.py``; every spawn has a
   timeout): one step of the reduced smollm-360m and granite-moe-3b-a800m
@@ -184,7 +187,7 @@ def tp_runs(cases, tmp_path_factory):
                 for mesh in meshes]
         ranks = spawn_ranks(tp_train_rank, world,
                             tmp_path_factory.mktemp(f"tp{world}"), todo, OPT,
-                            timeout=240)
+                            False, timeout=240)
         for i, (arch, mesh, *_) in enumerate(todo):
             got[(arch, mesh)] = [r[i] for r in ranks]
     return got
@@ -253,7 +256,8 @@ def counted():
     """The dry-run's records of the COUNTED cells, counted in spawned
     workers (each starts its own stand-in process group)."""
     todo = [("smollm-360m", COUNT_SHAPE,
-             {"mesh_shape": mesh, "fsdp": fsdp, "reduced": True})
+             {"mesh_shape": mesh, "fsdp": fsdp, "reduced": True,
+              "seq_shard": False})
             for mesh, fsdp in COUNTED]
     return run_cells(todo, jobs=len(todo))
 
