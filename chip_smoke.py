@@ -346,6 +346,36 @@ when it fails:
     channels (TP_DECODE_CUTS); host ms of (b)-(f), which are not TP
     speeds (gloo stages every collective through the host and the two
     ranks share one card).
+20. The examples (src/repro_torch/examples) through their entry points at
+    full width, after phase 15 and before 17, beside 18 (d)'s niced pool,
+    on phase 8's calibration and random weights from their seeded
+    generators: (a) quickstart (split2 head, fused codec, tail, the drift
+    against forward_full, the estimator trained, the controller's three
+    decisions); (b) adaptive_split_video over its 40-frame jammer sweep;
+    (c) cell_video at its defaults (6 UEs, 12 frames, lock-step,
+    adaptive), then with --fixed split2 at 3 frames (every UE's head, the
+    codec and the split tails); (d) cell_video on the event engine with
+    every engine flag (--fps 0.5 --jitter 0.05 --inflight 2 --policy edf
+    --mobility --chaos --trace) at 6 frames.  Each of (a)-(d) starts with
+    every launch counter at 0 and must launch B1, B2 and B3 exactly as
+    often as its logs and batches imply (phase 8's rule for run_frame,
+    phase 11's for the cell, its tail batches recorded), with finite
+    detections of the expected shapes; (d)'s trace must load and hold
+    spans.  (e) split_serve_lm (launch.serve for qwen3-1.7b and hymba-1.5b
+    split at half depth, prompt 32, 8 steps, batch 2) and (f) train_lm
+    (``python -m repro_torch.examples.train_lm --device cuda`` in a
+    process group of its own beside (a)-(e), killed with its trainers if
+    the phase fails: launch.train on smollm-360m, 100 steps with a checkpoint
+    every 40, then a restart with --resume to 200) run in subprocesses
+    with --device cuda within EXAMPLES_TIMEOUT_S, and each serve or train
+    run reports its own launches: B5 on every layer of the split and the
+    prefill, B6 on every layer of each decode step and one codec pair a
+    serve; B5 twice and each backward kernel once a layer and step.  Every
+    logit finite and the split's bytes printed for both archs; the restart
+    resumed at step 100 from the checkpoint the first run left, its loss
+    at step 199 finite and below step 0's.  Each run's host wall time and
+    the phase's are printed; the kernels line gives each kernel's
+    launches in (a)-(f) as ``examples_launches``.
 
 Every profiler session starts after a synchronize and idles TRACE_PAD_S
 before and after its work: the profiler keeps only the device events whose
@@ -486,6 +516,8 @@ TRAIN_CPU_TOL = 1e-4
 RESUME_TOL = 1e-3
 
 CELL_UES, CELL_FRAMES, STREAM_FRAMES = 8, 3, 6
+# phase 20: the time limit of each serve subprocess, and of train_lm's pair
+EXAMPLES_TIMEOUT_S = 300.0
 # the vectorized MAC at the sizes benchmarks/bench_scale.py calls city scale:
 # its 10,240-flow headline drain at TOTAL_BYTES of offered load (the oracle
 # beside it at 1,024 flows, and at 10,240 for edf), and 4,096 UEs over 8
@@ -823,6 +855,20 @@ def cell_expected_launches(logs, tails, head_blocks, n_blocks, fused_head,
             "codec_encode": pairs, "codec_decode": pairs}
 
 
+def check_detections(cfg, levels, what: str) -> int:
+    """One image's detections: every level's cls, box and ctr maps finite,
+    of shape (1, H, W, channels) at their stage's size.  Returns 1."""
+    import torch
+    for lv, s in zip(levels, range(cfg.n_stages)):
+        H, W = cfg.stage_hw(s)
+        for key, ch in (("cls", cfg.num_classes), ("box", 4), ("ctr", 1)):
+            t = lv[key]
+            if tuple(t.shape) != (1, H, W, ch) or not torch.isfinite(t).all():
+                raise AssertionError(f"{what}: {key} level {s} "
+                                     f"{tuple(t.shape)}")
+    return 1
+
+
 def phase11(ctx) -> dict:
     """The paper's multi-UE cell on the card at the full width of Swin-T:
     CELL_UES UEs on random weights, three runs, each with every launch
@@ -864,22 +910,6 @@ def phase11(ctx) -> dict:
         return out
     plan.tail_batched = timed_tail
 
-    def check_outputs(res, what):
-        n = 0
-        for slot in res.outputs:
-            for out in slot.values():
-                for lv, s in zip(out, range(cfg.n_stages)):
-                    H, W = cfg.stage_hw(s)
-                    for key, ch in (("cls", cfg.num_classes), ("box", 4),
-                                    ("ctr", 1)):
-                        t = lv[key]
-                        if (tuple(t.shape) != (1, H, W, ch)
-                                or not torch.isfinite(t).all()):
-                            raise AssertionError(f"cell {what}: {key} level "
-                                                 f"{s} {tuple(t.shape)}")
-                n += 1
-        return n
-
     def run(what, fn, fused_head, lockstep):
         del tails[:]
         ops.LAUNCHES.clear()
@@ -898,7 +928,8 @@ def phase11(ctx) -> dict:
         if (res.stats.n_batches != len(tails)
                 or res.stats.n_requests != sum(n for _, n, _, _ in tails)):
             raise AssertionError(f"cell {what}: batches {res.stats}")
-        n_out = check_outputs(res, what)
+        n_out = sum(check_detections(cfg, out, f"cell {what}")
+                    for slot in res.outputs for out in slot.values())
         by_bucket = collections.defaultdict(list)
         for o, n, padded, ms in tails:
             by_bucket[padded].append(ms)
@@ -1258,6 +1289,27 @@ def mac_event(cell) -> None:
         "the two engines bitwise equal")
 
 
+def serve_launches(cfg, gen: int) -> dict:
+    """The launches ``launch.serve`` with ``--split`` implies: one codec pair
+    for the handoff, and where the model has GQA layers, B5 on every layer
+    of the split's forward and of the prefill and B6 on every layer of each
+    of ``gen`` decode steps."""
+    want = {"codec_encode": 1, "codec_decode": 1}
+    if not cfg.use_mla and cfg.family != "ssm":
+        want.update(flash_attention=2 * cfg.n_layers,
+                    decode_attention=cfg.n_layers * gen)
+    return want
+
+
+def train_launches(n_layers: int, micro_steps: int) -> dict:
+    """The launches ``launch.train`` implies over ``micro_steps`` micro-
+    batches: B5's forward twice a layer (remat recomputes it) and each of
+    its backward kernels once."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": micro_steps * 2 * n_layers,
+            **{k: micro_steps * n_layers for k in fa.BWD_KERNELS}}
+
+
 def serve_checked(arch: str) -> tuple:
     """``serve`` at the full width of ``arch`` as phase 9 serves LM_ARCH,
     every launch counter at 0 before and read after.  A GQA model (dense,
@@ -1275,9 +1327,7 @@ def serve_checked(arch: str) -> tuple:
 
     cfg = get_config(arch)
     n = cfg.n_layers
-    want = {"codec_encode": 1, "codec_decode": 1}
-    if not cfg.use_mla and cfg.family != "ssm":
-        want.update(flash_attention=2 * n, decode_attention=n * LM_GEN)
+    want = serve_launches(cfg, LM_GEN)
     args = argparse.Namespace(arch=arch, reduced=False,
                               prompt_len=LM_PROMPT, gen=LM_GEN,
                               batch=LM_BATCH, split=LM_SPLIT, device="cuda",
@@ -1522,13 +1572,11 @@ def train_full_width() -> dict:
     gradient norm finite, the last loss below the first.  Returns the run."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import train as TR
 
-    n = get_config(TRAIN_ARCH).n_layers
-    want = {"flash_attention": TRAIN_STEPS * TRAIN_ACCUM * 2 * n,
-            **{k: TRAIN_STEPS * TRAIN_ACCUM * n for k in fa.BWD_KERNELS}}
+    want = train_launches(get_config(TRAIN_ARCH).n_layers,
+                          TRAIN_STEPS * TRAIN_ACCUM)
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()     # earlier phases' tensors
     ops.LAUNCHES.clear()
@@ -3294,6 +3342,242 @@ def phase15(dev) -> None:
         + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()) + ")")
 
 
+def frame_launches(logs, n_blocks: int) -> dict:
+    """B1, B2, B3 launches that ``run_frame`` calls imply, fused codec:
+    every block of the model a frame, one codec pair a split frame."""
+    pairs = sum(lg.option.startswith("split") for lg in logs)
+    return {"fused_window_attention": n_blocks * len(logs),
+            "codec_encode": pairs, "codec_decode": pairs}
+
+
+@contextlib.contextmanager
+def recorded_tails(tails: list):
+    """Record (option, size, padded, 0.0) of every ``tail_batched`` call of
+    any ``SwinSplitPlan`` (an example builds its own plan)."""
+    from repro_torch.core.splitting import SwinSplitPlan
+    tail_batched = SwinSplitPlan.tail_batched
+
+    def recorded(self, payloads, option, pad_to=None):
+        tails.append((option, len(payloads), pad_to, 0.0))
+        return tail_batched(self, payloads, option, pad_to=pad_to)
+    SwinSplitPlan.tail_batched = recorded
+    try:
+        yield
+    finally:
+        SwinSplitPlan.tail_batched = tail_batched
+
+
+def phase20(dev, system) -> dict:
+    """The five examples through their entry points at full width (module
+    docstring, phase 20), on ``system`` (phase 8's calibration).  Returns
+    the phase's launches by kernel row."""
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.swin_t_detection import CONFIG as cfg
+    from repro_torch.core.splitting import SERVER_ONLY, UE_ONLY, SwinSplitPlan
+    from repro_torch.examples import adaptive_split_video as ASV
+    from repro_torch.examples import cell_video as CV
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.examples import split_serve_lm as SSL
+    from repro_torch.examples import train_lm as TLM
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    flags = ["--device", "cuda"]
+    n_blocks = sum(cfg.depths)
+    head_blocks = {o: (n_blocks if o == UE_ONLY else 0 if o == SERVER_ONLY
+                       else sum(cfg.depths[:int(o.removeprefix("split"))]))
+                   for o in SwinSplitPlan(cfg, None, device=dev).options}
+    out_dir = ROOT / "build" / "examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    total = collections.Counter()
+    walls = {}
+
+    def counted(part: str, fn, expected):
+        """Run ``fn`` with every launch counter at 0; the launches must be
+        ``expected(result)``'s."""
+        ops.LAUNCHES.clear()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t
+        got = dict(ops.LAUNCHES)
+        want = {k: v for k, v in expected(res).items() if v}
+        log(f"examples ({part}): launches {got} (expected {want}); "
+            f"{walls[part]:.1f} s host wall")
+        if got != want:
+            raise AssertionError(f"examples ({part}): the launches do not "
+                                 "match its logs and batches")
+        total.update(got)
+        return res
+
+    # (f) train_lm (two trainers in subprocesses, mostly eager dispatch and
+    # checkpoint writes on the host) runs beside (a)-(e): the example's CLI
+    # in a process group of its own, killed with its trainers if the phase
+    # fails; out_dir is its temporary directory, so its checkpoints land
+    # there
+    train_log = out_dir / "train_lm.log"
+    t_train = time.time()
+    with open(train_log, "w") as f:
+        trainer = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.examples.train_lm"] + flags,
+            stdout=f, cwd=ROOT, start_new_session=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     TMPDIR=str(out_dir)))
+    try:
+        # (a) quickstart: head, fused codec, tail, the drift, the controller
+        qs = counted("a quickstart",
+                     lambda: QS.run(QS.parse_args(flags), system=system),
+                     lambda r: {"fused_window_attention": 2 * n_blocks,
+                                "codec_encode": 1, "codec_decode": 1})
+        check_detections(cfg, qs["out"], "quickstart tail")
+        check_detections(cfg, qs["full"], "quickstart forward_full")
+        if not (np.isfinite(qs["drift"])
+                and qs["raw_bytes"] > qs["compressed_bytes"] > 0):
+            raise AssertionError(f"quickstart: {qs['drift']}, "
+                                 f"{qs['raw_bytes']} -> "
+                                 f"{qs['compressed_bytes']} B")
+        log(f"quickstart: split2 boundary {qs['n_tensors']} tensors, "
+            f"{qs['raw_bytes']} -> {qs['compressed_bytes']} B, drift "
+            f"{qs['drift']:.4f}; " + ", ".join(
+                f"{lvl:+d} dB {d.option} ({d.delay_s * 1e3:.0f} ms)"
+                for lvl, d in zip(QS.LEVELS, qs["decisions"])))
+
+        # (b) adaptive_split_video over its default jammer sweep
+        asv = counted("b adaptive_split_video",
+                      lambda: ASV.run(ASV.parse_args(flags), system=system),
+                      lambda r: frame_launches(r["logs"], n_blocks))
+        delays = np.asarray([lg.delay_s for lg in asv["logs"]])
+        opts = [lg.option for lg in asv["logs"]]
+        if len(opts) != 40 or not np.isfinite(delays).all():
+            raise AssertionError("adaptive_split_video: frames or delays")
+        log(f"adaptive_split_video: {len(opts)} frames, mean delay "
+            f"{delays.mean() * 1e3:.0f} ms, p95 "
+            f"{np.quantile(delays, .95) * 1e3:.0f} ms, split usage "
+            f"{dict(collections.Counter(opts))}, adaptation events "
+            f"{sum(a != b for a, b in zip(opts, opts[1:]))}")
+
+        # (c), (d) cell_video: its defaults, then at a fixed split (the
+        # heads, the codec and the split tails on the examples' path), then
+        # the event engine with every engine flag and a trace
+        trace_path = out_dir / "cell_trace.json"
+        for part, argv, lockstep in (
+                ("c cell_video", [], True),
+                ("c cell_video --fixed split2",
+                 ["--fixed", "split2", "--frames", "3"], True),
+                ("d cell_video --fps --chaos --mobility --trace",
+                 ["--fps", "0.5", "--jitter", "0.05", "--inflight", "2",
+                  "--policy", "edf", "--mobility", "--chaos", "--frames",
+                  "6", "--trace", str(trace_path)], False)):
+            args = CV.parse_args(flags + argv)
+            tails = []
+
+            def cell_run(args=args, tails=tails):
+                with recorded_tails(tails):
+                    return CV.run(args, system=system)
+            got = counted(part, cell_run,
+                          lambda r, tails=tails, lockstep=lockstep:
+                          cell_expected_launches(r["res"].logs, tails,
+                                                 head_blocks, n_blocks, False,
+                                                 lockstep))
+            res = got["res"]
+            if (res.stats.n_batches != len(tails)
+                    or res.stats.n_requests != sum(n for _, n, _, _ in tails)):
+                raise AssertionError(f"{part}: batches {res.stats}")
+            if args.fixed and not (
+                    {lg.option for lg in res.logs} == {args.fixed}
+                    and ops.LAUNCHES["codec_encode"] > 0):
+                raise AssertionError(f"{part}: a frame did not run "
+                                     f"{args.fixed}")
+            n_out = sum(check_detections(cfg, o, part)  # None: frame lost
+                        for slot in res.outputs for o in slot.values()
+                        if o is not None)
+            st = res.stats
+            log(f"{part}: {len(res.logs)} UE-frames, options "
+                f"{dict(collections.Counter(lg.option for lg in res.logs))}, "
+                f"{st.n_requests} tail requests in {st.n_batches} batches, "
+                f"{n_out} finite detections, mean delay "
+                f"{res.mean_delay_s:.3f} s (simulated clock)")
+        with open(trace_path) as f:
+            spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+        if not spans:
+            raise AssertionError("cell_video --trace: no span in the trace")
+        log(f"cell_video --trace: {len(spans)} spans in {trace_path.name}, "
+            f"{len({e['name'] for e in spans})} names; chaos: "
+            f"{res.stats.n_outages} outages, availability "
+            f"{res.stats.availability:.3f}, {len(res.recovery)} recoveries")
+
+        # (e) split_serve_lm: launch.serve in a subprocess per arch, each
+        # reporting its launches in its status payload
+        t = time.perf_counter()
+        ssl = SSL.run(SSL.parse_args(flags), status_dir=str(out_dir),
+                      timeout=EXAMPLES_TIMEOUT_S)
+        walls["e split_serve_lm"] = time.perf_counter() - t
+        for arch, got in ssl.items():
+            c = got["status"]["metrics"]["counters"]
+            launched = got["status"]["launches"]
+            want = serve_launches(get_config(arch), 8)
+            log(f"split_serve_lm {arch}: launches {launched} (expected "
+                f"{want}); boundary {int(c['boundary_raw_bytes_total'])} -> "
+                f"{int(c['boundary_compressed_bytes_total'])} B, "
+                f"{int(c['nonfinite_logits_total'])} non-finite logits; "
+                + " | ".join(got["stdout"].strip().splitlines()))
+            if (c["nonfinite_logits_total"] or not
+                    c["boundary_raw_bytes_total"]
+                    > c["boundary_compressed_bytes_total"] > 0):
+                raise AssertionError(f"split_serve_lm {arch}: {c}")
+            if launched != want:
+                raise AssertionError(f"split_serve_lm {arch}: the launches "
+                                     "do not match its config")
+            total.update(launched)
+        log(f"examples (e split_serve_lm): {walls['e split_serve_lm']:.1f} s "
+            f"host wall, two subprocesses")
+
+        rc = trainer.wait(timeout=EXAMPLES_TIMEOUT_S)
+    finally:
+        if trainer.poll() is None:
+            os.killpg(trainer.pid, signal.SIGKILL)
+            trainer.wait()
+
+    # (f) train_lm: 100 steps checkpointing every 40, a restart to 200; each
+    # trainer prints its launches on its last line
+    walls["f train_lm"] = train_log.stat().st_mtime - t_train
+    text = train_log.read_text()
+    for line in text.splitlines():
+        log(f"train_lm: {line}")
+    if rc:
+        raise AssertionError(f"train_lm exited {rc}")
+    first, _, resumed = text.partition("== simulated node failure")
+    l1, l2 = TLM.losses(first), TLM.losses(resumed)
+    m = TLM.RESUMED.search(resumed)
+    launched = TLM.launches(text)
+    want = train_launches(get_config("smollm-360m").n_layers, 200)
+    log(f"train_lm launches: {launched} (expected {want})")
+    if (not re.search(r"^final checkpoint: \S*step_0*100$", first, re.M)
+            or not m or int(m.group(1)) != 100 or min(l2) != 100
+            or not np.isfinite(l2[199]) or not l2[199] < l1[0]):
+        raise AssertionError(f"train_lm: losses {l1} then {l2}")
+    if launched != want:
+        raise AssertionError("train_lm: the launches do not match its config")
+    total.update(launched)
+    ckpts = sorted(os.listdir(out_dir / Path(TLM.CKPT).name))
+    log(f"train_lm: loss {l1[0]:.4f} at step 0, {l1[99]:.4f} at 99; resumed "
+        f"from step {m.group(1)}, {l2[100]:.4f} at 100, {l2[199]:.4f} at "
+        f"199; checkpoints {ckpts}; {walls['f train_lm']:.1f} s host wall to "
+        f"its last line, two subprocesses beside (a)-(e)")
+    shutil.rmtree(out_dir)
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()) + ")")
+    total["flash_attention_bwd"] = total["flash_attention_bwd_dkdv"]
+    return dict(total)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4799,6 +5083,9 @@ def main() -> int:
     # -- 15. the frontends and soft-capping at full width --------------------
     phase15(dev)
 
+    # -- 20. the examples at full width (beside 18 (d)'s niced pool) ---------
+    examples = phase20(dev, system)
+
     # -- 17. training at full width (before 16: its host timings) ----------
     rows["flash_attention_bwd"], train_launches = phase17(
         dev, reports.get("flash_attention_bwd", ""))
@@ -4882,6 +5169,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
+                        "examples_launches": examples.get(name, 0),
                         **{k: v for k, v in r.items()
                            if k.startswith(("window_", "global_", "capped_",
                                             "internvl_", "musicgen_", "train_",

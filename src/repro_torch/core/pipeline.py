@@ -485,11 +485,14 @@ def build_pipeline(cfg=None, params=None, *, adaptive: bool = True,
 def build_controller(system: Calibrated, *, path: Optional[PathModel] = None,
                      objective: Optional[Objective] = None, seed: int = 0,
                      privacy_profile: Optional[Dict[str, float]] = None,
-                     device="cuda") -> AdaptiveController:
-    """Train the throughput estimator on ``device`` and wire up one AF
-    controller."""
+                     device="cuda", estimator_init: Optional[list] = None
+                     ) -> AdaptiveController:
+    """Train the throughput estimator on ``device`` (from
+    ``estimator_init``'s weights when given, as ``train_estimator``'s
+    ``params``) and wire up one AF controller."""
     est = train_estimator(system.channel, "kpm+spec", n_train=1024,
-                          steps=200, seed=seed, device=device)
+                          steps=200, seed=seed, device=device,
+                          params=estimator_init)
     prof = privacy_profile or dict(DEFAULT_PRIVACY_PROFILE)
     return AdaptiveController(
         system=system, estimator=est,

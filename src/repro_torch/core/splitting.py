@@ -13,11 +13,13 @@ paper Fig. 4: UE_ONLY, SPLIT(l), SERVER_ONLY.
 
 Both are the port's own classes, not subclasses of the JAX package's; the
 port's cell simulator tests ``isinstance`` against its own ``SwinSplitPlan``.
+Both implement the ``SplitPlan`` protocol.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import (Any, List, Optional, Protocol, Sequence, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -48,6 +50,28 @@ class Workload:
     frame (``n_tokens`` stays 1), an LM plan an ``n_tokens`` prefill."""
     n_tokens: int = 1
     include_state: bool = False
+
+
+@runtime_checkable
+class SplitPlan(Protocol):
+    """Uniform interface every split plan implements: ``head``/``tail``
+    execute the partitioned forward; ``tail_batched`` stacks same-option
+    payloads from many UEs and runs ONE tail forward (the edge server's
+    micro-batching entry); the ``*_flops`` / ``payload_specs`` family is
+    pure accounting over ``self.workload``."""
+    params: Any
+    workload: Workload
+
+    @property
+    def options(self) -> List[str]: ...
+    def head(self, inputs, option: str) -> Tuple[Any, Any]: ...
+    def tail(self, payload, option: str) -> Any: ...
+    def tail_batched(self, payloads: Sequence[Any], option: str,
+                     pad_to: Optional[int] = None) -> List[Any]: ...
+    def head_flops(self, option: str) -> float: ...
+    def tail_flops(self, option: str) -> float: ...
+    def payload_specs(self, option: str) -> List[Tuple[Tuple[int, ...], str]]: ...
+    def raw_payload_bytes(self, option: str, batch: int = 1) -> int: ...
 
 
 def payload_batch(payload) -> int:

@@ -30,6 +30,13 @@ and their conjugates in the backward, remat's replays included;
 ``--no-seq-shard`` counts the Megatron-TP step (the all-reduces of f and
 g) instead.
 
+``--out`` is rewritten as each cell completes (a crash keeps partial
+results), and ``--resume`` keeps the cells already OK or SKIP there, keyed
+by (arch, shape, mesh) as the JAX dry-run keys them, and counts only the
+rest.  The JAX dry-run's ``--keep-hlo``, ``--hlo-dir`` and ``--reanalyze``
+store and re-read XLA's HLO; the port compiles none, so they have no
+counterpart.
+
 ``--mesh single|multi|both`` takes the production layouts, 16 x 16
 (data, model) and 2 x 16 x 16 (pod, data, model), as the JAX dry-run
 does; ``--mesh-shape`` any other (data,model or pod,data,model); without
@@ -54,6 +61,11 @@ SKIP_REASON = ("full-attention arch at 524k decode is the quadratic regime "
 
 
 MESHES = {"single": (16, 16), "multi": (2, 16, 16)}
+
+
+def mesh_name(shape: Tuple[int, ...]) -> str:
+    """A record's ``mesh``, as the JAX dry-run names it: "16x16"."""
+    return "x".join(str(d) for d in shape)
 
 
 def mesh_axes(shape: Tuple[int, ...]) -> Tuple[str, ...]:
@@ -126,7 +138,7 @@ def run_cell(arch: str, shape, *, mesh_shape: Tuple[int, ...] = (1, 1),
         n_dev *= d
     cell: Dict[str, Any] = {
         "arch": arch, "shape": shape.name,
-        "mesh": "x".join(str(d) for d in mesh_shape),
+        "mesh": mesh_name(mesh_shape),
         "kind": shape.kind, "status": "UNKNOWN", "grad_accum": grad_accum,
         "seq_shard": seq_shard, "fsdp": fsdp, "reduced": reduced}
     if shape.name == "long_500k" and not cfg.sub_quadratic():
@@ -246,15 +258,35 @@ def submit_cells(todo, jobs: int, nice: int = 0, **kw):
     return pool, [futs[i] for i in range(len(todo))]
 
 
-def run_cells(todo, jobs: int = 1, **kw) -> List[Dict[str, Any]]:
+def run_cells(todo, jobs: int = 1, on_done=None,
+              **kw) -> List[Dict[str, Any]]:
     """``run_cell`` on every (arch, shape[, keywords]) of ``todo``, in this
-    process or in a pool of ``jobs``; records in ``todo``'s order."""
+    process or in a pool of ``jobs``; records in ``todo``'s order.
+    ``on_done(i, record)`` is called as each cell completes, ``i`` its
+    index in ``todo``."""
+    out: List[Optional[Dict[str, Any]]] = [None] * len(todo)
+
+    def done(i, cell):
+        out[i] = cell
+        if on_done is not None:
+            on_done(i, cell)
     if jobs <= 1:
-        return [run_cell(*c[:2], **{**kw, **(c[2] if len(c) > 2 else {})})
-                for c in todo]
+        for i, c in enumerate(todo):
+            done(i, run_cell(*c[:2], **{**kw, **(c[2] if len(c) > 2 else {})}))
+        return out
+    from concurrent.futures import as_completed
     pool, futs = submit_cells(todo, jobs, **kw)
+    index = {f: i for i, f in enumerate(futs)}
     with pool:
-        return [f.result() for f in futs]
+        for f in as_completed(futs):
+            done(index[f], f.result())
+    return out
+
+
+def cell_key(cell: Dict[str, Any]) -> Tuple[str, str, str]:
+    """A record's key, as the JAX dry-run keys ``--resume``: (arch, shape
+    name, mesh)."""
+    return cell["arch"], cell["shape"], cell["mesh"]
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -274,6 +306,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells counted at once, one process each")
+    ap.add_argument("--resume", action="store_true",
+                    help="skip cells already OK/SKIP in --out")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import ARCH_IDS
@@ -289,16 +323,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     archs = list(ARCH_IDS) if args.arch == "all" else [args.arch]
     todo = [(a, s, {"mesh_shape": m}) for m in meshes
             for a, s in cells(archs) if args.shape in ("all", s)]
-    t0 = time.time()
-    results = run_cells(todo, args.jobs, grad_accum=args.grad_accum,
-                        seq_shard=not args.no_seq_shard,
-                        fsdp=not args.no_fsdp)
-    for cell in results:
+    prior: Dict[Tuple[str, str, str], Dict[str, Any]] = {}
+    if args.resume and os.path.exists(args.out):
+        with open(args.out) as f:
+            prior = {cell_key(c): c for c in json.load(f)}
+    results: List[Optional[Dict[str, Any]]] = []
+    for a, s, kw in todo:
+        c = prior.get((a, s, mesh_name(kw["mesh_shape"])))
+        results.append(c if c and c["status"] in ("OK", "SKIP") else None)
+    rest = [i for i, c in enumerate(results) if c is None]
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+
+    def done(j, cell):
+        """Record a completed cell and rewrite --out (a crash keeps partial
+        results): the cells done so far, in ``todo``'s order."""
+        results[rest[j]] = cell
         print(f"[{cell['status']:4s}] {cell['arch']:24s} {cell['shape']:12s} "
               f"{cell['mesh']:8s} t={cell.get('seconds', 0):6.2f}s "
               f"coll={cell.get('total_collective_bytes', 0):.3e}B "
               f"{cell.get('error', '')[:80]}", flush=True)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump([c for c in results if c is not None], f, indent=1)
+    t0 = time.time()
+    run_cells([todo[i] for i in rest], args.jobs, on_done=done,
+              grad_accum=args.grad_accum, seq_shard=not args.no_seq_shard,
+              fsdp=not args.no_fsdp)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
     n = {k: sum(c["status"] == k for c in results)

@@ -8,7 +8,9 @@ decode latency histograms, token and boundary-byte counters, and with
 ``nonfinite_logits_total`` counts NaN or infinite logits, which a healthy
 run keeps at 0.
 ``status(registry)`` is the dict a /status endpoint would serve;
-``--status-out status.json`` writes it after the run.  Weights and prompt
+``serve`` adds ``launches``, the kernel launches the run made by kernel
+(``kernels/ops.LAUNCHES``; none on the CPU), and ``--status-out
+status.json`` writes it after the run.  Weights and prompt
 inputs are random, from a generator seeded with 0 on the run's device: token
 ids, or for the stub frontends precomputed embeddings (musicgen's frames;
 InternVL's ``n_frontend_tokens`` patches, counted in ``--prompt-len``, before
@@ -26,6 +28,7 @@ device work follows a device synchronize.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
 from typing import Dict
@@ -66,12 +69,14 @@ def serve(args, registry=None) -> Dict:
     from repro_torch.configs.base import InputShape
     from repro_torch.core.compression import ActivationCodec
     from repro_torch.core.splitting import LMSplitPlan, Workload, split_option
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_decode_step, build_prefill
     from repro_torch.models.registry import get_model
 
     dev = resolve_device(args.device)
     mesh = make_host_mesh(device=dev)
+    before = collections.Counter(ops.LAUNCHES)
 
     def clock() -> float:
         """Host time after the device has finished the work queued so far."""
@@ -150,7 +155,8 @@ def serve(args, registry=None) -> Dict:
           f"decode {args.gen} steps: {t_dec / max(args.gen, 1) * 1e3:.1f} ms/tok")
     if outs:
         print("sample tokens:", torch.stack(outs)[:8, 0].tolist())
-    return status(reg)
+    return {**status(reg),
+            "launches": dict(collections.Counter(ops.LAUNCHES) - before)}
 
 
 def main(argv=None):

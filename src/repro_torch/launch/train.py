@@ -11,8 +11,9 @@ it raises without one).  Weights are random, from a generator seeded with 0
 on the run's device; batches come from the synthetic ``TokenStream`` (seed
 0).  The optimizer warms up over max(steps // 20, 5) steps.  Each step line
 reads ``step N loss L gnorm G lr R T ms``, with the host time of the step,
-which ends in a device synchronize; the last line is the run's tokens a
-second.
+which ends in a device synchronize; then come the run's tokens a second
+and, last, the kernel launches the run made by kernel
+(``kernels/ops.LAUNCHES``; none on the CPU) as ``kernel launches: {JSON}``.
 
 Two choices differ from the JAX driver, so that a resumed run continues the
 straight one: a checkpoint is labelled with the number of steps it holds
@@ -28,12 +29,14 @@ is the mesh-free step.
 
 ``main(argv)`` returns the run to a caller: {"steps": one dict per step
 (step, loss, grad_norm, lr, ms), "tok_s", "checkpoint": the final path or
-None, "params", "opt_state"}.
+None, "params", "opt_state", "launches"}.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
+import json
 import time
 from typing import Dict, Optional
 
@@ -67,6 +70,7 @@ def main(argv=None) -> Dict:
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import ShardingRules, gather
     from repro_torch.launch.steps import build_train_step
@@ -77,6 +81,7 @@ def main(argv=None) -> Dict:
     dev = resolve_device(args.device)
     mesh = make_host_mesh(device=dev)
     lead = dist.get_rank() == 0
+    before = collections.Counter(ops.LAUNCHES)
 
     def clock() -> float:
         """Host time after the device has finished the work queued so far."""
@@ -142,11 +147,13 @@ def main(argv=None) -> Dict:
         print(f"final checkpoint: {ckpt.last_path}")
     toks = (args.steps - start) * args.batch * args.seq
     tok_s = toks / (clock() - t_start)
+    launches = dict(collections.Counter(ops.LAUNCHES) - before)
     if lead:
         print(f"done: {tok_s:.0f} tok/s")
+        print(f"kernel launches: {json.dumps(launches, sort_keys=True)}")
     return {"steps": steps, "tok_s": tok_s,
             "checkpoint": ckpt.last_path if ckpt else None,
-            "params": params, "opt_state": opt_state}
+            "params": params, "opt_state": opt_state, "launches": launches}
 
 
 if __name__ == "__main__":

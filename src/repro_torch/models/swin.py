@@ -390,6 +390,31 @@ def detection_head(cfg: SwinConfig, params, feats):
     return levels
 
 
+def detection_loss(cfg: SwinConfig, levels, targets) -> torch.Tensor:
+    """Simple dense detection loss (focal-BCE cls + L1 box on positives),
+    differentiable under autograd.
+
+    levels: ``detection_head``'s per-level dicts.  targets: per level a dict
+    of cls=(B,H,W) int labels, box=(B,H,W,4), pos=(B,H,W) bool, as tensors
+    or numpy arrays.  A label outside [0, num_classes) one-hots to zeros, as
+    ``jax.nn.one_hot`` does.  The paper itself runs inference only."""
+    dev = levels[0]["cls"].device
+    total = torch.zeros((), device=dev)
+    classes = torch.arange(cfg.num_classes, device=dev)
+    for lv, tg in zip(levels, targets):
+        labels = torch.as_tensor(tg["cls"], device=dev)
+        cls_t = (labels[..., None] == classes).float()
+        pc = torch.sigmoid(lv["cls"])
+        focal = -(cls_t * (1 - pc) ** 2 * torch.log(pc + 1e-8)
+                  + (1 - cls_t) * pc ** 2 * torch.log(1 - pc + 1e-8))
+        total = total + focal.mean()
+        pos = torch.as_tensor(tg["pos"], device=dev)[..., None].float()
+        box = torch.as_tensor(tg["box"], dtype=torch.float32, device=dev)
+        l1 = (lv["box"] - box).abs() * pos
+        total = total + l1.sum() / torch.clamp(pos.sum() * 4, min=1.0)
+    return total
+
+
 # ---------------------------------------------------------------------------
 # analytic FLOPs (copied from the JAX package: plain Python)
 # ---------------------------------------------------------------------------

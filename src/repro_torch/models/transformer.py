@@ -327,6 +327,10 @@ def spec(cfg: ModelConfig) -> Dict[str, Any]:
     return sp
 
 
+def param_count(params) -> int:
+    return sum(x.numel() for x in tree_flatten(params)[0])
+
+
 def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """Raw inputs -> the (B, S, d) residual stream in the config's dtype:
     ``frames`` (B, S, d) as they are; token ids (B, S), or with codebooks

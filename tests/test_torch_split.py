@@ -166,7 +166,12 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.optim.adamw, repro_torch.data.tokens, "
             "repro_torch.launch.mesh, repro_torch.launch.sharding, "
             "repro_torch.launch.cost, repro_torch.launch.dryrun, "
-            "repro_torch.optim.compress\n"
+            "repro_torch.optim.compress, repro_torch.core, "
+            "repro_torch.models, repro_torch.examples.quickstart, "
+            "repro_torch.examples.adaptive_split_video, "
+            "repro_torch.examples.cell_video, "
+            "repro_torch.examples.split_serve_lm, "
+            "repro_torch.examples.train_lm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
