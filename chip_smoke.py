@@ -14,6 +14,10 @@ when it fails:
     on one with none, with each one's registers; count the 128-bit global loads of each B2 instantiation and of
     B4a and the 128-bit global stores of each B3 one and of B4b, failing
     on one with none, and print each codec-library kernel's registers;
+    count the HGMMAs, TMA loads (UTMALDG) and HMMAs of each B5 forward
+    instantiation (fwd_build_facts), failing unless every bf16 one runs
+    wgmma fed by TMA with no mma.sync, with no spill and no wgmma that
+    ptxas serialised, and print each one's registers and spills;
  3. hold every kernel against its plain PyTorch version on the card at the
     main path's shapes: window attention at the four full-width Swin-T stage
     shapes, unshifted with and without the pad-strip mask and shifted by 3,
@@ -1453,6 +1457,55 @@ def moe_handoffs(dev) -> None:
                                  "logits disagree")
 
 
+FWD_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# B5's forward kernels by name: the bf16 body on wgmma and the f32 body;
+# a trace's device time of B5's forward is the sum over both
+B5_FWD_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_kernel")
+
+
+def fwd_build_facts(report: str) -> dict:
+    """Phase 2's build facts of B5's forward: for every instantiation its
+    SASS counts of FWD_SASS_OPS (cuobjdump) and, where this run built the
+    library, its ptxas registers (the launch's bound: setmaxnreg moves the
+    consumers to 240 and the producer to 24 at run time) and spills.  Fails
+    unless every bf16 instantiation (the wgmma body, hd 16-128, capped and
+    not) holds HGMMA and UTMALDG and no HMMA, on a spill in it, and on a
+    ptxas note that it serialised its wgmma.  Returns {name: counts}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    usage = ptxas_usage(report)
+    serialised = set(re.findall(r"wgmma\.mma_async instructions are serialized"
+                                r".*?function '([^']+)'", report))
+    counts = sass_ops(_build.target("flash_attention"), FWD_SASS_OPS)
+    seen = set()
+    for fn, n in sorted(counts.items()):
+        args = fn.split("kernelI", 1)[1]
+        hd = int(re.search(r"Li(\d+)E", args).group(1))
+        capped = "Lb1E" in args
+        bf16 = B5_FWD_KERNELS[0] in fn
+        regs, st, ld = usage.get(fn, (None, None, None))
+        log(f"  SASS B5 fwd <{'bf16' if bf16 else 'f32'}, hd {hd}"
+            f"{', cap' if capped else ''}>: {n['HGMMA']} HGMMA, "
+            f"{n['UTMALDG']} UTMALDG, {n['HMMA']} HMMA; "
+            + (f"{regs} registers, {st} B spill stores, {ld} B spill loads"
+               + (", wgmma serialised" if fn in serialised else "")
+               if regs is not None else "ptxas report not in this run"))
+        if not bf16:
+            continue
+        seen.add((hd, capped))
+        if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
+            raise AssertionError(f"{fn}: B5's bf16 body without wgmma or TMA")
+        if st or ld or fn in serialised:
+            raise AssertionError(f"{fn}: spills {st} / {ld} B or serialised "
+                                 "wgmma")
+    missing = {(hd, c) for hd in fa.SUPPORTED_HEAD_DIMS
+               for c in (False, True)} - seen
+    if missing:
+        raise AssertionError(f"B5's bf16 body has no instantiation for "
+                             f"(hd, capped) {sorted(missing)}")
+    return counts
+
+
 BWD_SASS_OPS = ("HMMA", "ATOM", "ATOMG", "ATOMS", "RED")
 
 
@@ -1771,8 +1824,8 @@ def train_timing(dev, run) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
 
     busy, n_ev, by_name = traced_busy_ms("train step", traced_step)
-    b5f = sum(t for name, t in by_name.items() if "flash_attention_kernel" in name
-              or "flash_attention_tc_kernel" in name)
+    b5f = sum(t for name, t in by_name.items()
+              if any(k in name for k in B5_FWD_KERNELS))
     b5b = sum(t for name, t in by_name.items() if "flash_attention_bwd" in name)
     row["train_step_busy_ms"] = busy
     row["train_step_traced_ms"] = walls[-1]
@@ -3663,6 +3716,8 @@ def main() -> int:
             + (f"{regs[0]} registers" if regs else "registers not reported"))
         if not n[op]:
             raise AssertionError(f"{fn_name}: no {op} in its SASS")
+    # B5's bf16 body runs wgmma fed by TMA and no mma.sync
+    fwd_build_facts(reports.get("flash_attention", ""))
 
     # -- set-up: model, frames, plan, codec ----------------------------------
     g = torch.Generator().manual_seed(SEED)

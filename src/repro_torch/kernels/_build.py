@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own into a shared library with a
 plain C interface, ``build/kernels/<name>-<digest>.so`` at the root of the
-checkout (a directory ``.gitignore`` lists).  The digest covers the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing is built when a module is imported: ``library`` builds at
-first use, and ``build`` starts one nvcc per source, all at once.
+checkout (a directory ``.gitignore`` lists).  The digest covers the source,
+the headers of ``csrc/`` (``hopper.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  Nothing
+is built when a module is imported: ``library`` builds at first use, and
+``build`` starts one nvcc per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show that it went through the
@@ -61,10 +62,15 @@ def _nvcc() -> str:
     return path
 
 
-def target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+def target(name: str, csrc: Path = CSRC) -> Path:
+    """The library of ``csrc/<name>.cu``: its name carries a digest of that
+    source, of every header in ``csrc`` (any source may include one) and of
+    the flags."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:

@@ -36,40 +36,58 @@
 // base-2 score would bind at c log2(e) instead and give a plausible but
 // wrong softmax.
 //
-// bf16 (the serving path): the tensor-core kernel.  On the TPU the kv axis
-// is a sequential grid dimension that carries (m, l, acc) in VMEM; here it
-// is a loop inside one CTA per (q tile of 64 rows, head, batch row), 4 warps
-// of 16 query rows each, two CTAs an SM, so the state stays in registers.
-//   - Q.K^T runs as mma.sync m16n8k16 on the raw bf16 q and k with f32
-//     accumulation: a bf16 x bf16 product is exact in f32, so only the order
-//     of the sums differs from the reference, which scales q in f32 first;
-//     here the f32 scores are scaled after the product, by hd^-1/2 log2(e),
-//     and the softmax runs in base 2 (exp2(x log2 e - m log2 e) is exp(x -
-//     m)): a few roundings moved.  Q's A fragments are read from shared
-//     memory with ldmatrix at each k-step; K tiles (kv rows x hd, row-major)
-//     are already the column-major B operand, read with ldmatrix without
-//     .trans.
+// bf16 (the serving path): a kernel built for Hopper, FA3's shape, on
+// wgmma fed by TMA (the primitives are inline PTX in hopper.cuh).  On the
+// TPU the kv axis is a sequential grid dimension that carries (m, l, acc)
+// in VMEM; here it is a loop inside one CTA per (q tile of 128 rows, head,
+// batch row), heaviest q tiles first (blockIdx.x reversed), 384 threads in
+// three warpgroups, one CTA an SM:
+//   - warpgroup 0 is the producer: setmaxnreg drops it to 24 registers and
+//     one thread issues TMA.  Q's tile loads once; K and V tiles of 128 kv
+//     rows load into two rings of two stages, each stage with a full and an
+//     empty mbarrier, so K_i is refilled once Q.K_i^T is read and V_i once
+//     P.V_i is.  The tensor maps (host-encoded by cuTensorMapEncodeTiled,
+//     passed as __grid_constant__ parameters) see each (B, S, heads, hd)
+//     operand as 4-D (hd, heads, S, B); a box is 64 columns of hd (two a row
+//     at hd 128; 32 or 16 at hd 32 or 16) by 128 rows of one head, swizzled
+//     by its row's bytes (128, 64 or 32), tiles at 1,024-byte boundaries.
+//     Rows past Sq or Skv arrive as zeros (TMA's out-of-bounds fill), which
+//     the mask below still sets to -1e30 where they are keys.
+//   - warpgroups 1 and 2 are consumers of 64 query rows each, raised to 240
+//     registers (128 x 24 + 256 x 240 = 64,512 of the SM's 65,536).  S =
+//     Q.K^T is wgmma m64n128k16 with both operands from shared-memory
+//     descriptors (K-major), f32 sums of the raw bf16 values (a bf16
+//     product is exact in f32, so only the order of the sums differs from
+//     the reference); the f32 scores are then scaled by hd^-1/2 log2(e) and
+//     the softmax runs in base 2 (exp2(x log2 e - m log2 e) is exp(x - m);
+//     MUFU.EX2 alone, outputs below 2^-126 flushed to 0).
 //   - The online softmax runs in the accumulator's layout: a thread holds
-//     two rows (r and r + 8) of its warp's slice, and the row max and sum
-//     reduce over the 4 lanes of a quad with two shuffles; m and l stay in
-//     registers.
-//   - P.V runs on the tensor cores without rounding P to bf16 once: P is
-//     split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and P_hi.V +
-//     P_lo.V accumulate in f32 (two MMAs, about 16 mantissa bits of P; the
-//     reference computes p @ v in f32, and one rounding of P would widen the
-//     prefill -> decode handoff gap).  The A fragments of P are built from
-//     the Q.K^T accumulator registers (no shared-memory round trip); V tiles
-//     are read with ldmatrix.trans.
-//   - K and V tiles of 64 rows load with 16-byte cp.async.cg into a ring of
-//     two stages, tile j + 1 in flight while tile j computes; rows past Skv
-//     are zero-filled (src-size 0, the source address clamped to row 0).
-//     Shared rows are padded by 16 bytes, so the 8 rows an ldmatrix reads
-//     fall on distinct banks.
-//   - Tiles above the diagonal are skipped, only tiles that reach past the
-//     diagonal or Skv are masked, a warp skips a tile that lies wholly above
-//     its rows (identical to computing it: its p would be exactly 0), the
-//     heaviest q tiles run first (blockIdx.x reversed), and rows >= Sq are
-//     not stored.
+//     two rows (r and r + 8 of its warp's 16) and the row max and sum reduce
+//     over the 4 lanes of a quad with two shuffles; m and l stay in
+//     registers.  Only a tile that reaches past Skv, past the diagonal of
+//     the warpgroup's first row or below the window of its last row is
+//     masked.
+//   - P.V runs without rounding P to bf16 once: P_hi = bf16(P) and P_lo =
+//     bf16(P - P_hi) are built straight from the score registers as
+//     wgmma's register A fragments (the RS form), and two wgmma
+//     m64n{hd}k16 a k-step accumulate P_hi.V + P_lo.V into O in f32 (about
+//     16 mantissa bits of P; the reference computes p @ v in f32, and one
+//     rounding of P would widen the prefill -> decode handoff gap).  V's
+//     tile is the MN-major operand (transpose bit set).
+//   - Overlap: tile i's Q.K_i^T and the last tile's P_{i-1}.V_{i-1} are
+//     issued together, and tile i's softmax runs while P_{i-1}.V_{i-1} does;
+//     the two consumers take turns to issue (named barriers, a ping-pong),
+//     so one's softmax also runs under the other's products.  Both walk
+//     every tile of the CTA's range with no branch around a product or its
+//     wait (ptxas serialises wgmma on a path it sees as divergent; the
+//     warpgroup index is read through a shuffle for the same reason): a
+//     tile wholly above a warpgroup's rows adds exact zeros to (l, O) with
+//     corr = 1, and one wholly before its window is the dead-key case
+//     above, so the result is bitwise what skipping them would give.
+//   - Epilogue: O / max(l, 1e-30) stored as bf16 pairs from the registers,
+//     rows >= Sq not stored; with lse, (m + log2 l) ln 2 a row.  No atomics:
+//     two launches give the same bits, and a launch on a contiguous slice of
+//     kv groups gives bitwise the whole launch's columns.
 // f32 (phase 10's card-vs-CPU path): the CUDA-core kernel of the first port,
 // unchanged; both products in f32 (TF32 would miss the f32 tolerance), q
 // multiplied by hd^-1/2 after its cast to f32, as the reference.  One CTA
@@ -83,18 +101,16 @@
 // causal half skipped and moves 100.7 MB: 0.069 ms at 989 TFLOP/s on the
 // tensor cores, 0.030 ms at 3.35 TB/s, so operations bound it.  The bf16
 // kernel issues 1.5x those operations (P.V twice for the hi/lo split) and
-// takes about 0.46 ms on an H100 80GB HBM3 at 700 W, about 3x scaled
-// dot-product attention (PERF.md): its MMAs run at about 230 of the 640
-// TFLOP/s mma.sync reaches, and other tilings (tools/b5_tiles.py: 8 warps,
-// kv tiles of 32 rows, rings of 3 or 4 stages) are slower.  What holds it
-// back is that each warp runs its tile's two products and the softmax
-// between them in sequence, with two warps a scheduler to hide the latency.
-// wgmma fed by TMA, with a producer warp and two consumer warpgroups that
-// overlap one's softmax with the other's products (the FA3 shape), is the
-// next step.
+// takes about 0.22 ms on an H100 80GB HBM3 at 700 W (PERF.md; the
+// mma.sync body it replaced took 0.48 ms, scaled dot-product attention
+// about 0.15 ms): about 460 TFLOP/s of executed products, of which the
+// products and their pipeline alone (softmax removed) reach about 540
+// (tools/b5_tiles.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -346,64 +362,37 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, fl
   }
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
-
-constexpr int kTcWarps = 4;                 // two CTAs an SM
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcBlockQ = 16 * kTcWarps;    // 16 query rows a warp
-constexpr int kTcBlockKV = 64;
-constexpr int kStages = 2;                  // K/V ring
+// ---- bf16 on wgmma, fed by TMA ---------------------------------------------
 
 typedef __nv_bfloat16 bf16;
 
+constexpr int kWgBlockQ = 128;              // q rows a CTA, 64 a consumer warpgroup
+constexpr int kWgBlockKV = 128;             // kv rows a tile
+constexpr int kWgThreads = 384;             // producer + two consumer warpgroups
+constexpr int kProducerRegs = 24;           // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kConsumerRegs = 240;
+
 template <int HD>
-struct TcTile {
-  static constexpr int kLd = HD + 8;        // padded row, elements (16 bytes more)
-  static constexpr int kQ = kTcBlockQ * kLd;
-  static constexpr int kKV = kTcBlockKV * kLd;
-  static constexpr int kBytes =
-      static_cast<int>(sizeof(bf16)) * (kQ + 2 * kStages * kKV);
+struct WgTile {
+  static constexpr int kCols = HD < 64 ? HD : 64;  // hd columns a TMA box
+  static constexpr int kSwizzle = 2 * kCols;       // bytes a box row: 128, 64 or 32
+  static constexpr int kBoxes = HD / kCols;        // boxes a row: 2 at hd 128
+  static constexpr int kStages = 2;                // K and V rings
+  static constexpr int kQBox = kWgBlockQ * kSwizzle;
+  static constexpr int kKVBox = kWgBlockKV * kSwizzle;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
+  // barriers: Q, then full K, full V, empty K, empty V of each stage
+  static constexpr int kBarriers = 1 + 4 * kStages;
+  static constexpr int kBytes = 1024 + kQBytes + 2 * kStages * kKVBytes + 8 * kBarriers;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, or 16 zero bytes when !valid (src-size 0:
-// nothing is read; src then points at a valid row all the same).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x by the hardware's approximation alone (MUFU.EX2, without exp2f's
+// rescaling around it): outputs below 2^-126 flush to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y); x
@@ -416,172 +405,213 @@ __device__ __forceinline__ void split_hi_lo(float x, float y, uint32_t& hi, uint
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Start copying `rows` rows [r0, r0 + rows) of one head (row stride `stride`
-// elements) into dst (padded rows), zeros past n_rows.
-template <int HD>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int rows,
-                                                int r0, int n_rows, size_t stride) {
-  constexpr int kChunks = HD / 8;           // 16-byte pieces a row
-  constexpr int kLd = TcTile<HD>::kLd;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kTcThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool ok = r0 + r < n_rows;
-    const bf16* g = src + (ok ? static_cast<size_t>(r0 + r) * stride + c : 0);
-    cp_async16(smem_addr(dst + r * kLd + c), g, ok);
-  }
-}
-
 template <int HD, bool kCap>
-__global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int Sq, int Skv, int H, int KV,
-                          int causal, int window, float softcap, float sm_scale) {
-  constexpr int kLd = TcTile<HD>::kLd;
-  constexpr int kKSteps = HD / 16;          // k16 steps of Q.K^T
-  constexpr int kNB = kTcBlockKV / 8;       // n8 blocks of scores
-  constexpr int kDB = HD / 8;               // n8 blocks of the output
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                             float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                             int causal, int window, float softcap, float sm_scale) {
+  using Tile = WgTile<HD>;
+  using namespace hopper;
+  constexpr int kStages = Tile::kStages;
+  constexpr int kBN = kWgBlockKV;
   constexpr float kLog2e = 1.4426950408889634f;
   constexpr float kLn2 = 0.6931471805599453f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TcTile<HD>::kQ;           // [kStages][kTcBlockKV][kLd]
-  bf16* Vs = Ks + kStages * TcTile<HD>::kKV;
+  // tiles at 1,024-byte boundaries, as the swizzle needs
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = sQ + Tile::kQBytes;             // [kStages][kBoxes][kBN rows]
+  const uint32_t sV = sK + kStages * Tile::kKVBytes;
+  const uint32_t bars = sV + kStages * Tile::kKVBytes;
+  const uint32_t q_full = bars;
+  auto full_k = [&](int st) { return bars + 8 * (1 + st); };
+  auto full_v = [&](int st) { return bars + 8 * (1 + kStages + st); };
+  auto empty_k = [&](int st) { return bars + 8 * (1 + 2 * kStages + st); };
+  auto empty_v = [&](int st) { return bars + 8 * (1 + 3 * kStages + st); };
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;                 // fragment row (and row + 8)
-  const int tig = lane % 4;                 // fragment column pair
   const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int q0 = qi * kTcBlockQ;
+  const int q0 = qi * kWgBlockQ;
   const int offset = Skv - Sq;
-  const size_t q_stride = static_cast<size_t>(H) * HD;
-  const size_t kv_stride = static_cast<size_t>(KV) * HD;
-  // scores in base 2: exp(x - m) = exp2(x log2(e) - m log2(e))
-  const float scale2 = sm_scale * kLog2e;
-
-  const bf16* qb = q + (static_cast<size_t>(b) * Sq * H + h) * HD;
-  const bf16* kb = k + (static_cast<size_t>(b) * Skv * KV + kvh) * HD;
-  const bf16* vb = v + (static_cast<size_t>(b) * Skv * KV + kvh) * HD;
-
-  // the last kv row any query of this tile may see, the first kv tile its
-  // first query may see in a window; this warp's 16 rows
-  const int kv_end = causal ? min(Skv, min(q0 + kTcBlockQ, Sq) + offset) : Skv;
-  const int n_tiles = (kv_end + kTcBlockKV - 1) / kTcBlockKV;
+  // the last kv row any query of the CTA may see, and the tile holding the
+  // first one its first query may see in a window: tiles t_begin ..
+  // t_begin + n_run - 1 are loaded, in order, for both consumers
+  const int kv_end = causal ? min(Skv, min(q0 + kWgBlockQ, Sq) + offset) : Skv;
   const bool windowed = causal && window > 0;
-  const int t_begin = windowed ? max(0, q0 + offset - window + 1) / kTcBlockKV : 0;
-  const int n_run = n_tiles - t_begin;      // tiles t_begin .. n_tiles - 1
-  const int row0 = q0 + 16 * warp;
-  const int warp_last = row0 + 15 + offset;
-  const int warp_first = row0 + offset;
+  const int t_begin = windowed ? max(0, q0 + offset - window + 1) / kBN : 0;
+  const int n_run = (kv_end + kBN - 1) / kBN - t_begin;
 
-  // one copy group per K/V tile, kStages - 1 tiles ahead (Q rides with the
-  // first); groups past the last tile are empty, so the count stays fixed
-  load_tile_async<HD>(Qs, qb, kTcBlockQ, q0, Sq, q_stride);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_run) {
-      const int r0 = (t_begin + t) * kTcBlockKV;
-      load_tile_async<HD>(Ks + t * TcTile<HD>::kKV, kb, kTcBlockKV, r0, Skv, kv_stride);
-      load_tile_async<HD>(Vs + t * TcTile<HD>::kKV, vb, kTcBlockKV, r0, Skv, kv_stride);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), 8);            // a lane of each consumer warp
+      mbar_init(empty_v(st), 8);
     }
-    cp_async_commit();
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float acc[kDB][4];
+  // the warpgroup, read through a shuffle so that the compiler knows it is
+  // the same across a warp: products issued under a branch on it then stay
+  // asynchronous (ptxas serialises wgmma on a path it takes for divergent)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: one thread keeps the K and V rings full
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, Tile::kQBytes);
 #pragma unroll
-  for (int i = 0; i < kDB; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};          // row max, base 2
-  float l[2] = {0.f, 0.f};
-
-  for (int t = 0; t < n_run; ++t) {
-    const int st = t % kStages;
-    const int ahead = t + kStages - 1;      // its stage was freed at the end of t - 1
-    if (ahead < n_run) {
-      const int r0 = (t_begin + ahead) * kTcBlockKV;
-      load_tile_async<HD>(Ks + (ahead % kStages) * TcTile<HD>::kKV, kb, kTcBlockKV, r0,
-                          Skv, kv_stride);
-      load_tile_async<HD>(Vs + (ahead % kStages) * TcTile<HD>::kKV, vb, kTcBlockKV, r0,
-                          Skv, kv_stride);
-    }
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();           // tile t has landed
-    __syncthreads();
-    const int j0 = (t_begin + t) * kTcBlockKV;
-    // a warp skips a tile wholly above its rows, or wholly below its first
-    // row's window (dead for all its rows)
-    if (!(causal && j0 > warp_last) &&
-        !(windowed && j0 + kTcBlockKV - 1 <= warp_first - window)) {
-      const bf16* Kt = Ks + st * TcTile<HD>::kKV;
-      const bf16* Vt = Vs + st * TcTile<HD>::kKV;
-      // S = Q K^T: each ldmatrix.x4 of K brings 16 kv rows x 16 columns of
-      // hd, the B fragments of two n8 blocks
-      float s[kNB][4];
+      for (int x = 0; x < Tile::kBoxes; ++x)
+        tma_load_4d(sQ + x * Tile::kQBox, &tq, q_full, x * Tile::kCols, h, q0, b);
+      for (int i = 0; i < n_run; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const int j0 = (t_begin + i) * kBN;
+        mbar_wait(empty_k(st), ph ^ 1);
+        mbar_arrive_expect_tx(full_k(st), Tile::kKVBytes);
 #pragma unroll
-      for (int i = 0; i < kNB; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+        for (int x = 0; x < Tile::kBoxes; ++x)
+          tma_load_4d(sK + st * Tile::kKVBytes + x * Tile::kKVBox, &tk, full_k(st),
+                      x * Tile::kCols, kvh, j0, b);
+        mbar_wait(empty_v(st), ph ^ 1);
+        mbar_arrive_expect_tx(full_v(st), Tile::kKVBytes);
 #pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        uint32_t qf[4];
-        ldmatrix_x4(qf, smem_addr(Qs + (16 * warp + lane % 16) * kLd + 16 * ks
-                                  + (lane / 16) * 8));
-#pragma unroll
-        for (int nb2 = 0; nb2 < kNB / 2; ++nb2) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, smem_addr(Kt + (16 * nb2 + lane % 8 + (lane / 16) * 8) * kLd
-                                    + 16 * ks + ((lane / 8) % 2) * 8));
-          mma_bf16(s[2 * nb2], qf, kf[0], kf[1]);
-          mma_bf16(s[2 * nb2 + 1], qf, kf[2], kf[3]);
-        }
+        for (int x = 0; x < Tile::kBoxes; ++x)
+          tma_load_4d(sV + st * Tile::kKVBytes + x * Tile::kKVBox, &tv, full_v(st),
+                      x * Tile::kCols, kvh, j0, b);
       }
-      // scale (capped in natural units, then to base 2); mask only a tile
-      // that reaches past the diagonal or Skv, or below the window of the
-      // warp's last row
-      const bool edge = j0 + kTcBlockKV > Skv ||
-                        (causal && j0 + kTcBlockKV - 1 > warp_first) ||
-                        (windowed && j0 <= warp_last - window);
+    }
+  } else {
+    // consumers: warpgroup cw owns q rows q0 + 64 cw .. q0 + 64 cw + 63.
+    // Both walk the CTA's tiles: the products sit on one straight path (a
+    // branch around a wgmma or its wait makes ptxas serialise them), and a
+    // tile dead for all of a warpgroup's rows computes what skipping it
+    // would (the note at the top)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int gid = lane / 4;
+    const int tig = lane % 4;
+    const int r0 = q0 + 64 * cw;
+    const int row_a = r0 + 16 * warp + gid;   // this thread's rows: row_a, row_a + 8
+    const int wg_first = r0 + offset;
+    const int wg_last = r0 + 63 + offset;
+    const float scale2 = sm_scale * kLog2e;   // scores in base 2
+    // ping-pong: a warpgroup issues its products after the other's, so one
+    // runs its softmax while the other's products run
+    const int my_turn = 1 + cw;
+    const int their_turn = 2 - cw;
+    if (cw == 1) bar_arrive(1, 256);          // the first turn is warpgroup 0's
+
+    float s[kBN / 2];                         // scores of a tile, then P
+    float acc[HD / 2];                        // O, unnormalised
+    uint32_t p_hi[kBN / 16][4], p_lo[kBN / 16][4];
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) {
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};          // row max, base 2
+    float l[2] = {0.f, 0.f};
+
+    // descriptors: Q rows 64 cw .. of each box (K-major), K (K-major),
+    // V (MN-major: hd is contiguous, kv rows are the sum's K)
+    const uint32_t q_base = sQ + 64 * cw * Tile::kSwizzle;
+    auto issue_qk = [&](int st) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if constexpr (kCap)
-            s[nb][e] = tanhf(s[nb][e] * sm_scale / softcap) * softcap * kLog2e;
-          else
-            s[nb][e] *= scale2;
-          if (edge) {
-            const int k_pos = j0 + 8 * nb + 2 * tig + (e & 1);
-            const int q_pos = row0 + gid + 8 * (e >> 1) + offset;
-            if (k_pos >= Skv || (causal && k_pos > q_pos) ||
-                (windowed && k_pos <= q_pos - window))
-              s[nb][e] = kNegInf;
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int box = 16 * ks / Tile::kCols;
+        const int col = (16 * ks % Tile::kCols) * 2;
+        Wgmma<kBN>::ss(s,
+                       smem_desc<Tile::kSwizzle>(q_base + box * Tile::kQBox + col, 16,
+                                                 8 * Tile::kSwizzle),
+                       smem_desc<Tile::kSwizzle>(sK + st * Tile::kKVBytes
+                                                     + box * Tile::kKVBox + col,
+                                                 16, 8 * Tile::kSwizzle),
+                       ks);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t vd = smem_desc<Tile::kSwizzle>(
+            sV + st * Tile::kKVBytes + 16 * kk * Tile::kSwizzle, Tile::kKVBox,
+            8 * Tile::kSwizzle);
+        Wgmma<HD>::rs(acc, p_hi[kk], vd);
+        Wgmma<HD>::rs(acc, p_lo[kk], vd);
+      }
+      wgmma_commit();
+    };
+    auto fence_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        fence_regs(p_hi[kk]);
+        fence_regs(p_lo[kk]);
+      }
+    };
+    // the online softmax of tile j0's scores in s: scale (capped in
+    // natural units, then to base 2), mask only a tile that reaches past
+    // Skv or the diagonal of the warpgroup's first row, or below the window
+    // of its last row; m and l of rows row_a (e 0, 1) and row_a + 8 (e 2, 3)
+    auto softmax = [&](int j0, float (&corr)[2]) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        if constexpr (kCap)
+          s[i] = tanhf(s[i] * sm_scale / softcap) * softcap * kLog2e;
+        else
+          s[i] *= scale2;
+      }
+      if (j0 + kBN > Skv || (causal && j0 + kBN - 1 > wg_first) ||
+          (windowed && j0 <= wg_last - window)) {
+        // key j0 + 2 tig + c of row r is live iff lo[r] < c <= hi[r]
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q_pos = row_a + 8 * r + offset;
+          hi[r] = (causal ? min(q_pos, Skv - 1) : Skv - 1) - j0 - 2 * tig;
+          lo[r] = (windowed ? q_pos - window : -1) - j0 - 2 * tig;
+        }
+#pragma unroll
+        for (int nb = 0; nb < kBN / 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * nb + (e & 1);
+            if (c > hi[e >> 1] || c <= lo[e >> 1]) s[4 * nb + e] = kNegInf;
           }
         }
       }
-      // online softmax of rows gid (e 0, 1) and gid + 8 (e 2, 3)
-      float mx[2] = {kNegInf, kNegInf};
+      // row maxima in four independent chains each (max is exact in any order)
+      float mx[2][4];
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[nb][0], s[nb][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[nb][2], s[nb][3]));
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mx[r][c] = kNegInf;
+#pragma unroll
+      for (int nb = 0; nb < kBN / 8; ++nb) {
+        mx[0][nb % 4] = fmaxf(mx[0][nb % 4], fmaxf(s[4 * nb], s[4 * nb + 1]));
+        mx[1][nb % 4] = fmaxf(mx[1][nb % 4], fmaxf(s[4 * nb + 2], s[4 * nb + 3]));
       }
-      float corr[2], sum[2] = {0.f, 0.f};
+      float sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        corr[r] = exp2f(m[r] - m_new);
+        float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[r], x);
+        corr[r] = exp2_approx(m[r] - m_new);
         m[r] = m_new;
       }
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) {
+      for (int nb = 0; nb < kBN / 8; ++nb) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[nb][e] = exp2f(s[nb][e] - m[e >> 1]);
-          sum[e >> 1] += s[nb][e];
+          s[4 * nb + e] = exp2_approx(s[4 * nb + e] - m[e >> 1]);
+          sum[e >> 1] += s[4 * nb + e];
         }
       }
 #pragma unroll
@@ -590,80 +620,125 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
         l[r] = l[r] * corr[r] + sum[r];
       }
+    };
+    // O *= corr, then P's A fragments from the score registers: kv rows
+    // 16 kk .. 16 kk + 15 are score blocks 2 kk and 2 kk + 1
+    auto rescale_and_split = [&](const float (&corr)[2]) {
 #pragma unroll
-      for (int db = 0; db < kDB; ++db) {
-        acc[db][0] *= corr[0]; acc[db][1] *= corr[0];
-        acc[db][2] *= corr[1]; acc[db][3] *= corr[1];
+      for (int db = 0; db < HD / 8; ++db) {
+        acc[4 * db] *= corr[0];
+        acc[4 * db + 1] *= corr[0];
+        acc[4 * db + 2] *= corr[1];
+        acc[4 * db + 3] *= corr[1];
       }
-      // O += P_hi V + P_lo V; the A fragment of kv rows 16 kk .. 16 kk + 15
-      // is the accumulators of score blocks 2 kk and 2 kk + 1
 #pragma unroll
-      for (int kk = 0; kk < kTcBlockKV / 16; ++kk) {
-        uint32_t ph[4], pl[4];
-        split_hi_lo(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_hi_lo(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_hi_lo(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_hi_lo(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
-        for (int db2 = 0; db2 < kDB / 2; ++db2) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, smem_addr(Vt + (16 * kk + lane % 16) * kLd + 16 * db2
-                                          + (lane / 16) * 8));
-          mma_bf16(acc[2 * db2], ph, vf[0], vf[1]);
-          mma_bf16(acc[2 * db2 + 1], ph, vf[2], vf[3]);
-          mma_bf16(acc[2 * db2], pl, vf[0], vf[1]);
-          mma_bf16(acc[2 * db2 + 1], pl, vf[2], vf[3]);
-        }
+        for (int x = 0; x < 4; ++x)
+          split_hi_lo(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1], p_hi[kk][x], p_lo[kk][x]);
       }
+    };
+
+    mbar_wait(q_full, 0);
+    // tile 0: S = Q K^T alone
+    {
+      mbar_wait(full_k(0), 0);
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_qk(0);
+      if (!(cw == 1 && n_run == 1)) bar_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(empty_k(0));
+      float corr[2];
+      softmax(t_begin * kBN, corr);
+      rescale_and_split(corr);
     }
-    __syncthreads();                        // stage st is free for tile t + kStages
-  }
+    // tile i: S = Q K_i^T and O += P V_{i-1} together; the softmax of tile
+    // i runs while P V_{i-1} does
+    for (int i = 1; i < n_run; ++i) {
+      const int st = i % kStages;
+      const int pst = (i - 1) % kStages;
+      mbar_wait(full_k(st), (i / kStages) & 1);
+      mbar_wait(full_v(pst), ((i - 1) / kStages) & 1);
+      bar_sync(my_turn, 256);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_qk(st);
+      issue_pv(pst);
+      if (!(cw == 1 && i == n_run - 1)) bar_arrive(their_turn, 256);
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(empty_k(st));   // K_i is read
+      float corr[2];
+      softmax((t_begin + i) * kBN, corr);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_p();
+      if (lane == 0) mbar_arrive(empty_v(pst));  // V_{i-1} is read
+      rescale_and_split(corr);
+    }
+    {
+      const int pst = (n_run - 1) % kStages;
+      mbar_wait(full_v(pst), ((n_run - 1) / kStages) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_pv(pst);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_p();
+    }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gid + 8 * r;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    if (lse != nullptr && tig == 0)   // natural units: m and l are base 2
-      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = (m[r] + log2f(l[r])) * kLn2;
-    bf16* orow = o + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD + 2 * tig;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row >= Sq) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+      if (lse != nullptr && tig == 0)   // natural units: m and l are base 2
+        lse[(static_cast<size_t>(b) * H + h) * Sq + row] = (m[r] + log2f(l[r])) * kLn2;
+      bf16* orow = o + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD + 2 * tig;
 #pragma unroll
-    for (int db = 0; db < kDB; ++db)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * db) =
-          __floats2bfloat162_rn(acc[db][2 * r] / denom, acc[db][2 * r + 1] / denom);
+      for (int db = 0; db < HD / 8; ++db)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * db) =
+            __floats2bfloat162_rn(acc[4 * db + 2 * r] / denom, acc[4 * db + 2 * r + 1] / denom);
+    }
   }
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-              int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
-              float sm_scale, cudaStream_t stream) {
-  constexpr int kSmem = TcTile<HD>::kBytes;
-  auto kernel = softcap != 0.f ? flash_attention_tc_kernel<HD, true>
-                               : flash_attention_tc_kernel<HD, false>;
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
+                 float sm_scale, cudaStream_t stream) {
+  using Tile = WgTile<HD>;
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::encode_bshd(&tq, q, B, Sq, H, HD, Tile::kCols, kWgBlockQ);
+  if (rc == 0) rc = hopper::encode_bshd(&tk, k, B, Skv, KV, HD, Tile::kCols, kWgBlockKV);
+  if (rc == 0) rc = hopper::encode_bshd(&tv, v, B, Skv, KV, HD, Tile::kCols, kWgBlockKV);
+  if (rc != 0) return rc;
+  auto kernel = softcap != 0.f ? flash_attention_wgmma_kernel<HD, true>
+                               : flash_attention_wgmma_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kTcBlockQ - 1) / kTcBlockQ, H, B);
-  kernel<<<grid, kTcThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Skv, H, KV, causal,
-      window, softcap, sm_scale);
+  const dim3 grid((Sq + kWgBlockQ - 1) / kWgBlockQ, H, B);
+  kernel<<<grid, kWgThreads, Tile::kBytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, Sq, Skv, H, KV, causal, window, softcap,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
-                int B, int Sq, int Skv, int H, int KV, int causal, int window,
-                float softcap, float sm_scale, cudaStream_t stream) {
+int dispatch_wgmma(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int Sq, int Skv, int H, int KV, int causal, int window,
+                   float softcap, float sm_scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
-                                 sm_scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
-                                 sm_scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
-                                 sm_scale, stream);
-    case 128: return launch_tc<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
-                                 sm_scale, stream);
+    case 16: return launch_wgmma<16>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window,
+                                     softcap, sm_scale, stream);
+    case 32: return launch_wgmma<32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window,
+                                     softcap, sm_scale, stream);
+    case 64: return launch_wgmma<64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window,
+                                     softcap, sm_scale, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window,
+                                       softcap, sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -691,7 +766,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                               sm_scale, stream);
   if (dtype == 1)
-    return dispatch_tc(hd, q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
+    return dispatch_wgmma(hd, q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, softcap,
                        sm_scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

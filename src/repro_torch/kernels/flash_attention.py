@@ -19,11 +19,16 @@ kernel.
 The CUDA source (``csrc/flash_attention.cu``) runs one CTA per (q tile,
 head, batch row) that walks the kv tiles up to the diagonal with an f32
 online softmax; with a window it starts at the tile that holds its first
-row's oldest live key, so its work is bounded by the window.  For bf16 both products run on the tensor cores (mma.sync,
-f32 sums; P split into bf16 hi and lo parts, so P is never rounded to bf16
-once) with K and V tiles copied asynchronously; f32 keeps both products in
-f32 on the CUDA cores.  At the full-width prefill shape it is bound by
-operations (the source note gives the numbers).
+row's oldest live key, so its work is bounded by the window.  For bf16 the
+kernel is built for Hopper (FA3's shape): a producer warpgroup issues TMA
+loads of Q and of K and V tiles into mbarrier rings, and two consumer
+warpgroups of 64 query rows each run both products as wgmma (f32 sums; P
+split into bf16 hi and lo parts taken from registers, so P is never
+rounded to bf16 once), taking turns so that one's softmax runs under the
+other's products; the Hopper primitives are inline PTX in
+``csrc/hopper.cuh``.  f32 keeps both products in f32 on the CUDA cores.
+At the full-width prefill shape it is bound by operations (the source note
+gives the numbers).
 
 ``flash_attention_plain`` is the same function as a dense masked softmax in
 f32 (``repro/kernels/ref.py::flash_attention_ref``).  ``kernels/ops.py``

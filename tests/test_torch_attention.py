@@ -13,7 +13,8 @@ test).
 The CUDA kernels cannot run here, so their arithmetic is pinned by mirrors
 written in this file and held against the JAX package: B5's bf16 tensor-core
 numerics (exact bf16 products, scaled f32 scores, a base-2 online softmax
-over 64-row kv tiles, P.V as P_hi.V + P_lo.V) within B5_MIRROR_TOL of each
+over the kernel's 128-row kv tiles, P.V as P_hi.V + P_lo.V) within
+B5_MIRROR_TOL of each
 output row's max before the output cast, and B6's split-KV partials and
 combine in f32 on the wrapper's own chunks within F32_TOL.
 """
@@ -39,6 +40,7 @@ BF16_TOL = 2e-2
 # 2^-18 of itself (P_lo is rounded to bf16); rows miss by up to 5.4e-6 of
 # their max here, one bf16 rounding of P by 2.8e-3 to 3.5e-3
 B5_MIRROR_TOL = 1e-5
+B5_KV_TILE = 128                # kWgBlockKV in csrc/flash_attention.cu
 
 
 def _normal(seed, *shapes):
@@ -211,8 +213,8 @@ def _row_rel(out, ref):
     return float((np.abs(out - ref).max(-1) / top).max())
 
 
-def _b5_bf16_mirror(q, k, v, causal, split_p=True, tile=64, softcap=0.0,
-                    cap_in_base2=False):
+def _b5_bf16_mirror(q, k, v, causal, split_p=True, tile=B5_KV_TILE,
+                    softcap=0.0, cap_in_base2=False, window=0):
     """B5's bf16 arithmetic on the CPU, in f32: q.k^T of the bf16 values (each
     product exact in f32), times hd^-1/2 log2(e) rounded to f32, the
     online softmax in base 2 over kv tiles of ``tile`` rows, and P.V as
@@ -220,7 +222,10 @@ def _b5_bf16_mirror(q, k, v, causal, split_p=True, tile=64, softcap=0.0,
     with ``split_p`` off).  With ``softcap`` c the score is tanh(s hd^-1/2 /
     c) c log2(e), the cap in natural units as the kernel applies it, or with
     ``cap_in_base2`` the cap on the base-2 score, the mistake the kernel's
-    note warns of.  Returns (B, Sq, H, hd) f32, before the cast."""
+    note warns of.  A ``window`` w also masks keys at or below q_pos - w; the
+    mirror walks every tile from 0, which the kernel's note shows is bitwise
+    its skipping of tiles dead for all of a CTA's rows.  Returns (B, Sq, H,
+    hd) f32, before the cast."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Sq, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
@@ -243,7 +248,10 @@ def _b5_bf16_mirror(q, k, v, causal, split_p=True, tile=64, softcap=0.0,
                 s = torch.tanh(s / softcap) * softcap
         if causal:
             k_pos = torch.arange(j0, min(j0 + tile, Skv))
-            s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -1e30)
+            dead = k_pos[None, :] > q_pos[:, None]
+            if window:
+                dead |= k_pos[None, :] <= q_pos[:, None] - window
+            s = s.masked_fill(dead, -1e30)
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new[..., None])
@@ -282,6 +290,46 @@ def test_b5_bf16_tensor_core_numerics_match_the_reference(B, Sq, Skv, H, KV, hd,
         exps.append(ref.flash_attention_ref(qj, kj, vj))
     split = _b5_bf16_mirror(qt, kt, vt, causal).numpy()
     single = _b5_bf16_mirror(qt, kt, vt, causal, split_p=False).numpy()
+    for exp in exps:
+        assert _row_rel(split, exp) <= B5_MIRROR_TOL
+        assert _row_rel(single, exp) > B5_MIRROR_TOL
+
+
+def test_b5_mirror_tiles_as_the_kernel_does():
+    """The mirror's kv tile is the kernel's: B5_KV_TILE is kWgBlockKV in
+    the CUDA source, so the cases below sit at the kernel's tile edges."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert int(re.search(r"kWgBlockKV = (\d+);", src).group(1)) == B5_KV_TILE
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,w", [
+    (1, 150, 200, 6, 2, 64, 0),         # Sq not a multiple of 128, a ragged kv tile, G = 3
+    (1, 130, 130, 5, 1, 32, 0),         # G = 5, one row past a q tile
+    (2, 129, 255, 10, 2, 16, 0),        # G = 5, Sq < Skv, a ragged kv tile
+    (1, 200, 300, 6, 2, 64, 100),       # the window of row 128 starts mid-tile
+])
+def test_b5_bf16_mirror_at_the_kernels_tiles(B, Sq, Skv, H, KV, hd, w):
+    """B5's bf16 design at the kernel's 128-row kv tiles, at the edges of
+    its tiles, against the JAX package on the same bf16 values, before the
+    output cast: the Pallas kernel (interpret mode) and ``ref.py``'s oracle,
+    or, with a window, which neither takes, ``plain_attention``, where the
+    JAX package runs windowed prefill; one bf16 rounding of P misses."""
+    from repro.models.layers import plain_attention
+    q, k, v = _normal(Sq * 13 + w + hd, (B, Sq, H, hd), (B, Skv, KV, hd),
+                      (B, Skv, KV, hd))
+    qt, kt, vt = (_bf16_pair(x)[1] for x in (q, k, v))
+    qj, kj, vj = (jnp.asarray(t.float().numpy()) for t in (qt, kt, vt))
+    if w:
+        exps = [plain_attention(qj, kj, vj, causal=True, sliding_window=w)]
+    else:
+        exps = [flash_attention_pallas(qj, kj, vj, causal=True,
+                                       block_q=B5_KV_TILE,
+                                       block_kv=B5_KV_TILE, interpret=True),
+                ref.flash_attention_ref(qj, kj, vj)]
+    split = _b5_bf16_mirror(qt, kt, vt, True, window=w).numpy()
+    single = _b5_bf16_mirror(qt, kt, vt, True, split_p=False, window=w).numpy()
     for exp in exps:
         assert _row_rel(split, exp) <= B5_MIRROR_TOL
         assert _row_rel(single, exp) > B5_MIRROR_TOL

@@ -407,6 +407,48 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, KV,
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,w,cap", [
+    (2, 127, 127, 2, 2, 16, True, 0, 0.0),      # G = 1
+    (2, 128, 128, 4, 2, 32, True, 0, 0.0),      # G = 2, one whole tile
+    (2, 129, 129, 6, 2, 64, True, 0, 0.0),      # G = 3, one row past it
+    (2, 255, 255, 10, 2, 128, True, 0, 0.0),    # G = 5
+    (1, 127, 255, 5, 1, 64, True, 0, 0.0),      # Sq < Skv
+    (1, 129, 255, 3, 1, 128, True, 0, 0.0),
+    (2, 128, 129, 4, 4, 16, True, 0, 0.0),
+    (2, 255, 128, 4, 2, 32, False, 0, 0.0),     # non-causal, Sq > Skv
+    (1, 129, 127, 6, 2, 128, False, 0, 0.0),
+    (2, 255, 255, 6, 2, 64, True, 100, 0.0),    # windows across a kv tile's edge
+    (1, 255, 255, 5, 1, 32, True, 129, 0.0),
+    (2, 129, 255, 4, 2, 128, True, 127, 0.0),
+    (2, 255, 255, 6, 2, 128, True, 0, 1.0),     # a binding cap
+    (1, 128, 255, 10, 2, 16, True, 64, 50.0),
+    (2, 127, 129, 3, 3, 64, False, 0, 1.0),
+])
+def test_flash_attention_bf16_at_the_tile_edges(cuda, B, Sq, Skv, H, KV, hd,
+                                                causal, w, cap):
+    """B5's bf16 kernel (q tiles of 128 rows, two warpgroups of 64, kv tiles
+    of 128) at sequence lengths around its tiles, every head dim, G of 1,
+    2, 3 and 5, windows whose edge falls inside a kv tile, caps, Sq < Skv
+    and non-causal calls: within 1e-2 of each output row's max of the plain
+    version, two launches bitwise equal, and the output bitwise the same
+    with and without the log-sum-exp."""
+    g = torch.Generator().manual_seed(Sq + Skv + hd + w)
+    q = torch.randn((B, Sq, H, hd), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    out = fa.flash_attention_cuda(q, k, v, causal, w, cap)
+    again = fa.flash_attention_cuda(q, k, v, causal, w, cap)
+    with_lse, lse = fa.flash_attention_cuda(q, k, v, causal, w, cap,
+                                            with_lse=True)
+    ref = fa.flash_attention_plain(q, k, v, causal, w, cap).double()
+    torch.cuda.synchronize()
+    row_err = ((out.double() - ref).abs().amax(-1)
+               / ref.abs().amax(-1).clamp_min(1e-30))
+    assert float(row_err.max()) <= ATTN_KERNEL_TOL[torch.bfloat16]
+    assert torch.equal(out, again)
+    assert torch.equal(out, with_lse) and lse.shape == (B, H, Sq)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,w", [
     (2, 300, 300, 25, 5, 64, 64),       # Hymba's heads, a window of a tile
@@ -656,6 +698,19 @@ def test_flash_attention_backward_matches_plain(cuda, dtype, B, S, H, KV, hd,
         assert a.dtype == dtype and a.shape == c.shape
         assert torch.equal(a, b)
         assert _slice_err(a, c, t) <= ATTN_KERNEL_TOL[dtype]
+
+
+def test_flash_attention_forward_sass(cuda):
+    """The built forward library's SASS, read as ``chip_smoke.py``'s phase 2
+    reads it: every bf16 instantiation (hd 16-128, capped and not) runs
+    wgmma (HGMMA) fed by TMA (UTMALDG) and no mma.sync (HMMA)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as CS
+    fa._fn()                            # builds and loads the library
+    counts = CS.fwd_build_facts("")
+    assert any(CS.B5_FWD_KERNELS[0] in fn for fn in counts)
 
 
 def test_flash_attention_backward_sass(cuda):

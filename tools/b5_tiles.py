@@ -1,25 +1,29 @@
-"""B5's bf16 tensor-core kernel under other tilings, and the rate mma.sync
-reaches on the card: the measurements behind B5's chosen shape.
+"""B5's bf16 kernel (the wgmma body) under other tiling constants, and two
+probes of where its time goes: the measurements behind B5's chosen shape.
 
     python3 tools/b5_tiles.py          # from the root of a checkout, on a card
 
-Part 1 times a loop of independent mma.sync m16n8k16 bf16 products (the
-instruction B5 issues) at 128 and 256 threads a CTA and 1, 2 or 4 CTAs an
-SM, and prints TFLOP/s.  Part 2 writes copies of
-``src/repro_torch/kernels/csrc/flash_attention.cu`` with other tiling
-constants (warps a CTA, kv rows a tile, K/V ring stages, CTAs an SM), builds
-each with the repository's nvcc flags into ``build/b5_tiles/`` (one nvcc per
-copy, all started together), holds each against the plain version at the
-full-width prefill shape of qwen3-1.7b (q (4, 2048, 16, 128), k and v
-(4, 2048, 8, 128), bf16, causal) within 1e-2 of each row's max, and times
-it with CUDA events beside scaled dot-product attention, twice in turns.
-It prints the card's name and power limit first and exits non-zero
-without a card.
+Writes copies of ``src/repro_torch/kernels/csrc/flash_attention.cu`` (with
+``hopper.cuh`` beside them) with other constants of the wgmma body: kv rows
+a tile (``kWgBlockKV``), stages of the K and V rings (``kStages``) and the
+registers setmaxnreg gives the producer and the consumers.  Two probes
+change what the kernel computes and are timed only, never checked: one
+drops the P_lo.V product (what the hi/lo split of P costs), one drops the
+softmax from the main loop (the products and their pipeline alone).  Each
+copy is built with the repository's nvcc flags into ``build/b5_tiles/``
+(one nvcc per copy, all started together); every tiling is held against
+the plain version within 1e-2 of each row's max, at the full-width prefill
+shapes of qwen3-1.7b (q (4, 2048, 16, 128), k and v (4, 2048, 8, 128)) and
+musicgen-medium (q and kv (4, 2048, 24, 64)), bf16, causal; then all are
+timed with CUDA events beside scaled dot-product attention, twice in turns.
+It prints the card's name and power limit first and exits non-zero without
+a card.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -29,33 +33,22 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 OUT = ROOT / "build" / "b5_tiles"
 TOL = 1e-2
-# (warps, kv rows a tile, stages, CTAs an SM); the first is the source as it is
-TILINGS = ((4, 64, 2, 2), (8, 64, 2, 1), (4, 32, 3, 2), (4, 32, 4, 2),
-           (8, 64, 3, 1), (4, 64, 3, 1), (8, 32, 4, 1))
-MMA_LOOP = r"""
-#include <cuda_runtime.h>
-#include <stdint.h>
-template <int N>
-__global__ void mma_loop(float* out, int iters) {
-  uint32_t a[4] = {threadIdx.x, 3u, 5u, 7u}, b0 = threadIdx.x ^ 9u, b1 = 11u;
-  float acc[N][4] = {};
-  for (int i = 0; i < iters; ++i)
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                   "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                   : "+f"(acc[n][0]), "+f"(acc[n][1]), "+f"(acc[n][2]), "+f"(acc[n][3])
-                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  float s = 0.f;
-#pragma unroll
-  for (int n = 0; n < N; ++n) s += acc[n][0] + acc[n][1] + acc[n][2] + acc[n][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+SHAPES = {"qwen3-1.7b": (16, 8, 128), "musicgen-medium": (24, 24, 64)}
+# name: (source text, replacement) pairs; the first is the source as it is
+TILINGS = {
+    "kv128_s2_r24": (),
+    "kv128_s3_r24": (("kStages = 2;", "kStages = 3;"),),
+    "kv64_s2_r24": (("kWgBlockKV = 128;", "kWgBlockKV = 64;"),),
+    "kv64_s3_r24": (("kWgBlockKV = 128;", "kWgBlockKV = 64;"),
+                    ("kStages = 2;", "kStages = 3;")),
+    "kv128_s2_r40": (("kProducerRegs = 24;", "kProducerRegs = 40;"),
+                     ("kConsumerRegs = 240;", "kConsumerRegs = 232;")),
 }
-extern "C" int run(float* out, int blocks, int threads, int iters) {
-  mma_loop<16><<<blocks, threads>>>(out, iters);
-  return (int)cudaGetLastError();
+PROBES = {
+    "probe_no_p_lo": (("        Wgmma<HD>::rs(acc, p_lo[kk], vd);\n", ""),),
+    "probe_no_softmax": (("      softmax((t_begin + i) * kBN, corr);\n",
+                          "      corr[0] = corr[1] = 1.f;\n"),),
 }
-"""
 
 
 def cuda_ms(torch, fn, reps=10, runs=7):
@@ -73,14 +66,11 @@ def cuda_ms(torch, fn, reps=10, runs=7):
     return statistics.median(times)
 
 
-def tiled_source(src: str, warps: int, kv: int, stages: int, ctas: int) -> str:
-    for old, new in (("kTcWarps = 4;", f"kTcWarps = {warps};"),
-                     ("kTcBlockKV = 64;", f"kTcBlockKV = {kv};"),
-                     ("kStages = 2;", f"kStages = {stages};"),
-                     ("__launch_bounds__(kTcThreads, 2)",
-                      f"__launch_bounds__(kTcThreads, {ctas})")):
+def edited_source(src: str, edits) -> str:
+    for old, new in edits:
         if old not in src:
-            raise RuntimeError(f"flash_attention.cu has no '{old}' to retile")
+            raise RuntimeError(f"flash_attention.cu has no '{old.strip()}' "
+                               "to change")
         src = src.replace(old, new)
     return src
 
@@ -97,14 +87,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     OUT.mkdir(parents=True, exist_ok=True)
+    shutil.copy(_build.CSRC / "hopper.cuh", OUT / "hopper.cuh")
     nvcc = _build._nvcc()
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    jobs = {"mma_loop": MMA_LOOP}
-    jobs.update({f"w{w}_kv{kv}_s{s}_c{c}": tiled_source(src, w, kv, s, c)
-                 for w, kv, s, c in TILINGS})
+    jobs = {**TILINGS, **PROBES}
     procs = {}
-    for name, text in jobs.items():
-        (OUT / f"{name}.cu").write_text(text)
+    for name, edits in jobs.items():
+        (OUT / f"{name}.cu").write_text(edited_source(src, edits))
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
              str(OUT / f"{name}.cu")], stdout=subprocess.PIPE,
@@ -114,54 +103,52 @@ def main() -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc {name}.cu failed:\n{out}")
 
-    lib = ctypes.CDLL(str(OUT / "mma_loop.so"))
-    lib.run.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    buf = torch.empty(sms * 4 * 256, device="cuda")
-    for threads in (128, 256):
-        for per_sm in (1, 2, 4):
-            blocks, iters = sms * per_sm, 4096
-            ms = cuda_ms(torch, lambda: lib.run(buf.data_ptr(), blocks, threads,
-                                                iters), reps=1, runs=5)
-            flop = blocks * threads // 32 * iters * 16 * 2 * 16 * 8 * 16
-            print(f"mma.sync m16n8k16 bf16: {threads} threads x {per_sm} CTAs "
-                  f"an SM: {flop / ms / 1e9:.1f} TFLOP/s", flush=True)
-
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(s, generator=g).to("cuda", torch.bfloat16)
-               for s in ((4, 2048, 16, 128), (4, 2048, 8, 128), (4, 2048, 8, 128)))
-    ref = fa.flash_attention_plain(q, k, v, True)
+    data = {}
+    for shape, (H, KV, hd) in SHAPES.items():
+        q, k, v = (torch.randn(s, generator=g).to("cuda", torch.bfloat16)
+                   for s in ((4, 2048, H, hd), (4, 2048, KV, hd),
+                             (4, 2048, KV, hd)))
+        data[shape] = (q, k, v)
     fns = {}
-    for w, kv, s, c in TILINGS:
-        name = f"w{w}_kv{kv}_s{s}_c{c}"
+    for name in jobs:
         fn = ctypes.CDLL(str(OUT / f"{name}.so")).flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        for shape, (H, KV, hd) in SHAPES.items():
+            q, k, v = data[shape]
 
-        def call(fn=fn):
-            o = torch.empty_like(q)
-            # no log-sum-exp, causal, no window, no cap, bf16
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    None, 4, 2048, 2048, 16, 8, 128, 1, 0, 0.0, 1,
-                    1 / math.sqrt(128), torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"{name}: cudaError_t {rc}")
-            return o
-        o = call()
-        d = (o.double() - ref.double()).abs().amax(-1)
-        rel = float((d / ref.double().abs().amax(-1).clamp_min(1e-30)).max())
-        if not rel <= TOL:
-            raise AssertionError(f"{name}: worst row {rel} of its max")
-        fns[name] = call
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            def call(fn=fn, q=q, k=k, v=v, H=H, KV=KV, hd=hd, name=name):
+                o = torch.empty_like(q)
+                # no log-sum-exp, causal, no window, no cap, bf16
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        None, 4, 2048, 2048, H, KV, hd, 1, 0, 0.0, 1,
+                        1 / math.sqrt(hd),
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"{name}: cudaError_t {rc}")
+                return o
+            fns[(name, shape)] = call
+    for shape, (q, k, v) in data.items():
+        ref = fa.flash_attention_plain(q, k, v, True).double()
+        for name in TILINGS:
+            o = fns[(name, shape)]()
+            d = (o.double() - ref).abs().amax(-1)
+            rel = float((d / ref.abs().amax(-1).clamp_min(1e-30)).max())
+            if not rel <= TOL:
+                raise AssertionError(f"{name} at {shape}: worst row {rel} of "
+                                     "its max")
+        del ref
     for turn in (1, 2):
-        for name, call in fns.items():
-            print(f"turn {turn} B5 {name}: {cuda_ms(torch, call):.4f} ms",
-                  flush=True)
-        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        print(f"turn {turn} sdpa: {sdpa:.4f} ms", flush=True)
+        for shape, (q, k, v) in data.items():
+            for name in jobs:
+                print(f"turn {turn} {shape} B5 {name}: "
+                      f"{cuda_ms(torch, fns[(name, shape)]):.4f} ms", flush=True)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+            print(f"turn {turn} {shape} sdpa: {sdpa:.4f} ms", flush=True)
     return 0
 
 

@@ -64,21 +64,28 @@ import chip_smoke as CS  # noqa: E402  (its helpers; it imports no package)
 
 ROUNDS = 20                 # rounds of the calls in a device-time trace
 CAP = 50.0                  # Gemma 2's attn_logit_softcapping
+# B5's bf16 kernel by name: the wgmma body, and the mma.sync body of a
+# checkout from before it (so that --src may name either)
+B5_BF16_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tc_kernel")
 
 
-def device_ms(fns, match: str, before=None) -> float:
-    """The device time of the events whose name holds ``match`` in one round
-    of ``fns`` (each after ``before()`` if given): their durations in a
-    torch.profiler trace of ROUNDS rounds, over ROUNDS.  No launch latency
-    and no host time enters."""
+def device_ms(fns, match, before=None) -> float:
+    """The device time of the events whose name holds ``match`` (a string,
+    or a tuple of strings any of which may match) in one round of ``fns``
+    (each after ``before()`` if given): their durations in a torch.profiler
+    trace of ROUNDS rounds, over ROUNDS.  No launch latency and no host time
+    enters."""
+    matches = (match,) if isinstance(match, str) else tuple(match)
+
     def rounds():
         for _ in range(ROUNDS):
             for f in fns:
                 if before is not None:
                     before()
                 f()
-    _, _, by_name = CS.traced_busy_ms(match, rounds)
-    return sum(ms for name, ms in by_name.items() if match in name) / ROUNDS
+    _, _, by_name = CS.traced_busy_ms(matches[0], rounds)
+    return sum(ms for name, ms in by_name.items()
+               if any(m in name for m in matches)) / ROUNDS
 
 
 def codec(ck, qk, dev, flush) -> dict:
@@ -148,7 +155,9 @@ def attention(fa, da, dev, flush) -> dict:
         b6 = lambda: da.decode_attention_cuda(qd, ck_, cv_, lens, **kw)
         name = f"cap {cap}" if cap else "no cap"
         r = {"b5_ms": CS.cuda_ms(b5),
-             "b5_device_ms": device_ms([b5], "flash_attention_tc_kernel"),
+             # the bf16 body's kernel by its name in this checkout or in
+             # one before the wgmma body (--src of an older checkout)
+             "b5_device_ms": device_ms([b5], B5_BF16_KERNELS),
              "b6_ms": CS.cuda_ms(b6),
              "b6_cold_ms": CS.cuda_ms(b6, before=flush),
              "b6_device_ms": device_ms([b6], "decode_"),
