@@ -245,9 +245,11 @@ when it fails:
     profiler session, host-clock times later in the same process can read
     higher, and phases 6-15 and 17 time on the host clock;
 17. training, run before 16: (a) B5's backward build: each
-    instantiation's HMMAs and atomics in its SASS and, when this run built
-    it, its ptxas registers and spills (a bf16 dK/dV or dQ kernel without
-    HMMA, any atomic, or a bf16 spill at hd <= 64 fails); its kernels against
+    instantiation's HGMMAs, UTMALDGs, HMMAs and atomics in its SASS and,
+    when this run built it, its ptxas registers and spills (a bf16 dK/dV or
+    dQ kernel without HGMMA or UTMALDG or with an HMMA, a ptxas note that
+    one serialised its wgmma, any atomic, or a bf16 spill at hd <= 64
+    fails); its kernels against
     flash_attention_bwd_plain on the kernel's own forward output and
     log-sum-exp, in bf16 and f32 (the f32 cases at batch 2 at most), at
     smollm-360m's train shape (8, 2048, 15 over 5, hd 64), qwen3-1.7b's
@@ -381,13 +383,20 @@ when it fails:
     the phase's are printed; the kernels line gives each kernel's
     launches in (a)-(f) as ``examples_launches``.
 
-Every profiler session starts after a synchronize and idles TRACE_PAD_S
-before and after its work: the profiler keeps only the device events whose
-time stamps fall inside the session on the host's clock, and the card's
-time stamps lag it at times, by up to 33 ms in the profiler's own warnings
-during this script's train step (tools/trace_probe.py counts the events it
-drops).  The script logs how
-many sessions it opened and how many came back with no device event.
+Every profiler session starts after a synchronize and idles a pad,
+TRACE_PAD_S unless said otherwise, before and after its work: the profiler
+keeps only the device events whose time stamps fall inside the session on
+the host's clock, and the card's time stamps lag it at times, by up to 33
+ms in the profiler's own warnings during this script's train step
+(tools/trace_probe.py counts the events it drops).  A session that comes
+back with no device event is taken again once with pads of
+TRACE_RETRY_PAD_S; phase 16's codec sessions, the shortest and the ones
+seen to come back empty, pad that from the first.  The script logs how
+many sessions it opened and how many came back with no device event, and,
+for each of the others, how long after its first launch call its first
+device event starts on the profiler's time line.  It reads each session's
+records as Kineto returns them, without building the profiler's event
+tree.
 
 Weights everywhere are random, from a seeded generator: payload sizes and
 compression ratios are those of random weights, not of a trained detector.
@@ -568,7 +577,13 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
 L2_FLUSH_BYTES = 128 * 2**20       # written before a cold-L2 timing (L2 is 50 MB)
 TRACE_TRIES = 2                    # profiler sessions before an empty trace fails
 TRACE_PAD_S = 0.1                  # idle host time at each end of a session
+TRACE_RETRY_PAD_S = 1.0            # the same, in a session after an empty one
 TRACE_COUNT = collections.Counter()  # profiler sessions opened, and empty
+# per session with a device event: (s since import, ms from the first launch
+# call to the first device event's start on the profiler's time line)
+TRACE_LAGS: list = []
+TRACE_T0 = time.monotonic()
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 # cycles the card spins (torch.cuda._sleep, no memory traffic) after the
 # flush in a "held" cold timing: about 0.2 ms at the H100's 1.98 GHz, longer
 # than a wrapper's host time, so the launch is queued before the start event
@@ -757,9 +772,9 @@ def host_ms(fn, runs: int = 3) -> float:
 
 
 @contextlib.contextmanager
-def padded_profile():
+def padded_profile(pad_s: float = TRACE_PAD_S):
     """A torch.profiler session (host and card) opened after a synchronize,
-    idling TRACE_PAD_S before its body and, after a synchronize, after it:
+    idling ``pad_s`` before its body and, after a synchronize, after it:
     device events whose card time stamps stray from the host clock by less
     than the pad stay inside the session (module docstring)."""
     import torch
@@ -767,45 +782,67 @@ def padded_profile():
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_PAD_S)
+        time.sleep(pad_s)
         yield prof
         torch.cuda.synchronize()
-        time.sleep(TRACE_PAD_S)
+        time.sleep(pad_s)
 
 
-def count_session(n_device_events: int) -> None:
+def session_events(prof):
+    """(device events, host events) of a closed profiler session, Kineto's
+    records as they come (name(), start_ns(), duration_ns()): ``prof.events()``
+    would first build the profiler's event tree, which costs tens of us a
+    record, most of a session that holds a few hundred thousand.  Hidden
+    records are left out, as ``prof.events()`` leaves them out."""
+    from torch.autograd import DeviceType
+    dev, host = [], []
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        (dev if e.device_type() == DeviceType.CUDA else host).append(e)
+    return dev, host
+
+
+def count_session(dev, host) -> None:
+    """Count a session, and whether it came back with no device event; of
+    one that did not, keep how far its first device event started after its
+    first launch call (TRACE_LAGS)."""
     TRACE_COUNT["sessions"] += 1
-    TRACE_COUNT["empty"] += n_device_events == 0
+    TRACE_COUNT["empty"] += not dev
+    calls = [e.start_ns() for e in host if e.name().startswith(LAUNCH_CALLS)]
+    if dev and calls:
+        TRACE_LAGS.append((time.monotonic() - TRACE_T0,
+                           (min(e.start_ns() for e in dev) - min(calls)) / 1e6))
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, pad_s: float = TRACE_PAD_S):
     """Time on the card while ``fn`` runs, from a torch.profiler (CUPTI)
     trace: the durations of its device events (kernels, copies, fills) summed
     by name.  Returns (total ms, number of device events, a Counter of ms by
     name)."""
-    from torch.autograd import DeviceType
-    with padded_profile() as prof:
+    with padded_profile(pad_s) as prof:
         fn()
+    dev, host = session_events(prof)
     by_name = collections.Counter()
-    n = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
-            n += 1
-    count_session(n)
-    return sum(by_name.values()), n, by_name
+    for e in dev:
+        by_name[e.name()] += e.duration_ns() / 1e6
+    count_session(dev, host)
+    return sum(by_name.values()), len(dev), by_name
 
 
-def traced_busy_ms(what: str, fn):
+def traced_busy_ms(what: str, fn, pad_s: float = TRACE_PAD_S):
     """``device_busy_ms`` of a ``fn`` that launches work on the card and can
-    run again: an empty session is taken again, up to TRACE_TRIES sessions,
-    and fails if every one is empty."""
+    run again, with ``pad_s`` pads: an empty session is taken again with
+    pads of at least TRACE_RETRY_PAD_S, up to TRACE_TRIES sessions, and
+    fails if every one is empty."""
     for attempt in range(1, TRACE_TRIES + 1):
-        busy, n_ev, by_name = device_busy_ms(fn)
+        if attempt > 1:
+            pad_s = max(pad_s, TRACE_RETRY_PAD_S)
+        busy, n_ev, by_name = device_busy_ms(fn, pad_s)
         if n_ev:
             return busy, n_ev, by_name
         log(f"trace {what}: the profiler recorded no device event in session "
-            f"{attempt} of {TRACE_TRIES}")
+            f"{attempt} of {TRACE_TRIES} ({pad_s} s pads)")
     raise AssertionError(f"trace {what}: no device event recorded in "
                          f"{TRACE_TRIES} sessions")
 
@@ -1084,30 +1121,29 @@ def mac_same(a, b, what: str) -> None:
         raise AssertionError(f"{what}: the HARQ streams are not paired")
 
 
-def mac_trace(fn):
+def mac_trace(fn, pad_s: float = TRACE_PAD_S):
     """``fn`` under torch.profiler: a Counter of the card's busy ms
     (``busy``), of it the sorts' (``sort``), the kernel launches
     (``kernels``), copies (``copies``: host to card, card to host and on
     the card) and memsets (``memsets``), and the host ms spent reading a
     device value (``reads``: the stop code after each step, which waits for
-    the card); and ``fn``'s own result."""
-    from torch.autograd import DeviceType
-    with padded_profile() as prof:
+    the card); and ``fn``'s own result.  ``pad_s``: padded_profile's."""
+    with padded_profile(pad_s) as prof:
         out = fn()
+    dev, host = session_events(prof)
     c = collections.Counter()
-    for e in prof.events():
-        ms = e.time_range.elapsed_us() / 1e3
-        if e.device_type == DeviceType.CUDA:
-            c["events"] += 1
-            c["busy"] += ms
-            kind = ("copies" if e.name.startswith("Memcpy") else
-                    "memsets" if e.name.startswith("Memset") else "kernels")
-            c[kind] += 1
-            if "Sort" in e.name or "sort" in e.name:
-                c["sort"] += ms
-        elif e.name == "aten::_local_scalar_dense":
-            c["reads"] += ms
-    count_session(c["events"])
+    for e in dev:
+        ms = e.duration_ns() / 1e6
+        c["events"] += 1
+        c["busy"] += ms
+        kind = ("copies" if e.name().startswith("Memcpy") else
+                "memsets" if e.name().startswith("Memset") else "kernels")
+        c[kind] += 1
+        if "Sort" in e.name() or "sort" in e.name():
+            c["sort"] += ms
+    c["reads"] = sum(e.duration_ns() for e in host
+                     if e.name() == "aten::_local_scalar_dense") / 1e6
+    count_session(dev, host)
     return c, out
 
 
@@ -1506,16 +1542,18 @@ def fwd_build_facts(report: str) -> dict:
     return counts
 
 
-BWD_SASS_OPS = ("HMMA", "ATOM", "ATOMG", "ATOMS", "RED")
+BWD_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "ATOM", "ATOMG", "ATOMS", "RED")
 
 
 def bwd_instantiation(fn: str) -> tuple:
-    """(entry, dtype, hd, capped) of a backward kernel's mangled name."""
+    """(entry, dtype, hd, capped) of a backward kernel's mangled name: the
+    bf16 dK/dV and dQ kernels are the wgmma body's, the D pass is one
+    template over both dtypes."""
     entry = next(e for e in ("delta", "dkdv", "dq")
                  if f"flash_attention_bwd_{e}" in fn)
     args = fn.split("kernelI", 1)[1]
-    dtype = ("bf16" if "_tc_kernel" in fn or args.startswith("13__nv_bfloat16")
-             else "f32")
+    dtype = ("bf16" if "_wgmma_kernel" in fn
+             or args.startswith("13__nv_bfloat16") else "f32")
     hd = int(re.search(r"Li(\d+)E", args).group(1))
     return entry, dtype, hd, "Lb1E" in args
 
@@ -1523,27 +1561,47 @@ def bwd_instantiation(fn: str) -> tuple:
 def bwd_build_facts(report: str) -> dict:
     """Phase 17 (a)'s build facts of B5's backward: for every instantiation
     its SASS counts of BWD_SASS_OPS (cuobjdump) and, where this run built
-    the library, its ptxas registers and spills.  Fails on a bf16 dK/dV or
-    dQ kernel with no HMMA (its products off the tensor cores), on an
-    atomic in any backward kernel, and on a spill at hd <= 64 in bf16.
+    the library, its ptxas registers (the launch's bound for the wgmma
+    body: setmaxnreg moves its consumers to 232 and its producer to 40 at
+    run time) and spills.  Fails unless every bf16 dK/dV and dQ
+    instantiation (the wgmma body, hd 16-128, capped and not) holds HGMMA
+    and UTMALDG and no HMMA, on a ptxas note that one serialised its wgmma,
+    on an atomic in any backward kernel, and on a bf16 spill at hd <= 64.
     Returns {name: counts}."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     usage = ptxas_usage(report)
+    serialised = set(re.findall(r"wgmma\.mma_async instructions are serialized"
+                                r".*?function '([^']+)'", report))
     counts = sass_ops(_build.target("flash_attention_bwd"), BWD_SASS_OPS)
+    seen = set()
     for fn, n in sorted(counts.items(), key=lambda kv: bwd_instantiation(kv[0])):
         entry, dtype, hd, capped = bwd_instantiation(fn)
         regs, st, ld = usage.get(fn, (None, None, None))
-        atomics = sum(n[op] for op in BWD_SASS_OPS[1:])
+        atomics = sum(n[op] for op in BWD_SASS_OPS[3:])
         log(f"  SASS B5 bwd {entry}<{dtype}, hd {hd}{', cap' if capped else ''}>:"
-            f" {n['HMMA']} HMMA, {atomics} ATOM/RED; "
+            f" {n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG, {n['HMMA']} HMMA, "
+            f"{atomics} ATOM/RED; "
             + (f"{regs} registers, {st} B spill stores, {ld} B spill loads"
+               + (", wgmma serialised" if fn in serialised else "")
                if regs is not None else "ptxas report not in this run"))
         if atomics:
             raise AssertionError(f"{fn}: atomics in B5's backward")
-        if dtype == "bf16" and entry != "delta" and not n["HMMA"]:
-            raise AssertionError(f"{fn}: no HMMA in a bf16 backward kernel")
-        if dtype == "bf16" and hd <= 64 and (st or ld):
+        if dtype != "bf16" or entry == "delta":
+            continue
+        seen.add((entry, hd, capped))
+        if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
+            raise AssertionError(f"{fn}: B5's bf16 backward without wgmma or "
+                                 "TMA, or with mma.sync")
+        if fn in serialised:
+            raise AssertionError(f"{fn}: ptxas serialised its wgmma")
+        if hd <= 64 and (st or ld):
             raise AssertionError(f"{fn}: spills {st} / {ld} B at hd {hd}")
+    missing = {(e, hd, c) for e in ("dkdv", "dq") for hd in fa.SUPPORTED_HEAD_DIMS
+               for c in (False, True)} - seen
+    if missing:
+        raise AssertionError(f"B5's bf16 backward has no wgmma instantiation "
+                             f"for (entry, hd, capped) {sorted(missing)}")
     return counts
 
 
@@ -5170,9 +5228,11 @@ def main() -> int:
     # copies between host and card, B1 (in compress_head's head model) and
     # the other kernels: the pack (F.pad, torch.cat), the delta epilogue
     # (_spatial_delta_apply / _invert) and, in compress_head, the model
+    # (the shortest sessions of the script, and the ones that have come
+    # back empty with TRACE_PAD_S pads: each pads TRACE_RETRY_PAD_S)
     with torch.no_grad():
         for what, fn in codec_traces:
-            busy, n_ev, by_name = traced_busy_ms(what, fn)
+            busy, n_ev, by_name = traced_busy_ms(what, fn, TRACE_RETRY_PAD_S)
             part = collections.Counter()
             other = collections.Counter()
             for name, t in by_name.items():
@@ -5195,8 +5255,9 @@ def main() -> int:
     # drain's host wall time, and what a TTI launches
     c, (strm, _, _, wall) = mac_trace(mac_fn)
     if c["kernels"] == 0:
-        log(f"trace {mac_what}: the profiler recorded no kernel; tracing again")
-        c, (strm, _, _, wall) = mac_trace(mac_fn)
+        log(f"trace {mac_what}: the profiler recorded no kernel; tracing "
+            f"again with {TRACE_RETRY_PAD_S} s pads")
+        c, (strm, _, _, wall) = mac_trace(mac_fn, TRACE_RETRY_PAD_S)
         if c["kernels"] == 0:
             raise AssertionError(f"trace {mac_what}: no kernel recorded twice")
     per = lambda k: c[k] / strm.n_ttis
@@ -5215,6 +5276,12 @@ def main() -> int:
         decode_trace(arch, dev, prefill=arch == RECURRENT_ARCHS[0])
     log(f"profiler sessions: {TRACE_COUNT['sessions']}, of which "
         f"{TRACE_COUNT['empty']} recorded no device event")
+    if TRACE_LAGS:
+        t_max, lag_max = max(TRACE_LAGS, key=lambda tl: tl[1])
+        log("first device event after the first launch call, by session (s "
+            "since start: ms): " + ", ".join(f"{t:.0f}: {lag:.3f}"
+                                             for t, lag in TRACE_LAGS)
+            + f"; the largest {lag_max:.3f} ms at {t_max:.0f} s")
 
     kernels = []
     for name, r in rows.items():

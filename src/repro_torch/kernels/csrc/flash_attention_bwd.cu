@@ -18,50 +18,74 @@
 //   dV = P^T dO,  dK = dS^T Q hd^-1/2,  dQ = dS K hd^-1/2.
 // Three entry points, each with an f32 and a bf16 body chosen by dtype:
 //   (a) flash_attention_bwd_delta_kernel: D, (B, H, S) f32, one warp a row.
-//   (b) dK/dV: one CTA per (kv tile of 64 rows, kv head, batch row).  It
-//       holds its K and V tiles and walks the G query heads of its group
-//       and, for each, the q tiles that hold a live pair under the causal
-//       mask and the window (from the diagonal tile to the last row within
-//       w of its last key), recomputing S and P and accumulating dV and dK
-//       for its 64 keys in registers.  The sum over the group happens
-//       inside the CTA, so dK and dV are written once, with no atomics.
-//   (c) dQ: one CTA per (q tile of 64 rows, head, batch row), walking the
-//       kv tiles of the forward's bounds (from the window's first live tile
-//       to the diagonal), the heaviest q tiles first, recomputing S, P and
-//       dP and accumulating dQ in registers.
+//   (b) dK/dV: one CTA per (kv tile, kv head, batch row).  It holds its K
+//       and V tiles and walks the G query heads of its group and, for
+//       each, the q tiles that hold a live pair under the causal mask and
+//       the window (from the diagonal tile to the last row within w of its
+//       last key), recomputing S and P and accumulating dV and dK for its
+//       keys in registers.  The sum over the group happens inside the CTA,
+//       so dK and dV are written once, with no atomics.
+//   (c) dQ: one CTA per (q tile, head, batch row), walking the kv tiles of
+//       the forward's bounds (from the window's first live tile to the
+//       diagonal), the heaviest q tiles first, recomputing S, P and dP and
+//       accumulating dQ in registers.
 // Both (b) and (c) recompute S = Q K^T and dP = dO V^T, so a live (q, k)
 // pair costs 7 products of hd multiply-adds where the least is 5 (the
 // recomputed S, dP, dV, dK, dQ).  No atomics and a fixed order of every sum
 // make two launches on the same inputs bitwise equal.  The kernels allocate
 // nothing: the wrapper gives D and the outputs.
 //
-// bf16 (training): (b) and (c) on the tensor cores, FA2's backward without
-// its atomic dQ.  Warps of 16 rows (kv rows in (b), q rows in (c)), four to
-// a CTA; every product is mma.sync m16n8k16 on bf16 with f32 sums, reading
-// its shared-memory operands with ldmatrix as B5's forward does.
-//   (b) K and V load once; the Q and dO tiles of the group's heads, with
-//       their LSE and D slices (per q row: per column of the transposed
-//       scores), stream through a two-stage cp.async ring.  For each q tile
-//       a warp computes dP^T = V dO^T and S^T = K Q^T (A: K or V from shared
-//       memory; B: the row-major Q or dO tile through ldmatrix, as the
-//       forward reads K), then P^T and dS^T element by element, then dV +=
-//       P^T dO and dK += dS^T Q (A: P^T or dS^T built from the accumulator
-//       registers, as the forward builds P; B: dO or Q through
-//       ldmatrix.trans).  Four products.  The q tile is 64 rows, 32 at hd
-//       128, where dK and dV hold 128 f32 accumulators a lane.
-//   (c) Q, dO, LSE and D stay; K and V tiles of 32 rows stream through
-//       the ring.  dP = dO V^T, S = Q K^T, P and dS, then
-//       dQ += dS K (A: dS from registers; B: K through ldmatrix.trans).
-//       Three products.
-// P and dS are never written to shared memory.  A warp skips a tile wholly
-// dead for its 16 rows (bitwise the same as computing it: its P is 0),
-// and masks only a tile that reaches past S, the diagonal or the window;
-// a masked pair takes P = 0 by a select, never through exp(-1e30 - lse),
-// so the zero-filled rows past S give no NaN.  Rows past S are not stored.
+// bf16 (training): (b) and (c) built for Hopper as B5's forward is, on
+// wgmma fed by TMA (the primitives are inline PTX in hopper.cuh).  A CTA
+// holds 128 rows (kv rows in (b), q rows in (c)) and runs 384 threads in
+// three warpgroups, one CTA an SM; the tile index is the grid's slowest
+// dimension, so every head's heaviest CTAs start first.
+//   - Warpgroup 0 is the producer: setmaxnreg drops it to 40 registers.
+//     Thread 0 issues TMA: the CTA's two resident tiles once (K and V in
+//     (b), Q and dO in (c)), then the streamed tiles of every step into a
+//     ring (in (b) the Q and dO tiles of 64 q rows, 32 at hd 128, of each
+//     (head, q tile) step, three stages; in (c) the K and V tiles of 128
+//     kv rows, 64 at hd 128, four stages), each stage with a full and an
+//     empty mbarrier.  The tensor maps (host-encoded by
+//     cuTensorMapEncodeTiled, passed as __grid_constant__ parameters) see
+//     each (B, S, heads, hd) operand as 4-D (hd, heads, S, B); a box is 64
+//     columns of hd (two a row at hd 128; 32 or 16 at hd 32 or 16),
+//     swizzled by its row's bytes, tiles at 1,024-byte boundaries; rows
+//     past S arrive as zeros.  In (b), warp 1 also copies each step's LSE
+//     log2(e) and D (per q row: per column of the transposed scores) into
+//     the stage with plain loads and arrives on its full barrier: a (B, H,
+//     S) f32 row at a ragged S is no TMA box, and the consumers loading
+//     them from device memory themselves took half of (b)'s time.  (c)'s
+//     consumers load their two rows' LSE and D once.
+//   - Warpgroups 1 and 2 are consumers of 64 rows each, raised to 232
+//     registers (128 x 40 + 256 x 232 = 64,512 of the SM's 65,536).
+//     (b): S^T = K Q^T and dP^T = V dO^T are wgmma with both operands from
+//     shared-memory descriptors (K-major: K or V rows of the warpgroup, the
+//     Q or dO tile), then P^T and dS^T element by element in the
+//     accumulator layout, then dV += P^T dO and dK += dS^T Q with P^T and
+//     dS^T as register A fragments built straight from the accumulators
+//     (the RS form, as the forward builds P) and the dO or Q tile the
+//     MN-major B (transpose bit set).  Four products.
+//     (c): S = Q K^T and dP = dO V^T (both from shared memory), dS, then
+//     dQ += dS K (dS from registers, K MN-major).  Three products.
+//   - Overlap: step t's two score products are issued with step t - 1's
+//     accumulating products, and step t's elementwise work runs while the
+//     latter do; the two consumers take turns to issue (named barriers, a
+//     ping-pong), so one's elementwise work also runs under the other's
+//     products.  Both walk every step of the CTA with no branch around a
+//     product or its wait (ptxas serialises wgmma on a path it sees as
+//     divergent; the warpgroup index is read through a shuffle for the
+//     same reason): a step wholly dead for a warpgroup's rows computes its
+//     products and adds exact zeros, by a select.
+// P and dS are never written to shared memory.  Only a step that reaches
+// past S, the diagonal or the window of a warpgroup's rows is masked; a
+// masked pair takes P = 0 by a select, never through exp(-1e30 - lse), so
+// the zero-filled rows past S give no NaN.  Rows past S are not stored.
 // Precision: the products take q, k, v and dO exactly (bf16 values are
 // exact in the products, sums in f32).  P and dS are f32 in registers, and
 // each is rounded to bf16 once where it becomes an A operand (FA2's
-// choice; dS is taken from the f32 P).  The CPU model of this arithmetic
+// choice; dS is taken from the f32 P; (b) and (c) compute it by the same
+// arithmetic, prob_ds).  The CPU model of this arithmetic
 // (tests/test_torch_attention_grad.py) lands within 0.0052 of each (batch
 // row, head) slice's max of jax.grad of plain_attention in f32 over its ten
 // cases (GQA, G = 1, hd 16-128, w = 1, w < S, w >= S, both caps), against
@@ -71,31 +95,31 @@
 // with a margin of about 2x, so no operand is split.
 //
 // f32 (the card-vs-CPU path): the CUDA-core kernels of the first port,
-// every product in f32 (TF32 would miss the f32 tolerance).  256 threads
-// in a 16 x 16 grid, as B5's f32 body; thread (ty, tx) holds the scores of
-// rows ty + 16 a and columns tx + 16 b (a, b < 4) of a 64 x 64 tile, and
-// the output columns 4 tx + 64 g (hd >= 64; tx + 16 c below) of its 4
-// rows.  The tiles sit in shared memory as f32 in rows padded by 4 floats;
-// P (then dS) passes through one 64 x 68 buffer.
+// every product in f32 (TF32 would miss the f32 tolerance), one CTA per
+// 64-row tile.  256 threads in a 16 x 16 grid, as B5's f32 body; thread
+// (ty, tx) holds the scores of rows ty + 16 a and columns tx + 16 b (a, b
+// < 4) of a 64 x 64 tile, and the output columns 4 tx + 64 g (hd >= 64; tx
+// + 16 c below) of its 4 rows.  The tiles sit in shared memory as f32 in
+// rows padded by 4 floats; P (then dS) passes through one 64 x 68 buffer.
 //
 // Bound on the H100.  At smollm-360m's training shape (8, 2048, 15 heads
 // over 5, hd 64) the live pairs need 10 flops a pair per hd (the least five
 // products): 161 GFLOP, 0.16 ms at 989 TFLOP/s on the tensor cores; the
 // bytes (q, k, v, o, dO, LSE in; dQ, dK, dV out) take 0.03 ms at 3.35
 // TB/s, so operations bound it.  The bf16 bodies issue 7 products, 1.4x
-// the bound's, in mma.sync, which reaches about 640 TFLOP/s.  They take
-// about 1.40 ms there on an H100 80GB HBM3 at 700 W (dK/dV 0.82, dQ 0.53,
-// D 0.05; the CUDA-core bodies took 8.2 on the same bf16 inputs, SDPA's
-// backward 0.60; PERF.md): about 160 and 185 TFLOP/s.  Each warp reads its whole B tile through
-// ldmatrix for 16 rows of output (about 13 flop a byte of shared memory),
-// and dK/dV holds 214 registers at hd 64, so two CTAs an SM.  wgmma fed by
-// TMA (B tiles read once for 64 rows), then one pass of five products with
-// a deterministic dQ, are the next steps.
+// the bound's.  They take about 0.545 ms there on an H100 80GB HBM3 at
+// 700 W (dK/dV 0.28, dQ 0.20, D 0.05 device alone; the mma.sync bodies they
+// replaced took 1.39-1.40 in the same run, SDPA's backward 0.62-0.65;
+// PERF.md): about 460 and 480 TFLOP/s of executed products.  Without its
+// elementwise work dK/dV takes 0.22-0.23 (tools/b5b_tiles.py).  One pass
+// of five products with a deterministic dQ is the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -456,177 +480,51 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
+// ---- bf16 on wgmma, fed by TMA ---------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcRows = 16 * kTcWarps;      // kv rows of a dK/dV CTA, q rows of a dQ CTA
-constexpr int kStages = 2;                  // the streamed tiles' ring
-// The tiling (tools/b5b_tiles.py times the alternatives at smollm-360m's
-// shape): q rows a dK/dV step, kv rows a dQ step, and the CTAs an SM each
-// kernel's register budget is set for at hd <= 64.  Three CTAs an SM would
-// make dK/dV spill at hd 64.  At hd 128, where dK and dV hold 128 f32
-// accumulators a lane and dQ 64, a dK/dV step takes 32 q rows, and each
-// kernel two CTAs an SM.
+constexpr int kWgRows = 128;                // kv rows of a dK/dV CTA, q rows of a dQ CTA
+constexpr int kWgThreads = 384;             // producer + two consumer warpgroups
+// The tunables (tools/b5b_tiles.py times the alternatives at smollm-360m's
+// shape): q rows a dK/dV step and kv rows a dQ step at hd <= 64 (32 and
+// 64 at hd 128, where dK and dV hold 128 f32 sums a thread and dQ 64), the
+// stages of each ring, and the registers setmaxnreg gives the producer and
+// the consumers (128 x 40 + 256 x 232 = 64,512 of the SM's 65,536).  A
+// step's rows are a wgmma N (S^T's in dK/dV, S's in dQ): 32, 64 or 128.
 constexpr int kDkdvBlockQ = 64;
-constexpr int kDqBlockKV = 32;
-constexpr int kDkdvCtas = 2;
-constexpr int kDqCtas = 4;
+constexpr int kDqBlockKV = 128;
+constexpr int kDkdvStages = 3;
+constexpr int kDqStages = 4;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
-struct TcTile {
-  static constexpr int kLd = HD + 8;        // padded row, elements (16 bytes more)
+struct WgTile {
+  static constexpr int kCols = HD < 64 ? HD : 64;  // hd columns a TMA box
+  static constexpr int kSwizzle = 2 * kCols;       // bytes a box row: 128, 64 or 32
+  static constexpr int kBoxes = HD / kCols;        // boxes a row: 2 at hd 128
   static constexpr int kBlockQ = HD <= 64 ? kDkdvBlockQ : 32;  // q rows a dK/dV step
-  static constexpr int kCtasDkdv = HD <= 64 ? kDkdvCtas : 2;
-  static constexpr int kCtasDq = HD <= 64 ? kDqCtas : 2;
-  static constexpr int kRes = kTcRows * kLd;          // a resident tile
-  static constexpr int kQ = kBlockQ * kLd;            // a streamed Q or dO tile
-  static constexpr int kKV = kDqBlockKV * kLd;        // a streamed K or V tile
-  // dK/dV: K, V; per stage Q, dO and kBlockQ LSE and D values
-  static constexpr int kDkdvBytes =
-      static_cast<int>(sizeof(bf16)) * (2 * kRes + kStages * 2 * kQ) +
-      static_cast<int>(sizeof(float)) * kStages * 2 * kBlockQ;
-  // dQ: Q, dO; per stage K, V
-  static constexpr int kDqBytes = static_cast<int>(sizeof(bf16)) * (2 * kRes + kStages * 2 * kKV);
+  static constexpr int kBlockKV = HD <= 64 ? kDqBlockKV : 64;  // kv rows a dQ step
+  static constexpr int kResBox = kWgRows * kSwizzle;  // a resident tile (K, V or Q, dO)
+  static constexpr int kRes = kBoxes * kResBox;
+  static constexpr int kQBox = kBlockQ * kSwizzle;    // a streamed Q or dO tile (dK/dV)
+  static constexpr int kQ = kBoxes * kQBox;
+  static constexpr int kKVBox = kBlockKV * kSwizzle;  // a streamed K or V tile (dQ)
+  static constexpr int kKV = kBoxes * kKVBox;
+  // the two resident tiles, both rings (dK/dV's stages also hold the LSE
+  // log2(e) and D of their q rows), and the barriers: the resident tiles',
+  // then the full and the empty barrier of each stage
+  static constexpr int kDkdvBytes = 1024 + 2 * kRes + 2 * kDkdvStages * kQ +
+                                    2 * kDkdvStages * kBlockQ * 4 + 8 * (1 + 2 * kDkdvStages);
+  static constexpr int kDqBytes =
+      1024 + 2 * kRes + 2 * kDqStages * kKV + 8 * (1 + 2 * kDqStages);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, or 16 zero bytes when !valid (src-size 0:
-// nothing is read; src then points at a valid row all the same).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(n) : "memory");
-}
-
-// 4 bytes, or 4 zero bytes when !valid (the LSE and D rows of a head are
-// 4-byte aligned only)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // (x, y) rounded to a bf16 pair; x takes the low half, the lower column of
 // an A fragment register
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Start copying `rows` rows [r0, r0 + rows) of one head (row stride `stride`
-// elements) into dst (padded rows), zeros past n_rows.
-template <int HD>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int rows, int r0,
-                                                int n_rows, size_t stride) {
-  constexpr int kChunks = HD / 8;           // 16-byte pieces a row
-  constexpr int kLd = TcTile<HD>::kLd;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kTcThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool ok = r0 + r < n_rows;
-    const bf16* g = src + (ok ? static_cast<size_t>(r0 + r) * stride + c : 0);
-    cp_async16(smem_addr(dst + r * kLd + c), g, ok);
-  }
-}
-
-// Start copying n values [r0, r0 + n) of a row vector into dst, zeros past S.
-__device__ __forceinline__ void load_vec_async(float* dst, const float* src, int n, int r0,
-                                               int S) {
-  for (int idx = threadIdx.x; idx < n; idx += kTcThreads) {
-    const bool ok = r0 + idx < S;
-    cp_async4(smem_addr(dst + idx), src + (ok ? r0 + idx : 0), ok);
-  }
-}
-
-// acc[nb] += A (this warp's 16 rows of a resident tile, hd wide) times B^T
-// (the rows 8 nb .. 8 nb + 7 of a row-major tile, hd wide): the scores of
-// 16 rows against 8 kNB rows of the other operand
-template <int HD, int kNB>
-__device__ __forceinline__ void scores(float (&acc)[kNB][4], const bf16* A, const bf16* Bt,
-                                       int lane) {
-  constexpr int kLd = TcTile<HD>::kLd;
-#pragma unroll
-  for (int nb = 0; nb < kNB; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    uint32_t af[4];
-    ldmatrix_x4(af, smem_addr(A + (lane % 16) * kLd + 16 * ks + (lane / 16) * 8));
-#pragma unroll
-    for (int nb2 = 0; nb2 < kNB / 2; ++nb2) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, smem_addr(Bt + (16 * nb2 + lane % 8 + (lane / 16) * 8) * kLd + 16 * ks
-                                + ((lane / 8) % 2) * 8));
-      mma_bf16(acc[2 * nb2], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * nb2 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// out[db] += A X: A the bf16 fragments of 16 rows x 16 kK columns (built
-// from score accumulators), X the row-major tile of those 16 kK rows, hd
-// wide, read with ldmatrix.trans
-template <int HD, int kK>
-__device__ __forceinline__ void accumulate(float (&out)[HD / 8][4], const uint32_t (&a)[kK][4],
-                                           const bf16* X, int lane) {
-  constexpr int kLd = TcTile<HD>::kLd;
-#pragma unroll
-  for (int kk = 0; kk < kK; ++kk) {
-#pragma unroll
-    for (int db2 = 0; db2 < HD / 16; ++db2) {
-      uint32_t xf[4];
-      ldmatrix_x4_trans(xf, smem_addr(X + (16 * kk + lane % 16) * kLd + 16 * db2
-                                      + (lane / 16) * 8));
-      mma_bf16(out[2 * db2], a[kk], xf[0], xf[1]);
-      mma_bf16(out[2 * db2 + 1], a[kk], xf[2], xf[3]);
-    }
-  }
-}
-
-// The A fragment of k-step kk (columns 16 kk .. 16 kk + 15) from the f32
-// accumulators of score blocks 2 kk and 2 kk + 1, rounded to bf16 once
-template <int kNB>
-__device__ __forceinline__ void to_fragments(uint32_t (&a)[kNB / 2][4], const float (&x)[kNB][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kNB / 2; ++kk) {
-    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
 }
 
 // 2^x in one MUFU.EX2: results below 2^-126 flush to 0, which a P that
@@ -655,257 +553,519 @@ __device__ __forceinline__ float prob_ds(float dot, float lse2, float dp, float 
   return p;
 }
 
+// The A fragments of a product's k-steps (16 columns each) from the f32
+// accumulators x (8 kK a thread) of a wgmma of N = 16 kK columns, rounded
+// to bf16 once: columns 16 kk .. 16 kk + 15 are x's n8 blocks 2 kk and
+// 2 kk + 1
+template <int kK>
+__device__ __forceinline__ void to_fragments(uint32_t (&a)[kK][4], const float (&x)[8 * kK]) {
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+template <int kK>
+__device__ __forceinline__ void fence_fragments(uint32_t (&a)[kK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) hopper::fence_regs(a[kk]);
+}
+
+// Both kernels share one shape: warpgroup 0 the producer (one thread
+// issues TMA), warpgroups 1 and 2 consumers of 64 rows each (cw 0 and 1);
+// a CTA's two resident tiles load once, the streamed tiles through a ring
+// of kStages stages with a full and an empty barrier each.  A consumer
+// walks every step of the CTA, with one straight path through every wgmma
+// and its wait (ptxas serialises wgmma on a path it takes for divergent):
+// step t's two score products are issued with step t - 1's accumulating
+// products, and step t's elementwise work runs while the latter do.
+
 template <int HD, bool kCap>
-__global__ void __launch_bounds__(kTcThreads, TcTile<HD>::kCtasDkdv)
-flash_attention_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                   const float* __restrict__ lse,
-                                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                                   bf16* __restrict__ dv, int S, int H, int KV, int causal,
-                                   int window, float softcap, float sm_scale) {
-  using Tile = TcTile<HD>;
-  constexpr int kLd = Tile::kLd;
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                      const __grid_constant__ CUtensorMap tk,
+                                      const __grid_constant__ CUtensorMap tv,
+                                      const __grid_constant__ CUtensorMap tdo,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                                      bf16* __restrict__ dv, int S, int H, int KV, int causal,
+                                      int window, float softcap, float sm_scale) {
+  using Tile = WgTile<HD>;
+  using namespace hopper;
+  constexpr int kStages = kDkdvStages;
   constexpr int kBQ = Tile::kBlockQ;
+  constexpr int kSw = Tile::kSwizzle;
   constexpr int kNB = kBQ / 8;              // n8 blocks of S^T (q columns)
-  constexpr int kDB = HD / 8;               // n8 blocks of dK and dV
+  constexpr int kK = kBQ / 16;              // k-steps of dV += P^T dO and dK += dS^T Q
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [kTcRows][kLd]
-  bf16* Vs = Ks + Tile::kRes;
-  bf16* Qs = Vs + Tile::kRes;               // [kStages][kBQ][kLd]
-  bf16* dOs = Qs + kStages * Tile::kQ;
-  float* Ls = reinterpret_cast<float*>(dOs + kStages * Tile::kQ);  // [kStages][kBQ]
-  float* Ds = Ls + kStages * kBQ;
+  // tiles at 1,024-byte boundaries, as the swizzle needs
+  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;   // [kBoxes][128 rows]
+  const uint32_t sV = sK + Tile::kRes;
+  const uint32_t sQ = sV + Tile::kRes;                         // [kStages][kBoxes][kBQ rows]
+  const uint32_t sdO = sQ + kStages * Tile::kQ;
+  const uint32_t sL = sdO + kStages * Tile::kQ;                // [kStages][kBQ] f32
+  const uint32_t sD = sL + kStages * kBQ * 4;
+  const uint32_t bars = sD + kStages * kBQ * 4;
+  const uint32_t kv_full = bars;
+  // the LSE and D stages, addressed from C++
+  float* const Ls = reinterpret_cast<float*>(smem_raw + (sL - smem_u32(smem_raw)));
+  float* const Ds = reinterpret_cast<float*>(smem_raw + (sD - smem_u32(smem_raw)));
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;                 // fragment row (and row + 8)
-  const int tig = lane % 4;                 // fragment column pair
-  const int j0 = blockIdx.x * kTcRows;      // the lowest kv tiles, the heaviest, first
+  // the lowest kv tiles, the heaviest, first: the tile is the grid's
+  // slowest dimension, so every head's heaviest CTAs start before any
+  // lighter one
+  const int j0 = blockIdx.z * kWgRows;
   const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.x;
   const int G = H / KV;
-  const size_t kv_stride = static_cast<size_t>(KV) * HD;
-  const size_t q_stride = static_cast<size_t>(H) * HD;
   const int w = causal ? window : 0;
-  const int jw = j0 + 16 * warp;            // this warp's first key
-
   // the q rows with a live pair: from the diagonal tile to the last row
-  // within the window of this tile's last key; for each head of the group
+  // within the window of this tile's last key; for each head of the group,
+  // steps (head, q tile) in that order
   const int i_begin = causal ? j0 : 0;
-  const int i_end = w > 0 ? min(S, j0 + kTcRows - 1 + w) : S;
+  const int i_end = w > 0 ? min(S, j0 + kWgRows - 1 + w) : S;
   const int n_i = (i_end - i_begin + kBQ - 1) / kBQ;
-  const int n_run = G * n_i;                // steps (head g, q tile) in that order
+  const int n_run = G * n_i;
 
-  auto load_step = [&](int t) {
-    const int st = t % kStages;
-    const int h = kvh * G + t / n_i;
-    const int i0 = i_begin + (t % n_i) * kBQ;
-    const size_t at = (static_cast<size_t>(b) * S * H + h) * HD;
-    load_tile_async<HD>(Qs + st * Tile::kQ, q + at, kBQ, i0, S, q_stride);
-    load_tile_async<HD>(dOs + st * Tile::kQ, dout + at, kBQ, i0, S, q_stride);
-    const size_t row = (static_cast<size_t>(b) * H + h) * S;
-    load_vec_async(Ls + st * kBQ, lse + row, kBQ, i0, S);
-    load_vec_async(Ds + st * kBQ, delta + row, kBQ, i0, S);
-  };
-
-  // one copy group per step, kStages - 1 ahead (K and V ride with the
-  // first); groups past the last step are empty, so the count stays fixed
-  load_tile_async<HD>(Ks, k + (static_cast<size_t>(b) * S * KV + kvh) * HD, kTcRows, j0, S,
-                      kv_stride);
-  load_tile_async<HD>(Vs, v + (static_cast<size_t>(b) * S * KV + kvh) * HD, kTcRows, j0, S,
-                      kv_stride);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_run) load_step(t);
-    cp_async_commit();
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1 + 32);          // the TMA thread and warp 1's lanes
+      mbar_init(empty(st), 8);              // a lane of each consumer warp
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float dka[kDB][4], dva[kDB][4];
+  // the warpgroup, read through a shuffle so that the compiler knows it is
+  // the same across a warp
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: K and V once, then the (Q, dO) tiles of every step by TMA
+    // (thread 0) and their LSE log2(e) and D by plain loads (warp 1: a
+    // (B, H, S) f32 row at a ragged S is no TMA box)
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x % 32;
+      for (int t = 0; t < n_run; ++t) {
+        const int st = t % kStages;
+        const size_t row = (static_cast<size_t>(b) * H + kvh * G + t / n_i) * S;
+        const int i0 = i_begin + (t % n_i) * kBQ;
+        mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
 #pragma unroll
-  for (int i = 0; i < kDB; ++i)
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = dva[i][0] = dva[i][1] = dva[i][2] =
-        dva[i][3] = 0.f;
+        for (int c = lane; c < kBQ; c += 32) {
+          const bool ok = i0 + c < S;
+          Ls[st * kBQ + c] = ok ? __ldg(lse + row + i0 + c) * kLog2e : 0.f;
+          Ds[st * kBQ + c] = ok ? __ldg(delta + row + i0 + c) : 0.f;
+        }
+        mbar_arrive(full(st));              // releases the stores above
+      }
+    } else if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * Tile::kRes);
+#pragma unroll
+      for (int x = 0; x < Tile::kBoxes; ++x) {
+        tma_load_4d(sK + x * Tile::kResBox, &tk, kv_full, x * Tile::kCols, kvh, j0, b);
+        tma_load_4d(sV + x * Tile::kResBox, &tv, kv_full, x * Tile::kCols, kvh, j0, b);
+      }
+      for (int t = 0; t < n_run; ++t) {
+        const int st = t % kStages;
+        const int h = kvh * G + t / n_i;
+        const int i0 = i_begin + (t % n_i) * kBQ;
+        mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(st), 2 * Tile::kQ);
+#pragma unroll
+        for (int x = 0; x < Tile::kBoxes; ++x) {
+          tma_load_4d(sQ + st * Tile::kQ + x * Tile::kQBox, &tq, full(st), x * Tile::kCols, h,
+                      i0, b);
+          tma_load_4d(sdO + st * Tile::kQ + x * Tile::kQBox, &tdo, full(st), x * Tile::kCols, h,
+                      i0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns keys j0 + 64 cw .. j0 + 64 cw + 63
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int gid = lane / 4;
+    const int tig = lane % 4;
+    const int jw = j0 + 64 * cw;              // the warpgroup's first key
+    const int row_a = jw + 16 * warp + gid;   // this thread's keys: row_a, row_a + 8
+    // ping-pong: a warpgroup issues its products after the other's, so one
+    // runs its elementwise work while the other's products run
+    const int my_turn = 1 + cw;
+    const int their_turn = 2 - cw;
+    if (cw == 1) bar_arrive(1, 256);          // the first turn is warpgroup 0's
 
-  for (int t = 0; t < n_run; ++t) {
-    const int st = t % kStages;
-    // the stage of step t + kStages - 1 was freed at the end of step t - 1
-    if (t + kStages - 1 < n_run) load_step(t + kStages - 1);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();           // step t has landed
-    __syncthreads();
-    const int i0 = i_begin + (t % n_i) * kBQ;
-    // a warp skips a q tile with no live pair for its 16 keys: keys past S,
-    // queries all before them, or all past their window
-    if (!(jw >= S || (causal && i0 + kBQ - 1 < jw) || (w > 0 && i0 >= jw + 15 + w))) {
-      const bf16* Qt = Qs + st * Tile::kQ;
-      const bf16* dOt = dOs + st * Tile::kQ;
-      const float* Lt = Ls + st * kBQ;
-      const float* Dt = Ds + st * kBQ;
-      // dP^T = V dO^T and S^T = K Q^T: rows are keys, columns queries
-      float dp[kNB][4], s[kNB][4];
-      scores<HD, kNB>(dp, Vs + 16 * warp * kLd, dOt, lane);
-      scores<HD, kNB>(s, Ks + 16 * warp * kLd, Qt, lane);
-      // P^T and dS^T; mask only a tile that reaches past S, the diagonal or
-      // the window of a key
-      const bool edge = i0 + kBQ > S || jw + 16 > S || (causal && i0 < jw + 15) ||
-                        (w > 0 && i0 + kBQ - 1 >= jw + w);
+    float s[kBQ / 2], dp[kBQ / 2];            // S^T, then P^T; dP^T, then dS^T
+    float dka[HD / 2], dva[HD / 2];
+    uint32_t pa[kK][4], dsa[kK][4];           // P^T and dS^T as A fragments
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    // query i is live for key j iff lo_abs <= i < hi_abs
+    int lo_abs[2], hi_abs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = row_a + 8 * r;
+      lo_abs[r] = causal ? j : 0;
+      hi_abs[r] = j >= S ? -1 : w > 0 ? min(S, j + w) : S;
+    }
+
+    // descriptors: K and V rows 64 cw .. (A, K-major), the Q and dO tiles
+    // (B, K-major for the scores, MN-major for the sums over q rows)
+    const uint32_t k_base = sK + 64 * cw * kSw;
+    const uint32_t v_base = sV + 64 * cw * kSw;
+    auto step_i0 = [&](int t) { return i_begin + (t % n_i) * kBQ; };
+    auto issue_scores = [&](int st) {
+      const uint32_t q_t = sQ + st * Tile::kQ;
+      const uint32_t do_t = sdO + st * Tile::kQ;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int box = 16 * ks / Tile::kCols;
+        const int col = (16 * ks % Tile::kCols) * 2;
+        Wgmma<kBQ>::ss(s, smem_desc<kSw>(k_base + box * Tile::kResBox + col, 16, 8 * kSw),
+                       smem_desc<kSw>(q_t + box * Tile::kQBox + col, 16, 8 * kSw), ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int box = 16 * ks / Tile::kCols;
+        const int col = (16 * ks % Tile::kCols) * 2;
+        Wgmma<kBQ>::ss(dp, smem_desc<kSw>(v_base + box * Tile::kResBox + col, 16, 8 * kSw),
+                       smem_desc<kSw>(do_t + box * Tile::kQBox + col, 16, 8 * kSw), ks);
+      }
+      wgmma_commit();
+    };
+    auto issue_sums = [&](int st) {
+      const uint32_t q_t = sQ + st * Tile::kQ;
+      const uint32_t do_t = sdO + st * Tile::kQ;
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) {
+        Wgmma<HD>::rs(dva, pa[kk], smem_desc<kSw>(do_t + 16 * kk * kSw, Tile::kQBox, 8 * kSw));
+        Wgmma<HD>::rs(dka, dsa[kk], smem_desc<kSw>(q_t + 16 * kk * kSw, Tile::kQBox, 8 * kSw));
+      }
+      wgmma_commit();
+    };
+    // P^T and dS^T in place of S^T and dP^T, with the LSE and D of the
+    // thread's q columns from the stage; mask only a step that reaches past
+    // S, the diagonal or the window of one of the warpgroup's keys
+    auto grads = [&](int t) {
+      const int i0 = step_i0(t);
+      const float* lt = Ls + (t % kStages) * kBQ + 2 * tig;
+      const float* dt = Ds + (t % kStages) * kBQ + 2 * tig;
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb) {
-        const int c = 8 * nb + 2 * tig;
-        const float2 l2 = *reinterpret_cast<const float2*>(Lt + c);
-        const float2 d2 = *reinterpret_cast<const float2*>(Dt + c);
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * nb);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * nb);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float ds;
-          float p = prob_ds<kCap>(s[nb][e], (e & 1 ? l2.y : l2.x) * kLog2e, dp[nb][e],
-                                  e & 1 ? d2.y : d2.x, sm_scale, softcap, ds);
-          if (edge && !live_pair(i0 + c + (e & 1), jw + gid + 8 * (e >> 1), S, causal, w))
-            p = ds = 0.f;
-          s[nb][e] = p;
-          dp[nb][e] = ds;
+          s[4 * nb + e] = prob_ds<kCap>(s[4 * nb + e], e & 1 ? l2.y : l2.x, dp[4 * nb + e],
+                                        e & 1 ? d2.y : d2.x, sm_scale, softcap, ds);
+          dp[4 * nb + e] = ds;
         }
       }
-      uint32_t pa[kNB / 2][4], dsa[kNB / 2][4];
-      to_fragments<kNB>(pa, s);
-      to_fragments<kNB>(dsa, dp);
-      accumulate<HD, kNB / 2>(dva, pa, dOt, lane);   // dV += P^T dO
-      accumulate<HD, kNB / 2>(dka, dsa, Qt, lane);   // dK += dS^T Q
+      if (i0 + kBQ > S || jw + 64 > S || (causal && i0 < jw + 63) ||
+          (w > 0 && i0 + kBQ - 1 >= jw + w)) {
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lo[r] = lo_abs[r] - i0 - 2 * tig;
+          hi[r] = hi_abs[r] - i0 - 2 * tig;
+        }
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * nb + (e & 1);
+            if (c < lo[e >> 1] || c >= hi[e >> 1]) s[4 * nb + e] = dp[4 * nb + e] = 0.f;
+          }
+      }
+    };
+    auto fence_sums = [&]() {
+      fence_regs(dka);
+      fence_regs(dva);
+    };
+
+    mbar_wait(kv_full, 0);
+    mbar_wait(full(0), 0);
+    bar_sync(my_turn, 256);
+    wgmma_fence();
+    issue_scores(0);
+    if (!(cw == 1 && n_run == 1)) bar_arrive(their_turn, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    grads(0);
+    to_fragments<kK>(pa, s);
+    to_fragments<kK>(dsa, dp);
+    for (int t = 1; t < n_run; ++t) {
+      const int st = t % kStages;
+      const int pst = (t - 1) % kStages;
+      mbar_wait(full(st), (t / kStages) & 1);
+      bar_sync(my_turn, 256);
+      fence_sums();
+      wgmma_fence();
+      issue_scores(st);
+      issue_sums(pst);
+      if (!(cw == 1 && t == n_run - 1)) bar_arrive(their_turn, 256);
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(dp);
+      grads(t);
+      wgmma_wait<0>();
+      fence_sums();
+      fence_fragments<kK>(pa);
+      fence_fragments<kK>(dsa);
+      if (lane == 0) mbar_arrive(empty(pst));   // step t - 1's Q and dO are read
+      to_fragments<kK>(pa, s);
+      to_fragments<kK>(dsa, dp);
     }
-    __syncthreads();                        // stage st is free for step t + kStages
-  }
+    fence_sums();
+    wgmma_fence();
+    issue_sums((n_run - 1) % kStages);
+    wgmma_wait<0>();
+    fence_sums();
+    fence_fragments<kK>(pa);
+    fence_fragments<kK>(dsa);
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = jw + gid + 8 * r;
-    if (j >= S) continue;
-    const size_t at = (static_cast<size_t>(b) * S + j) * kv_stride +
-                      static_cast<size_t>(kvh) * HD + 2 * tig;
+    for (int r = 0; r < 2; ++r) {
+      const int j = row_a + 8 * r;
+      if (j >= S) continue;
+      const size_t at = (static_cast<size_t>(b) * S + j) * KV * HD +
+                        static_cast<size_t>(kvh) * HD + 2 * tig;
 #pragma unroll
-    for (int db = 0; db < kDB; ++db) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * db) =
-          __floats2bfloat162_rn(dka[db][2 * r] * sm_scale, dka[db][2 * r + 1] * sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * db) =
-          __floats2bfloat162_rn(dva[db][2 * r], dva[db][2 * r + 1]);
+      for (int db = 0; db < HD / 8; ++db) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * db) = __floats2bfloat162_rn(
+            dka[4 * db + 2 * r] * sm_scale, dka[4 * db + 2 * r + 1] * sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * db) =
+            __floats2bfloat162_rn(dva[4 * db + 2 * r], dva[4 * db + 2 * r + 1]);
+      }
     }
   }
 }
 
 template <int HD, bool kCap>
-__global__ void __launch_bounds__(kTcThreads, TcTile<HD>::kCtasDq)
-flash_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                 const float* __restrict__ lse,
-                                 const float* __restrict__ delta, bf16* __restrict__ dq, int S,
-                                 int H, int KV, int causal, int window, float softcap,
-                                 float sm_scale) {
-  using Tile = TcTile<HD>;
-  constexpr int kLd = Tile::kLd;
-  constexpr int kBKV = kDqBlockKV;
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __grid_constant__ CUtensorMap tdo,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                                    int S, int H, int KV, int causal, int window, float softcap,
+                                    float sm_scale) {
+  using Tile = WgTile<HD>;
+  using namespace hopper;
+  constexpr int kStages = kDqStages;
+  constexpr int kBKV = Tile::kBlockKV;
+  constexpr int kSw = Tile::kSwizzle;
   constexpr int kNB = kBKV / 8;             // n8 blocks of S (kv columns)
-  constexpr int kDB = HD / 8;               // n8 blocks of dQ
+  constexpr int kK = kBKV / 16;             // k-steps of dQ += dS K
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kTcRows][kLd]
-  bf16* dOs = Qs + Tile::kRes;
-  bf16* Ks = dOs + Tile::kRes;              // [kStages][kBKV][kLd]
-  bf16* Vs = Ks + kStages * Tile::kKV;
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;   // [kBoxes][128 rows]
+  const uint32_t sdO = sQ + Tile::kRes;
+  const uint32_t sK = sdO + Tile::kRes;                        // [kStages][kBoxes][kBKV rows]
+  const uint32_t sV = sK + kStages * Tile::kKV;
+  const uint32_t bars = sV + kStages * Tile::kKV;
+  const uint32_t q_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;
-  const int tig = lane % 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;  // heaviest tiles first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kWgRows;  // heaviest tiles first
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.x;
   const int kvh = h / (H / KV);
-  const size_t kv_stride = static_cast<size_t>(KV) * HD;
-  const size_t q_stride = static_cast<size_t>(H) * HD;
   const int w = causal ? window : 0;
-  const int iw = q0 + 16 * warp;            // this warp's first query
-
-  // the forward's bounds: to the diagonal, from the tile holding the first
-  // row's oldest live key
-  const int kv_end = causal ? min(S, q0 + kTcRows) : S;
+  // the forward's bounds: to the diagonal of the CTA's last row, from the
+  // tile holding its first row's oldest live key
+  const int kv_end = causal ? min(S, q0 + kWgRows) : S;
   const int t_begin = w > 0 ? max(0, q0 - w + 1) / kBKV : 0;
   const int n_run = (kv_end + kBKV - 1) / kBKV - t_begin;
-  const bf16* kb = k + (static_cast<size_t>(b) * S * KV + kvh) * HD;
-  const bf16* vb = v + (static_cast<size_t>(b) * S * KV + kvh) * HD;
 
-  auto load_step = [&](int t) {
-    const int st = t % kStages;
-    const int r0 = (t_begin + t) * kBKV;
-    load_tile_async<HD>(Ks + st * Tile::kKV, kb, kBKV, r0, S, kv_stride);
-    load_tile_async<HD>(Vs + st * Tile::kKV, vb, kBKV, r0, S, kv_stride);
-  };
-
-  // Q and dO ride with the first K/V tile; each lane's LSE (base 2) and D
-  // for its two rows stay in registers
-  const size_t at = (static_cast<size_t>(b) * S * H + h) * HD;
-  load_tile_async<HD>(Qs, q + at, kTcRows, q0, S, q_stride);
-  load_tile_async<HD>(dOs, dout + at, kTcRows, q0, S, q_stride);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_run) load_step(t);
-    cp_async_commit();
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 8);
+    }
+    mbar_fence_init();
   }
-  float lse2[2], dd[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = iw + gid + 8 * r;
-    const size_t row = (static_cast<size_t>(b) * H + h) * S + i;
-    lse2[r] = i < S ? lse[row] * kLog2e : 0.f;
-    dd[r] = i < S ? delta[row] : 0.f;
-  }
+  __syncthreads();
 
-  float dqa[kDB][4];
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: Q and dO once, then the (K, V) tiles of every step
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * Tile::kRes);
 #pragma unroll
-  for (int i = 0; i < kDB; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+      for (int x = 0; x < Tile::kBoxes; ++x) {
+        tma_load_4d(sQ + x * Tile::kResBox, &tq, q_full, x * Tile::kCols, h, q0, b);
+        tma_load_4d(sdO + x * Tile::kResBox, &tdo, q_full, x * Tile::kCols, h, q0, b);
+      }
+      for (int t = 0; t < n_run; ++t) {
+        const int st = t % kStages;
+        const int r0 = (t_begin + t) * kBKV;
+        mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(st), 2 * Tile::kKV);
+#pragma unroll
+        for (int x = 0; x < Tile::kBoxes; ++x) {
+          tma_load_4d(sK + st * Tile::kKV + x * Tile::kKVBox, &tk, full(st), x * Tile::kCols,
+                      kvh, r0, b);
+          tma_load_4d(sV + st * Tile::kKV + x * Tile::kKVBox, &tv, full(st), x * Tile::kCols,
+                      kvh, r0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns queries q0 + 64 cw .. q0 + 64 cw + 63
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int gid = lane / 4;
+    const int tig = lane % 4;
+    const int iw = q0 + 64 * cw;              // the warpgroup's first query
+    const int row_a = iw + 16 * warp + gid;   // this thread's queries: row_a, row_a + 8
+    // ping-pong: a warpgroup issues its products after the other's, so one
+    // runs its elementwise work while the other's products run
+    const int my_turn = 1 + cw;
+    const int their_turn = 2 - cw;
+    if (cw == 1) bar_arrive(1, 256);          // the first turn is warpgroup 0's
 
-  for (int t = 0; t < n_run; ++t) {
-    const int st = t % kStages;
-    if (t + kStages - 1 < n_run) load_step(t + kStages - 1);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const int j0 = (t_begin + t) * kBKV;
-    // a warp skips a kv tile dead for its 16 queries: queries past S, keys
-    // all after them, or all below the window of its first query
-    if (!(iw >= S || (causal && j0 > iw + 15) || (w > 0 && j0 + kBKV - 1 <= iw - w))) {
-      const bf16* Kt = Ks + st * Tile::kKV;
-      const bf16* Vt = Vs + st * Tile::kKV;
-      float dp[kNB][4], s[kNB][4];
-      scores<HD, kNB>(dp, dOs + 16 * warp * kLd, Vt, lane);   // dP = dO V^T
-      scores<HD, kNB>(s, Qs + 16 * warp * kLd, Kt, lane);     // S = Q K^T
-      const bool edge = j0 + kBKV > S || iw + 16 > S ||
-                        (causal && j0 + kBKV - 1 > iw) || (w > 0 && j0 <= iw + 15 - w);
+    float s[kBKV / 2], dp[kBKV / 2];          // S; dP, then dS
+    float dqa[HD / 2];
+    uint32_t dsa[kK][4];                      // dS as A fragments
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) {
+    for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+    // each row's LSE (base 2) and D, and its live keys: lo_abs <= j <= hi_abs
+    float lse2[2], dd[2];
+    int lo_abs[2], hi_abs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row_a + 8 * r;
+      const size_t row = (static_cast<size_t>(b) * H + h) * S + i;
+      lse2[r] = i < S ? __ldg(lse + row) * kLog2e : 0.f;
+      dd[r] = i < S ? __ldg(delta + row) : 0.f;
+      lo_abs[r] = w > 0 ? i - w + 1 : 0;
+      hi_abs[r] = i >= S ? -1 : causal ? min(i, S - 1) : S - 1;
+    }
+
+    // descriptors: Q and dO rows 64 cw .. (A, K-major), the K and V tiles
+    // (B, K-major for the scores; K MN-major for dS K)
+    const uint32_t q_base = sQ + 64 * cw * kSw;
+    const uint32_t do_base = sdO + 64 * cw * kSw;
+    auto issue_scores = [&](int st) {
+      const uint32_t k_t = sK + st * Tile::kKV;
+      const uint32_t v_t = sV + st * Tile::kKV;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int box = 16 * ks / Tile::kCols;
+        const int col = (16 * ks % Tile::kCols) * 2;
+        Wgmma<kBKV>::ss(s, smem_desc<kSw>(q_base + box * Tile::kResBox + col, 16, 8 * kSw),
+                        smem_desc<kSw>(k_t + box * Tile::kKVBox + col, 16, 8 * kSw), ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int box = 16 * ks / Tile::kCols;
+        const int col = (16 * ks % Tile::kCols) * 2;
+        Wgmma<kBKV>::ss(dp, smem_desc<kSw>(do_base + box * Tile::kResBox + col, 16, 8 * kSw),
+                        smem_desc<kSw>(v_t + box * Tile::kKVBox + col, 16, 8 * kSw), ks);
+      }
+      wgmma_commit();
+    };
+    auto issue_sums = [&](int st) {
+      const uint32_t k_t = sK + st * Tile::kKV;
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk)
+        Wgmma<HD>::rs(dqa, dsa[kk], smem_desc<kSw>(k_t + 16 * kk * kSw, Tile::kKVBox, 8 * kSw));
+      wgmma_commit();
+    };
+    // dS in place of dP; mask only a step that reaches past S, the diagonal
+    // of the warpgroup's first query, or below the window of its last
+    auto grads = [&](int t) {
+      const int j0 = (t_begin + t) * kBKV;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float ds;
-          prob_ds<kCap>(s[nb][e], lse2[e >> 1], dp[nb][e], dd[e >> 1], sm_scale, softcap, ds);
-          if (edge && !live_pair(iw + gid + 8 * (e >> 1), j0 + 8 * nb + 2 * tig + (e & 1), S,
-                                 causal, w))
-            ds = 0.f;
-          dp[nb][e] = ds;
+          prob_ds<kCap>(s[4 * nb + e], lse2[e >> 1], dp[4 * nb + e], dd[e >> 1], sm_scale,
+                        softcap, ds);
+          dp[4 * nb + e] = ds;
         }
+      if (j0 + kBKV > S || iw + 64 > S || (causal && j0 + kBKV - 1 > iw) ||
+          (w > 0 && j0 <= iw + 63 - w)) {
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lo[r] = lo_abs[r] - j0 - 2 * tig;
+          hi[r] = hi_abs[r] - j0 - 2 * tig;
+        }
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * nb + (e & 1);
+            if (c < lo[e >> 1] || c > hi[e >> 1]) dp[4 * nb + e] = 0.f;
+          }
       }
-      uint32_t dsa[kNB / 2][4];
-      to_fragments<kNB>(dsa, dp);
-      accumulate<HD, kNB / 2>(dqa, dsa, Kt, lane);   // dQ += dS K
+    };
+
+    mbar_wait(q_full, 0);
+    mbar_wait(full(0), 0);
+    bar_sync(my_turn, 256);
+    wgmma_fence();
+    issue_scores(0);
+    if (!(cw == 1 && n_run == 1)) bar_arrive(their_turn, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    grads(0);
+    to_fragments<kK>(dsa, dp);
+    for (int t = 1; t < n_run; ++t) {
+      const int st = t % kStages;
+      const int pst = (t - 1) % kStages;
+      mbar_wait(full(st), (t / kStages) & 1);
+      bar_sync(my_turn, 256);
+      fence_regs(dqa);
+      wgmma_fence();
+      issue_scores(st);
+      issue_sums(pst);
+      if (!(cw == 1 && t == n_run - 1)) bar_arrive(their_turn, 256);
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(dp);
+      grads(t);
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      fence_fragments<kK>(dsa);
+      if (lane == 0) mbar_arrive(empty(pst));   // step t - 1's K and V are read
+      to_fragments<kK>(dsa, dp);
     }
-    __syncthreads();
-  }
+    fence_regs(dqa);
+    wgmma_fence();
+    issue_sums((n_run - 1) % kStages);
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_fragments<kK>(dsa);
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = iw + gid + 8 * r;
-    if (i >= S) continue;
-    bf16* row = dq + (static_cast<size_t>(b) * S + i) * q_stride + static_cast<size_t>(h) * HD +
-                2 * tig;
+    for (int r = 0; r < 2; ++r) {
+      const int i = row_a + 8 * r;
+      if (i >= S) continue;
+      bf16* out = dq + ((static_cast<size_t>(b) * S + i) * H + h) * HD + 2 * tig;
 #pragma unroll
-    for (int db = 0; db < kDB; ++db)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * db) =
-          __floats2bfloat162_rn(dqa[db][2 * r] * sm_scale, dqa[db][2 * r + 1] * sm_scale);
+      for (int db = 0; db < HD / 8; ++db)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * db) = __floats2bfloat162_rn(
+            dqa[4 * db + 2 * r] * sm_scale, dqa[4 * db + 2 * r + 1] * sm_scale);
+    }
   }
 }
 
@@ -966,47 +1126,64 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor maps of a bf16 launch: q and dO with boxes of q_rows rows, k
+// and v with boxes of kv_rows rows (hopper::encode_bshd).  Returns a
+// cudaError_t.
 template <int HD>
-int launch_dkdv_tc(const Args& a) {
-  constexpr int kSmem = TcTile<HD>::kDkdvBytes;
-  auto kernel = a.softcap != 0.f ? flash_attention_bwd_dkdv_tc_kernel<HD, true>
-                                 : flash_attention_bwd_dkdv_tc_kernel<HD, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+int encode_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap& tq, CUtensorMap& tk,
+                CUtensorMap& tv, CUtensorMap& tdo) {
+  constexpr int kCols = WgTile<HD>::kCols;
+  int rc = hopper::encode_bshd(&tq, a.q, a.B, a.S, a.H, HD, kCols, q_rows);
+  if (rc == 0) rc = hopper::encode_bshd(&tdo, a.dout, a.B, a.S, a.H, HD, kCols, q_rows);
+  if (rc == 0) rc = hopper::encode_bshd(&tk, a.k, a.B, a.S, a.KV, HD, kCols, kv_rows);
+  if (rc == 0) rc = hopper::encode_bshd(&tv, a.v, a.B, a.S, a.KV, HD, kCols, kv_rows);
+  return rc;
+}
+
+template <int HD>
+int launch_dkdv_wgmma(const Args& a) {
+  using Tile = WgTile<HD>;
+  CUtensorMap tq, tk, tv, tdo;
+  const int rc = encode_maps<HD>(a, Tile::kBlockQ, kWgRows, tq, tk, tv, tdo);
+  if (rc != 0) return rc;
+  auto kernel = a.softcap != 0.f ? flash_attention_bwd_dkdv_wgmma_kernel<HD, true>
+                                 : flash_attention_bwd_dkdv_wgmma_kernel<HD, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile::kDkdvBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.S + kTcRows - 1) / kTcRows, a.KV, a.B);
-  kernel<<<grid, kTcThreads, kSmem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.H, a.KV, a.causal, a.window,
-      a.softcap, a.sm_scale);
+  const dim3 grid(a.B, a.KV, (a.S + kWgRows - 1) / kWgRows);
+  kernel<<<grid, kWgThreads, Tile::kDkdvBytes, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S,
+      a.H, a.KV, a.causal, a.window, a.softcap, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-int launch_dq_tc(const Args& a) {
-  constexpr int kSmem = TcTile<HD>::kDqBytes;
-  auto kernel = a.softcap != 0.f ? flash_attention_bwd_dq_tc_kernel<HD, true>
-                                 : flash_attention_bwd_dq_tc_kernel<HD, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+int launch_dq_wgmma(const Args& a) {
+  using Tile = WgTile<HD>;
+  CUtensorMap tq, tk, tv, tdo;
+  const int rc = encode_maps<HD>(a, kWgRows, Tile::kBlockKV, tq, tk, tv, tdo);
+  if (rc != 0) return rc;
+  auto kernel = a.softcap != 0.f ? flash_attention_bwd_dq_wgmma_kernel<HD, true>
+                                 : flash_attention_bwd_dq_wgmma_kernel<HD, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile::kDqBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.S + kTcRows - 1) / kTcRows, a.H, a.B);
-  kernel<<<grid, kTcThreads, kSmem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.dq), a.S, a.H, a.KV, a.causal, a.window, a.softcap, a.sm_scale);
+  const dim3 grid(a.B, a.H, (a.S + kWgRows - 1) / kWgRows);
+  kernel<<<grid, kWgThreads, Tile::kDqBytes, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.S, a.H, a.KV, a.causal,
+      a.window, a.softcap, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// which: 0 = delta, 1 = dK/dV, 2 = dQ; f32 on the CUDA cores, bf16 on the
-// tensor cores (its D pass is the f32 body's, on bf16 loads)
+// which: 0 = delta, 1 = dK/dV, 2 = dQ; f32 on the CUDA cores, bf16 on wgmma
+// fed by TMA (its D pass is the f32 body's, on bf16 loads)
 template <typename T, int HD>
 int launch(int which, const Args& a) {
   if (which == 0) return launch_delta<T, HD>(a);
   if constexpr (std::is_same<T, bf16>::value) {
-    if (which == 1) return launch_dkdv_tc<HD>(a);
-    if (which == 2) return launch_dq_tc<HD>(a);
+    if (which == 1) return launch_dkdv_wgmma<HD>(a);
+    if (which == 2) return launch_dq_wgmma<HD>(a);
   } else {
     if (which == 1) return launch_dkdv<T, HD>(a);
     if (which == 2) return launch_dq<T, HD>(a);

@@ -44,12 +44,14 @@ and a dQ kernel, no atomics) and its plain version
 ``flash_attention_bwd_plain`` compute dq, dk, dv of the same function for
 Sq = Skv; the Pallas kernel has no backward, and the JAX package takes this
 gradient from XLA's autodiff of ``plain_attention`` and of
-``models/attention_flash.py``.  For bf16 the dK/dV and dQ kernels run
-their products on the tensor cores (mma.sync, f32 sums; warps of 16 kv or
-q rows; the streamed tiles in a two-stage cp.async ring), with P and dS
-kept in registers and each rounded to bf16 once where it enters a
-product; f32 keeps every product in f32 on the CUDA cores.  ``FlashAttentionFn`` ties the two together
-for autograd; ``ops.flash_attention`` calls it where a gradient is wanted.
+``models/attention_flash.py``.  For bf16 the dK/dV and dQ kernels are
+built for Hopper as the forward is: a producer warpgroup issues TMA loads
+(the CTA's 128 kv or q rows once, the streamed q or kv tiles into an
+mbarrier ring) and two consumer warpgroups of 64 rows each run every
+product as wgmma with f32 sums, with P and dS kept in registers and each
+rounded to bf16 once where it enters a product; f32 keeps every product in
+f32 on the CUDA cores.  ``FlashAttentionFn`` ties the two together for
+autograd; ``ops.flash_attention`` calls it where a gradient is wanted.
 """
 from __future__ import annotations
 

