@@ -589,6 +589,9 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 # than a wrapper's host time, so the launch is queued before the start event
 # fires and the figure is the card's alone
 HOLD_CYCLES = 400_000
+# the card's clock as torch.cuda._sleep counts it, at the H100's boost:
+# sizes the spin that cuda_ms(queued=True) puts before the calls
+SPIN_HZ = 1.98e9
 # B2/B3 are timed at three lengths of f32 stream: one split-1 UE frame
 # (phase 4), the qwen3-1.7b split handoff (4 x 2048 x 2048, phase 9) and an
 # 8-UE split2 group of the cell (phase 11(a))
@@ -610,21 +613,58 @@ def gpu_name_and_limit() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10, runs: int = 7, before=None) -> float:
+def b1_frame(cfg, dev) -> list:
+    """B1's calls in one Swin-T forward, by kind: (stage, Hp, Wp, C, nh,
+    shift, mask, calls a frame).  Even blocks of a stage are unshifted (the
+    pad mask where the map is padded, else none), odd ones shifted by
+    window // 2 with the shifted mask."""
+    import torch
+    from repro_torch.models import swin as SW
+    w = cfg.window
+    out = []
+    for s in range(cfg.n_stages):
+        H, W = cfg.stage_hw(s)
+        Hp, Wp = -(-H // w) * w, -(-W // w) * w
+        C, nh = cfg.stage_dim(s), cfg.num_heads[s]
+        pad = (torch.as_tensor(SW.pad_region_mask(Hp, Wp, H, W, w), device=dev)
+               if (Hp, Wp) != (H, W) else None)
+        shifted = torch.as_tensor(SW.shift_attn_mask(Hp, Wp, w, w // 2),
+                                  device=dev)
+        out.append((s, Hp, Wp, C, nh, 0, pad, cfg.depths[s] - cfg.depths[s] // 2))
+        out.append((s, Hp, Wp, C, nh, w // 2, shifted, cfg.depths[s] // 2))
+    return out
+
+
+def cuda_ms(fn, reps: int = 10, runs: int = 7, before=None,
+            queued: bool = False) -> float:
     """Median over ``runs`` of the mean time of ``reps`` back-to-back calls,
     by CUDA events, after a warm-up.  With ``before``, each call is timed
-    alone, after ``before()`` (untimed) has run on the same stream."""
+    alone, after ``before()`` (untimed) has run on the same stream.  With
+    ``queued``, each run's calls are enqueued while the card spins
+    (``torch.cuda._sleep``, no memory traffic), so they run back to back
+    with no host time between them, the device's time alone: the spin is
+    twice the host time of ``reps`` calls as the warm-up's last two took
+    it, and a run whose enqueueing outlasted its spin on the card is taken
+    again with the spin doubled."""
     import torch
-    for _ in range(3):
-        fn()
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    fn()
+    spin = int(reps * (time.perf_counter() - t0) * SPIN_HZ)
     times = []
-    for _ in range(runs):
+    while len(times) < runs:
         events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(2 * reps if before else 2)]
+                  for _ in range(2 * reps if before else 2 + queued)]
         if before is None:
+            if queued:
+                events[2].record()
+                torch.cuda._sleep(spin)
             events[0].record()
+            h0 = time.perf_counter()
             for _ in range(reps):
                 fn()
+            host_ms = (time.perf_counter() - h0) * 1e3
             events[1].record()
         else:
             for i in range(reps):
@@ -633,8 +673,11 @@ def cuda_ms(fn, reps: int = 10, runs: int = 7, before=None) -> float:
                 fn()
                 events[2 * i + 1].record()
         torch.cuda.synchronize()
+        if queued and host_ms >= events[2].elapsed_time(events[0]):
+            spin *= 2
+            continue
         times.append(sum(a.elapsed_time(b) for a, b in
-                         zip(events[::2], events[1::2])) / reps)
+                         zip(events[:2 * reps:2], events[1:2 * reps:2])) / reps)
     return statistics.median(times)
 
 
@@ -1539,6 +1582,62 @@ def fwd_build_facts(report: str) -> dict:
     if missing:
         raise AssertionError(f"B5's bf16 body has no instantiation for "
                              f"(hd, capped) {sorted(missing)}")
+    return counts
+
+
+WINDOW_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "HMMA.1688.F32.TF32", "FFMA")
+# B1's wgmma body by name; B1's mma.sync body (windows 9-12) and B7's are
+# the other window-attention kernels
+B1_WGMMA_KERNEL = "fused_window_attention_wgmma_kernel"
+
+
+def b1_build_facts(report: str) -> dict:
+    """Phase 2's build facts of the window-attention library: for every
+    instantiation its SASS counts of WINDOW_SASS_OPS (cuobjdump) and, where
+    this run built the library, its ptxas registers and spills.  Fails
+    unless every instantiation of B1's wgmma body (hd 16 and 32; f32 keys
+    56 and 64, bf16 64) holds HGMMA and UTMALDG and no HMMA, on a spill in
+    it, and on a ptxas note that it serialised its wgmma; fails unless every
+    other instantiation (B1 at windows 9-12, B7) holds TF32 HMMAs.  Returns
+    {name: counts}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import window_attention as wa
+    tf32 = "HMMA.1688.F32.TF32"
+    usage = ptxas_usage(report)
+    serialised = set(re.findall(r"wgmma\.mma_async instructions are serialized"
+                                r".*?function '([^']+)'", report))
+    counts = sass_ops(_build.target("window_attention"), WINDOW_SASS_OPS)
+    seen = set()
+    for fn, n in sorted(counts.items()):
+        wgmma = B1_WGMMA_KERNEL in fn
+        kernel = ("B1 wgmma" if wgmma else
+                  "B1" if "fused_window" in fn else "B7")
+        targs = fn.split("kernelI", 1)[-1]
+        ints = [int(x) for x in re.findall(r"Li(\d+)E", targs)]
+        dt = "bf16" if "bfloat16" in targs else "f32"
+        regs, st, ld = usage.get(fn, (None, None, None))
+        log(f"  SASS {kernel}<{','.join(map(str, ints))},{dt}>: "
+            f"{n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG, {n['HMMA']} HMMA "
+            f"({n[tf32]} {tf32}), {n['FFMA']} FFMA; "
+            + (f"{regs} registers, {st} B spill stores, {ld} B spill loads"
+               + (", wgmma serialised" if fn in serialised else "")
+               if regs is not None else "ptxas report not in this run"))
+        if not wgmma:
+            if not n[tf32]:
+                raise AssertionError(f"{fn}: no {tf32} in its SASS")
+            continue
+        seen.add((ints[0], ints[1], dt))
+        if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
+            raise AssertionError(f"{fn}: B1's wgmma body without wgmma or TMA, "
+                                 "or with an HMMA")
+        if st or ld or fn in serialised:
+            raise AssertionError(f"{fn}: spills {st} / {ld} B or serialised "
+                                 "wgmma")
+    want = {(hd, n, dt) for hd in wa.SUPPORTED_HEAD_DIMS
+            for n, dt in ((56, "f32"), (64, "f32"), (64, "bf16"))}
+    if want - seen:
+        raise AssertionError(f"B1's wgmma body has no instantiation for "
+                             f"(hd, keys, dtype) {sorted(want - seen)}")
     return counts
 
 
@@ -3742,22 +3841,12 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     # both window-attention kernels take their products on the tensor cores:
-    # every instantiation's SASS holds TF32 HMMAs (the FFMAs left are expf's
-    # and the reciprocal's, not product loops)
+    # B1's wgmma body (windows up to 8) holds HGMMA and TMA loads and no
+    # HMMA, with no spill and no wgmma serialised; B1's body for windows
+    # 9-12 and B7's hold TF32 HMMAs (the FFMAs left are expf's and the
+    # reciprocal's, not product loops)
     log(f"window attention body: {wa.BODY}")
-    tf32 = "HMMA.1688.F32.TF32"
-    usage = ptxas_usage(reports.get("window_attention", ""))
-    for fn_name, n in sass_ops(_build.target("window_attention"),
-                               (tf32, "FFMA")).items():
-        kernel = "B1" if "fused_window" in fn_name else "B7"
-        args = fn_name.split("kernelI")[-1]
-        args = ",".join(re.findall(r"Li(\d+)E", args)
-                        + ["bf16" if "bfloat16" in args else "f32"])
-        regs = usage.get(fn_name)
-        log(f"  SASS {kernel}<{args}>: {n[tf32]} {tf32}, {n['FFMA']} FFMA, "
-            + (f"{regs[0]} registers" if regs else "registers not reported"))
-        if not n[tf32]:
-            raise AssertionError(f"{fn_name}: no {tf32} in its SASS")
+    b1_build_facts(reports.get("window_attention", ""))
     # the codec library's kernels move 16 bytes a thread where they move
     # f32: the loads of encode (B2) and quant (B4a), the stores of decode
     # (B3) and dequant (B4b)
@@ -4463,6 +4552,7 @@ def main() -> int:
         rate = FP32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
         t = collections.Counter()
         flops_total = bytes_total = 0
+        frame_calls = []            # the 12 calls of one forward
         for s, Hp, Wp, C, nh, shift, mask in attn_cases:
             padded = (Hp, Wp) != cfg.stage_hw(s)
             if shift == 0 and (mask is None) == padded:
@@ -4510,13 +4600,20 @@ def main() -> int:
                 t[key] += per_frame * val
             bytes_total += per_frame * nbytes
             flops_total += per_frame * flops
+            frame_calls += [functools.partial(wa.fused_window_attention_cuda,
+                                              qkv, bias, mask, **kw)] * per_frame
+        # the frame's calls with no host time between them
+        t["kernel_queued"] = cuda_ms(lambda: [f() for f in frame_calls],
+                                     queued=True)
         log(f"time B1 {name} per frame ({n_blocks} calls, batch {B}): kernel "
-            f"{t['kernel']:.4f} ms, {t['kernel_cold']:.4f} cold L2; plain "
+            f"{t['kernel']:.4f} ms, {t['kernel_queued']:.4f} queued behind a "
+            f"spin (device alone), {t['kernel_cold']:.4f} cold L2; plain "
             f"{t['plain']:.4f} ms; sdpa {t['sdpa']:.4f} ms, {t['sdpa_cold']:.4f} "
             f"cold L2; bound {t['bound']:.4f} ms ({bytes_total} B, "
             f"{flops_total} flop); launches per UE frame {n_blocks}")
         b1_rows[name, B] = dict(
-            ms=t["kernel"], cold_ms=t["kernel_cold"], plain_ms=t["plain"],
+            ms=t["kernel"], queued_ms=t["kernel_queued"],
+            cold_ms=t["kernel_cold"], plain_ms=t["plain"],
             library_ms=t["sdpa"], library_cold_ms=t["sdpa_cold"],
             bound_ms=t["bound"],
             bound_by=("bytes" if bytes_total / HBM_BYTES_PER_S

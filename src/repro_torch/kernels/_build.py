@@ -113,10 +113,18 @@ def library(name: str) -> ctypes.CDLL:
 def check_operands(what: str, *tensors) -> None:
     """Raise unless every operand lies on one CUDA device: a wrapper never
     takes a host tensor in its kernel's place."""
-    if any(t.device.type != "cuda" or t.device != tensors[0].device
-           for t in tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors[1:]):
         raise ValueError(f"{what}: every operand must lie on the same CUDA "
                          "device")
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, without
+    building a ``torch.cuda.Stream`` object: the stream argument of every
+    C entry point."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str) -> None:

@@ -137,12 +137,6 @@ def _fns():
     return enc, dec
 
 
-def _current_stream(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``, without
-    building a ``torch.cuda.Stream`` object."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
 def codec_encode_cuda(flat: torch.Tensor, block: int,
                       delta: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the encode kernel on PyTorch's current stream."""
@@ -163,7 +157,7 @@ def codec_encode_cuda(flat: torch.Tensor, block: int,
     if nb == 0:
         return stream, scales
     rc = _fns()[0](flat.data_ptr(), stream.data_ptr(), scales.data_ptr(), nb,
-                   block, int(delta), _current_stream(flat.device))
+                   block, int(delta), _build.current_stream(flat.device))
     _build.check(rc, "codec_encode")
     _build.LAUNCHES["codec_encode"] += 1
     return stream, scales
@@ -191,7 +185,7 @@ def codec_decode_cuda(stream: torch.Tensor, scales: torch.Tensor, block: int,
     if nb == 0:
         return out
     rc = _fns()[1](stream.data_ptr(), scales.data_ptr(), out.data_ptr(), nb,
-                   block, int(delta), _current_stream(stream.device))
+                   block, int(delta), _build.current_stream(stream.device))
     _build.check(rc, "codec_decode")
     _build.LAUNCHES["codec_decode"] += 1
     return out

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives as inline PTX, for the kernels of this directory
-// that run on wgmma fed by TMA: the warpgroup product and its shared-memory
-// descriptors, mbarriers, the TMA tile load, setmaxnreg, named barriers, and
-// the host-side encoding of a tensor map, found through
+// that run on wgmma fed by TMA: the warpgroup products (bf16 and TF32) and
+// their shared-memory descriptors, ldmatrix, the proxy fence, mbarriers
+// (completed by TMA or by cp.async), the TMA tile load, setmaxnreg, named
+// barriers, and the host-side encoding of a tensor map, found through
 // cudaGetDriverEntryPoint (no -lcuda).  Written out as PTX, the way the other
 // kernels write mma.sync, so that a build includes no CUTLASS or CuTe
 // template.
@@ -208,6 +209,94 @@ struct Wgmma<128> {
   }
 };
 
+// m64nNk8 TF32 products with f32 sums, d += a b: a (a warp's 16 x 8
+// fragment, as mma.sync m16n8k8's A: a[0] row g col t, a[1] row g + 8 col t,
+// a[2] row g col t + 4, a[3] row g + 8 col t + 4, g = lane / 4, t = lane % 4)
+// from registers, b K-major from a descriptor (TF32 takes no transpose).
+// The sums' layout is Wgmma's.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<16> {
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<56> {
+  static __device__ __forceinline__ void rs(float (&d)[28], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+        "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Four 8 x 8 matrices of 16-bit pairs from shared memory: lanes 8 m .. 8 m +
+// 7 give the row addresses of matrix m, r[m] receives row lane / 4, pair
+// lane % 4 of it.  On 32-bit data a pair is one value, so rows of four f32
+// give the A fragment of a TF32 product.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Order this thread's generic-proxy accesses of shared memory before the
+// async proxy's (wgmma, TMA) that follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- mbarriers ---------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -252,6 +341,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         __trap();
     }
   }
+}
+
+// 16 bytes from global to shared of which the first `n` (0-16) are read
+// and the rest are zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
+
+// Arrive on `bar` once this thread's cp.async copies issued so far have
+// landed; the arrival is one of the count the barrier was initialised with.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
 // ---- TMA ---------------------------------------------------------------------
@@ -317,6 +419,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A 4-D map (innermost dimension first) over a tensor at `base` whose
+// elements are `esize` bytes (4: f32, 2: bf16), with the byte strides of
+// dimensions 1-3, written into shared memory with the swizzle of `swizzle`
+// bytes (128, 64 or 32: the bytes of a box row).  Elements outside the
+// tensor read as zeros.  Returns a cudaError_t.
+inline int encode_4d(CUtensorMap* map, const void* base, int esize, const int (&dims)[4],
+                     const long long (&strides)[3], const int (&box)[4], int swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+  }
+  for (int i = 0; i < 3; ++i) st[i] = static_cast<cuuint64_t>(strides[i]);
+  const CUtensorMapSwizzle sw = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        4, const_cast<void*>(base), d, st, bx, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // A map over the contiguous bf16 tensor (B, S, heads, hd) at `base`, seen
 // as the 4-D (hd, heads, S, B), whose box is `box_cols` of hd by `box_rows`
 // rows of one head of one batch row, written into shared memory with the
@@ -324,23 +454,9 @@ inline EncodeTiled encode_tiled() {
 // Returns a cudaError_t.
 inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads, int hd,
                        int box_cols, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t esize = 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {hd * esize, static_cast<cuuint64_t>(heads) * hd * esize,
-                                 static_cast<cuuint64_t>(S) * heads * hd * esize};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box_cols * esize == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box_cols * esize == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const long long row = 2ll * hd;
+  return encode_4d(map, base, 2, {hd, heads, S, B}, {row, row * heads, row * heads * S},
+                   {box_cols, 1, box_rows, 1}, 2 * box_cols);
 }
 
 }  // namespace hopper

@@ -1,15 +1,16 @@
-// Swin window attention for Hopper (sm_90a): two kernels on one per-window
-// body, with the products on the tensor cores.
+// Swin window attention for Hopper (sm_90a): B1 on a persistent kernel built
+// for Hopper (windows up to 8) and, for windows 9-12 and for B7, a per-window
+// body on mma.sync; every product on the tensor cores.
 //
 // B1, fused_window_attention_fwd, replaces src/repro/kernels/
 // window_attention.py :: fused_window_attention_pallas (bodies
 // _fused_kernel_noshift / _fused_kernel_shift, math in _band_attention).
-// One launch covers the cyclic shift, the window partition, the biased and
-// masked softmax attention and the un-partition, reading the packed qkv
-// projection in image coordinates and writing the output back in image
-// coordinates, f32 or bf16 in and out (bf16 Swin-T): as the TPU kernel, it
-// takes f32 logits, softmax and P.V from bf16 q, k, v and rounds once, at
-// the store.
+// One launch covers the cyclic shift by (-shift, -shift), the partition into
+// windows, softmax(q hd^-1/2 k^T + bias, mask -> -1e9) v per window and
+// head, the un-partition and the roll back, from the image-layout qkv (B,
+// Hp, Wp, 3C) to the image-layout output (B, Hp, Wp, C), f32 or bf16 in and
+// out: as the TPU kernel, f32 logits, softmax and P.V, one rounding at the
+// store.
 //
 // B7, window_attention_fwd, replaces src/repro/kernels/window_attention.py ::
 // window_attention_pallas (body _window_kernel) behind ops.window_attention:
@@ -17,53 +18,120 @@
 // (nB, w2, nh, hd) each, with a (nh, w2, w2) bias and an optional
 // (nB, w2, w2) mask, f32 or bf16 in and out.
 //
-// Design.  One CTA of 4 warps per (window, head[, image]).  The CTA copies
-// its w2 key and value rows and a run of 64 query rows into shared memory
-// with cp.async, in the input's type, and each warp runs the shared body,
-// attend_warp, on 16 query rows:
+// Bound on the H100.  Bytes: each input element read once, each output
+// written once, at 3.35 TB/s; the work is about 4 w2^2 hd flop a (window,
+// head), 12 flop a byte at Swin-T's w2 = 49, hd = 32 in f32 (24 in bf16),
+// far under the tensor cores' ridge.  A Swin-T forward's 12 B1 calls move
+// 220 MB at batch 4 in f32, 0.2633 ms (stage 0: 176 MB, 0.0525 ms), half
+// that in bf16 (chip_smoke.py computes the bound of each call).
+//
+// B1's route by window: up to 8 (w2 <= 64; every configuration of the
+// repository uses 7) the persistent kernel below; 9-12 the per-window
+// kernel of the first design, on attend_warp.
+//
+// The persistent kernel (fused_window_attention_wgmma_kernel).  Tiles are
+// (head, image, window), one window's 64 query rows (w2 padded) of one
+// head.  The design answers what held the per-window kernel back:
+//   1. Nothing overlapped inside a CTA, one CTA a tile.  Now one CTA an SM
+//      walks a contiguous run of tiles, the head slowest (a short call
+//      spreads its tiles over every SM: the grid is min(tiles, SMs)).  A
+//      producer warp loads tiles into stages while consumer warpgroups (2
+//      in f32, 3 in bf16: as many as the registers of a scheduler allow,
+//      168 and 128 a thread) each take every NC-th tile of the run.  Each
+//      consumer has its own ring of kWgRing stages (2), so a stage's fills
+//      are taken by one consumer in order and no wait by parity can meet a
+//      fill two phases behind.  A layout past the shared memory a CTA may
+//      have is refused (cudaErrorInvalidConfiguration); none of w2 <= 64,
+//      hd 16 or 32 is.
+//      Loads: where the rolled window does not wrap, one TMA box per q, k
+//      and v over qkv seen as (hd, 3 nh, Wp, B Hp), 7 x 7 rows of one
+//      head's hd values, written with the swizzle of a row's bytes (128 or
+//      64 in f32, 64 or 32 in bf16); where it wraps (the last window row or
+//      column of a shifted map), 16-byte cp.async pieces at the offsets TMA
+//      would write, token by token from (row0 + i) % Hp, (col0 + j) % Wp.
+//      No roll is ever materialised.  Each lane's cp.async arrival (noinc)
+//      and lane 0's expected TMA bytes complete the stage's full barrier.
+//   2. Every CTA re-read its head's bias and its window's mask with
+//      scattered loads.  Now each consumer holds its head's bias in shared
+//      memory in its accumulator order (a float4 a thread a key block, -inf
+//      for padded keys), written once a head in its run; f32's S starts at
+//      it.  The window's mask bytes arrive in the stage with the rows (the
+//      16-byte pieces around them, cp.async with a byte count at the
+//      tensor's end); an unmasked call loads none.  A thread reads its
+//      2 x N/2 bytes at offsets fixed for the run and drops those of padded
+//      rows and keys.
+//   3. 3xTF32 on mma.sync, the softmax between the products in one warp.
+//      Now both products run on wgmma with f32 sums.  f32: S = Q K^T as
+//      m64nNk8 TF32 (N = 56 keys, 64 at window 8), A = q hd^-1/2 split into
+//      hi and lo in registers (ldmatrix: a pair of bf16 is one f32), B =
+//      K_hi and K_lo, which the consumer splits from the stage into tiles
+//      of its own with the same swizzle; P.V as m64n{hd}k8 on V^T_hi and
+//      V^T_lo, staged transposed by the consumer (TF32 takes B K-major
+//      only), key 8j + 2u + e at position 8j + u + 4e so that S's
+//      accumulator registers are P's A fragments.  Each k8 step takes
+//      lo.hi, hi.lo, hi.hi on one accumulator, the order of the per-window
+//      body (tests/test_torch_window_tc.py mirrors it).  Splits round to
+//      TF32 on the bit pattern, cvt.rna's result in two integer operations.
+//      bf16: S = q k^T as m64n64k16 on the stage's rows (exact products),
+//      scaled by hd^-1/2 and biased in f32 afterwards (the reference scales
+//      q first: f32 rounding apart, far inside the bf16 tolerance); P.V as
+//      P_hi.V + P_lo.V (P split into two bf16) on m64n{hd}k16 with V
+//      MN-major in the stage; keys padded to 64 with zero value rows.  The
+//      logits never leave registers: bias, mask (-1e9), padded keys (-inf),
+//      row max and sum over a quad, exp as 2^((x - m) log2 e) on MUFU.EX2,
+//      the output scaled by 1 / sum after P.V.  The products sit on one
+//      straight path (the warp index is read through a shuffle), so ptxas
+//      keeps them asynchronous.
+//   4. Padding: 49 query rows are 64 (one m64 product) and keys 56 in f32,
+//      64 in bf16 (P.V's k16 steps); padded rows of the stage and of the
+//      split tiles are zero from the start and never written again.
+//   5. The wrapper's host time: the raw stream handle shared with the codec
+//      wrappers (_build.current_stream), no copy of an operand that is
+//      already contiguous; the tensor map is encoded a call on the host.
+// Each output element is written by one tile (registers straight to the
+// un-rolled pixel, a quad's pairs contiguous): no atomics, and two launches
+// give the same bits.  Shared memory a CTA, hd 32, masked (w2 = 49): f32 2
+// consumers x 44 KB (K_hi, K_lo 7 KB each, V^T_hi, V^T_lo 8 KB each, bias
+// 14 KB) and 4 stages x 24 KB (q, k, v 7 KB each, mask 3 KB): 185 KB; bf16 3
+// consumers x 16 KB (bias) and 6 stages x 15 KB (q, k, v 4 KB each, mask 3
+// KB): 139 KB.  tools/b1_tiles.py builds copies of this file with other
+// values of the levers (consumers, CTAs an SM, ring stages, TMA against
+// cp.async), three probes and a cycle count of a tile's phases, each by
+// replacing text, to measure what each is worth.
+//
+// The per-window kernel (B1 at windows 9-12, and B7): one CTA of 4 warps per
+// (window, head[, image]).  The CTA copies its w2 key and value rows and a
+// run of 64 query rows into shared memory with cp.async, in the input's
+// type, and each warp runs the shared body, attend_warp, on 16 query rows:
 //   - Both products run on mma.sync.m16n8k8 TF32 with f32 accumulation, as
 //     3xTF32: every f32 operand x is split into hi = cvt.rna.tf32(x) and
 //     lo = cvt.rna.tf32(x - hi), and a.b is taken as lo.hi + hi.lo + hi.hi
 //     (three MMAs on one accumulator, the small terms first).  That keeps
 //     about 22 of f32's 24 mantissa bits; one TF32 product keeps 11 and
 //     misses the f32 tolerance (tests/test_torch_window_tc.py holds a CPU
-//     mirror of this arithmetic and, on a card, this kernel against it;
+//     mirror of this arithmetic and, on a card, the kernels against it;
 //     tests/test_torch_kernels.py holds the mirror against the JAX package
 //     and shows the single product missing).  q is multiplied by hd^-1/2 in
-//     f32 before its split, as the reference scales it.  bf16 K and V (B1's
-//     and B7's) are exact in TF32 (lo = 0), so their hi.lo product is
-//     skipped: two MMAs a product where f32 takes three.  The scaled q and
-//     P are f32 and still split, so a bf16 call computes what the
-//     reference computes in f32 from its bf16 inputs.
+//     f32 before its split, as the reference scales it.  bf16 K and V are
+//     exact in TF32 (lo = 0), so their hi.lo product is skipped: two MMAs a
+//     product where f32 takes three.
 //   - Tiles are padded in registers and shared memory only: query rows to a
-//     multiple of 16, keys to 8 NT (NT = 7 key tiles for w2 <= 56, Swin's
-//     49, else 18).  Padded key and value rows are zero in shared memory
-//     (0 x a stale NaN would be NaN), padded keys are scored -INFINITY so
-//     they weigh exactly 0 on every row, padded query rows are zero and
-//     never stored.  Every key tile is computed, so no branch splits the
-//     unrolled loops.
+//     multiple of 16, keys to 8 NT (NT = 7 key tiles for w2 <= 56, else
+//     18).  Padded key and value rows are zero in shared memory, padded keys
+//     are scored -INFINITY so they weigh exactly 0 on every row, padded
+//     query rows are zero and never stored.
 //   - The logits never leave registers.  The accumulator starts at the
-//     bias, loaded while the rows are still in flight; the mask (-1e9, the
-//     reference's NEG_INF) is applied in the accumulator's layout, where a
-//     thread holds columns 2t and 2t + 1 of rows g and g + 8 of its warp's
-//     tile; row max and sum reduce over the 4 lanes of a quad; exp is expf;
-//     the output is scaled by 1 / sum after P.V.  P.V needs no shuffle:
-//     inside each k8 step key 8j + 2t plays k = t and key 8j + 2t + 1 plays
-//     k = t + 4, so the accumulator registers of S are the A fragment of P,
-//     and the B fragment reads value rows 8j + 2t and 8j + 2t + 1.
-//   - Shared rows carry 16 bytes of padding, so the A and B fragment loads
-//     (8 rows x 4 columns, or 4 row pairs x 8 columns) fall on 32 banks.
-//   - Rows move 16 bytes a thread (4 f32 or 8 bf16 values).  B1 gathers its
-//     rows from the image-layout qkv with modular indices (row + shift) %
-//     Hp, (col + shift) % Wp, computed once per token into a table in
-//     shared memory, so no roll is ever materialised and the store goes
-//     back to the same un-rolled pixel; each head's slice of a pixel is 64
-//     or 128 contiguous bytes in f32, 32 or 64 in bf16, and starts at a
-//     multiple of 16 bytes (C = nh HD, HD 16 or 32).  The TPU kernel's
-//     (shift, Wp, C) VMEM carry existed only because its grid runs in
-//     order, and CTAs here are independent.  B7 reads its window's rows in
-//     place.  Each warp writes its output rows back through its own query
-//     rows in shared memory.
+//     bias, loaded while the rows are still in flight; the mask is applied
+//     in the accumulator's layout; row max and sum reduce over the 4 lanes
+//     of a quad; exp is expf; the output is scaled by 1 / sum after P.V.
+//     Inside each k8 step key 8j + 2t plays k = t and key 8j + 2t + 1 plays
+//     k = t + 4, so the accumulator registers of S are the A fragment of P.
+//   - Shared rows carry 16 bytes of padding, so the fragment loads fall on
+//     32 banks.  Rows move 16 bytes a thread.  B1 gathers its rows with
+//     modular indices, one per token, into a table in shared memory; B7
+//     reads its window's rows in place.  The shared tile is 16 NT + 64 rows
+//     of HD values and their padding: 186 KB at w2 = 144, hd = 128, under
+//     the 227 KB a CTA may have.  w2 is at most 144.
 //
 // The TPU op behind B7 pads w2 up to W2P = ceil(w2 / 64) * 64 with keys that
 // every real query sees masked (-1e9) and value rows of zero.  On a row
@@ -74,24 +142,12 @@
 // its own tile padding stays at -INFINITY and adds nothing.  B1's TPU
 // kernel never sees such a row (every Swin query may attend to itself), and
 // B1 adds nothing.
-//
-// Bound on the H100.  Both read each input element once and write each
-// output once; the work is about 4 w2^2 hd flops per (window, head).  At the
-// Swin-T shapes (w2 = 49, hd = 32) that is 12 flops per byte of q, k, v and
-// out in f32 (24 in bf16), so bytes bound both (chip_smoke.py computes the
-// bound of each call): stage 0 of one frame moves 45 MB in f32, 13 us at
-// 3.35 TB/s, and half that in bf16.  3xTF32 on
-// the padded tiles issues 3 x 64 x 56 / 49^2 = 4.5x the reference's flops,
-// which the tensor cores take in a few us.  What is left above the bound
-// (PERF.md) is latency: Swin-T's stage 2-3 calls are one or two waves of
-// CTAs, each a chain of loads, 168 MMAs a warp and a store.  The shared tile
-// is 16 NT + 64 rows of HD values and their padding (B1 adds w2 ints):
-// 25.5 KB at w2 = 49, hd = 32 in f32 (14.3 KB in bf16), and 186 KB at
-// w2 = 144, hd = 128, under the 227 KB a CTA may have.  w2 is at most 144.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -440,14 +496,658 @@ cudaError_t launch_fused(const T* qkv, const float* bias, const uint8_t* mask,
   return cudaGetLastError();
 }
 
-template <int HD, typename T>
-cudaError_t launch_fused_nt(const T* qkv, const float* bias, const uint8_t* mask,
-                            T* out, int B, int Hp, int Wp, int C, int n_heads,
-                            int window, int shift, float sm_scale, cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// B1 at windows up to 8 (w2 <= 64): persistent and warp-specialised, both
+// products on wgmma (the source note above)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgConsumers = 128;          // threads of a consumer warpgroup
+constexpr int kWgRing = 2;                 // stages of each consumer's own ring
+
+// Consumer warpgroups a CTA: f32's take up to 168 registers a thread, so 2
+// (9 warps with the producer's, at most 3 on each of the SM's four
+// schedulers, whose register files hold 16,384 each); bf16's fit in 128,
+// so 3 (13 warps, 4 on one scheduler)
+template <typename T>
+__host__ __device__ constexpr int wg_consumers() {
+  return sizeof(T) == 4 ? 2 : 3;
+}
+
+template <typename T>
+__host__ __device__ constexpr int wg_threads() { return kWgConsumers * wg_consumers<T>() + 32; }
+
+// One head's slice of a pixel: kRB bytes (128 or 64 in f32, 64 or 32 in
+// bf16), a row of the tiles in shared memory, which carry the swizzle of
+// kRB bytes.  A stage holds N rows of each of q, k, v (N the keys of S,
+// >= w2; bf16 wgmma reads them all, so rows past w2 stay zero)
+template <int HD, typename T, int N>
+struct WgGeom {
+  static constexpr int kRB = HD * static_cast<int>(sizeof(T));
+  static constexpr int kPieces = kRB / 16;                  // 16-byte pieces a row
+  static constexpr int kElems = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kPart = N * kRB;                     // q, k or v of a stage
+};
+
+// Byte offset `off` of a tile with rows of S bytes under the swizzle of S
+// bytes (TMA's and wgmma's): within each 1,024 bytes, 16-byte piece bits
+// 4.. XOR-ed with the row bits 7..
+template <int S>
+__host__ __device__ constexpr uint32_t swz(uint32_t off) {
+  return off ^ (((off >> 7) & (S / 16 - 1)) << 4);
+}
+
+__host__ __device__ constexpr uint32_t round1k(uint32_t n) { return (n + 1023) & ~1023u; }
+
+// Shared memory of a CTA, in bytes from a 1,024-aligned base: `stages`
+// stages of q, k, v rows and the window's mask bytes; then for each
+// consumer, in f32, the split operands K_hi, K_lo (N rows) and V^T_hi,
+// V^T_lo (hd rows of 64 key positions in two 128-byte blocks), and the
+// head's bias in the accumulator's order (N/8 float4 a thread); then the
+// full and empty barriers.
+struct WgLayout {
+  uint32_t stage, mask, khi, klo, vhi, vlo, bias, consumer, bars, bytes;
+};
+
+template <int HD, typename T, int N>
+__host__ __device__ inline WgLayout wg_layout(int w2, bool masked, int stages) {
+  using G = WgGeom<HD, T, N>;
+  constexpr bool kF32 = sizeof(T) == 4;
+  WgLayout L;
+  L.mask = 3 * G::kPart;
+  L.stage = round1k(L.mask + (masked ? w2 * w2 + 32 : 0));
+  uint32_t o = stages * L.stage;            // consumer 0's tiles
+  L.khi = o;
+  o += kF32 ? round1k(G::kPart) : 0;
+  L.klo = o;
+  o += kF32 ? round1k(G::kPart) : 0;
+  L.vhi = o;
+  o += kF32 ? 2 * HD * 128 : 0;
+  L.vlo = o;
+  o += kF32 ? 2 * HD * 128 : 0;
+  L.bias = o;
+  o += (N / 8) * kWgConsumers * 16;
+  L.consumer = o - stages * L.stage;        // the next consumer's, this far on
+  L.bars = o + (wg_consumers<T>() - 1) * L.consumer;
+  L.bytes = L.bars + 16 * stages + 1024;    // and the slack that aligns the base
+  return L;
+}
+
+// x rounded to TF32 to nearest, ties away from zero, on the bit pattern:
+// cvt.rna.tf32.f32's result for every finite x, in two integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// split_tf32 by tf32_rna: x = hi + lo + (what 3xTF32 drops)
+__device__ __forceinline__ void split_rna(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// four f32 as TF32 hi and lo, bit patterns
+__device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
+  split_rna(x.x, hi.x, lo.x);
+  split_rna(x.y, hi.y, lo.y);
+  split_rna(x.z, hi.z, lo.z);
+  split_rna(x.w, hi.w, lo.w);
+}
+
+// 2^x by the hardware's approximation alone (MUFU.EX2), outputs below
+// 2^-126 flushed to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A CTA's walk over tiles (head, image, window) with the head slowest, and
+// the window's first row and column in rolled coordinates: advanced by
+// carries, no division a tile
+struct TileWalk {
+  int h, b, wr, wc;
+  __device__ void start(int tile, int B, int nwh, int nww) {
+    const int per_head = B * nwh * nww;
+    h = tile / per_head;
+    const int rest = tile % per_head;
+    b = rest / (nwh * nww);
+    wr = rest % (nwh * nww) / nww;
+    wc = rest % nww;
+  }
+  __device__ void advance(int n, int B, int nwh, int nww) {
+    for (wc += n; wc >= nww; wc -= nww)
+      if (++wr == nwh) {
+        wr = 0;
+        if (++b == B) {
+          b = 0;
+          ++h;
+        }
+      }
+  }
+  __device__ int win(int nww) const { return wr * nww + wc; }
+};
+
+// whether a tile's rolled window lies inside the map (TMA loads it as
+// boxes) rather than wrapping round its last row or column (cp.async)
+__device__ __forceinline__ bool by_tma(int row0, int col0, int window, int Hp, int Wp) {
+  return row0 + window <= Hp && col0 + window <= Wp;
+}
+
+// r wrapped into [0, n) from [0, 2 n)
+__device__ __forceinline__ int wrap(int r, int n) { return r >= n ? r - n : r; }
+
+// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y); x
+// takes the low half, the lower column of an A fragment register
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <int HD, typename T, int N>
+__global__ void __launch_bounds__(wg_threads<T>(), 1)
+fused_window_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
+                                    const T* __restrict__ qkv, const float* __restrict__ bias,
+                                    const uint8_t* __restrict__ mask, long long mask_bytes,
+                                    T* __restrict__ out, int B, int Hp, int Wp, int C,
+                                    int n_heads, int window, int shift, float sm_scale,
+                                    int tiles) {
+  using namespace hopper;
+  using G = WgGeom<HD, T, N>;
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kRB = G::kRB;
+  constexpr int NB = N / 8;                 // n8 blocks of keys in S
+  constexpr int NC = wg_consumers<T>();
+  constexpr int kStages = NC * kWgRing;
   const int w2 = window * window;
-  if (w2 <= 8 * kSmallTiles)
-    return launch_fused<HD, kSmallTiles>(qkv, bias, mask, out, B, Hp, Wp, C, n_heads, window,
-                                         shift, sm_scale, s);
+  const int nwh = Hp / window;
+  const int nww = Wp / window;
+  const bool masked = mask != nullptr;
+  const WgLayout L = wg_layout<HD, T, N>(w2, masked, kStages);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);      // the base, as a generic pointer
+  auto full = [&](int st) { return base + L.bars + 8 * st; };
+  auto empty = [&](int st) { return base + L.bars + 8 * (kStages + st); };
+
+  // zero what the products read and nothing writes: in bf16 the stages'
+  // q, k, v rows past w2, in f32 the consumers' split tiles (their rows
+  // and key columns past w2).  0 x a stale NaN would be NaN
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (kF32) {
+    for (uint32_t c = 0; c < NC; ++c)
+      for (uint32_t i = 16 * threadIdx.x; i < L.bias - L.khi; i += 16 * wg_threads<T>())
+        *reinterpret_cast<uint4*>(sm + L.khi + c * L.consumer + i) = zero;
+  } else {
+    const uint32_t pad = (N - w2) * kRB;          // bytes past w2 of q, k or v
+    for (uint32_t i = 16 * threadIdx.x; i < 3 * kStages * pad; i += 16 * wg_threads<T>())
+      *reinterpret_cast<uint4*>(sm + i / pad * G::kPart + i % pad + w2 * kRB +
+                                (i / pad / 3) * (L.stage - 3 * G::kPart)) = zero;
+  }
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 33);              // the producer's lane 0 and its 32 cp.async arrivals
+      mbar_init(empty(st), 4);              // a lane of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // this CTA's run of tiles, tile = (head, image, window) with the head
+  // slowest: a run keeps one head (or two) and its bias
+  const int t_begin = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles / gridDim.x);
+  const int t_end = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * tiles / gridDim.x);
+  // the warp, through a shuffle: the compiler then knows it uniform, and the
+  // products under the branch on it stay asynchronous
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+
+  // tile i of the run goes to consumer i % NC, into stage ring_stage(i) of
+  // that consumer's own ring of kWgRing stages: each stage's fills are then
+  // taken by one consumer in order, so a wait by parity never meets a fill
+  // two phases behind
+  auto ring_stage = [](int i) { return i % NC + NC * (i / NC % kWgRing); };
+  auto ring_phase = [](int i) { return static_cast<uint32_t>(i / NC / kWgRing) & 1u; };
+
+  if (warp == 4 * NC) {
+    // producer: fills each tile's stage with the tile's q, k, v rows (a TMA
+    // box each where the window does not wrap, else 16-byte cp.async pieces
+    // at the swizzled offsets TMA would write) and its mask bytes
+    // (cp.async); every lane's cp.async arrival and lane 0's expected bytes
+    // complete the stage's full barrier
+    // each lane's (part, token) pairs of a tile's cp.async rows, fixed
+    constexpr int kPairs = (3 * N + 31) / 32;
+    int pair_row[kPairs], pair_col[kPairs], pair_src[kPairs], pair_dst[kPairs];
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int idx = lane + 32 * k;
+      const int part = idx / w2;
+      const int tok = idx % w2;
+      pair_row[k] = idx < 3 * w2 ? tok / window : -1;
+      pair_col[k] = tok % window;
+      pair_src[k] = part * C;
+      pair_dst[k] = part * G::kPart + tok * kRB;
+    }
+    TileWalk at;
+    at.start(t_begin, B, nwh, nww);
+    for (int tile = t_begin, i = 0; tile < t_end;
+         ++tile, ++i, at.advance(1, B, nwh, nww)) {
+      const int st = ring_stage(i);
+      const int h = at.h, b = at.b, win = at.win(nww);
+      const int row0 = at.wr * window + shift;
+      const int col0 = at.wc * window + shift;
+      const bool box = by_tma(row0, col0, window, Hp, Wp);
+      const uint32_t stage = base + st * L.stage;
+      mbar_wait(empty(st), ring_phase(i) ^ 1u);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full(st), box ? 3 * w2 * kRB : 0);
+        if (box) {
+#pragma unroll
+          for (int part = 0; part < 3; ++part)
+            tma_load_4d(stage + part * G::kPart, &tmap, full(st), 0, part * n_heads + h, col0,
+                        b * Hp + row0);
+        }
+      }
+      if (!box) {
+#pragma unroll
+        for (int k = 0; k < kPairs; ++k) {
+          if (pair_row[k] < 0) continue;
+          const int r = wrap(row0 + pair_row[k], Hp);
+          const int c = wrap(col0 + pair_col[k], Wp);
+          const T* src = qkv + (static_cast<size_t>(b * Hp + r) * Wp + c) * C3 + pair_src[k] + h * HD;
+#pragma unroll
+          for (int p = 0; p < G::kPieces; ++p)
+            hopper::cp_async16(stage + swz<kRB>(pair_dst[k] + 16 * p), src + p * G::kElems, 16);
+        }
+      }
+      if (masked) {
+        // the window's w2 x w2 bytes from the 16-byte boundary at or before
+        // them; none past the tensor's end is read
+        const long long at0 = static_cast<long long>(win) * w2 * w2;
+        const long long a0 = at0 & ~15ll;
+        const int pieces = static_cast<int>((at0 + w2 * w2 - a0 + 15) / 16);
+        for (int p = lane; p < pieces; p += 32) {
+          const long long at = a0 + 16ll * p;
+          hopper::cp_async16(stage + L.mask + 16 * p, mask + at,
+                     static_cast<int>(mask_bytes - at < 16 ? mask_bytes - at : 16));
+        }
+      }
+      cp_async_mbar_arrive(full(st));
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // consumers: warpgroup cw takes tiles cw, cw + NC, ... of the
+  // run, 64 query rows each (16 a warp).  A thread holds rows r = 16 wq + g
+  // and r + 8 of S, columns 8 j + 2 t and 8 j + 2 t + 1 of each n8 block j:
+  // s[4 j + e] is row r + 8 (e / 2), column 8 j + 2 t + e % 2
+  const int cw = warp / 4;
+  const int wq = warp % 4;
+  const int tid = threadIdx.x % kWgConsumers;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int bar_id = 1 + cw;                // named barrier of this warpgroup
+  const uint32_t mine = cw * L.consumer;    // its tiles' offset
+  float4* bias_s = reinterpret_cast<float4*>(sm + L.bias + mine) + (wq * NB) * 32 + lane;
+  // fixed for every tile: this thread's two query rows (tokens) as (row,
+  // col) in the window, -1 past w2, and its mask bytes' offsets
+  int tok_row[2], tok_col[2], mask_off[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 16 * wq + g + 8 * e;
+    tok_row[e] = r < w2 ? r / window : -1;
+    tok_col[e] = r % window;
+    mask_off[e] = r * w2 + 2 * t;
+  }
+  // the logits of this thread that a mask may forbid: real rows and keys
+  uint32_t live = 0u;
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) {
+    const int c = 8 * (x / 4) + 2 * t + (x & 1);
+    if (tok_row[(x >> 1) & 1] >= 0 && c < w2) live |= 1u << x;
+  }
+  int cur_h = -1;
+  TileWalk at;
+  at.start(t_begin + cw, B, nwh, nww);
+  for (int tile = t_begin + cw, i = cw; tile < t_end; tile += NC, i += NC,
+           at.advance(NC, B, nwh, nww)) {
+    const int st = ring_stage(i);
+    const int h = at.h, b = at.b, win = at.win(nww);
+    const int row0 = at.wr * window + shift;
+    const int col0 = at.wc * window + shift;
+    const uint32_t stage = base + st * L.stage;
+    const unsigned char* stage_p = sm + st * L.stage;
+    float o[HD / 2];
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
+    float inv[2] = {1.f, 1.f};
+
+    if (h != cur_h) {
+      // the head's bias into this thread's own slots, in its accumulator
+      // order; padded keys -inf (they weigh exactly 0), padded rows 0
+      cur_h = h;
+      const float* bh = bias + static_cast<size_t>(h) * w2 * w2;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * wq + g + 8 * (e >> 1);
+          const int c = 8 * j + 2 * t + (e & 1);
+          v[e] = c >= w2 ? -INFINITY : r < w2 ? bh[r * w2 + c] : 0.f;
+        }
+        bias_s[32 * j] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    mbar_wait(full(st), ring_phase(i));
+    if (!kF32 && !by_tma(row0, col0, window, Hp, Wp))
+      fence_proxy_async();                  // cp.async rows before wgmma reads them
+
+    // the mask: one bit for each logit of this thread it forbids
+    uint32_t dead = 0u;
+    if (masked) {
+      // bytes past the window's (padded rows and keys) are read as they
+      // lie in shared memory and dropped by `live`
+      const uint8_t* m = stage_p + L.mask + (static_cast<long long>(win) * w2 * w2 & 15);
+      const uint8_t* m0 = m + mask_off[0];
+      const uint8_t* m1 = m + mask_off[1];
+#pragma unroll
+      for (int x = 0; x < N / 2; ++x) {
+        const uint8_t* row = (x >> 1) & 1 ? m1 : m0;
+        if (row[8 * (x / 4) + (x & 1)] == 0) dead |= 1u << x;
+      }
+      dead &= live;
+    }
+    float s[N / 2];
+    if constexpr (kF32) {
+      // S starts at the bias
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float4 bv = bias_s[32 * j];
+        s[4 * j] = bv.x;
+        s[4 * j + 1] = bv.y;
+        s[4 * j + 2] = bv.z;
+        s[4 * j + 3] = bv.w;
+      }
+      // K and V split into TF32 hi and lo, in the operand tiles
+      bar_sync(bar_id, kWgConsumers);     // the last tile's products are done with them
+      constexpr int kSplits = (N * G::kPieces + kWgConsumers - 1) / kWgConsumers;
+#pragma unroll
+      for (int k = 0; k < kSplits; ++k) {
+        const int idx = tid + kWgConsumers * k;
+        if (idx >= w2 * G::kPieces) continue;
+        const uint32_t off = swz<kRB>(16 * idx);
+        uint4 hi, lo;
+        split4(*reinterpret_cast<const float4*>(stage_p + G::kPart + off), hi, lo);
+        *reinterpret_cast<uint4*>(sm + L.khi + mine + off) = hi;
+        *reinterpret_cast<uint4*>(sm + L.klo + mine + off) = lo;
+      }
+      // V^T: value row `key` is column kpos of hd rows of 128-byte
+      // blocks of 32 keys; in the k8 step of keys 8j..8j+7, key 8j + 2u
+      // + e sits at 8j + u + 4e, as P's accumulator registers hold it
+#pragma unroll
+      for (int it = wq; it < 2 * G::kPieces; it += 4) {
+        const int key = 32 * (it / G::kPieces) + lane;
+        const int p = it % G::kPieces;
+        if (key < w2) {
+          uint4 hi, lo;
+          split4(*reinterpret_cast<const float4*>(stage_p + 2 * G::kPart +
+                                                  swz<kRB>(key * kRB + 16 * p)), hi, lo);
+          const int kpos = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+          const uint32_t blk = (kpos >> 5) * (HD * 128) + 4 * (kpos & 31);
+          const uint32_t hs[4] = {hi.x, hi.y, hi.z, hi.w};
+          const uint32_t ls[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t off = swz<128>(blk + (4 * p + e) * 128);
+            *reinterpret_cast<uint32_t*>(sm + L.vhi + mine + off) = hs[e];
+            *reinterpret_cast<uint32_t*>(sm + L.vlo + mine + off) = ls[e];
+          }
+        }
+      }
+      // q scaled by hd^-1/2 in f32 and split: the A fragments of each k8
+      // step, by ldmatrix (a pair of bf16 is one f32)
+      uint32_t qh[HD / 8][4], ql[HD / 8][4];
+#pragma unroll
+      for (int k8 = 0; k8 < HD / 8; ++k8) {
+        const int row = 16 * wq + (lane & 7) + 8 * ((lane >> 3) & 1);
+        uint32_t r[4];
+        ldmatrix_x4(r, stage + swz<kRB>(row * kRB + 16 * (2 * k8 + (lane >> 4))));
+#pragma unroll
+        for (int x = 0; x < 4; ++x) split_rna(__uint_as_float(r[x]) * sm_scale, qh[k8][x], ql[k8][x]);
+      }
+      fence_proxy_async();                // the operand tiles before wgmma reads them
+      bar_sync(bar_id, kWgConsumers);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));   // the stage is read
+      // S += Q K^T as 3xTF32, lo.hi + hi.lo + hi.hi a k8 step
+      wgmma_fence();
+#pragma unroll
+      for (int k8 = 0; k8 < HD / 8; ++k8) {
+        const uint64_t kh = smem_desc<kRB>(base + L.khi + mine + 32 * k8, 16, 8 * kRB);
+        const uint64_t kl = smem_desc<kRB>(base + L.klo + mine + 32 * k8, 16, 8 * kRB);
+        WgmmaTf32<N>::rs(s, ql[k8], kh);
+        WgmmaTf32<N>::rs(s, qh[k8], kl);
+        WgmmaTf32<N>::rs(s, qh[k8], kh);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+#pragma unroll
+      for (int k8 = 0; k8 < HD / 8; ++k8) {
+        fence_regs(qh[k8]);
+        fence_regs(ql[k8]);
+      }
+    } else {
+      // S = q k^T of the bf16 rows as they arrived (exact products, f32
+      // sums), then scaled by hd^-1/2 and biased in f32
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < HD / 16; ++k16)
+        Wgmma<N>::ss(s, smem_desc<kRB>(stage + 32 * k16, 16, 8 * kRB),
+                     smem_desc<kRB>(stage + G::kPart + 32 * k16, 16, 8 * kRB), k16);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float4 bv = bias_s[32 * j];
+        s[4 * j] = s[4 * j] * sm_scale + bv.x;
+        s[4 * j + 1] = s[4 * j + 1] * sm_scale + bv.y;
+        s[4 * j + 2] = s[4 * j + 2] * sm_scale + bv.z;
+        s[4 * j + 3] = s[4 * j + 3] * sm_scale + bv.w;
+      }
+    }
+
+    // the mask (-1e9, the reference's NEG_INF), then the softmax of each
+    // row over the 4 lanes of its quad
+    if (__any_sync(0xffffffffu, dead != 0u)) {   // most windows forbid nothing
+#pragma unroll
+      for (int x = 0; x < N / 2; ++x)
+        if ((dead >> x) & 1u) s[x] = kMaskedLogit;
+    }
+    // each row's max and sum in four independent chains (the max is
+    // exact in any order; the sum's order is fixed)
+    float mx[2][4], sum[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        mx[r][q] = -INFINITY;
+        sum[r][q] = 0.f;
+      }
+#pragma unroll
+    for (int x = 0; x < N / 2; ++x)
+      mx[(x >> 1) & 1][(x >> 2) & 3] = fmaxf(mx[(x >> 1) & 1][(x >> 2) & 3], s[x]);
+    float m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    }
+#pragma unroll
+    for (int x = 0; x < N / 2; ++x) {
+      // 2^((x - m) log2 e) by MUFU.EX2 alone: a relative error of a few
+      // 1e-7, far under the f32 tolerance and the bf16 rounding
+      s[x] = exp2_approx((s[x] - m[(x >> 1) & 1]) * 1.4426950408889634f);
+      sum[(x >> 1) & 1][(x >> 2) & 3] += s[x];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float t4 = (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]);
+      t4 += __shfl_xor_sync(0xffffffffu, t4, 1);
+      t4 += __shfl_xor_sync(0xffffffffu, t4, 2);
+      inv[r] = 1.f / t4;
+    }
+
+    if constexpr (kF32) {
+      // O = E V as 3xTF32 on V^T; E's A fragments are S's registers
+      // (key 8j + 2t plays k = t, 8j + 2t + 1 plays k = t + 4)
+      uint32_t eh[NB][4], el[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        split_rna(s[4 * j], eh[j][0], el[j][0]);
+        split_rna(s[4 * j + 2], eh[j][1], el[j][1]);
+        split_rna(s[4 * j + 1], eh[j][2], el[j][2]);
+        split_rna(s[4 * j + 3], eh[j][3], el[j][3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const uint32_t at = (j >> 2) * (HD * 128) + 32 * (j & 3);
+        const uint64_t vh = smem_desc<128>(base + L.vhi + mine + at, 16, 1024);
+        const uint64_t vl = smem_desc<128>(base + L.vlo + mine + at, 16, 1024);
+        WgmmaTf32<HD>::rs(o, el[j], vh);
+        WgmmaTf32<HD>::rs(o, eh[j], vl);
+        WgmmaTf32<HD>::rs(o, eh[j], vh);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        fence_regs(eh[j]);
+        fence_regs(el[j]);
+      }
+    } else {
+      // O = E_hi V + E_lo V on bf16 wgmma, V MN-major in the stage
+      uint32_t eh[N / 16][4], el[N / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          split_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1], eh[kk][x], el[kk][x]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const uint64_t vd = smem_desc<kRB>(stage + 2 * G::kPart + 16 * kk * kRB, G::kPart,
+                                           8 * kRB);
+        Wgmma<HD>::rs(o, eh[kk], vd);
+        Wgmma<HD>::rs(o, el[kk], vd);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        fence_regs(eh[kk]);
+        fence_regs(el[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));   // the stage is read
+    }
+
+    // O / sum straight from the registers to the un-rolled pixels: a quad's
+    // four pairs are 32 contiguous bytes of a pixel's head slice in f32, 16
+    // in bf16
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (tok_row[e] < 0) continue;
+      const int r = wrap(row0 + tok_row[e], Hp);
+      const int c = wrap(col0 + tok_col[e], Wp);
+      T* dst = out + (static_cast<size_t>(b * Hp + r) * Wp + c) * C + h * HD + 2 * t;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        put2(dst + 8 * d, o[4 * d + 2 * e] * inv[e], o[4 * d + 2 * e + 1] * inv[e]);
+    }
+  }
+}
+
+template <int HD, typename T, int N>
+cudaError_t launch_wgmma(const T* qkv, const float* bias, const uint8_t* mask, T* out, int B,
+                         int Hp, int Wp, int C, int n_heads, int window, int shift,
+                         float sm_scale, cudaStream_t stream) {
+  using G = WgGeom<HD, T, N>;
+  const int w2 = window * window;
+  const int nW = (Hp / window) * (Wp / window);
+  auto kernel = fused_window_attention_wgmma_kernel<HD, T, N>;
+  const WgLayout L = wg_layout<HD, T, N>(w2, mask != nullptr, wg_consumers<T>() * kWgRing);
+  if (L.bytes > kMaxSmem) return cudaErrorInvalidConfiguration;
+  // the device's SMs, and the kernel's shared memory limit raised, once a
+  // device and host thread
+  static thread_local int last_dev = -1;
+  static thread_local int sms = 0;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return err;
+  if (cur != last_dev) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, cur);
+    if (err == cudaSuccess) err = allow_smem(kernel, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    last_dev = cur;
+  }
+  // the tensor map of qkv, encoded on the host; a call on the same buffer
+  // and geometry as this thread's last one reuses it
+  struct MapKey {
+    const void* qkv;
+    int B, Hp, Wp, C, n_heads, window;
+    bool operator==(const MapKey& o) const {
+      return qkv == o.qkv && B == o.B && Hp == o.Hp && Wp == o.Wp && C == o.C &&
+             n_heads == o.n_heads && window == o.window;
+    }
+  };
+  static thread_local MapKey last{};
+  static thread_local CUtensorMap tmap;
+  const MapKey key{qkv, B, Hp, Wp, C, n_heads, window};
+  if (!(key == last)) {
+    const long long es = sizeof(T);
+    last = MapKey{};
+    const int rc = hopper::encode_4d(&tmap, qkv, static_cast<int>(es),
+                                     {HD, 3 * n_heads, Wp, B * Hp},
+                                     {HD * es, 3 * C * es, 3ll * C * Wp * es},
+                                     {HD, 1, window, window}, G::kRB);
+    if (rc != 0) return static_cast<cudaError_t>(rc);
+    last = key;
+  }
+  const int tiles = n_heads * B * nW;
+  const int grid = tiles < sms ? tiles : sms;     // one CTA an SM
+  kernel<<<grid, wg_threads<T>(), L.bytes, stream>>>(
+      tmap, qkv, bias, mask, static_cast<long long>(nW) * w2 * w2, out, B, Hp, Wp, C, n_heads,
+      window, shift, sm_scale, tiles);
+  return cudaGetLastError();
+}
+
+// B1's routes by window: up to 7 (w2 <= 56) and 8 on the wgmma body, keys
+// padded to 56 or 64 in f32 and to 64 in bf16 (P.V takes keys 16 at a
+// time); 9-12 on the mma.sync body above
+template <int HD, typename T>
+cudaError_t launch_fused_route(const T* qkv, const float* bias, const uint8_t* mask, T* out,
+                               int B, int Hp, int Wp, int C, int n_heads, int window,
+                               int shift, float sm_scale, cudaStream_t s) {
+  const int w2 = window * window;
+  if (w2 <= 56)
+    return launch_wgmma<HD, T, sizeof(T) == 4 ? 56 : 64>(qkv, bias, mask, out, B, Hp, Wp, C,
+                                                          n_heads, window, shift, sm_scale, s);
+  if (w2 <= 64)
+    return launch_wgmma<HD, T, 64>(qkv, bias, mask, out, B, Hp, Wp, C, n_heads, window, shift,
+                                   sm_scale, s);
   if (w2 <= kMaxW2)
     return launch_fused<HD, kMaxW2 / 8>(qkv, bias, mask, out, B, Hp, Wp, C, n_heads, window,
                                         shift, sm_scale, s);
@@ -458,12 +1158,13 @@ template <typename T>
 cudaError_t dispatch_fused(const void* qkv, const float* bias, const uint8_t* mask,
                            void* out, int B, int Hp, int Wp, int C, int n_heads,
                            int window, int shift, float sm_scale, cudaStream_t s) {
-  if (!aligned16(qkv) || !aligned16(out)) return cudaErrorMisalignedAddress;
+  if (!aligned16(qkv) || !aligned16(out) || (mask != nullptr && !aligned16(mask)))
+    return cudaErrorMisalignedAddress;
   const auto* q = static_cast<const T*>(qkv);
   auto* o = static_cast<T*>(out);
   switch (C / n_heads) {
-    case 16: return launch_fused_nt<16>(q, bias, mask, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
-    case 32: return launch_fused_nt<32>(q, bias, mask, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
+    case 16: return launch_fused_route<16>(q, bias, mask, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
+    case 32: return launch_fused_route<32>(q, bias, mask, o, B, Hp, Wp, C, n_heads, window, shift, sm_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

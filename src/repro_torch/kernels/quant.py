@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.codec import LANES, _current_stream, codec_encode_plain
+from repro_torch.kernels.codec import LANES, codec_encode_plain
 
 
 def _check_block(block: int) -> None:
@@ -105,7 +105,7 @@ def quant_cuda(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor,
     if nb == 0:
         return q, scales, n
     rc = _fns()[0](flat.data_ptr(), q.data_ptr(), scales.data_ptr(), n, nb,
-                   block, _current_stream(x.device))
+                   block, _build.current_stream(x.device))
     _build.check(rc, "quant")
     _build.LAUNCHES["quant"] += 1
     return q, scales, n
@@ -133,7 +133,7 @@ def dequant_cuda(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
     out = torch.empty((n,), dtype=torch.float32, device=q.device)
     if n:
         rc = _fns()[1](q.data_ptr(), scales.data_ptr(), out.data_ptr(), n,
-                       block, _current_stream(q.device))
+                       block, _build.current_stream(q.device))
         _build.check(rc, "dequant")
         _build.LAUNCHES["dequant"] += 1
     return out.reshape(shape).to(dtype)

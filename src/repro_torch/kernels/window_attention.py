@@ -1,23 +1,31 @@
 """Swin window attention: the CUDA kernels' wrappers and their plain versions.
 
-Two kernels of ``csrc/window_attention.cu`` share one per-window body on the
-H100's tensor cores: one CTA of four warps per (window, head[, image])
-copies its key and value rows and a run of 64 query rows into shared
-memory, and each warp takes 16 query rows through Q.K^T, the biased and
-masked softmax and P.V without the logits leaving its registers.  Both
-kernels take f32 or bf16 q, k and v and return their dtype; the logits, the
-softmax and P.V are f32 either way, and a bf16 output is rounded once, at
-the store, as the TPU kernels do.  Both products run on
-``mma.sync.m16n8k8`` TF32 as 3xTF32: each f32 operand is split into a TF32
-``hi`` and the TF32 rounding of ``x - hi``, and a.b is taken as lo.hi +
-hi.lo + hi.hi, which keeps f32 parity where one TF32 product would not (the
-source note gives the numbers; the CPU tests hold a mirror of this
-arithmetic against the JAX package).  A bf16 K or V value is exact in TF32
-(its ``lo`` is 0), so a bf16 call skips hi.lo: two MMAs a product.  Query
-rows are padded to 16 and keys to 8 in shared memory and registers only:
-padded keys score -inf and weigh exactly 0, padded value rows are zero,
-padded query rows are never stored.  Bytes bound both kernels on the H100 (each input element read
-once, each output written once).
+Both kernels of ``csrc/window_attention.cu`` take f32 or bf16 q, k and v
+and return their dtype; the logits, the softmax and P.V are f32 either
+way, and a bf16 output is rounded once, at the store, as the TPU kernels
+do.  Their products run on the H100's tensor cores.  An f32 product is
+three TF32 products (3xTF32): each f32 operand is split into a TF32 ``hi``
+and the TF32 rounding of ``x - hi``, and a.b is taken as lo.hi + hi.lo +
+hi.hi, which keeps f32 parity where one TF32 product would not (the source
+note gives the numbers; the CPU tests hold a mirror of this arithmetic
+against the JAX package).  Padded query rows and keys live in shared
+memory and registers only: padded keys score -inf and weigh exactly 0,
+padded value rows are zero, padded query rows are never stored.  Bytes
+bound both kernels on the H100 (each input element read once, each output
+written once).
+
+B1 at windows up to 8 (every configuration of the repo uses 7) runs a
+persistent kernel built for Hopper: a CTA an SM walks (head, image,
+window) tiles with the head slowest, a producer warp loads each tile's q,
+k, v rows (one TMA box each where the window does not wrap, else 16-byte
+cp.async pieces) and mask bytes into rings of stages ahead of consumer
+warpgroups (2 in f32, 3 in bf16), each of which holds its head's bias in
+shared memory and takes a tile's 64 query rows through both products on
+``wgmma``: in f32 as 3xTF32 on K and V split in shared memory, in bf16 as
+q.k^T of the bf16 values scaled afterwards and P.V as P_hi.V + P_lo.V.
+Windows 9-12 and B7 run the earlier body, one CTA of four warps per
+(window, head[, image]) on ``mma.sync`` m16n8k8 TF32 (a bf16 K or V value
+is exact in TF32, so a bf16 call there takes two products, not three).
 
 ``fused_window_attention`` (B1) replaces the TPU kernel
 ``repro/kernels/window_attention.py :: fused_window_attention_pallas``: one
@@ -54,10 +62,15 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e9
-# what csrc/window_attention.cu's shared per-window body runs
-BODY = ("attend_warp: mma.sync.m16n8k8 TF32, 3xTF32 (lo.hi + hi.lo + hi.hi, "
-        "cvt.rna splits; bf16 K and V exact, hi.lo skipped), f32 sums, "
-        "softmax in registers; f32 or bf16 in and out")
+# what csrc/window_attention.cu's bodies run, by route
+BODY = ("B1 windows <= 8: persistent wgmma body (TMA or cp.async rows ahead "
+        "of 2 (f32) or 3 (bf16) consumer warpgroups; f32 3xTF32 on m64nNk8, "
+        "bf16 q.k^T then "
+        "P_hi.V + P_lo.V on m64nNk16; f32 sums, softmax in registers); B1 "
+        "windows 9-12 and B7: attend_warp on mma.sync.m16n8k8 TF32, 3xTF32 "
+        "(bf16 K and V exact, hi.lo skipped); f32 or bf16 in and out")
+# B1's windows on the wgmma body; 9-12 take attend_warp
+WGMMA_MAX_WINDOW = 8
 # B1: these head dims, f32 or bf16 qkv
 SUPPORTED_HEAD_DIMS = (16, 32)
 # B7: any w2 up to window 12, these head dims, f32 or bf16 q, k, v
@@ -135,6 +148,11 @@ def window_attention_meta(q, k, v, bias, mask=None):
     return torch.empty_like(q)
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where it is contiguous, else a contiguous copy."""
+    return t if t.is_contiguous() else t.contiguous()
+
+
 @functools.cache
 def _fused_fn():
     fn = _build.library("window_attention").fused_window_attention_fwd
@@ -165,13 +183,17 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError("Hp and Wp must be multiples of window, 0 <= shift < window")
     if w2 > WINDOW_MAX_W2:
         raise ValueError(f"w2 {w2} over the kernel's {WINDOW_MAX_W2} (window 12)")
-    if tuple(bias.shape) != (n_heads, w2, w2):
+    if bias.shape != (n_heads, w2, w2):
         raise ValueError(f"bias must be {(n_heads, w2, w2)}, got {tuple(bias.shape)}")
     if mask is not None and (mask.dtype != torch.bool
-                             or tuple(mask.shape) != (nW, w2, w2)):
+                             or mask.shape != (nW, w2, w2)):
         raise ValueError(f"mask must be bool {(nW, w2, w2)}")
-    qkv, bias = qkv.contiguous(), bias.contiguous()
-    mask = None if mask is None else mask.contiguous()
+    qkv, bias = _dense(qkv), _dense(bias)
+    if mask is not None:
+        mask = _dense(mask)
+        if mask.data_ptr() % 16:
+            # the kernel copies the mask in 16-byte pieces
+            mask = mask.clone()
     out = torch.empty((B, Hp, Wp, C), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
@@ -179,8 +201,8 @@ def fused_window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                      None if mask is None else mask.data_ptr(), out.data_ptr(),
                      B, Hp, Wp, C, n_heads, window, shift,
                      WINDOW_DTYPE_CODES[qkv.dtype],
-                     float(1.0 / math.sqrt(C // n_heads)),
-                     torch.cuda.current_stream(qkv.device).cuda_stream)
+                     1.0 / math.sqrt(C // n_heads),
+                     _build.current_stream(qkv.device))
     _build.check(rc, "fused_window_attention")
     _build.LAUNCHES["fused_window_attention"] += 1
     return out
@@ -261,9 +283,9 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_operands("window_attention_cuda", *tensors)
     _check_windows("window_attention_cuda", q, k, v, bias, mask)
     nB, w2, nh, hd = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bias = bias.float().contiguous()
-    mask = None if mask is None else mask.contiguous()
+    q, k, v = _dense(q), _dense(k), _dense(v)
+    bias = _dense(bias.float())
+    mask = None if mask is None else _dense(mask)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -271,7 +293,7 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias.data_ptr(), None if mask is None else mask.data_ptr(),
                        out.data_ptr(), nB, w2, nh, hd, padded_keys(w2),
                        WINDOW_DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
-                       torch.cuda.current_stream(q.device).cuda_stream)
+                       _build.current_stream(q.device))
     _build.check(rc, "window_attention")
     _build.LAUNCHES["window_attention"] += 1
     return out

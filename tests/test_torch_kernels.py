@@ -320,6 +320,28 @@ def test_b1_tensor_core_body_matches_pallas_kernel(B, Hp, Wp, window, shift,
     np.testing.assert_allclose(out, kern, rtol=RTOL, atol=ATOL)
 
 
+# bf16 B1 (as chip_smoke.py holds it): each head's output row within 1e-2
+# of its max |x|
+BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("B,Hp,Wp,window,shift,nh,hd", FUSED_CASES)
+def test_b1_bf16_tensor_core_body_matches_pallas_kernel(B, Hp, Wp, window,
+                                                        shift, nh, hd):
+    """B1's bf16 arithmetic as the kernel routes it (the wgmma body's
+    unscaled q k^T, its scale afterwards and P_hi.V + P_lo.V for windows up
+    to 8; the f32 body rounded once for 9-12) against the Pallas kernel on
+    the same bf16 qkv, each head's row within BF16_TOL of its max."""
+    qkv, bias, mask = _case(B, Hp, Wp, window, shift, nh, hd)
+    out = _b1_mirror(qkv, bias, mask, window=window, shift=shift, nh=nh,
+                     dtype="bfloat16")
+    kern = _jax_kernel(np.asarray(jnp.asarray(qkv, jnp.bfloat16)), bias, mask,
+                       window=window, shift=shift, nh=nh)
+    rows = lambda x: np.asarray(x, np.float32).reshape(B, Hp, Wp, nh, hd)
+    d = np.abs(rows(out) - rows(kern)).max(-1)
+    assert (d <= BF16_TOL * np.abs(rows(kern)).max(-1)).all()
+
+
 @pytest.mark.parametrize("w2,nh,hd,masked", [
     (49, 3, 32, True), (49, 6, 32, True), (64, 4, 64, True),
     (49, 3, 32, False), (81, 2, 32, False)])

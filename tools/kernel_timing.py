@@ -5,6 +5,7 @@ sizes ``chip_smoke.py`` times them.
     python3 tools/kernel_timing.py codec                  # this checkout
     python3 tools/kernel_timing.py attention --src build/parent/src
     python3 tools/kernel_timing.py backward --src build/parent/src
+    python3 tools/kernel_timing.py window --src build/parent/src
 
 ``codec``: B2 (encode) and B3 (decode), then the quant pair B4a (quant) and
 B4b (dequant).  For each of ``chip_smoke.CODEC_LENGTHS`` (one split-1 UE
@@ -40,6 +41,15 @@ kernel's own forward output and log-sum-exp: the three back to back
 beside SDPA's backward through autograd at the same shape (the forward
 outside the timed window, as phase 17 (e) times it) and the bound (10 flop
 a live pair per hd at 989 TFLOP/s).
+
+``window``: B1 (fused window attention) per frame, the 12 calls of one
+Swin-T forward (``chip_smoke.b1_frame``: each stage's unshifted and shifted
+blocks with their masks), at batch 1 (a UE's head) and 4 (a batched tail),
+f32 and bf16, on normals from a torch generator seeded with 0: back to back
+(``chip_smoke.cuda_ms``), queued behind a spin so that no host time enters
+(``chip_smoke.cuda_ms(queued=True)``), the kernel's own device time in a trace, each
+call alone after a cold L2, and the wrapper's host time a call (stage 3,
+shifted), beside the bound (bytes at 3.35 TB/s, by ``fused_cost``).
 
 To compare two checkouts, run both in turns in one call on one card
 (parent, change, change, parent): numbers from different calls may come
@@ -241,13 +251,51 @@ def backward(fa, dev, flush) -> dict:
     return r
 
 
+def window(wa, dev, flush) -> dict:
+    import functools
+    import torch
+    from repro_torch.configs.swin_t_detection import CONFIG as cfg
+    g = torch.Generator().manual_seed(CS.SEED)
+    w2 = cfg.window ** 2
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for B in (1, CS.N_UES):
+            calls, nbytes, cold = [], 0, 0.0
+            for s, Hp, Wp, C, nh, shift, mask, n in CS.b1_frame(cfg, dev):
+                qkv = torch.randn((B, Hp, Wp, 3 * C), generator=g).to(dev, dt)
+                bias = torch.randn((nh, w2, w2), generator=g).to(dev)
+                call = functools.partial(wa.fused_window_attention_cuda, qkv,
+                                         bias, mask, window=cfg.window,
+                                         shift=shift, n_heads=nh)
+                calls += [call] * n
+                nbytes += n * wa.fused_cost(qkv.shape, qkv.element_size(), nh,
+                                            cfg.window, mask is not None)[1]
+                cold += n * CS.cuda_ms(call, before=flush)
+            frame = lambda: [f() for f in calls]
+            r = {"ms": CS.cuda_ms(frame),
+                 "queued_ms": CS.cuda_ms(frame, queued=True),
+                 "device_ms": device_ms([frame], "fused_window_attention"),
+                 "cold_ms": cold, "host_us": CS.host_us(calls[-1]),
+                 "bound_ms": nbytes / CS.HBM_BYTES_PER_S * 1e3}
+            name = f"{str(dt).removeprefix('torch.')} batch {B}"
+            results[name] = r
+            print(f"B1 per frame ({len(calls)} calls), {name}: {r['ms']:.4f} ms "
+                  f"back to back, {r['queued_ms']:.4f} ms queued behind a spin, "
+                  f"device alone (trace) {r['device_ms']:.4f} ms, "
+                  f"{r['cold_ms']:.4f} ms each call after a cold L2; wrapper "
+                  f"{r['host_us']:.1f} us a call; bound {r['bound_ms']:.4f} ms "
+                  f"({nbytes} B)", flush=True)
+    return results
+
+
 # group -> (wrapper modules, passed to the timing function in order;
 #           csrc/*.cu sources to build; the timing function)
 GROUPS = {"codec": (("codec", "quant"), ("codec",), codec),
           "attention": (("flash_attention", "decode_attention"),
                         ("flash_attention", "decode_attention"), attention),
           "backward": (("flash_attention",),
-                       ("flash_attention", "flash_attention_bwd"), backward)}
+                       ("flash_attention", "flash_attention_bwd"), backward),
+          "window": (("window_attention",), ("window_attention",), window)}
 
 
 def main() -> int:
