@@ -1641,6 +1641,48 @@ def b1_build_facts(report: str) -> dict:
     return counts
 
 
+# B6's SASS: its bulk copies (cp.async.bulk), and the atomics its one-launch
+# body must not hold
+DECODE_SASS_OPS = ("UBLKCP", "ATOM", "ATOMG", "ATOMS", "RED")
+
+
+def b6_build_facts(report: str) -> dict:
+    """Phase 2's build facts of B6: for every instantiation of its one-launch
+    body (f32 and bf16, hd 16-128, up to 1, 2, 3, 4, 6, 8 or 16 query heads
+    a kv head, capped and not) its SASS counts of DECODE_SASS_OPS
+    (cuobjdump) and, where this run built the library, its ptxas registers
+    and spills.  Fails unless every instantiation holds the bulk copies, on
+    an atomic or a spill in any of them, and unless all 112 are there.
+    Returns {name: counts}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    usage = ptxas_usage(report)
+    counts = sass_ops(_build.target("decode_attention"), DECODE_SASS_OPS)
+    seen = set()
+    for fn, n in sorted(counts.items()):
+        args = fn.split("decode_attention_kernelI", 1)[-1]
+        hd, gm = (int(x) for x in re.findall(r"Li(\d+)E", args)[:2])
+        dtype = "bf16" if "bfloat16" in args else "f32"
+        capped = "Lb1E" in args
+        regs, st, ld = usage.get(fn, (None, None, None))
+        atomics = sum(n[op] for op in DECODE_SASS_OPS[1:])
+        log(f"  SASS B6 <{dtype}, hd {hd}, G <= {gm}{', cap' if capped else ''}>"
+            f": {n['UBLKCP']} UBLKCP, {atomics} ATOM/RED; "
+            + (f"{regs} registers, {st} B spill stores, {ld} B spill loads"
+               if regs is not None else "ptxas report not in this run"))
+        if not n["UBLKCP"] or atomics or st or ld:
+            raise AssertionError(f"{fn}: B6 without its bulk copies, or with "
+                                 f"atomics or spills ({st} / {ld} B)")
+        seen.add((dtype, hd, gm, capped))
+    missing = {(dt, hd, gm, c) for dt in ("f32", "bf16")
+               for hd in fa.SUPPORTED_HEAD_DIMS for gm in (1, 2, 3, 4, 6, 8, 16)
+               for c in (False, True)} - seen
+    if missing:
+        raise AssertionError(f"B6 has no instantiation for (dtype, hd, G, "
+                             f"capped) {sorted(missing)}")
+    return counts
+
+
 BWD_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "ATOM", "ATOMG", "ATOMS", "RED")
 
 
@@ -3865,6 +3907,9 @@ def main() -> int:
             raise AssertionError(f"{fn_name}: no {op} in its SASS")
     # B5's bf16 body runs wgmma fed by TMA and no mma.sync
     fwd_build_facts(reports.get("flash_attention", ""))
+    # B6's one-launch body: bulk copies in every instantiation, no atomics,
+    # no spills
+    b6_build_facts(reports.get("decode_attention", ""))
 
     # -- set-up: model, frames, plan, codec ----------------------------------
     g = torch.Generator().manual_seed(SEED)
@@ -4150,19 +4195,24 @@ def main() -> int:
             f"max|kernel-plain| {err:.3g}; worst row {rel:.3g} of its max|out| "
             f"(tol {tol}); two launches bitwise equal{what}")
     cache_len = LM_PROMPT + LM_GEN
-    chunk = da.split_plan(cache_len, lm_hd)[0]
+
+    def b6_edges(hd_):
+        """kv_len at the edges of B6's bf16 sub-tiles: 0, 1, T - 1, T,
+        T + 1 and one row into the last sub-tile of a rank's turn"""
+        T_ = da.SUBTILE_BYTES // (2 * hd_)
+        return [0, 1, T_ - 1, T_, T_ + 1, 5 * T_ + 1]
     b6_cases = [  # (H, KV, hd, cache rows, kv_len per batch row)
         (lm_H, lm_KV, lm_hd, cache_len,
-         [0, 1, chunk, chunk + 1, LM_PROMPT, cache_len, 777]),
-        (moe_H, moe_KV, moe_hd, cache_len, [0, 1] + [
-            da.split_plan(cache_len, moe_hd)[0] + i for i in (0, 1)]
-         + [LM_PROMPT, cache_len, 777]),
+         b6_edges(lm_hd) + [LM_PROMPT, cache_len, 777]),
+        (moe_H, moe_KV, moe_hd, cache_len,
+         b6_edges(moe_hd) + [LM_PROMPT, cache_len, 777]),
         # Hymba's ring of the window's rows: filling, one short, full
         (hy_H, hy_KV, hy_hd, hy_w, [1, hy_w - 1, hy_w, hy_w])]
     for H_, KV_, hd_, rows_, lens in b6_cases:
-        chunk, n_splits = da.split_plan(rows_, hd_)
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         for dt in (bf16, f32):
+            C_, T_ = da.cluster_plan(len(lens), KV_, rows_, hd_,
+                                     torch.empty((), dtype=dt).element_size())
             q = rnd((len(lens), 1, H_, hd_), dt)
             ck_, cv_ = (rnd((len(lens), KV_, rows_, hd_), dt)
                         for _ in range(2))
@@ -4181,11 +4231,47 @@ def main() -> int:
             attn_errs["decode_attention"] = max(attn_errs["decode_attention"],
                                                 err)
             log(f"check B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
-                f"{lens.tolist()} (chunks of {chunk}, {n_splits} splits) "
+                f"{lens.tolist()} (clusters of {C_}, sub-tiles of {T_} rows) "
                 f"{str(dt).removeprefix('torch.')}: max|kernel-plain| "
                 f"{err:.3g}; worst row {rel:.3g} of its max|out| (tol {tol}); "
                 f"{'kv_len 0 gives zeros; ' if lens[0] == 0 else ''}two "
                 f"launches bitwise equal")
+
+    # B6 at each of its cluster sizes (C = 16, 8, 4, 2, 1 by the wrapper's
+    # plan from B and KV), on caches whose ranks wrap the ring (C = 16: 4500
+    # rows in bf16 sub-tiles of 32, 8-9 a rank), kv_len 0, 1, one that ends
+    # inside a sub-tile and the full cache
+    mg_cfg_ = get_config(FRONTEND_ARCHS[0])     # musicgen-medium, G = 1
+    for B_, H_, KV_, hd_, rows_ in ((1, lm_H, lm_KV, lm_hd, 4500),
+                                    (4, lm_H, lm_KV, lm_hd, 4500),
+                                    (8, lm_H, lm_KV, lm_hd, cache_len),
+                                    (16, lm_H, lm_KV, lm_hd, cache_len),
+                                    (9, mg_cfg_.n_heads, mg_cfg_.n_kv_heads,
+                                     mg_cfg_.head_dim, cache_len)):
+        T_ = da.SUBTILE_BYTES // (2 * hd_)
+        lens = torch.tensor(([0, 1, 5 * T_ + T_ // 3, rows_] * 4)[:B_][::-1],
+                            dtype=torch.int32, device=dev)
+        C_ = da.cluster_plan(B_, KV_, rows_, hd_, 2)[0]
+        for dt in (bf16, f32):
+            q = rnd((B_, 1, H_, hd_), dt)
+            ck_, cv_ = (rnd((B_, KV_, rows_, hd_), dt) for _ in range(2))
+            ref = da.decode_attention_plain(q, ck_, cv_, lens)
+            out = da.decode_attention_cuda(q, ck_, cv_, lens)
+            again = da.decode_attention_cuda(q, ck_, cv_, lens)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, ref)
+            tol = BF16_TOL if dt == bf16 else F32_TOL
+            empty = lens == 0
+            if not (torch.isfinite(out).all() and rel <= tol
+                    and not out[empty].any() and torch.equal(out, again)):
+                raise AssertionError(f"B6 {tuple(q.shape)} {dt} (bf16 clusters "
+                                     f"of {C_}): rel err {rel}, or kv_len 0 is "
+                                     "not zeros, or two launches differ")
+            attn_errs["decode_attention"] = max(attn_errs["decode_attention"],
+                                                err)
+        log(f"check B6 q {tuple(q.shape)} cache {tuple(ck_.shape)} kv_len "
+            f"{lens.tolist()}, bf16 clusters of {C_}, and f32: worst row "
+            f"within tol, kv_len 0 gives zeros, two launches bitwise equal")
 
     # B6's partial mode, the rows of phase 6's cache cut in halves as two
     # ranks hold them

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) primitives as inline PTX, for the kernels of this directory
-// that run on wgmma fed by TMA: the warpgroup products (bf16 and TF32) and
-// their shared-memory descriptors, ldmatrix, the proxy fence, mbarriers
-// (completed by TMA or by cp.async), the TMA tile load, setmaxnreg, named
-// barriers, and the host-side encoding of a tensor map, found through
+// that run on wgmma fed by TMA or on bulk copies: the warpgroup products
+// (bf16 and TF32) and their shared-memory descriptors, ldmatrix, the proxy
+// fence, mbarriers (completed by TMA, bulk copies or cp.async), the TMA tile
+// load, the 1-D bulk copy, the cluster's rank, barrier and stores to
+// distributed shared memory, setmaxnreg, named barriers, and the host-side encoding of a
+// tensor map, found through
 // cudaGetDriverEntryPoint (no -lcuda).  Written out as PTX, the way the other
 // kernels write mma.sync, so that a build includes no CUTLASS or CuTe
 // template.
@@ -369,6 +371,56 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- bulk copies and clusters --------------------------------------------------
+
+// `bytes` (a multiple of 16) of global memory at src into shared memory at
+// dst, both 16-byte aligned, as one bulk asynchronous copy; its bytes
+// complete a transaction on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in its two halves.  Every non-exited thread of the
+// cluster arrives, and a wait returns once they all have; a thread waits
+// once between two arrivals.  A relaxed arrival orders nothing; a released
+// one makes the thread's writes to shared memory, its own CTA's or
+// another's, visible to every thread whose wait it completes.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `addr` (an address in this CTA's shared
+// memory) in the shared memory of CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// A float into the shared memory of a CTA of the cluster (an address from mapa).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(addr), "f"(x) : "memory");
 }
 
 // ---- registers and named barriers ------------------------------------------

@@ -14,19 +14,20 @@ LM keeps (``models/transformer.py::block_cache_init``), so the decode path
 never transposes it; ``kernels/ops.py::decode_attention`` keeps the TPU
 wrapper's (B, S, KV, hd) signature and transposes as that wrapper does.
 
-The CUDA kernel (``csrc/decode_attention.cu``) is split-KV: ``split_plan``
-cuts the cache's capacity S into chunks, one CTA per (chunk, kv head, batch
-row) writes an f32 partial (m, l, acc) over the live rows of its chunk into
-scratch that the wrapper allocates, and a combine pass merges the partials
-in a fixed order.  The grid depends on S and hd only, never on the values of
-``kv_len``, which the wrapper does not read on the host.  It is bound by the
-bytes of the cache it reads (the source note gives the numbers).
-``kernels/ops.py`` takes the plain version only for tensors on the CPU;
-``chip_smoke.py`` holds the kernel against it on the card.
+The CUDA kernel (``csrc/decode_attention.cu``) runs in one launch: a
+thread-block cluster of C CTAs per (batch row, kv head), whose ranks take
+the cache's sub-tiles of T rows round-robin, stream their K and V rows
+through a ring of bulk asynchronous copies, keep a running softmax over
+them, and combine their partials in distributed shared memory in rank
+order.  ``cluster_plan`` gives (C, T) from the shapes and the card's SMs,
+never from the values of ``kv_len``, which the wrapper does not read on the
+host.  It is bound by the bytes of the cache it reads (the source note
+gives the numbers).  ``kernels/ops.py`` takes the plain version only for tensors on
+the CPU; ``chip_smoke.py`` holds the kernel against it on the card.
 
 ``return_lse=True`` is the partial mode, for a cache whose rows are cut over
 several ranks (``models/layers.py``'s decode on a sequence shard): the same
-first pass, and a combine that writes the output in float32, not rounded to
+launch, whose combine writes the output in float32, not rounded to
 q's dtype, beside each row's log-sum-exp ``lse`` (B, H) float32, m + log l of
 the scaled (capped) logits over the live rows.  A row with ``kv_len = 0``
 gives out = 0 and lse = -inf, so a rank whose rows hold no live key yet
@@ -49,16 +50,50 @@ from repro_torch.kernels.flash_attention import (DTYPE_CODES,
                                                  check_softcap, softcap)
 
 MAX_GROUP = 16                  # query heads per kv head the kernel takes
-CHUNK_ELEMS = 16384             # cache elements a CTA reads from K (and V)
-CHUNK_MIN, CHUNK_MAX = 128, 512  # its rows: 128 at hd 128, 512 at hd 32
+MAX_CLUSTER = 16                # CTAs a (batch row, kv head) at most
+# The source's constants the plan takes (its decode_attention_geometry
+# gives them; the wrapper raises if a built library's differ), here so that
+# the plan runs without a build
+SUBTILE_BYTES = 8192            # a sub-tile's K rows: kSubTileBytes
+CTAS_PER_SM = 3                 # the launch bounds' CTAs an SM: kCtasPerSm
+SMS = 132                       # an H100 SXM's SMs, where no card is asked
 
 
-def split_plan(S: int, hd: int) -> Tuple[int, int]:
-    """(chunk, n_splits): the cache rows each CTA of the kernel's first pass
-    takes, and the number of such chunks that cover rows [0, S).  A function
-    of the cache's shape only, so the grid never depends on ``kv_len``."""
-    chunk = min(CHUNK_MAX, max(CHUNK_MIN, CHUNK_ELEMS // hd))
-    return chunk, max(1, -(-S // chunk))
+@functools.cache
+def cluster_plan(B: int, KV: int, S: int, hd: int, esize: int,
+                 sms: int = SMS, subtile_bytes: int = SUBTILE_BYTES,
+                 ctas_per_sm: int = CTAS_PER_SM) -> Tuple[int, int]:
+    """(C, T): the CTAs of the kernel's cluster for each (batch row, kv
+    head), and the cache rows of a sub-tile (``subtile_bytes`` of K at
+    ``esize`` bytes an element).  Rank r of a cluster takes sub-tiles r,
+    r + C, r + 2C, ... of rows [0, S).  C is the largest power of two up to
+    ``MAX_CLUSTER`` that keeps the grid's B KV C CTAs within
+    ``ctas_per_sm`` on each of the card's ``sms`` SMs, and no larger than
+    the sub-tiles.  A function of the shapes and the card only, so the grid
+    never depends on ``kv_len``."""
+    T = subtile_bytes // (hd * esize)
+    subtiles = max(1, -(-S // T))
+    C = 1
+    while (2 * C <= min(MAX_CLUSTER, subtiles)
+           and B * KV * 2 * C <= ctas_per_sm * sms):
+        C *= 2
+    return C, T
+
+
+def library_geometry(lib) -> Tuple[int, int]:
+    """(sub-tile bytes, CTAs an SM) of a built B6 library, as its source
+    fixes them."""
+    sub, per_sm = ctypes.c_int(), ctypes.c_int()
+    lib.decode_attention_geometry(ctypes.byref(sub), ctypes.byref(per_sm))
+    return sub.value, per_sm.value
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    """The SMs of a card (``SMS`` for a device that is not one)."""
+    if device.type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def cost(q_shape, cache_shape, esize: int, rows=None, return_lse=False):
@@ -114,8 +149,13 @@ def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 
 def _bind(entry: str, n_out: int):
-    fn = getattr(_build.library("decode_attention"), entry)
-    fn.argtypes = [ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * 8 + [
+    lib = _build.library("decode_attention")
+    if library_geometry(lib) != (SUBTILE_BYTES, CTAS_PER_SM):
+        raise RuntimeError(f"decode_attention.cu fixes (sub-tile bytes, CTAs "
+                           f"an SM) {library_geometry(lib)}; the plan here "
+                           f"takes {(SUBTILE_BYTES, CTAS_PER_SM)}")
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -123,19 +163,20 @@ def _bind(entry: str, n_out: int):
 
 @functools.cache
 def _fn():
-    return _bind("decode_attention_fwd", 2)       # o, part
+    return _bind("decode_attention_fwd", 1)       # o
 
 
 @functools.cache
 def _fn_lse():
-    return _bind("decode_attention_lse_fwd", 3)   # o, lse, part
+    return _bind("decode_attention_lse_fwd", 2)   # o, lse
 
 
 def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                           kv_len: torch.Tensor,
                           logit_softcap: float = 0.0, return_lse: bool = False):
     """Launch the CUDA kernel on PyTorch's current stream.  Same contract as
-    the plain version; at most ``MAX_GROUP`` query heads per kv head."""
+    the plain version; at most ``MAX_GROUP`` query heads per kv head, and q,
+    ck and cv 16-byte aligned (the bulk copies need it)."""
     _build.check_operands("decode_attention_cuda", q, ck, cv, kv_len)
     check_softcap(logit_softcap)
     q, ck, cv = q.contiguous(), ck.contiguous(), cv.contiguous()
@@ -163,13 +204,12 @@ def decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         fn, outs, name = _fn, (out.data_ptr(),), "decode_attention"
     if B == 0:
         return (out, lse) if return_lse else out
-    chunk, n_splits = split_plan(S, hd)
-    part = torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
-                       device=q.device)
+    cluster, _ = cluster_plan(B, KV, S, hd, q.element_size(),
+                              _sms(q.device))
     rc = fn()(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), kv_len.data_ptr(),
-              *outs, part.data_ptr(), B, S, H, KV, hd, chunk, n_splits,
-              DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd), float(logit_softcap),
-              torch.cuda.current_stream(q.device).cuda_stream)
+              *outs, B, S, H, KV, hd, cluster, DTYPE_CODES[q.dtype],
+              1.0 / math.sqrt(hd), float(logit_softcap),
+              _build.current_stream(q.device))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
     return (out, lse) if return_lse else out

@@ -15,11 +15,11 @@ written in this file and held against the JAX package: B5's bf16 tensor-core
 numerics (exact bf16 products, scaled f32 scores, a base-2 online softmax
 over the kernel's 128-row kv tiles, P.V as P_hi.V + P_lo.V) within
 B5_MIRROR_TOL of each
-output row's max before the output cast, and B6's split-KV partials and
-combine in f32 on the wrapper's own chunks within F32_TOL.
+output row's max before the output cast, and B6's cluster (round-robin
+sub-tiles, a running softmax a rank, the combine in rank order) in f32 on
+the wrapper's own cluster plan within F32_TOL.
 """
 import math
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -450,16 +450,30 @@ def test_a_zero_softcap_is_the_uncapped_call():
 
 @pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
 def test_decode_split_plan_covers_the_cache_once(hd):
-    """Every S from 0 to past the largest chunk: the chunks cover rows
-    [0, S) exactly once, in order, and there is at least one (the combine
-    then sees a split even for an empty cache)."""
+    """Every S from 0 to past the largest sub-tile, in both dtypes and at
+    grids of a few to many (batch row, kv head) pairs: the cluster's ranks,
+    dealt sub-tiles r, r + C, ... of T rows, cover rows [0, S) exactly once;
+    C is a power of two up to 16, no larger than the sub-tiles, and keeps
+    the grid within CTAS_PER_SM an SM unless C is 1; the plan is the same on
+    every call (a function of the shapes)."""
     for S in list(range(0, 1100, 7)) + [127, 128, 129, 255, 256, 257, 511,
                                           512, 513, 2048, 2080, 4096]:
-        chunk, n = da.split_plan(S, hd)
-        assert chunk >= 1 and n == max(1, -(-S // chunk))
-        rows = [r for i in range(n) for r in range(i * chunk,
-                                                   min((i + 1) * chunk, S))]
-        assert rows == list(range(S))
+        for esize in (2, 4):
+            for B, KV in ((1, 1), (2, 1), (4, 8), (4, 24), (8, 32)):
+                C, T = da.cluster_plan(B, KV, S, hd, esize)
+                assert (C, T) == da.cluster_plan(B, KV, S, hd, esize)
+                assert T * hd * esize == da.SUBTILE_BYTES
+                n = max(1, -(-S // T))
+                assert C in (1, 2, 4, 8, 16) and C <= n
+                assert C == 1 or B * KV * C <= da.CTAS_PER_SM * da.SMS
+                rows = sorted(r for rank in range(C)
+                              for t in range(rank, n, C)
+                              for r in range(t * T, min(t * T + T, S)))
+                assert rows == list(range(S))
+    # the serving shapes: qwen3-1.7b's decode and its half cache, musicgen
+    assert da.cluster_plan(4, 8, 2080, 128, 2) == (8, 32)
+    assert da.cluster_plan(4, 8, 1040, 128, 2) == (8, 32)
+    assert da.cluster_plan(4, 24, 2080, 64, 2) == (4, 64)
 
 
 class _NoHostRead(torch.Tensor):
@@ -474,71 +488,98 @@ class _NoHostRead(torch.Tensor):
 
 
 def test_decode_wrapper_launch_ignores_kv_len_values(monkeypatch):
-    """The wrapper's launch (grid, chunk, scratch) is a function of the
-    shapes: the same arguments reach the C entry point whatever kv_len
-    holds, and kv_len is never read on the host, so a decode step can be
-    captured in a CUDA graph.  The C function is replaced by a recorder, so
-    this runs on the CPU."""
+    """The wrapper's launch (the cluster of each (batch row, kv head), no
+    scratch) is a function of the shapes: the same arguments reach the C
+    entry point whatever kv_len holds, and kv_len is never read on the
+    host, so a decode step can be captured in a CUDA graph.  The C function
+    is replaced by a recorder, so this runs on the CPU."""
     calls = []
     monkeypatch.setattr(da._build, "check_operands", lambda *a: None)
     monkeypatch.setattr(da._build, "LAUNCHES", type(da._build.LAUNCHES)())
+    monkeypatch.setattr(da._build, "current_stream", lambda device: 0)
     monkeypatch.setattr(da, "_fn", lambda: lambda *a: calls.append(a) or 0)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
     B, H, KV, S, hd = 3, 8, 2, 2080, 128
     q, ck, cv = (torch.zeros(s) for s in ((B, 1, H, hd), (B, KV, S, hd),
                                           (B, KV, S, hd)))
     for lens in ((0, 0, 0), (1, 128, 129), (S, S, S), (2048, 7, 0)):
         kv_len = torch.tensor(lens, dtype=torch.int32).as_subclass(_NoHostRead)
-        da.decode_attention_cuda(q, ck, cv, kv_len)
-    chunk, n = da.split_plan(S, hd)
-    shapes = {a[6:14] for a in calls}       # B, S, H, KV, hd, chunk, n, dtype
-    assert shapes == {(B, S, H, KV, hd, chunk, n, 0)} and len(calls) == 4
+        out = da.decode_attention_cuda(q, ck, cv, kv_len)
+        assert calls[-1][4] == out.data_ptr() and len(calls[-1]) == 15
+    C, _ = da.cluster_plan(B, KV, S, hd, 4)
+    shapes = {a[5:12] for a in calls}       # B, S, H, KV, hd, C, dtype
+    assert shapes == {(B, S, H, KV, hd, C, 0)} and len(calls) == 4
     assert da._build.LAUNCHES["decode_attention"] == 4
 
 
-def _b6_split_mirror(q, ck, cv, kv_len, softcap=0.0):
-    """B6's split-KV arithmetic in f32 on the wrapper's chunks: per chunk the
-    partial (m, l, acc) of its live rows (m = -1e30, l = 0, acc = 0 when it
-    has none; the scores capped at ``softcap`` first), then the combine over
-    the chunks in order.  q (B, 1, H, hd), ck, cv (B, KV, S, hd), kv_len
-    (B,) -> (B, 1, H, hd) f32."""
+def _b6_split_mirror(q, ck, cv, kv_len, softcap=0.0, return_lse=False):
+    """B6's one-launch arithmetic in f32: ``cluster_plan``'s C ranks of a
+    (batch row, kv head) take its sub-tiles of T rows round-robin (rank r
+    sub-tiles r, r + C, ...), skip those at or past kv_len and keep a
+    running (m, l, acc), rescaled once a sub-tile (m = -1e30, l = 0,
+    acc = 0 on a rank with no live row; the scores capped at ``softcap``
+    first); then the combine over the ranks in rank order.  q (B, 1, H, hd),
+    ck, cv (B, KV, S, hd), kv_len (B,) -> (B, 1, H, hd) f32, and with
+    ``return_lse`` also (B, H) lse = m* + log l (-inf where kv_len is 0)."""
     B, _, H, hd = q.shape
     KV, S = ck.shape[1], ck.shape[2]
-    chunk, n = da.split_plan(S, hd)
-    qs = q.reshape(B, KV, H // KV, hd) * np.float32(1 / math.sqrt(hd))
-    m = np.full((n, B, KV, H // KV), -1e30, np.float32)
+    G = H // KV
+    C, T = da.cluster_plan(B, KV, S, hd, 4)
+    qs = q.reshape(B, KV, G, hd) * np.float32(1 / math.sqrt(hd))
+    m = np.full((C, B, KV, G), -1e30, np.float32)
     l = np.zeros_like(m)
-    acc = np.zeros((n, B, KV, H // KV, hd), np.float32)
-    for i in range(n):
-        for b in range(B):
-            lo, hi = i * chunk, min((i + 1) * chunk, int(kv_len[b]), S)
-            if hi <= lo:
-                continue
-            s = qs[b] @ ck[b, :, lo:hi].transpose(0, 2, 1)    # (KV, G, rows)
-            if softcap:
-                s = np.tanh(s / np.float32(softcap)) * np.float32(softcap)
-            m[i, b] = s.max(-1)
-            p = np.exp(s - m[i, b][..., None])
-            l[i, b] = p.sum(-1)
-            acc[i, b] = p @ cv[b, :, lo:hi]
-    w = np.exp(m - m.max(0))
-    out = (acc * w[..., None]).sum(0) / np.maximum((l * w).sum(0), 1e-30)[..., None]
-    return out.reshape(B, 1, H, hd).astype(np.float32)
+    acc = np.zeros((C, B, KV, G, hd), np.float32)
+    for b in range(B):
+        live = min(max(int(kv_len[b]), 0), S)
+        for r in range(C):
+            for t in range(r, -(-live // T), C):
+                lo, hi = t * T, min(t * T + T, live)
+                s = qs[b] @ ck[b, :, lo:hi].transpose(0, 2, 1)  # (KV, G, rows)
+                if softcap:
+                    s = np.tanh(s / np.float32(softcap)) * np.float32(softcap)
+                mn = np.maximum(m[r, b], s.max(-1))
+                alpha = np.exp(m[r, b] - mn)
+                p = np.exp(s - mn[..., None])
+                l[r, b] = l[r, b] * alpha + p.sum(-1)
+                acc[r, b] = acc[r, b] * alpha[..., None] + p @ cv[b, :, lo:hi]
+                m[r, b] = mn
+    m_star = m.max(0)
+    lt = np.zeros_like(m_star)
+    at = np.zeros_like(acc[0])
+    for r in range(C):
+        w = np.exp(m[r] - m_star)
+        lt += l[r] * w
+        at += acc[r] * w[..., None]
+    out = (at / np.maximum(lt, 1e-30)[..., None]).reshape(B, 1, H, hd)
+    if not return_lse:
+        return out.astype(np.float32)
+    with np.errstate(divide="ignore"):
+        lse = np.where(lt > 0, m_star + np.log(lt), -np.inf)
+    return out.astype(np.float32), lse.reshape(B, H).astype(np.float32)
+
+
+def _b6_edges(S, hd):
+    """kv_len at 0, 1, T - 1, T, T + 1, one row into the cache's last
+    sub-tile (the last of some rank's) and the full cache."""
+    _, T = da.cluster_plan(1, 1, S, hd, 4)
+    return [0, 1, T - 1, T, T + 1, (-(-S // T) - 1) * T + 1, S]
 
 
 @pytest.mark.parametrize("S,H,KV,hd", [
-    (300, 8, 2, 128),           # chunks of 128: three splits
-    (600, 4, 4, 64),            # chunks of 256, one query head per kv head
-    (1100, 12, 1, 32),          # chunks of 512, twelve query heads
+    (300, 8, 2, 128),           # f32 sub-tiles of 16 rows, G = 4
+    (600, 4, 4, 64),            # sub-tiles of 32, one query head per kv head
+    (1100, 12, 1, 32),          # sub-tiles of 64, twelve query heads
+    (700, 12, 2, 64),           # G = 6, InternVL's
+    (600, 16, 1, 32),           # G = 16, the most the kernel takes
 ])
 def test_b6_split_kv_numerics_match_the_reference(S, H, KV, hd):
-    """B6's partials and combine against the TPU kernel in interpret mode, at
-    kv_len 0, 1, one chunk, one chunk + 1 and the full cache."""
-    chunk, n = da.split_plan(S, hd)
-    assert n >= 3
-    lens = np.asarray([0, 1, chunk, chunk + 1, S], np.int32)
+    """B6's cluster arithmetic against the TPU kernel in interpret mode, at
+    kv_len 0, 1, T - 1, T, T + 1, one row into the last sub-tile and the
+    full cache, on a cluster of several ranks each taking more than one
+    sub-tile."""
+    lens = np.asarray(_b6_edges(S, hd), np.int32)
     B = len(lens)
+    C, T = da.cluster_plan(B, KV, S, hd, 4)
+    assert C >= 4 and -(-S // T) > C
     q, ck, cv = _normal(S + hd, (B, 1, H, hd), (B, KV, S, hd), (B, KV, S, hd))
     out = _b6_split_mirror(q, ck, cv, lens)
     kern = decode_attention_pallas(
@@ -551,15 +592,34 @@ def test_b6_split_kv_numerics_match_the_reference(S, H, KV, hd):
 
 @pytest.mark.parametrize("cap", [0.5, 50.0])
 def test_b6_split_kv_numerics_with_a_softcap_match_the_reference(cap):
-    """The partials capped in pass 1, the combine unchanged, against the JAX
-    package's capped ``cache_attention`` at kv_len 1, one chunk + 1 and the
-    full cache."""
+    """The scores capped before the running max, the combine unchanged,
+    against the JAX package's capped ``cache_attention`` at kv_len 1, one
+    sub-tile + 1 and the full cache."""
     from repro.models.layers import cache_attention
     S, H, KV, hd = 600, 4, 4, 64
-    chunk, n = da.split_plan(S, hd)
-    lens = np.asarray([1, chunk + 1, S], np.int32)
+    _, T = da.cluster_plan(3, KV, S, hd, 4)
+    lens = np.asarray([1, T + 1, S], np.int32)
     q, ck, cv = _normal(S + 3, (3, 1, H, hd), (3, KV, S, hd), (3, KV, S, hd))
     out = _b6_split_mirror(q, ck, cv, lens, softcap=cap)
     exp = cache_attention(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
                           kv_len=jnp.asarray(lens), logit_softcap=cap)
     np.testing.assert_allclose(out, np.asarray(exp), rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("cap", [0.0, 1.0])
+def test_b6_split_kv_partial_mode_matches_the_plain_lse(cap):
+    """The partial mode's arithmetic: the mirror's f32 out and lse against
+    ``decode_attention_plain(..., return_lse=True)`` at the edges of the
+    sub-tiles, -inf and zeros where kv_len is 0."""
+    S, H, KV, hd = 520, 8, 2, 64
+    lens = np.asarray(_b6_edges(S, hd), np.int32)
+    B = len(lens)
+    q, ck, cv = _normal(S + 5, (B, 1, H, hd), (B, KV, S, hd), (B, KV, S, hd))
+    out, lse = _b6_split_mirror(q, ck, cv, lens, softcap=cap, return_lse=True)
+    ref, ref_lse = da.decode_attention_plain(
+        *map(torch.from_numpy, (q, ck, cv, lens)), cap, True)
+    np.testing.assert_allclose(out, ref.numpy(), rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(lse[1:], ref_lse.numpy()[1:], rtol=F32_TOL,
+                               atol=F32_TOL)
+    assert np.isneginf(lse[0]).all() and np.isneginf(ref_lse[0].numpy()).all()
+    assert not out[0].any()

@@ -486,24 +486,55 @@ def test_flash_attention_window_past_skv_is_the_causal_call(cuda, dtype, w):
                        fa.flash_attention_cuda(q, k, v, True))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("S,H,KV,hd,lens", [
-    (512, 8, 2, 64, (170, 256, 512)),
-    (300, 4, 4, 64, (0, 1, 300)),
-    (100, 24, 2, 32, (99, 7)),
-    (2080, 16, 8, 128, (0, 2048, 2080, 1000)),
-    (40, 4, 2, 16, (40, 0, 3)),
-    (2080, 16, 8, 128, "edges"),
-    (600, 8, 2, 64, "edges"),
-    (1100, 48, 3, 32, "edges"),
-])
-def test_decode_attention_kernel_matches_plain(cuda, dtype, S, H, KV, hd, lens):
-    """Within tolerance of the plain version, zeros where kv_len is 0, and
-    two launches give the same bits; "edges" takes kv_len at 0, 1, one
-    chunk of the wrapper's split, one chunk + 1 and the full cache."""
+def _b6_shape(S, hd, dtype, lens, C, monkeypatch):
+    """(S, kv_len per batch row) of a B6 case, with the kernel's cluster
+    forced to C (None: the wrapper's plan).  S "wrap": every rank of C
+    takes 7 or more sub-tiles (the ring wraps three times or more), the
+    last cut short.  lens "edges": 0, 1, T - 1, T, T + 1 and the full cache;
+    "wrap": 0, 1, a live count that ends inside a sub-tile, the full
+    cache."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    T = da.SUBTILE_BYTES // (hd * esize)
+    if S == "wrap":
+        S = 7 * C * T + T // 2
+    if C is not None:
+        plan = da.cluster_plan
+        monkeypatch.setattr(da, "cluster_plan",
+                            lambda *a: (C, plan(*a)[1]))
     if lens == "edges":
-        chunk, _ = da.split_plan(S, hd)
-        lens = (0, 1, chunk, chunk + 1, S)
+        lens = (0, 1, T - 1, T, T + 1, S)
+    elif lens == "wrap":
+        lens = (0, 1, 5 * T + T // 3, S)
+    return S, lens
+
+
+# (S, H, KV, hd, kv_len, C): the cluster's size forced to every C, over
+# caches that wrap the ring; G of 1, 2, 3, 4, 6, 8 and 16
+B6_CLUSTER_CASES = [("wrap", 16, 8, 128, "wrap", C) for C in (1, 2, 4, 8, 16)] + [
+    ("wrap", 24, 24, 64, "wrap", 2), ("wrap", 48, 3, 32, "wrap", 4),
+    ("wrap", 24, 8, 128, "wrap", 4), ("wrap", 16, 2, 64, "wrap", 2),
+    ("wrap", 48, 8, 128, "wrap", 8), ("wrap", 8, 2, 16, "wrap", 16),
+    (2080, 16, 8, 128, "edges", 16), (300, 4, 4, 64, (0, 1, 300), 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S,H,KV,hd,lens,C", [
+    (512, 8, 2, 64, (170, 256, 512), None),
+    (300, 4, 4, 64, (0, 1, 300), None),
+    (100, 24, 2, 32, (99, 7), None),
+    (2080, 16, 8, 128, (0, 2048, 2080, 1000), None),
+    (40, 4, 2, 16, (40, 0, 3), None),
+    (2080, 16, 8, 128, "edges", None),
+    (600, 8, 2, 64, "edges", None),
+    (1100, 48, 3, 32, "edges", None),
+] + B6_CLUSTER_CASES)
+def test_decode_attention_kernel_matches_plain(cuda, monkeypatch, dtype, S, H,
+                                               KV, hd, lens, C):
+    """Within tolerance of the plain version, zeros where kv_len is 0, and
+    two launches give the same bits; "edges" takes kv_len at 0, 1, T - 1,
+    T, T + 1 rows of the kernel's sub-tiles and the full cache; C forces
+    the cluster's size (``_b6_shape``)."""
+    S, lens = _b6_shape(S, hd, dtype, lens, C, monkeypatch)
     g = torch.Generator().manual_seed(8)
     B = len(lens)
     q = torch.randn((B, 1, H, hd), generator=g).to(cuda, dtype)
@@ -565,18 +596,23 @@ def test_zero_softcap_is_bitwise_the_uncapped_kernels(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("S,H,KV,hd,lens,cap", [
-    (2080, 16, 8, 128, (1, 129, 2048, 2080), 1.0),   # a global cache
-    (2080, 16, 8, 128, (0, 2048), 50.0),
-    (1024, 25, 5, 64, (1, 1023, 1024), 1.0),         # Hymba's ring
-    (2080, 24, 24, 64, (1, 2048, 2080), 1.0),        # musicgen's G = 1
-    (2080, 48, 8, 128, (2048, 2049), 1.0),           # InternVL's G = 6
-    (2080, 24, 24, 64, (5, 2048), 0.0),              # G = 1, no cap
+@pytest.mark.parametrize("S,H,KV,hd,lens,cap,C", [
+    (2080, 16, 8, 128, (1, 129, 2048, 2080), 1.0, None),   # a global cache
+    (2080, 16, 8, 128, (0, 2048), 50.0, None),
+    (1024, 25, 5, 64, (1, 1023, 1024), 1.0, None),         # Hymba's ring
+    (2080, 24, 24, 64, (1, 2048, 2080), 1.0, None),        # musicgen's G = 1
+    (2080, 48, 8, 128, (2048, 2049), 1.0, None),           # InternVL's G = 6
+    (2080, 24, 24, 64, (5, 2048), 0.0, None),              # G = 1, no cap
+    ("wrap", 16, 8, 128, "wrap", 1.0, 16),                 # the ring wraps
+    ("wrap", 25, 5, 64, "wrap", 50.0, 4),
+    ("wrap", 24, 24, 64, "wrap", 1.0, 1),
 ])
-def test_decode_attention_softcap_matches_plain(cuda, dtype, S, H, KV, hd,
-                                                lens, cap):
+def test_decode_attention_softcap_matches_plain(cuda, monkeypatch, dtype, S, H,
+                                                KV, hd, lens, cap, C):
     """B6 with a logit soft-cap (and at G = 1) within tolerance of the plain
-    version, zeros where kv_len is 0, two launches bitwise equal."""
+    version, zeros where kv_len is 0, two launches bitwise equal; C forces
+    the cluster's size (``_b6_shape``)."""
+    S, lens = _b6_shape(S, hd, dtype, lens, C, monkeypatch)
     g = torch.Generator().manual_seed(25)
     B = len(lens)
     q = torch.randn((B, 1, H, hd), generator=g).to(cuda, dtype)
@@ -595,18 +631,25 @@ def test_decode_attention_softcap_matches_plain(cuda, dtype, S, H, KV, hd,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("S,H,KV,hd,lens,cap", [
-    (1040, 16, 8, 128, (1040, 460, 0, 1), 0.0),     # half of qwen3's cache
-    (1040, 16, 8, 128, (1040, 0), 1.0),
-    (512, 25, 5, 64, (512, 1, 0), 0.0),            # half of Hymba's ring
-    (300, 24, 24, 64, (0, 300, 7), 0.0),            # musicgen's G = 1
+@pytest.mark.parametrize("S,H,KV,hd,lens,cap,C", [
+    (1040, 16, 8, 128, (1040, 460, 0, 1), 0.0, None),     # half of qwen3's cache
+    (1040, 16, 8, 128, (1040, 0), 1.0, None),
+    (512, 25, 5, 64, (512, 1, 0), 0.0, None),            # half of Hymba's ring
+    (300, 24, 24, 64, (0, 300, 7), 0.0, None),            # musicgen's G = 1
+    ("wrap", 16, 8, 128, "wrap", 0.0, 8),                 # the ring wraps
+    ("wrap", 16, 8, 128, "wrap", 1.0, 16),
+    ("wrap", 24, 24, 64, "wrap", 0.0, 2),
+    ("wrap", 12, 1, 32, "wrap", 0.0, 1),
 ])
-def test_decode_attention_partial_mode_matches_plain(cuda, dtype, S, H, KV,
-                                                     hd, lens, cap):
+def test_decode_attention_partial_mode_matches_plain(cuda, monkeypatch, dtype,
+                                                     S, H, KV, hd, lens, cap,
+                                                     C):
     """B6's partial mode: out (float32 whatever q's dtype) and lse within
     tolerance of the plain version, lse -inf and out zeros where kv_len is
     0, two launches bitwise equal, its out rounded to q's dtype within one
-    rounding of the default mode's, which stays bitwise what it is."""
+    rounding of the default mode's, which stays bitwise what it is; C
+    forces the cluster's size (``_b6_shape``)."""
+    S, lens = _b6_shape(S, hd, dtype, lens, C, monkeypatch)
     g = torch.Generator().manual_seed(26)
     B = len(lens)
     q = torch.randn((B, 1, H, hd), generator=g).to(cuda, dtype)

@@ -377,20 +377,17 @@ def test_partial_mode_combines_into_the_whole_call(n_parts, dtype, cap):
 
 def test_partial_mode_wrapper_passes_its_outputs_and_counts_apart(
         monkeypatch):
-    """The partial mode's launch: the C entry point gets the float32 out,
-    the (B, H) lse and the scratch in that order after kv_len, the same
+    """The partial mode's launch: the C entry point gets the float32 out
+    and the (B, H) lse in that order after kv_len, and no scratch, the same
     grid arguments whatever kv_len holds, and the launch counts as
     ``decode_attention_lse``, the default mode's count untouched.  The C
     function is replaced by a recorder, so this runs on the CPU."""
-    import types
     calls = []
     monkeypatch.setattr(da._build, "check_operands", lambda *a: None)
     monkeypatch.setattr(da._build, "LAUNCHES", type(da._build.LAUNCHES)())
+    monkeypatch.setattr(da._build, "current_stream", lambda device: 0)
     monkeypatch.setattr(da, "_fn_lse", lambda: lambda *a: calls.append(a)
                         or 0)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: types.SimpleNamespace(
-                            cuda_stream=0))
     B, H, KV, S, hd = 3, 8, 2, 1040, 128
     q = torch.zeros((B, 1, H, hd), dtype=torch.bfloat16)
     ck, cv = (torch.zeros((B, KV, S, hd), dtype=torch.bfloat16)
@@ -401,8 +398,9 @@ def test_partial_mode_wrapper_passes_its_outputs_and_counts_apart(
         assert out.dtype == lse.dtype == torch.float32
         assert out.shape == q.shape and lse.shape == (B, H)
         assert calls[-1][4:6] == (out.data_ptr(), lse.data_ptr())
-    chunk, n = da.split_plan(S, hd)
-    assert {a[7:15] for a in calls} == {(B, S, H, KV, hd, chunk, n, 1)}
+        assert len(calls[-1]) == 16
+    C, _ = da.cluster_plan(B, KV, S, hd, 2)
+    assert {a[6:13] for a in calls} == {(B, S, H, KV, hd, C, 1)}
     assert dict(da._build.LAUNCHES) == {"decode_attention_lse": 2}
 
 

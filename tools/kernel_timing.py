@@ -26,12 +26,14 @@ from a torch.profiler trace, warm and after the flush.
 decode shape (q (4, 1, 16, 128) against a (4, 8, 2080, 128) bf16 cache at
 kv_len 2048), on normals from a torch generator seeded with 0: back to back
 (``chip_smoke.cuda_ms``), B6 also with each launch alone after a cold L2,
-and each kernel's own device time in a trace.  Where the checkout's
+and each kernel's own device time in a trace (B6's the sum over its
+kernels: two a call before its one-launch body).  Where the checkout's
 wrappers take ``logit_softcap``, the same with a cap of 50.0.  Where B6's
 wrapper takes ``return_lse`` (its partial mode), that mode on the first
 half of ``chip_smoke.b6_partial_inputs``' cache as a rank of (1, 2) holds
-it, beside the default mode on the whole: back to back, device alone, and
-each wrapper's host time a call (``chip_smoke.host_us``).
+it, beside the default mode on the whole: back to back, device alone (warm,
+and cold for the partial mode), and each wrapper's host time a call
+(``chip_smoke.host_us``).
 
 ``backward``: B5's backward (its three kernels: D, dK/dV, dQ) at phase 17
 (e)'s shape, smollm-360m's train shape (q (8, 2048, 15, 64), kv 5 heads,
@@ -175,19 +177,19 @@ def attention(fa, da, dev, flush) -> dict:
         results[name] = r
         if "return_lse" in inspect.signature(
                 da.decode_attention_cuda).parameters and not cap:
-            r.update(b6_partial(da, dev))
+            r.update(b6_partial(da, dev, flush))
         print(f"B5 q {tuple(q.shape)} kv {tuple(k.shape)} bf16 causal, "
               f"{name}: {r['b5_ms']:.4f} ms back to back, device alone "
               f"{r['b5_device_ms']:.4f} ms", flush=True)
         print(f"B6 q {tuple(qd.shape)} cache {tuple(ck_.shape)} kv_len {S} "
               f"bf16, {name}: {r['b6_ms']:.4f} ms back to back, "
-              f"{r['b6_cold_ms']:.4f} ms cold L2; device alone (both "
-              f"passes) {r['b6_device_ms']:.4f} ms warm, "
+              f"{r['b6_cold_ms']:.4f} ms cold L2; device alone (every B6 "
+              f"kernel) {r['b6_device_ms']:.4f} ms warm, "
               f"{r['b6_cold_device_ms']:.4f} ms cold", flush=True)
     return results
 
 
-def b6_partial(da, dev) -> dict:
+def b6_partial(da, dev, flush) -> dict:
     """B6's partial mode on the first half of phase 6's bf16 cache beside
     the default mode on the whole (``chip_smoke.b6_partial_inputs``)."""
     import torch
@@ -199,12 +201,14 @@ def b6_partial(da, dev) -> dict:
     whole = lambda: da.decode_attention_cuda(q, ck_, cv_, lens)
     r = {"lse_ms": CS.cuda_ms(part), "lse_device_ms": device_ms([part],
                                                                 "decode_"),
+         "lse_cold_device_ms": device_ms([part], "decode_", before=flush),
          "lse_host_us": CS.host_us(part), "whole_ms": CS.cuda_ms(whole),
          "whole_device_ms": device_ms([whole], "decode_"),
          "whole_host_us": CS.host_us(whole)}
     print(f"B6 partial mode q {tuple(q.shape)} on {tuple(k_.shape)}, live "
           f"rows {live.tolist()} bf16: {r['lse_ms']:.4f} ms back to back, "
-          f"device alone (both passes) {r['lse_device_ms']:.4f} ms, wrapper "
+          f"device alone (every B6 kernel) {r['lse_device_ms']:.4f} ms warm, "
+          f"{r['lse_cold_device_ms']:.4f} ms cold, wrapper "
           f"{r['lse_host_us']:.1f} us a call; the default mode on "
           f"{tuple(ck_.shape)}, live rows {lens.tolist()}: "
           f"{r['whole_ms']:.4f} ms, device alone {r['whole_device_ms']:.4f} "
